@@ -8,11 +8,20 @@
    table, bf16 heads, grid 128^3, 1024-step march, 16 samples/ray budget)
    with seeded random weights: one full occupancy sweep (2,097,152 density
    queries), then three 800x800 renders with make_eval_renderer on a
-   ~4%-occupancy object grid.  Every kernel's launch counter is zeroed just
-   before and read just after; each must have launched.
-3. Holds each kernel against its plain PyTorch version on inputs taken from
-   that path, and times both (CUDA events, median after warm-up).
-4. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+   3.18%-occupancy object grid.
+3. Drives the hash -> VM distillation step at full width (VM 300^3, ranks
+   16/48; the same hash teacher; 8192 rays, budget 131,072 samples, bf16
+   heads) on a surface-like grid of ~8 valid samples per ray: 3 warm-up
+   and 10 timed steps at each of stages 1, 2 and 3 through
+   make_distill_step, then a profile of one stage-3 step.
+   Each path's launch counters are zeroed just before it and read just
+   after; every kernel of the path must have launched.
+4. Holds each kernel against its plain PyTorch version on inputs taken from
+   those paths, and times both (CUDA events, median after warm-up); holds
+   one distill step on the GPU against the same step on the CPU (plain) at
+   test sizes; and checks that 10 stage-3 steps on a fixed batch lower the
+   loss.
+5. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails or no GPU is present.
@@ -32,20 +41,32 @@ import numpy as np
 import torch
 
 from pvd_tpu_torch import kernels
-from pvd_tpu_torch.config import PVDConfig
-from pvd_tpu_torch.engine.train_steps import (chunk_rays, make_eval_renderer,
+from pvd_tpu_torch.config import ModelSpec, PVDConfig
+from pvd_tpu_torch.engine.optim import build_optimizer, cosine_schedule
+from pvd_tpu_torch.engine.train_steps import (TrainState, chunk_rays,
+                                              make_distill_step,
+                                              make_eval_renderer,
                                               make_occ_update)
+from pvd_tpu_torch.models.api import param_group_label, trainable_label
 from pvd_tpu_torch.models.hash_field import grid_spec
+from pvd_tpu_torch.models.vm_field import normalize
 from pvd_tpu_torch.ops.aabb import near_far_from_aabb
 from pvd_tpu_torch.ops.composite import (composite_rays_compact,
+                                         composite_rays_compact_bwd,
+                                         composite_rays_compact_fwd,
                                          composite_rays_compact_plain)
+from pvd_tpu_torch.ops.fma import fma32
 from pvd_tpu_torch.ops.hashgrid import hash_encode, hash_encode_plain
-from pvd_tpu_torch.ops.rays import nerf_matrix_to_ngp
-from pvd_tpu_torch.params import hash_field_from_jax
+from pvd_tpu_torch.ops.rays import get_rays, nerf_matrix_to_ngp
+from pvd_tpu_torch.ops.vm_sample import (vm_sample_bwd, vm_sample_bwd_plain,
+                                         vm_sample_fwd, vm_sample_plain)
+from pvd_tpu_torch.params import (hash_field_from_jax, vm_field_from_jax,
+                                  vm_tree_from_field)
 from pvd_tpu_torch.render.occupancy import (grid_coords, init_occupancy_state,
                                             query_points, set_bitfield)
 from pvd_tpu_torch.render.renderer import (compact_samples, dt_min_of,
-                                           march_rays, march_rays_plain)
+                                           march_rays, march_rays_plain,
+                                           render_rays)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 outside the
 # tensor cores; the bounds below are the larger of bytes/BW and ops/F32
@@ -54,15 +75,41 @@ F32_FLOPS = 67e12
 
 RES, CHUNK = 800, 4096
 OUR_KERNELS = ("hash_encode_fwd_kernel", "march_rays_kernel",
-               "segment_bounds_kernel", "composite_kernel")
+               "segment_bounds_kernel", "composite_kernel",
+               "vm_sample_fwd_kernel", "vm_sample_bwd_kernel",
+               "composite_bwd_kernel")
 TOL_K1, TOL_K2_DD, TOL_K3 = 1e-5, 1e-6, 1e-5
+# K4: the same f32 ops; K5: fp32 atomics add in a varying order, so each
+# gradient leaf is held to 1e-4 of its max |g|; K6: the closed form against
+# autograd through the plain composite
+TOL_K4, TOL_K5_REL, TOL_K6 = 1e-5, 1e-4, 1e-5
+SERVE_KERNELS = ("hash_encode", "march_rays", "composite_rays_compact")
+DISTILL_KERNELS = {1: ("hash_encode", "march_rays", "vm_sample_fwd",
+                       "vm_sample_bwd"),
+                   2: ("hash_encode", "march_rays", "vm_sample_fwd",
+                       "vm_sample_bwd"),
+                   3: ("hash_encode", "march_rays", "vm_sample_fwd",
+                       "vm_sample_bwd", "composite_rays_compact",
+                       "composite_rays_compact_bwd")}
+WARMUP_STEPS, TIMED_STEPS, FIXED_BATCH_STEPS = 3, 10, 10
+# distill step at test sizes, kernels on the GPU against plain on the CPU
+# (the sizes and tolerances of tests/test_torch_distill.py)
+SMALL_TEA = dict(hash_num_levels=4, hash_log2_size=14, hash_desired_res=128,
+                 compute_dtype="float32")
+SMALL_STU = dict(model_type="vm", vm_sigma_rank=4, vm_color_rank=12,
+                 vm_resolution=(20, 24, 28), compute_dtype="float32")
+SMALL_CFG = dict(num_rays=256, grid_size=32, max_steps=128, max_samples=32,
+                 samples_per_ray=8.0, precision="fp32")
+SMALL_HW, SMALL_INTR = 48, (40.0, 40.0, 24.0, 24.0)
+STEP_LOSS_RTOL, STEP_GRAD_REL_ATOL, STEP_GRAD_RTOL = 2e-5, 2e-5, 1e-4
+STEP_PARAM_TOL, STEP_MASK_FRAC = 1e-6, 1e-3
 # end-to-end image and depth, kernel path on the GPU vs plain path on the
 # CPU: the same samples (K2 is exact), f32 heads summed in other orders
 E2E_RES, E2E_CHUNK, TOL_E2E = 64, 1024, 1e-4
 
 
 def object_like_bitfield(H: int) -> np.ndarray:
-    """Deterministic ~4% occupancy clustered like a trained object grid:
+    """Deterministic 3.18% occupancy clustered like a trained object grid:
     a thick spherical shell plus a few solid blobs near the center."""
     g = np.zeros((H, H, H), bool)
     ax = (np.arange(H) + 0.5) / H * 2.0 - 1.0
@@ -74,6 +121,24 @@ def object_like_bitfield(H: int) -> np.ndarray:
         c = rng.uniform(-0.3, 0.3, 3)
         rad = rng.uniform(0.08, 0.16)
         g |= ((X - c[0]) ** 2 + (Y - c[1]) ** 2 + (Z - c[2]) ** 2) < rad**2
+    return g.reshape(-1)
+
+
+def surface_bitfield(H: int) -> np.ndarray:
+    """Deterministic surface-like occupancy: a thin spherical shell (radius
+    0.4, ~1 cell thick) and two thin blob shells, 0.27% of cells.  A
+    train-mode march from the test orbit takes ~8 valid samples per ray,
+    about the batch mean of a trained grid (the reference's 16 samples per
+    ray of budget is ~2x that)."""
+    ax = (np.arange(H) + 0.5) / H * 2.0 - 1.0
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    g = np.abs(np.sqrt(X**2 + Y**2 + Z**2) - 0.4) < 0.005
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        c = rng.uniform(-0.25, 0.25, 3)
+        rad = rng.uniform(0.06, 0.12)
+        r = np.sqrt((X - c[0]) ** 2 + (Y - c[1]) ** 2 + (Z - c[2]) ** 2)
+        g |= np.abs(r - rad) < 0.005
     return g.reshape(-1)
 
 
@@ -113,6 +178,33 @@ def random_hash_params(spec, rng: np.random.Generator) -> dict:
         "color_net": mlp([spec.dir_sh_degree ** 2 + spec.geo_feat_dim,
                           spec.hidden_dim_color, spec.hidden_dim_color, 3]),
     }
+
+
+def random_vm_params(spec, rng: np.random.Generator) -> dict:
+    """Seeded VM params in the JAX package's layout and init
+    (vm_field.py:41-69): planes and lines normal with scale 0.1, basis and
+    color_net uniform with bound 1/sqrt(fan_in)."""
+    res = spec.vm_resolution
+    mats, vecs = ((0, 1), (0, 2), (1, 2)), (2, 1, 0)
+
+    def normal(*shape):
+        return (0.1 * rng.standard_normal(shape, np.float32))
+
+    def lin(i, o):
+        return {"w": rng.uniform(-1, 1, (i, o)).astype(np.float32)
+                / np.float32(math.sqrt(i))}
+
+    tree = {}
+    for rank, name in ((spec.vm_sigma_rank, "sigma"),
+                       (spec.vm_color_rank, "color")):
+        tree[f"{name}_mat"] = [normal(res[m1], res[m0], rank)
+                               for m0, m1 in mats]
+        tree[f"{name}_vec"] = [normal(res[v], rank) for v in vecs]
+    tree["basis_mat"] = lin(3 * spec.vm_color_rank, spec.geo_feat_dim)
+    dims = [spec.dir_sh_degree ** 2 + spec.geo_feat_dim,
+            spec.hidden_dim_color, spec.hidden_dim_color, 3]
+    tree["color_net"] = [lin(i, o) for i, o in zip(dims[:-1], dims[1:])]
+    return tree
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3,
@@ -159,16 +251,19 @@ def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+COUNTED = {"hash_encode": hash_encode, "march_rays": march_rays,
+           "composite_rays_compact": composite_rays_compact,
+           "vm_sample_fwd": vm_sample_fwd, "vm_sample_bwd": vm_sample_bwd,
+           "composite_rays_compact_bwd": composite_rays_compact_bwd}
+
+
 def counters() -> dict:
-    return {"hash_encode": hash_encode.launches,
-            "march_rays": march_rays.launches,
-            "composite_rays_compact": composite_rays_compact.launches}
+    return {name: fn.launches for name, fn in COUNTED.items()}
 
 
 def reset_counters():
-    hash_encode.launches = 0
-    march_rays.launches = 0
-    composite_rays_compact.launches = 0
+    for fn in COUNTED.values():
+        fn.launches = 0
 
 
 def log(msg: str):
@@ -204,13 +299,322 @@ def profile(fn, top: int = 12) -> dict:
     busy_ms = sum(r[0] for r in rows)
     ours = {}
     for ms, n, key in rows:
+        bare = key[len("void "):] if key.startswith("void ") else key
         for name in OUR_KERNELS:
-            if key.startswith(name + "("):
-                ours[name] = {"ms": ms, "calls": n}
+            # templated kernels (one instance per VM branch) sum up
+            if bare.startswith(name + "(") or bare.startswith(name + "<"):
+                row = ours.setdefault(name, {"ms": 0.0, "calls": 0})
+                row["ms"] += ms
+                row["calls"] += n
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "ours": ours,
             "device_busy_share": busy_ms / wall_ms if wall_ms else None,
             "top": [{"kernel": k[:80], "ms": ms, "calls": n}
                     for ms, n, k in rows[:top]]}
+
+
+def distill_setup(cfg, teacher, dev, rng, H: int):
+    """The full-width student, its optimizer and state on the surface
+    grid."""
+    spec_stu = cfg.model_spec("vm")
+    student = vm_field_from_jax(random_vm_params(spec_stu, rng), spec_stu,
+                                dev)
+    occ = set_bitfield(init_occupancy_state(cfg.render_spec()),
+                       torch.from_numpy(surface_bitfield(H)).to(dev))
+    params = dict(student.named_parameters())
+    opt = build_optimizer(params, param_group_label(spec_stu),
+                          trainable_label(spec_stu, cfg.distill_mode),
+                          cosine_schedule(cfg.lr, cfg.iters),
+                          cosine_schedule(1e-3, cfg.iters))
+    state = TrainState(field=student, opt_state=opt.init(params), occ=occ)
+    return spec_stu, opt, state
+
+
+def drive_distill(cfg, spec_stu, spec_tea, opt, state, teacher, pose, intr,
+                  gen) -> dict:
+    """Stages 1-3 through make_distill_step: warm-up and timed steps; the
+    launches of each stage are read from the counters' growth."""
+    rspec = cfg.render_spec()
+    stages = {}
+    for stage in (1, 2, 3):
+        step = make_distill_step(spec_stu, spec_tea, rspec, opt, cfg, intr,
+                                 RES, RES, stage)
+        before = counters()
+        for _ in range(WARMUP_STEPS):
+            state, logs = step(state, teacher, state.occ, pose, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            state, logs = step(state, teacher, state.occ, pose, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+        n = WARMUP_STEPS + TIMED_STEPS
+        launched = {k: v - before[k] for k, v in counters().items()}
+        logs = {k: float(v) for k, v in logs.items()}
+        log(f"distill stage {stage}: {ms:.2f} ms/step, "
+            f"{cfg.num_rays / ms * 1e3:,.0f} rays/s; last step's logs "
+            + json.dumps({k: round(v, 6) for k, v in logs.items()}))
+        log(f"  launches over {n} steps: {json.dumps(launched)}")
+        if not all(math.isfinite(v) for v in logs.values()):
+            raise RuntimeError(f"stage {stage}: a loss is not finite")
+        if not logs["compact_frac"] <= 1.0:
+            raise RuntimeError(f"stage {stage}: the budget cut samples")
+        for name in DISTILL_KERNELS[stage]:
+            if launched[name] < n:
+                raise RuntimeError(f"stage {stage}: kernel {name} launched "
+                                   f"{launched[name]} times in {n} steps")
+        stages[stage] = {"ms_per_step": ms,
+                         "rays_per_s": cfg.num_rays / ms * 1e3,
+                         "logs": logs, "launches": launched}
+    return stages
+
+
+def path_inputs(cfg, spec_stu, state, pose, intr, gen):
+    """One stage-3 batch's compacted samples from the path: the student's
+    normalized positions xn [M, 3] and its composite inputs."""
+    rspec = cfg.render_spec()
+    dev = pose.device
+    inds = torch.randint(0, RES * RES, (cfg.num_rays,), generator=gen,
+                         device=dev)
+    rays = get_rays(pose[None], intr, RES, RES, inds)
+    o = rays["rays_o"][0].contiguous()
+    d = rays["rays_d"][0].contiguous()
+    u = torch.rand(cfg.num_rays, generator=gen, device=dev)
+    aabb = state.occ.aabb_train
+    with torch.no_grad():
+        out = render_rays(state.field, spec_stu, rspec, state.occ, o, d,
+                          training=True, u=u, composite=False)
+        c = out["compact"]
+        rid = c.ray_id
+        xyz = fma32(out["compact_t"][:, None], d[rid], o[rid]).clamp(
+            -rspec.bound, rspec.bound)
+        f = state.field(xyz, d[rid], aabb)
+    dt_c = torch.where(c.valid, dt_min_of(rspec), 0.0)
+    t_cum = torch.where(c.valid, out["compact_t"] + dt_c
+                        - out["samples"].t0[rid], 0.0)
+    comp = (f.sigma.contiguous(), f.rgb.contiguous(), dt_c, t_cum, rid,
+            c.valid, cfg.num_rays)
+    return normalize(xyz, aabb).contiguous(), c, comp
+
+
+def check_vm_kernels(state, xn, compact, gen) -> list:
+    """K4 and K5 against their plain versions on the path's samples."""
+    import torch.nn.functional as F
+
+    planes = [p.detach() for p in state.field.planes]
+    lines = [v.detach() for v in state.field.lines]
+    M, R = xn.shape[0], planes[0].shape[-1]
+    k4 = vm_sample_fwd(planes, lines, xn)
+    p4 = vm_sample_plain(planes, lines, xn)
+    err4 = max_abs(k4, p4)
+    # the path's upstream gradient is zero on the invalid tail
+    g = torch.randn(3, M, R, generator=gen, device=xn.device) \
+        * compact.valid[None, :, None]
+    k5 = vm_sample_bwd(planes, lines, xn, g)
+    p5 = vm_sample_bwd_plain(planes, lines, xn, g)
+    err5 = max(max_abs(a, b) / float(b.abs().max())
+               for a, b in zip(k5[0] + k5[1], p5[0] + p5[1]))
+    abs5 = max(max_abs(a, b) for a, b in zip(k5[0] + k5[1], p5[0] + p5[1]))
+    # bytes: xn once, each touched plane row and line row once, outputs once
+    touched = 0
+    for i, (m0, m1) in enumerate(((0, 1), (0, 2), (1, 2))):
+        Hp, Wp = planes[i].shape[:2]
+        px = ((xn[:, m0] + 1) * 0.5 * (Wp - 1)).floor().clamp(0, Wp - 2)
+        py = ((xn[:, m1] + 1) * 0.5 * (Hp - 1)).floor().clamp(0, Hp - 2)
+        row = (py * Wp + px).long()
+        rows = torch.cat([row, row + 1, row + Wp, row + Wp + 1]).unique()
+        touched += rows.numel() + lines[i].shape[0]
+    n_valid = int(compact.valid.sum())
+    b4 = bound(M * 12 + touched * R * 4 + 3 * M * R * 4, 3 * M * R * 14)
+    plane_bytes = sum(p.numel() + v.numel() for p, v in zip(planes, lines)) * 4
+    b5 = bound(M * 12 + 3 * M * R * 4 + touched * R * 4 + plane_bytes,
+               3 * n_valid * R * 26)
+    # library yardstick: F.grid_sample (align_corners, zeros) computes the
+    # plane half of K4; its backward the plane half of K5
+    ims = [p.permute(2, 0, 1)[None].contiguous() for p in planes]
+    grids = [xn[:, [m0, m1]][None, None].contiguous()
+             for m0, m1 in ((0, 1), (0, 2), (1, 2))]
+
+    def lib_fwd():
+        return [F.grid_sample(im, gr, mode="bilinear", padding_mode="zeros",
+                              align_corners=True)
+                for im, gr in zip(ims, grids)]
+
+    ims_g = [im.clone().requires_grad_() for im in ims]
+    g_lib = [torch.randn(1, R, 1, M, generator=gen, device=xn.device)
+             for _ in range(3)]
+
+    def lib_bwd():
+        outs = [F.grid_sample(im, gr, mode="bilinear", padding_mode="zeros",
+                              align_corners=True)
+                for im, gr in zip(ims_g, grids)]
+        return torch.autograd.grad(outs, ims_g, g_lib)
+
+    return [
+        dict(name="vm_sample_fwd", source="pvd_tpu_torch/csrc/vm_sample.cu",
+             replaces="pvd_tpu/models/vm_field.py:160", err=err4,
+             tol=TOL_K4,
+             **timings(lambda: vm_sample_fwd(planes, lines, xn),
+                       lambda: vm_sample_plain(planes, lines, xn)),
+             library_ms=cuda_ms(lib_fwd),
+             library_call="F.grid_sample x3 planes (the plane half of K4)",
+             bound=b4, shape=f"M={M} samples x 3 branches x R={R}"),
+        dict(name="vm_sample_bwd", source="pvd_tpu_torch/csrc/vm_sample.cu",
+             replaces="pvd_tpu/models/vm_field.py:173", err=err5,
+             abs_err=abs5,
+             tol=TOL_K5_REL, err_kind="max |kernel - plain| / max |plain| "
+             "per gradient leaf",
+             **timings(lambda: vm_sample_bwd(planes, lines, xn, g),
+                       lambda: vm_sample_bwd_plain(planes, lines, xn, g)),
+             library_ms=cuda_ms(lib_bwd),
+             library_call="F.grid_sample fwd+bwd x3 planes (the plane half "
+             "of K5)",
+             bound=b5, shape=f"M={M} samples ({n_valid} valid) x 3 branches "
+             f"x R={R}")]
+
+
+def check_composite_bwd(comp, gen) -> dict:
+    """K6 against autograd through the plain composite, on the path's
+    stream, with random upstream gradients of all four outputs."""
+    sig, rgb, dt_c, t_cum, rid, valid, N = comp
+    M = sig.shape[0]
+    dev = sig.device
+    gs = (torch.randn(N, generator=gen, device=dev),
+          torch.randn(N, generator=gen, device=dev),
+          torch.randn(N, 3, generator=gen, device=dev),
+          torch.randn(M, generator=gen, device=dev))
+
+    def grads_of(fn):
+        s = sig.detach().clone().requires_grad_()
+        r = rgb.detach().clone().requires_grad_()
+        outs = fn(s, r, dt_c, t_cum, rid, valid, N)
+        return torch.autograd.grad(outs, (s, r), gs)
+
+    k6 = grads_of(composite_rays_compact)
+    p6 = grads_of(composite_rays_compact_plain)
+    err6 = max(max_abs(a, b) for a, b in zip(k6, p6))
+    _, _, _, weights, bounds = composite_rays_compact_fwd(
+        sig, rgb, dt_c, t_cum, rid, valid, N)
+    s_p = sig.detach().clone().requires_grad_()
+    r_p = rgb.detach().clone().requires_grad_()
+    outs_p = composite_rays_compact_plain(s_p, r_p, dt_c, t_cum, rid, valid,
+                                          N)
+    n_valid = int(valid.sum())
+    b6 = bound(n_valid * (4 + 12 + 4 + 4 + 4) + N * (8 + 4 + 4 + 12)
+               + n_valid * 4 + M * 16, n_valid * 30)
+    return dict(
+        name="composite_rays_compact_bwd",
+        source="pvd_tpu_torch/csrc/composite.cu",
+        replaces="pvd_tpu/ops/composite.py:28", err=err6, tol=TOL_K6,
+        **timings(lambda: composite_rays_compact_bwd(
+            sig, rgb, dt_c, t_cum, weights, bounds, *gs),
+            lambda: torch.autograd.grad(outs_p, (s_p, r_p), gs,
+                                        retain_graph=True)),
+        library_ms=None, bound=b6,
+        shape=f"M={M} slots ({n_valid} valid), N={N} rays")
+
+
+def tree_leaves(tree) -> list:
+    """The arrays of a VM params tree, in sorted key order."""
+    out = []
+    for k in sorted(tree):
+        for x in (tree[k] if isinstance(tree[k], list) else [tree[k]]):
+            out.append(x["w"] if isinstance(x, dict) else x)
+    return out
+
+
+def small_step_gpu_vs_cpu() -> dict:
+    """One stage-3 distill step at test sizes: kernels on the GPU against
+    the plain path on the CPU, same params and draws."""
+    rng = np.random.default_rng(11)
+    cfg = PVDConfig(**SMALL_CFG)
+    spec_tea, spec_stu = ModelSpec(**SMALL_TEA), ModelSpec(**SMALL_STU)
+    tea_tree = random_hash_params(spec_tea, rng)
+    stu_tree = random_vm_params(spec_stu, rng)
+    bits = rng.uniform(size=cfg.grid_size ** 3) < 0.25
+    pose = nerf_matrix_to_ngp(pose_spherical(30.0, -30.0, 4.0), scale=0.8)
+    inds = torch.from_numpy(rng.integers(0, SMALL_HW ** 2, cfg.num_rays))
+    rays = get_rays(torch.from_numpy(pose)[None], SMALL_INTR, SMALL_HW,
+                    SMALL_HW, inds)
+    o, d = rays["rays_o"][0].contiguous(), rays["rays_d"][0].contiguous()
+    bg = torch.from_numpy(rng.uniform(size=(cfg.num_rays, 3))
+                          .astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=cfg.num_rays).astype(np.float32))
+    res = {}
+    for where in ("cuda", "cpu"):
+        teacher = hash_field_from_jax(tea_tree, spec_tea, where)
+        student = vm_field_from_jax(stu_tree, spec_stu, where)
+        occ = set_bitfield(init_occupancy_state(cfg.render_spec(), where),
+                           torch.from_numpy(bits).to(where))
+        params = dict(student.named_parameters())
+        opt = build_optimizer(params, param_group_label(spec_stu),
+                              trainable_label(spec_stu, ""),
+                              cosine_schedule(1e-2, 100),
+                              cosine_schedule(1e-3, 100))
+        state = TrainState(field=student, opt_state=opt.init(params),
+                           occ=occ)
+        step = make_distill_step(spec_stu, spec_tea, cfg.render_spec(), opt,
+                                 cfg, SMALL_INTR, SMALL_HW, SMALL_HW, 3,
+                                 device=where)
+        state, logs = step.core(state, teacher, occ, *(
+            t.to(where) for t in (o, d, bg, u)))
+        res[where] = ({k: float(v) for k, v in logs.items()},
+                      vm_tree_from_field(student, grad=True),
+                      vm_tree_from_field(student))
+    (lg, gg, pg), (lc, gc, pc) = res["cuda"], res["cpu"]
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+    grad_err = param_err = 0.0
+    grad_ok = True
+    for a, b, pa, pb in zip(tree_leaves(gg), tree_leaves(gc),
+                            tree_leaves(pg), tree_leaves(pc)):
+        scale = float(np.abs(b).max())
+        grad_err = max(grad_err, float(np.abs(a - b).max())
+                       / max(scale, 1e-30))
+        grad_ok &= bool(np.all(np.abs(a - b) <= STEP_GRAD_REL_ATOL * scale
+                               + STEP_GRAD_RTOL * np.abs(b)))
+        # Adam's first step is lr * sign(g): hold params where g is clear
+        # of rounding noise, or exactly 0 (weight decay alone)
+        hold = (np.abs(b) > STEP_MASK_FRAC * scale) | (b == 0)
+        param_err = max(param_err, float(np.abs(pa - pb)[hold].max()))
+    param_ok = param_err <= STEP_PARAM_TOL
+    log(f"distill step GPU kernels vs CPU plain (test sizes, stage 3, f32 "
+        f"heads): max rel loss/log diff {loss_err:.3g} (tol "
+        f"{STEP_LOSS_RTOL:g}); max grad diff / leaf max {grad_err:.3g} "
+        f"(tol {STEP_GRAD_REL_ATOL:g} + rtol {STEP_GRAD_RTOL:g}); max param "
+        f"diff under the gradient mask {param_err:.3g} (tol "
+        f"{STEP_PARAM_TOL:g}); loss {lc['loss']:.6g}, compact_frac "
+        f"{lc['compact_frac']:.3f}")
+    if not (loss_err <= STEP_LOSS_RTOL and grad_ok and param_ok):
+        raise RuntimeError("the GPU distill step disagrees with the CPU "
+                           "plain step")
+    return {"loss_rel_err": loss_err, "grad_err_rel_leaf_max": grad_err,
+            "param_err": param_err}
+
+
+def fixed_batch_descent(cfg, spec_stu, spec_tea, opt, state, teacher, pose,
+                        intr, gen) -> list:
+    """Stage-3 steps on one fixed batch (same o, d, bg, u) must lower the
+    loss."""
+    dev = pose.device
+    inds = torch.randint(0, RES * RES, (cfg.num_rays,), generator=gen,
+                         device=dev)
+    rays = get_rays(pose[None], intr, RES, RES, inds)
+    o = rays["rays_o"][0].contiguous()
+    d = rays["rays_d"][0].contiguous()
+    bg = torch.rand(cfg.num_rays, 3, generator=gen, device=dev)
+    u = torch.rand(cfg.num_rays, generator=gen, device=dev)
+    step = make_distill_step(spec_stu, spec_tea, cfg.render_spec(), opt,
+                             cfg, intr, RES, RES, 3)
+    losses = []
+    for _ in range(FIXED_BATCH_STEPS):
+        state, logs = step.core(state, teacher, state.occ, o, d, bg, u)
+        losses.append(float(logs["loss"]))
+    log(f"fixed batch, {FIXED_BATCH_STEPS} stage-3 steps: loss "
+        + " ".join(f"{v:.6g}" for v in losses))
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        raise RuntimeError("stage-3 steps on a fixed batch did not lower "
+                           "the loss")
+    return losses
 
 
 def main(argv=None) -> int:
@@ -274,7 +678,7 @@ def main(argv=None) -> int:
     log(f"occupancy sweep: {C * H ** 3} density queries, {sweep_ms:.1f} ms, "
         f"occupied {float(occ.bitfield.float().mean()):.4f}, mean density "
         f"{float(occ.mean_density):.4f}")
-    # random weights make no object: march the ~4% object grid instead
+    # random weights make no object: march the object grid instead
     occ = set_bitfield(occ, torch.from_numpy(object_like_bitfield(H)).to(dev))
     log(f"object grid: occupied {float(occ.bitfield.float().mean()):.4f}")
     images = []
@@ -299,8 +703,8 @@ def main(argv=None) -> int:
         if not 0.0 < hit < 1.0:
             raise RuntimeError(f"render {i}: object not seen ({hit})")
         images.append({"ms": ms, "rungs": out.rungs, "samples_per_ray": spr})
-    launches = counters()
-    log(f"launches on the main path: {json.dumps(launches)}")
+    launches = {k: v for k, v in counters().items() if k in SERVE_KERNELS}
+    log(f"launches on the serving path: {json.dumps(launches)}")
     n_chunks = -(-RES * RES // CHUNK)
     for name, n in launches.items():
         if n <= 0:
@@ -317,6 +721,33 @@ def main(argv=None) -> int:
     for row in prof["top"]:
         log(f"  {row['ms']:9.3f} ms {row['calls']:6d} x {row['kernel']}")
     for name, row in prof["ours"].items():
+        log(f"  ours: {row['ms']:9.3f} ms {row['calls']:6d} x {name}")
+
+    # ---- main path 2: the distill step, stages 1-3 ---------------------
+    spec_stu, opt, state = distill_setup(cfg, field, dev, rng, H)
+    pose_t = torch.as_tensor(poses[0], device=dev)
+    log(f"distill: student vm {spec_stu.vm_resolution} ranks "
+        f"{spec_stu.vm_sigma_rank}/{spec_stu.vm_color_rank} "
+        f"({sum(p.numel() for p in state.field.parameters()):,} params), "
+        f"teacher the hash field above (frozen); {cfg.num_rays} rays, "
+        f"budget {rspec.sample_budget(cfg.num_rays)}, surface grid occupied "
+        f"{float(state.occ.bitfield.float().mean()):.4f}")
+    reset_counters()
+    stages = drive_distill(cfg, spec_stu, spec, opt, state, field, pose_t,
+                           intr, gen)
+    distill_launches = counters()
+    n_steps = 3 * (WARMUP_STEPS + TIMED_STEPS)
+    log(f"launches on the distill path ({n_steps} steps): "
+        f"{json.dumps(distill_launches)}")
+    step3 = make_distill_step(spec_stu, spec, rspec, opt, cfg, intr, RES,
+                              RES, 3)
+    prof_d = profile(lambda: step3(state, field, state.occ, pose_t, gen))
+    log(f"profile of one stage-3 step: wall {prof_d['wall_ms']:.2f} ms, "
+        f"device busy {prof_d['device_busy_ms']:.2f} ms (share "
+        f"{prof_d['device_busy_share']:.3f})")
+    for row in prof_d["top"]:
+        log(f"  {row['ms']:9.3f} ms {row['calls']:6d} x {row['kernel']}")
+    for name, row in prof_d["ours"].items():
         log(f"  ours: {row['ms']:9.3f} ms {row['calls']:6d} x {name}")
 
     # ---- kernels vs their plain versions --------------------------------
@@ -418,6 +849,13 @@ def main(argv=None) -> int:
                   lambda: composite_rays_compact_plain(*k3args)),
         bound=b3, shape=f"M={M} slots, N={CHUNK} rays"))
 
+    # K4, K5, K6 on one stage-3 batch of the distill path
+    xn, compact, comp = path_inputs(cfg, spec_stu, state, pose_t, intr, gen)
+    log(f"distill batch: {int(compact.total)} valid samples, budget "
+        f"{xn.shape[0]}")
+    results += check_vm_kernels(state, xn, compact, gen)
+    results.append(check_composite_bwd(comp, gen))
+
     # ---- end to end: the kernel path on the GPU against the plain path on
     # the CPU (the path the tests hold against the JAX package), f32 heads
     spec32 = dataclasses.replace(spec, compute_dtype="float32")
@@ -441,30 +879,53 @@ def main(argv=None) -> int:
     if not (e2e_err <= TOL_E2E and 0.0 < e2e_hit < 1.0):
         raise RuntimeError("the GPU render disagrees with the CPU plain "
                            "path")
+    step_check = small_step_gpu_vs_cpu()
+    descent = fixed_batch_descent(cfg, spec_stu, spec, opt, state, field,
+                                  pose_t, intr, gen)
 
     bad = [r["name"] for r in results if not r["err"] <= r["tol"]]
     for r in results:
-        log(f"{r['name']} ({r['shape']}): max |kernel - plain| {r['err']:.3g}"
+        lib = r.get("library_ms")
+        log(f"{r['name']} ({r['shape']}): "
+            f"{r.get('err_kind', 'max |kernel - plain|')} {r['err']:.3g}"
             f" (tol {r['tol']:g}), kernel {r['ms']:.4f} ms (call "
             f"{r['call_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]})")
+            f"({r['bound'][1]})"
+            + ("" if lib is None else f", library {lib:.4f} ms "
+               f"({r['library_call']})"))
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
 
+    def launch_fields(name):
+        if name in SERVE_KERNELS:
+            f = {"launches": launches[name],
+                 "launches_per_image": launches[name] / len(poses)}
+        else:
+            f = {"launches": distill_launches[name]}
+        f["launches_distill"] = distill_launches[name]
+        f["launches_per_distill_step"] = distill_launches[name] / n_steps
+        return f
+
     line = {"kernels": [{
         "name": r["name"], "route": "cuda", "source": r["source"],
-        "replaces": r["replaces"], "launches": launches[r["name"]],
-        "launches_per_image": launches[r["name"]] / len(poses),
-        "max_abs_err": r["err"], "max_abs_diff": r["err"], "tol": r["tol"],
+        "replaces": r["replaces"], **launch_fields(r["name"]),
+        "max_abs_err": r.get("abs_err", r["err"]),
+        "max_abs_diff": r.get("abs_err", r["err"]), "tol_err": r["err"],
+        "tol": r["tol"],
         "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-        "library_ms": None, "shape": r["shape"]} for r in results],
+        "library_ms": r.get("library_ms"),
+        "library_call": r.get("library_call"), "shape": r["shape"]}
+        for r in results],
         "sweep_ms": sweep_ms, "images": images, "build_s": build_s,
-        "e2e_max_abs_diff": e2e_err,
-        "profile": prof, "card": card}
+        "e2e_max_abs_diff": e2e_err, "profile": prof,
+        "distill": {"stages": stages, "profile_stage3": prof_d,
+                    "gpu_vs_cpu_step": step_check,
+                    "fixed_batch_losses": descent},
+        "card": card}
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Typed configuration (port of pvd_tpu/config.py:20-163).
 
-Only the fields this port reads so far.  Defaults and derived properties
-(`RenderSpec.cascades`, `RenderSpec.sample_budget`) are the JAX package's.
+Only the fields this port reads so far (the serving path and the distill
+step).  Defaults and derived properties (`RenderSpec.cascades`,
+`RenderSpec.sample_budget`) are the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ class ModelSpec:
     hash_base_res: int = 16
     hash_log2_size: int = 19
     hash_desired_res: int = 2048
+    # vm (TensoRF-VM): plane/line ranks and per-axis resolution
+    vm_sigma_rank: int = 16
+    vm_color_rank: int = 48
+    vm_resolution: tuple = (300, 300, 300)
     # matmul input dtype of the MLP heads ("float32" | "bfloat16")
     compute_dtype: str = "float32"
 
@@ -72,8 +77,12 @@ class RenderSpec:
 
 @dataclasses.dataclass
 class PVDConfig:
-    """The experiment fields the serving path reads (config.py:165-318)."""
+    """The experiment fields the serving path and the distill step read
+    (config.py:165-318)."""
 
+    iters: int = 40000
+    lr: float = 1e-2
+    num_rays: int = 8192
     max_steps: int = 1024
     precision: str = "bf16"
     bound: float = 1.0
@@ -82,8 +91,19 @@ class PVDConfig:
     density_thresh: float = 10.0
     grid_size: int = 128
     model_type: str = "hash"
+    teacher_type: str = "hash"
     sigma_clip_min: float = -2.0
     sigma_clip_max: float = 7.0
+    resolution0: int = 300
+    # distillation
+    distill_mode: str = "no_fix_mlp"  # fix_mlp | no_fix_mlp
+    loss_type: str = "L2"  # L2 | normL2 | normL1 | smoothL1
+    loss_rate_rgb: float = 1.0
+    loss_rate_fea_sc: float = 0.002
+    loss_rate_color: float = 0.002
+    loss_rate_sigma: float = 0.002
+    l1_reg_weight: float = 1e-4
+    ema_decay: float = -1.0
     max_samples: int = 96
     samples_per_ray: float = 16.0
 
@@ -95,6 +115,7 @@ class PVDConfig:
             bound=self.bound,
             sigma_clip_min=self.sigma_clip_min,
             sigma_clip_max=self.sigma_clip_max,
+            vm_resolution=(self.resolution0,) * 3,
         )
 
     def render_spec(self) -> RenderSpec:

@@ -1,4 +1,4 @@
-// K3: compositing of a compacted sample stream, forward.
+// K3: compositing of a compacted sample stream, forward; K6: its backward.
 //
 // Replaces pvd_tpu/ops/composite.py:28 composite_rays_compact.  The TPU
 // version takes the segmented exclusive transmittance with a log-depth
@@ -24,6 +24,19 @@
 // 20 B per ray (2.5 MB, under a microsecond at 3.35 TB/s).  Pass 2 has only
 // one thread per ray and its loads stride across rays; the ranges are short
 // (16 slots per ray at the 1x budget) and the data stays in L2.
+
+// K6 (backward, replaces the autodiff of the associative scan in
+// composite_rays_compact; closed form as in the reference's
+// raymarching.cu:606-697).  With the upstream gradients of the per-ray sums
+// and of the weights, per slot G_i = g_img . rgb_i + g_ws + g_depth * t_cum_i
+// + g_w_i, S = sum_j w_j G_j over the ray, and T_{i+1} = T_i (1 - alpha_i):
+//   dsigma_i = dt_i * (T_{i+1} G_i - (S - sum_{j<=i} w_j G_j))
+//   drgb_i   = w_i * g_img
+// One thread per ray reuses K3's pass-1 bounds and the saved weights, with
+// two passes over its range (S first, then the running prefix); invalid
+// slots keep the zeros the wrapper allocates.  No gradient to dt, t_cum or
+// positions.  Bound: memory (37 B read and 16 B written per slot); like K3
+// it is a serial chain of L2 loads per ray.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,5 +119,58 @@ extern "C" int pvd_composite_compact_fwd(
         sigmas, rgbs, dt, t_cum, bounds, bounds + n_rays, n_rays, early_stop,
         weights, weights_sum, depth, image);
   }
+  return (int)cudaGetLastError();
+}
+
+__global__ void composite_bwd_kernel(
+    const float* __restrict__ sigmas, const float* __restrict__ rgbs,
+    const float* __restrict__ dts, const float* __restrict__ t_cum,
+    const float* __restrict__ weights, const int* __restrict__ start,
+    const int* __restrict__ end, const float* __restrict__ g_ws,
+    const float* __restrict__ g_depth, const float* __restrict__ g_image,
+    const float* __restrict__ g_weights, int n_rays,
+    float* __restrict__ d_sigma, float* __restrict__ d_rgb) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rays) return;
+  const int s = start[r], e = end[r];
+  const float gi0 = g_image[3 * r], gi1 = g_image[3 * r + 1],
+              gi2 = g_image[3 * r + 2], gws = g_ws[r], gd = g_depth[r];
+  float S = 0.f;
+  for (int i = s; i < e; ++i) {
+    const float G = gi0 * rgbs[3 * i] + gi1 * rgbs[3 * i + 1] +
+                    gi2 * rgbs[3 * i + 2] + gws + gd * t_cum[i] +
+                    g_weights[i];
+    S = fmaf(weights[i], G, S);
+  }
+  float T = 1.f, prefix = 0.f;
+  for (int i = s; i < e; ++i) {
+    const float w = weights[i];
+    const float G = gi0 * rgbs[3 * i] + gi1 * rgbs[3 * i + 1] +
+                    gi2 * rgbs[3 * i + 2] + gws + gd * t_cum[i] +
+                    g_weights[i];
+    prefix = fmaf(w, G, prefix);
+    // the forward's alpha, rounded the same way
+    const float alpha =
+        __fsub_rn(1.f, expf(__fmul_rn(-sigmas[i], dts[i])));
+    const float T_next = __fmul_rn(T, __fsub_rn(1.f, alpha));
+    d_sigma[i] = dts[i] * (T_next * G - (S - prefix));
+    d_rgb[3 * i] = w * gi0;
+    d_rgb[3 * i + 1] = w * gi1;
+    d_rgb[3 * i + 2] = w * gi2;
+    T = T_next;
+  }
+}
+
+extern "C" int pvd_composite_compact_bwd(
+    const float* sigmas, const float* rgbs, const float* dt,
+    const float* t_cum, const float* weights, const int* bounds, int n_rays,
+    const float* g_ws, const float* g_depth, const float* g_image,
+    const float* g_weights, float* d_sigma, float* d_rgb, void* stream) {
+  if (n_rays <= 0) return 0;
+  const int ray_threads = 64;
+  composite_bwd_kernel<<<(n_rays + ray_threads - 1) / ray_threads,
+                         ray_threads, 0, (cudaStream_t)stream>>>(
+      sigmas, rgbs, dt, t_cum, weights, bounds, bounds + n_rays, g_ws,
+      g_depth, g_image, g_weights, n_rays, d_sigma, d_rgb);
   return (int)cudaGetLastError();
 }

@@ -1,29 +1,213 @@
-"""Serving-side steps (port of pvd_tpu/engine/train_steps.py:621-731):
-the occupancy refresh and the chunked full-image eval renderer.  The
-training steps come with the distill slice (ROADMAP A8).
+"""Training and serving steps (port of pvd_tpu/engine/train_steps.py).
+
+  * the distillation step (train_steps.py:121-190, 456-524), single-step
+    flavor: the student renders with a perturbed march, the frozen teacher
+    replays the student's compacted samples under `torch.no_grad()` (the
+    JAX package's stop_gradient), the three-stage loss, then AdamW;
+  * the occupancy refresh and the chunked full-image eval renderer
+    (train_steps.py:621-731).
+
+The scan, error-map, EMA and data-parallel flavors and the teacher step are
+not ported yet (ROADMAP A9, A16, A17).  The state is updated in place: the
+student's parameters and the optimizer moments.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from pvd_tpu_torch.config import ModelSpec, RenderSpec
+from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
 from pvd_tpu_torch.device import resolve_device
-from pvd_tpu_torch.models.api import field_density
-from pvd_tpu_torch.ops.rays import pixel_dirs, rotate
+from pvd_tpu_torch.engine.optim import AdamWState, GroupedAdamW
+from pvd_tpu_torch.models.api import field_density, vm_density_l1
+from pvd_tpu_torch.ops.rays import get_rays, pixel_dirs, random_pixels, rotate
 from pvd_tpu_torch.render.occupancy import (OccupancyState,
                                             update_density_grid)
 from pvd_tpu_torch.render.renderer import render_rays
 
 
-def _check_device(device: torch.device, **tensors):
-    for name, t in tensors.items():
-        if t.device.type != device.type:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
+def _check_device(device: torch.device, **items):
+    """Each item (a tensor or a torch.device) lies on `device`'s type."""
+    for name, t in items.items():
+        where = t if isinstance(t, torch.device) else t.device
+        if where.type != device.type:
+            raise ValueError(f"{name} is on {where}, expected {device}")
+
+
+def _param_device(field) -> torch.device:
+    return next(field.parameters()).device
+
+
+@dataclasses.dataclass
+class TrainState:
+    """A student in training: `field` (an nn.Module, updated in place),
+    its AdamW state, its occupancy grid and the step counter."""
+
+    field: Any
+    opt_state: AdamWState
+    occ: OccupancyState
+    step: int = 0
+
+
+def masked_loss(pred, gt, mask, loss_type: str):
+    """Point losses over valid samples only (train_steps.py:44-68); the
+    mask count is broadcast over channels (16 x valid for fea_sc)."""
+    diff = pred - gt
+    if diff.ndim > mask.ndim:
+        mask = mask[..., None]
+    m = mask.to(diff.dtype)
+    diff = diff * m
+    n_valid = torch.clamp_min(torch.broadcast_to(m, diff.shape).sum(), 1.0)
+    if loss_type == "L2":
+        return (diff ** 2).sum() / n_valid
+    if loss_type == "normL2":
+        return torch.sqrt((diff ** 2).sum() + 1e-12)
+    if loss_type == "normL1":
+        return diff.abs().sum()
+    if loss_type == "smoothL1":
+        beta = 0.05
+        a = diff.abs()
+        return torch.where(a < beta, 0.5 * a * a / beta,
+                           a - 0.5 * beta).sum() / n_valid
+    raise ValueError(f"unknown loss_type {loss_type}")
+
+
+def rgb_loss(pred, gt, loss_type: str):
+    """Image loss (train_steps.py:71-82)."""
+    if loss_type == "L2":
+        return ((pred - gt) ** 2).mean()
+    if loss_type == "normL2":
+        return torch.sqrt(((pred - gt) ** 2).sum() + 1e-12)
+    if loss_type == "normL1":
+        return (pred - gt).abs().sum()
+    if loss_type == "smoothL1":
+        beta = 0.05
+        a = (pred - gt).abs()
+        return torch.where(a < beta, 0.5 * a * a / beta,
+                           a - 0.5 * beta).mean()
+    raise ValueError(f"unknown loss_type {loss_type}")
+
+
+def distill_loss(student, teacher, spec_stu: ModelSpec, spec_tea: ModelSpec,
+                 rspec: RenderSpec, cfg: PVDConfig, stage: int, occ,
+                 occ_tea, o, d, bg, u, step: int):
+    """The three-stage distillation objective (train_steps.py:121-190).
+
+    o, d [N, 3] rays; bg [N, 3] background; u [N] march perturbation;
+    step: the student's step counter (the feature-loss rate decays
+    0.995^step).  Returns (loss, (logs, per_ray)); gradients reach the
+    student only.
+    """
+    both_have_fea = "tensors" not in (spec_stu.model_type,
+                                      spec_tea.model_type)
+    want_color = stage >= 2
+    composite = stage == 3
+    out_s = render_rays(student, spec_stu, rspec, occ, o, d, training=True,
+                        bg_color=bg, u=u, want_color=want_color,
+                        composite=composite)
+    with torch.no_grad():
+        out_t = render_rays(teacher, spec_tea, rspec, occ_tea, o, d,
+                            training=True, bg_color=bg,
+                            want_color=want_color, composite=composite,
+                            inherited=out_s["samples"],
+                            inherited_compact=out_s["compact"],
+                            inherited_t_c=out_s.get("compact_t"))
+    mask = out_s["mask"]
+    # feature-loss rate decays x0.995 per step, in float32
+    rate_fea = float(np.float32(cfg.loss_rate_fea_sc)
+                     * np.float32(0.995) ** np.float32(step))
+    logs = {"budget_hit": out_s["budget_hit_frac"],
+            "mask_frac": out_s["mask_frac"]}
+    if "compact_frac" in out_s:
+        logs["compact_frac"] = out_s["compact_frac"]
+    loss = 0.0
+    if both_have_fea:
+        l_fea = masked_loss(out_s["fea_sc"], out_t["fea_sc"], mask,
+                            cfg.loss_type)
+        loss = loss + rate_fea * l_fea
+        logs["loss_fea_sc"] = l_fea
+    else:
+        logs["loss_fea_sc"] = torch.zeros((), device=o.device)
+    if stage >= 2:
+        l_sigma = masked_loss(out_s["sigma_logit"], out_t["sigma_logit"],
+                              mask, cfg.loss_type)
+        l_color = masked_loss(out_s["rgb_l"], out_t["rgb_l"], mask,
+                              cfg.loss_type)
+        loss = loss + cfg.loss_rate_sigma * l_sigma
+        loss = loss + cfg.loss_rate_color * l_color
+        logs["loss_sigma"] = l_sigma
+        logs["loss_color"] = l_color
+    per_ray = None
+    if stage == 3:
+        l_rgb = rgb_loss(out_s["image"], out_t["image"], cfg.loss_type)
+        per_ray = ((out_s["image"] - out_t["image"]) ** 2).mean(-1)
+        loss = loss + cfg.loss_rate_rgb * l_rgb
+        if spec_stu.model_type == "vm" and cfg.l1_reg_weight > 0:
+            loss = loss + cfg.l1_reg_weight * vm_density_l1(student)
+        logs["loss_rgb"] = l_rgb
+        logs["psnr"] = -10.0 * torch.log10(
+            ((out_s["image"] - out_t["image"]) ** 2).mean() + 1e-12)
+    logs["loss"] = loss
+    return loss, (logs, per_ray)
+
+
+def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
+                      rspec: RenderSpec, opt: GroupedAdamW, cfg: PVDConfig,
+                      intrinsics, H: int, W: int, stage: int,
+                      device="cuda"):
+    """One distillation step of `stage` (1: features, 2: + point sigma and
+    color, 3: + RGB and the VM L1), single-step flavor
+    (train_steps.py:456-524).
+
+    Returns step(state, teacher, occ_tea, pose [4, 4], generator) ->
+    (state, logs): it draws `cfg.num_rays` uniform pixels, then a per-ray
+    background [N, 3] and the march perturbation u [N], all from
+    `generator`, and calls `step.core`, i.e.
+    distill_step_core(state, teacher, occ_tea, o, d, bg, u) -> (state,
+    logs): the loss, its gradients (left in the student's `.grad`), one
+    AdamW update and step + 1.
+    """
+    if stage not in (1, 2, 3):
+        raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
+    device = resolve_device(device)
+    intr = tuple(float(v) for v in intrinsics)
+
+    def distill_step_core(state: TrainState, teacher, occ_tea, o, d, bg, u):
+        _check_device(device, student=_param_device(state.field),
+                      teacher=_param_device(teacher), rays_o=o)
+        params = dict(state.field.named_parameters())
+        for p in params.values():
+            p.grad = None
+        loss, (logs, _) = distill_loss(
+            state.field, teacher, spec_stu, spec_tea, rspec, cfg, stage,
+            state.occ, occ_tea, o, d, bg, u, state.step)
+        loss.backward()
+        for p in params.values():  # leaves the loss does not reach
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        opt.update_(params, {n: p.grad for n, p in params.items()},
+                    state.opt_state)
+        state.step += 1
+        return state, {k: v.detach() for k, v in logs.items()}
+
+    def step(state: TrainState, teacher, occ_tea, pose,
+             generator: torch.Generator):
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
+        inds = random_pixels(generator, cfg.num_rays, H, W, device)
+        rays = get_rays(pose[None], intr, H, W, inds)
+        n = inds.shape[0]
+        bg = torch.rand(n, 3, generator=generator, device=device)
+        u = torch.rand(n, generator=generator, device=device)
+        return distill_step_core(state, teacher, occ_tea,
+                                 rays["rays_o"][0].contiguous(),
+                                 rays["rays_d"][0].contiguous(), bg, u)
+
+    step.core = distill_step_core
+    return step
 
 
 def make_occ_update(spec: ModelSpec, rspec: RenderSpec, device="cuda"):
@@ -38,7 +222,7 @@ def make_occ_update(spec: ModelSpec, rspec: RenderSpec, device="cuda"):
     def occ_update(occ: OccupancyState, field, *, full: bool, jitter,
                    coords=None) -> OccupancyState:
         _check_device(device, density_grid=occ.density_grid, jitter=jitter,
-                      encoder=field.encoder)
+                      field=_param_device(field))
 
         def dens(x):
             return field_density(field, spec, x, occ.aabb_train)
@@ -105,7 +289,8 @@ def make_eval_renderer(spec: ModelSpec, rspec: RenderSpec,
     def render_image(field, occ: OccupancyState, pose, intrinsics, H: int,
                      W: int) -> EvalImage:
         pose = torch.as_tensor(np.asarray(pose, np.float32), device=device)
-        _check_device(device, bitfield=occ.bitfield, encoder=field.encoder)
+        _check_device(device, bitfield=occ.bitfield,
+                      field=_param_device(field))
         intr = tuple(float(v) for v in intrinsics)
         n = H * W
         heads = list(range(0, n, chunk))

@@ -27,7 +27,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hash_encode.cu", "march.cu", "composite.cu")
+SOURCES = ("hash_encode.cu", "march.cu", "composite.cu", "vm_sample.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # no --use_fast_math: the march must reproduce the plain version's f32
 # arithmetic bit for bit (IEEE division, no flushed denormals)
@@ -65,6 +65,19 @@ class MarchParams(ctypes.Structure):
     ]
 
 
+class VMTables(ctypes.Structure):
+    """The three VM branches' tables of K4/K5, passed by value
+    (csrc/vm_sample.cu)."""
+
+    _fields_ = [
+        ("plane", ctypes.c_void_p * 3),
+        ("line", ctypes.c_void_p * 3),
+        ("H", ctypes.c_int * 3),
+        ("W", ctypes.c_int * 3),
+        ("L", ctypes.c_int * 3),
+    ]
+
+
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # x01, table, out, n_points, levels, stream
@@ -79,6 +92,17 @@ _SIGNATURES = {
     "pvd_composite_compact_fwd": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_int, _P, _P, _P,
                                   _P, _P, _P),
+    # sigmas, rgbs, dt, t_cum, weights, bounds (from the forward), n_rays,
+    # g_ws, g_depth, g_image, g_weights, d_sigma (zeroed), d_rgb (zeroed),
+    # stream
+    "pvd_composite_compact_bwd": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                                  _P, _P, _P, _P, _P, _P, _P),
+    # tables, xn, out [3, n, R], n, R, stream
+    "pvd_vm_sample_fwd": (VMTables, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                          _P),
+    # tables, grads (zeroed), xn, g [3, n, R], n, R, stream
+    "pvd_vm_sample_bwd": (VMTables, VMTables, _P, _P, ctypes.c_longlong,
+                          ctypes.c_int, _P),
 }
 
 
@@ -186,7 +210,8 @@ def check_cuda(name: str, **tensors) -> torch.device:
 
 
 def check_no_grad(name: str, *tensors):
-    """The kernels are forward only: refuse to drop a gradient silently."""
+    """For kernels without a backward: refuse to drop a gradient
+    silently."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward yet (ROADMAP B); call "

@@ -7,8 +7,9 @@
   per ray: weights_sum, depth = sum w * t_cum, image = sum w * rgb
 
 `composite_rays_compact` works on the compacted sample stream: kernel K3
-(`csrc/composite.cu`) on CUDA tensors, `composite_rays_compact_plain` on
-CPU tensors.  `composite_rays` (padded [N, S] blocks) is plain PyTorch.
+forward and K6 backward (`csrc/composite.cu`) on CUDA tensors,
+`composite_rays_compact_plain` (differentiated by autograd) on CPU
+tensors.  `composite_rays` (padded [N, S] blocks) is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -56,31 +57,31 @@ def composite_rays_compact_plain(sigmas, rgbs, delta_t, t_cum, ray_id,
     return acc[:, 3], acc[:, 4], acc[:, :3], weights
 
 
-def composite_rays_compact(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
-                           n_rays: int, early_stop: bool = False):
-    """Composite a compacted sample stream.
-
-    Args: sigmas, delta_t, t_cum, valid [M]; rgbs [M, 3]; ray_id [M] int64
-    owner of each slot (see `composite_rays_compact_plain` for the layout).
-    Returns weights_sum [N], depth [N], image [N, 3], weights [M].
-    """
-    if sigmas.device.type == "cpu":
-        return composite_rays_compact_plain(sigmas, rgbs, delta_t, t_cum,
-                                            ray_id, valid, n_rays, early_stop)
-    dev = kernels.check_cuda("composite_rays_compact", sigmas=sigmas,
-                             rgbs=rgbs, delta_t=delta_t, t_cum=t_cum,
-                             ray_id=ray_id, valid=valid)
-    kernels.check_no_grad("composite_rays_compact", sigmas, rgbs)
+def _check_stream(name, sigmas, rgbs, delta_t, t_cum, ray_id, valid):
+    dev = kernels.check_cuda(name, sigmas=sigmas, rgbs=rgbs,
+                             delta_t=delta_t, t_cum=t_cum, ray_id=ray_id,
+                             valid=valid)
     M = sigmas.shape[0]
-    for name, t in (("sigmas", sigmas), ("delta_t", delta_t),
-                    ("t_cum", t_cum), ("rgbs", rgbs)):
+    for n, t in (("sigmas", sigmas), ("delta_t", delta_t), ("t_cum", t_cum),
+                 ("rgbs", rgbs)):
         if t.dtype != torch.float32:
-            raise TypeError(f"composite_rays_compact: {name} must be float32")
+            raise TypeError(f"{name}: {n} must be float32")
     if rgbs.shape != (M, 3) or delta_t.shape != (M,) or t_cum.shape != (M,) \
             or ray_id.shape != (M,) or valid.shape != (M,):
-        raise ValueError("composite_rays_compact: shape mismatch")
+        raise ValueError(f"{name}: shape mismatch")
     if ray_id.dtype != torch.int64 or valid.dtype != torch.bool:
-        raise TypeError("composite_rays_compact: ray_id int64, valid bool")
+        raise TypeError(f"{name}: ray_id int64, valid bool")
+    return dev
+
+
+def composite_rays_compact_fwd(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
+                               n_rays: int, early_stop: bool = False):
+    """Kernel K3 on CUDA tensors, no autograd.  Returns weights_sum [N],
+    depth [N], image [N, 3], weights [M] and the per-ray slot bounds
+    [2, N] int32 that the backward (K6) reuses."""
+    dev = _check_stream("composite_rays_compact", sigmas, rgbs, delta_t,
+                        t_cum, ray_id, valid)
+    M = sigmas.shape[0]
     bounds = torch.zeros(2, n_rays, dtype=torch.int32, device=dev)
     weights = torch.empty(M, device=dev)
     ws = torch.empty(n_rays, device=dev)
@@ -94,7 +95,87 @@ def composite_rays_compact(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
                        ws.data_ptr(), depth.data_ptr(), image.data_ptr(),
                        kernels.stream_ptr(sigmas))
     composite_rays_compact.launches += 1
-    return ws, depth, image, weights
+    return ws, depth, image, weights, bounds
+
+
+def composite_rays_compact_bwd(sigmas, rgbs, delta_t, t_cum, weights,
+                               bounds, g_ws, g_depth, g_image, g_weights):
+    """Kernel K6: gradients (d sigmas [M], d rgbs [M, 3]) of a compacted
+    composite from the upstream gradients of weights_sum [N], depth [N],
+    image [N, 3] and weights [M]; `weights` and `bounds` come from
+    `composite_rays_compact_fwd` (no early stop).  CUDA tensors only: on
+    the CPU autograd differentiates the plain version."""
+    n_rays = bounds.shape[1]
+    M = sigmas.shape[0]
+    grads = {"g_ws": (g_ws, (n_rays,)), "g_depth": (g_depth, (n_rays,)),
+             "g_image": (g_image, (n_rays, 3)), "g_weights": (g_weights, (M,))}
+    for n, (t, shape) in grads.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"composite_rays_compact_bwd: {n} must be "
+                             f"float32 {shape}")
+    g_ws, g_depth, g_image, g_weights = (
+        t.contiguous() for t in (g_ws, g_depth, g_image, g_weights))
+    dev = kernels.check_cuda("composite_rays_compact_bwd", sigmas=sigmas,
+                             rgbs=rgbs, delta_t=delta_t, t_cum=t_cum,
+                             weights=weights, bounds=bounds, g_ws=g_ws,
+                             g_depth=g_depth, g_image=g_image,
+                             g_weights=g_weights)
+    d_sigma = torch.zeros(M, device=dev)
+    d_rgb = torch.zeros(M, 3, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("pvd_composite_compact_bwd", sigmas.data_ptr(),
+                       rgbs.data_ptr(), delta_t.data_ptr(), t_cum.data_ptr(),
+                       weights.data_ptr(), bounds.data_ptr(), n_rays,
+                       g_ws.data_ptr(), g_depth.data_ptr(),
+                       g_image.data_ptr(), g_weights.data_ptr(),
+                       d_sigma.data_ptr(), d_rgb.data_ptr(),
+                       kernels.stream_ptr(sigmas))
+    composite_rays_compact_bwd.launches += 1
+    return d_sigma, d_rgb
+
+
+composite_rays_compact_bwd.launches = 0
+
+
+class _CompositeCompact(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sigmas, rgbs, delta_t, t_cum, ray_id, valid, n_rays,
+                early_stop):
+        ws, depth, image, weights, bounds = composite_rays_compact_fwd(
+            sigmas, rgbs, delta_t, t_cum, ray_id, valid, n_rays, early_stop)
+        ctx.save_for_backward(sigmas, rgbs, delta_t, t_cum, weights, bounds)
+        ctx.early_stop = early_stop
+        return ws, depth, image, weights
+
+    @staticmethod
+    def backward(ctx, g_ws, g_depth, g_image, g_weights):
+        if ctx.early_stop:
+            raise NotImplementedError(
+                "composite_rays_compact: no backward with early_stop=True "
+                "(an inference-only setting)")
+        sigmas, rgbs, delta_t, t_cum, weights, bounds = ctx.saved_tensors
+        d_sigma, d_rgb = composite_rays_compact_bwd(
+            sigmas, rgbs, delta_t, t_cum, weights, bounds, g_ws, g_depth,
+            g_image, g_weights)
+        return d_sigma, d_rgb, None, None, None, None, None, None
+
+
+def composite_rays_compact(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
+                           n_rays: int, early_stop: bool = False):
+    """Composite a compacted sample stream, differentiable in sigmas and
+    rgbs.
+
+    Args: sigmas, delta_t, t_cum, valid [M]; rgbs [M, 3]; ray_id [M] int64
+    owner of each slot (see `composite_rays_compact_plain` for the layout).
+    Returns weights_sum [N], depth [N], image [N, 3], weights [M].
+    CUDA tensors: forward K3, backward K6 (`csrc/composite.cu`); CPU
+    tensors: the plain version, differentiated by autograd.
+    """
+    if sigmas.device.type == "cpu":
+        return composite_rays_compact_plain(sigmas, rgbs, delta_t, t_cum,
+                                            ray_id, valid, n_rays, early_stop)
+    return _CompositeCompact.apply(sigmas, rgbs, delta_t, t_cum, ray_id,
+                                   valid, n_rays, early_stop)
 
 
 composite_rays_compact.launches = 0

@@ -1,9 +1,10 @@
 """Camera rays and pose conventions (port of pvd_tpu/ops/rays.py:16-94).
 
-Full-image rays only; random and error-map pixel draws come with the
-training steps.  The norm and the rotation use `fma32` where XLA:CPU
-contracts them (ops/fma.py), so the port's rays equal the JAX package's
-bit for bit.
+Full-image rays, or rays at pixel ids drawn uniformly from an explicit
+`torch.Generator` (`random_pixels`, the draw of get_rays in rays.py:63-67);
+the error-map draw is not ported yet (ROADMAP A16).  The norm and the
+rotation use `fma32` where XLA:CPU contracts them (ops/fma.py), so the
+port's rays equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +46,13 @@ def rotate(dirs, rot):
     """dirs [..., 3] @ rot[:3, :3].T with XLA:CPU's FMA chain."""
     x0, x1, x2 = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
     return fma32(x2, rot[:, 2], fma32(x1, rot[:, 1], x0 * rot[:, 0]))
+
+
+def random_pixels(generator: torch.Generator, n_rays: int, H: int, W: int,
+                  device=None):
+    """[min(n_rays, H*W)] uniform flat pixel ids in [0, H*W)."""
+    n = min(n_rays, H * W)
+    return torch.randint(0, H * W, (n,), generator=generator, device=device)
 
 
 def get_rays(poses, intrinsics, H: int, W: int, inds=None):

@@ -11,7 +11,11 @@ march -> compact -> field -> composite, as in the JAX package:
   2. `compact_samples`: the first `budget` valid samples of the batch, in
      ray order (plain PyTorch).
   3. the field on the compacted samples, then `composite_rays_compact`
-     (kernel K3).
+     (kernels K3 forward, K6 backward).
+
+Training adds a perturbed march start, a per-ray background, early returns
+for distill stages 1 and 2, and the teacher's replay of the student's
+samples (`render_rays`).
 
 The TPU's probe-mask marches, window-hierarchical first-S and lazy-t
 layouts produce the same samples and are not ported.
@@ -211,14 +215,30 @@ def compact_samples(mask, budget: int, prefix: bool = False) -> CompactInfo:
 
 def render_rays(field, spec: ModelSpec, rspec: RenderSpec,
                 occ: OccupancyState, rays_o, rays_d, *, training: bool,
-                bg_color=1.0, early_stop: bool = False):
+                bg_color=1.0, u=None, want_color: bool = True,
+                composite: bool = True, early_stop: bool = False,
+                inherited: MarchedSamples | None = None,
+                inherited_compact: CompactInfo | None = None,
+                inherited_t_c=None):
     """Occupancy-grid render of rays [N, 3] (renderer.py:814-984).
 
     With rspec.samples_per_ray > 0 the field runs on the first
     `sample_budget(N)` valid samples of the batch and compositing runs on
-    that compacted stream (K3); otherwise on the padded [N, S] block.
-    Returns a dict with image [N, 3], depth [N], weights_sum [N], weights,
-    samples, compact (or None), compact_frac, nears, fars.
+    that compacted stream (K3 forward, K6 backward); otherwise on the
+    padded [N, S] block.
+
+    Training arguments: `u` [N] perturbs each ray's march start by
+    dt_min * u; `bg_color` may be per ray [N, 3]; `want_color=False`
+    (distill stage 1) or `composite=False` (stage 2) return after the field
+    with the point tensors only; `inherited`, `inherited_compact` and
+    `inherited_t_c` replay another model's samples (the distill teacher
+    neither marches nor perturbs again).
+
+    Returns a dict with samples, compact (or None), budget_hit_frac,
+    mask_frac, nears, fars; the point tensors sigma_logit, fea_sc, rgb_l
+    (None without color) and mask ([M] compact.valid, or the [N, S] march
+    mask), plus compact_t and compact_frac on the compacted path; and,
+    when composited, image [N, 3], depth [N], weights_sum [N], weights.
     """
     rays_o = rays_o.reshape(-1, 3).contiguous()
     rays_d = rays_d.reshape(-1, 3).contiguous()
@@ -226,20 +246,36 @@ def render_rays(field, spec: ModelSpec, rspec: RenderSpec,
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, rspec.min_near)
     N = rays_o.shape[0]
     budget = rspec.sample_budget(N)
-    samples = march_rays(occ.bitfield, rays_o, rays_d, nears, fars, rspec)
+    if inherited is None:
+        samples = march_rays(occ.bitfield, rays_o, rays_d, nears, fars,
+                             rspec, u)
+    else:
+        samples = inherited
     S = samples.mask.shape[1]
     result = {"samples": samples, "compact": None, "nears": nears,
-              "fars": fars}
+              "fars": fars,
+              # rays that filled every slot, and the slot utilisation
+              "budget_hit_frac": samples.mask[:, -1].float().mean(),
+              "mask_frac": samples.mask.float().mean()}
     if budget:
         # march masks are per-ray prefixes except in eval mode, where every
         # lattice slot keeps its place
-        compact = compact_samples(samples.mask, budget,
-                                  prefix=rspec.max_samples < rspec.max_steps)
-        t_c = samples.t.reshape(-1)[compact.idx]
+        compact = inherited_compact if inherited_compact is not None else \
+            compact_samples(samples.mask, budget,
+                            prefix=rspec.max_samples < rspec.max_steps)
+        t_c = inherited_t_c if inherited_t_c is not None else \
+            samples.t.reshape(-1)[compact.idx]
         rid = compact.ray_id
         o_c, d_c, t0_c = rays_o[rid], rays_d[rid], samples.t0[rid]
         xyz = fma32(t_c[:, None], d_c, o_c).clamp(-rspec.bound, rspec.bound)
-        out_f = field_forward(field, spec, xyz, d_c, aabb)
+        out_f = field_forward(field, spec, xyz, d_c, aabb,
+                              want_color=want_color)
+        result.update(sigma_logit=out_f.sigma_logit, fea_sc=out_f.fea_sc,
+                      rgb_l=out_f.rgb, mask=compact.valid, compact=compact,
+                      compact_t=t_c,
+                      compact_frac=compact.total.float() / budget)
+        if not (want_color and composite):
+            return result
         # dt is dt_min on every valid slot; the depth channel's running
         # real-delta sum telescopes to (t + dt) - t0 (renderer.py:932-935)
         dt_c = torch.where(compact.valid, dt_min_of(rspec), 0.0)
@@ -247,14 +283,22 @@ def render_rays(field, spec: ModelSpec, rspec: RenderSpec,
         ws, depth_raw, image, weights = composite_rays_compact(
             out_f.sigma * rspec.density_scale, out_f.rgb, dt_c, t_cum_c,
             rid, compact.valid, N, early_stop=early_stop)
-        result.update(compact=compact,
-                      compact_frac=compact.total.float() / budget)
     else:
         xyz = fma32(samples.t[..., None], rays_d[:, None, :],
                     rays_o[:, None, :]).clamp(-rspec.bound, rspec.bound)
         dirs = rays_d[:, None, :].expand(N, S, 3)
         out_f = field_forward(field, spec, xyz.reshape(-1, 3),
-                              dirs.reshape(-1, 3), aabb)
+                              dirs.reshape(-1, 3), aabb,
+                              want_color=want_color)
+        result.update(
+            sigmas=out_f.sigma.reshape(N, S),
+            sigma_logit=out_f.sigma_logit.reshape(N, S),
+            fea_sc=(None if out_f.fea_sc is None
+                    else out_f.fea_sc.reshape(N, S, -1)),
+            rgb_l=None if out_f.rgb is None else out_f.rgb.reshape(N, S, 3),
+            mask=samples.mask)
+        if not (want_color and composite):
+            return result
         ws, depth_raw, image, weights = composite_rays(
             out_f.sigma.reshape(N, S) * rspec.density_scale,
             out_f.rgb.reshape(N, S, 3), samples.dt, samples.delta_depth,

@@ -7,12 +7,18 @@ import numpy as np
 import pytest
 import torch
 
-from pvd_tpu_torch.config import ModelSpec, RenderSpec
-from pvd_tpu_torch.engine.train_steps import (make_eval_renderer,
+from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
+from pvd_tpu_torch.engine.train_steps import (make_distill_step,
+                                              make_eval_renderer,
                                               make_occ_update)
 from pvd_tpu_torch.models.hash_field import HashField
-from pvd_tpu_torch.ops.composite import composite_rays_compact
+from pvd_tpu_torch.models.vm_field import VMField
+from pvd_tpu_torch.ops.composite import (composite_rays_compact,
+                                         composite_rays_compact_bwd)
 from pvd_tpu_torch.ops.hashgrid import HashGridSpec, hash_encode
+from pvd_tpu_torch.ops.vm_sample import (vm_sample, vm_sample_bwd,
+                                         vm_sample_fwd)
+from pvd_tpu_torch.params import vm_field_from_jax, vm_tree_from_field
 from pvd_tpu_torch.render.occupancy import init_occupancy_state
 from pvd_tpu_torch.render.renderer import march_rays
 
@@ -25,6 +31,13 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pvd_tpu"}
 def _port_files():
     files = sorted((ROOT / "pvd_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py"]
+
+
+def test_new_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"pvd_tpu_torch/models/vm_field.py",
+            "pvd_tpu_torch/ops/vm_sample.py", "pvd_tpu_torch/engine/optim.py",
+            "pvd_tpu_torch/engine/train_steps.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -44,7 +57,13 @@ def test_no_jax_imports(path):
 
 
 SMALL = ModelSpec(hash_num_levels=4, hash_log2_size=14, hash_desired_res=128)
+VM = ModelSpec(model_type="vm", vm_sigma_rank=2, vm_color_rank=3,
+               vm_resolution=(4, 5, 6))
 RSPEC = RenderSpec(grid_size=32, max_steps=128, samples_per_ray=4)
+
+
+def _vm_tree():
+    return vm_tree_from_field(VMField(VM, "cpu"))
 
 
 @pytest.mark.parametrize("entry", [
@@ -52,8 +71,13 @@ RSPEC = RenderSpec(grid_size=32, max_steps=128, samples_per_ray=4)
     lambda: make_occ_update(SMALL, RSPEC),
     lambda: make_eval_renderer(SMALL, RSPEC),
     lambda: init_occupancy_state(RSPEC),
+    lambda: VMField(VM),
+    lambda: vm_field_from_jax(_vm_tree(), VM),
+    lambda: make_distill_step(VM, SMALL, RSPEC, None, PVDConfig(),
+                              (1, 1, 1, 1), 4, 4, stage=3),
 ], ids=["HashField", "make_occ_update", "make_eval_renderer",
-        "init_occupancy_state"])
+        "init_occupancy_state", "VMField", "vm_field_from_jax",
+        "make_distill_step"])
 def test_entry_points_need_a_gpu_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -79,6 +103,34 @@ def test_wrappers_take_the_plain_path_on_cpu_without_counting():
     assert np.isfinite(ws.numpy()).all()
     assert (hash_encode.launches, march_rays.launches,
             composite_rays_compact.launches) == before
+
+
+def test_training_wrappers_take_the_plain_path_on_cpu_without_counting():
+    """K4, K5 and K6: the plain version (autograd for K6) on CPU tensors,
+    and no count."""
+    before = (vm_sample_fwd.launches, vm_sample_bwd.launches,
+              composite_rays_compact.launches,
+              composite_rays_compact_bwd.launches)
+    field = VMField(VM, "cpu")
+    xn = torch.rand(7, 3) * 2 - 1
+    planes, lines = list(field.planes), list(field.lines)
+    prod = vm_sample_fwd(planes, lines, xn)
+    assert prod.shape == (3, 7, 5) and not prod.requires_grad
+    g_planes, g_lines = vm_sample_bwd(planes, lines, xn, torch.ones(3, 7, 5))
+    assert [g.shape for g in g_planes] == [p.shape for p in planes]
+    assert [g.shape for g in g_lines] == [v.shape for v in lines]
+    vm_sample(planes, lines, xn).sum().backward()
+    assert all(p.grad is not None for p in planes)
+    sig = torch.ones(4, requires_grad=True)
+    ws, _, img, _ = composite_rays_compact(
+        sig, torch.rand(4, 3), torch.full((4,), 0.1), torch.ones(4),
+        torch.tensor([0, 0, 1, 0]), torch.tensor([True, True, True, False]),
+        2)
+    (ws.sum() + img.sum()).backward()
+    assert sig.grad[:3].abs().sum() > 0 and sig.grad[3] == 0
+    assert (vm_sample_fwd.launches, vm_sample_bwd.launches,
+            composite_rays_compact.launches,
+            composite_rays_compact_bwd.launches) == before
 
 
 def test_wrappers_refuse_mixed_devices():

@@ -1,0 +1,156 @@
+"""pvd_tpu_torch's VM field against the JAX package (CPU): forward,
+density, the L1 regularizer, parameter gradients and the plain plane x line
+sample, at a non-cubic resolution so that a swapped axis fails."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pvd_tpu.config import ModelSpec as JModelSpec
+from pvd_tpu.models import vm_field as j_vm
+from pvd_tpu_torch.config import ModelSpec
+from pvd_tpu_torch.ops.vm_sample import vm_sample_plain
+from pvd_tpu_torch.params import vm_field_from_jax, vm_tree_from_field
+
+torch.set_num_threads(1)
+
+# forward: the same f32 ops, summed in other orders
+FWD_TOL = 1e-5
+# gradients: scatter-adds of the same terms in another order
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+
+RES = (20, 24, 28)
+SPEC_KW = dict(model_type="vm", vm_sigma_rank=4, vm_color_rank=12,
+               vm_resolution=RES, compute_dtype="float32")
+AABB = np.array([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0], np.float32)
+
+
+@pytest.fixture(scope="module")
+def params():
+    tree = j_vm.init(jax.random.PRNGKey(4), JModelSpec(**SPEC_KW))
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _points(n=300, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    x[:8] = [[-1, -1, -1], [1, 1, 1], [-1, 1, -1], [1, -1, 1],
+             [1, 1, -1], [-1, -1, 1], [0, 0, 0], [1, 0, -1]]
+    # just outside the box: the plane's tent weights vanish there, the
+    # line extrapolates
+    x[8:10] = [[1.05, -1.07, 1.1], [-1.1, 1.06, -1.04]]
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return x, d
+
+
+def _field(params):
+    return vm_field_from_jax(params, ModelSpec(**SPEC_KW), "cpu")
+
+
+def test_layout_round_trips(params):
+    field = _field(params)
+    assert [tuple(p.shape) for p in field.planes] == [(24, 20, 16),
+                                                      (28, 20, 16),
+                                                      (28, 24, 16)]
+    assert [tuple(v.shape) for v in field.lines] == [(28, 16), (24, 16),
+                                                     (20, 16)]
+    back = vm_tree_from_field(field)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(params)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("want_color", [True, False])
+def test_forward_matches_jax(params, want_color):
+    x, d = _points()
+    want = j_vm.forward(jax.tree_util.tree_map(jnp.asarray, params),
+                        JModelSpec(**SPEC_KW), jnp.asarray(x), jnp.asarray(d),
+                        jnp.asarray(AABB), want_color)
+    with torch.no_grad():
+        got = _field(params)(torch.from_numpy(x), torch.from_numpy(d),
+                             torch.from_numpy(AABB), want_color)
+    for name in ("sigma", "sigma_logit", "fea_sc", "rgb"):
+        g, w = getattr(got, name), getattr(want, name)
+        if not want_color and name == "rgb":
+            assert g is None and w is None
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=FWD_TOL,
+                                   atol=FWD_TOL, err_msg=name)
+    # the features have structure, and the clip bites nowhere
+    fea = got.fea_sc.numpy()
+    assert fea.std() > 1e-3 and (np.abs(fea) < 2.0).all()
+
+
+def test_density_and_l1_match_jax(params):
+    x, _ = _points(seed=1)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    want = j_vm.density(jp, JModelSpec(**SPEC_KW), jnp.asarray(x),
+                        jnp.asarray(AABB))
+    field = _field(params)
+    with torch.no_grad():
+        got = field.density(torch.from_numpy(x), torch.from_numpy(AABB))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    np.testing.assert_allclose(field.density_l1().item(),
+                               float(j_vm.density_l1(jp)), rtol=1e-6)
+
+
+def test_gradients_match_jax(params):
+    """A fixed random linear functional of fea_sc and rgb, plus the L1
+    term, differentiated into every parameter leaf."""
+    x, d = _points(seed=2)
+    rng = np.random.default_rng(7)
+    a = rng.normal(size=(x.shape[0], 16)).astype(np.float32)
+    b = rng.normal(size=(x.shape[0], 3)).astype(np.float32)
+    spec_j = JModelSpec(**SPEC_KW)
+
+    def j_loss(p):
+        out = j_vm.forward(p, spec_j, jnp.asarray(x), jnp.asarray(d),
+                           jnp.asarray(AABB), True)
+        return (jnp.sum(out.fea_sc * a) + jnp.sum(out.rgb * b)
+                + 0.5 * j_vm.density_l1(p))
+
+    want = jax.grad(j_loss)(jax.tree_util.tree_map(jnp.asarray, params))
+    field = _field(params)
+    out = field(torch.from_numpy(x), torch.from_numpy(d),
+                torch.from_numpy(AABB), True)
+    loss = (out.fea_sc * torch.from_numpy(a)).sum() \
+        + (out.rgb * torch.from_numpy(b)).sum() + 0.5 * field.density_l1()
+    loss.backward()
+    got = vm_tree_from_field(field, grad=True)
+    flat_w, _ = jax.tree_util.tree_flatten_with_path(want)
+    flat_g = jax.tree_util.tree_leaves(got)
+    assert len(flat_w) == len(flat_g) == 16
+    for (path, w), g in zip(flat_w, flat_g):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0, path
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_plain_sample_matches_jax(params):
+    """vm_sample_plain alone against _plane_packed_mxu * _line_mxu, on
+    points that sit on both ends of each axis (p = 0 and p = L - 1)."""
+    x, _ = _points(seed=3)
+    field = _field(params)
+    prod = vm_sample_plain(list(field.planes), list(field.lines),
+                           torch.from_numpy(x)).detach().numpy()
+    assert prod.shape == (3, x.shape[0], 16)
+    xn = jnp.asarray(x)
+    for i in range(3):
+        m0, m1 = j_vm.MAT_IDS[i]
+        v = j_vm.VEC_IDS[i]
+        mat = jnp.concatenate([params["sigma_mat"][i],
+                               params["color_mat"][i]], -1)
+        vec = jnp.concatenate([params["sigma_vec"][i],
+                               params["color_vec"][i]], -1)
+        H, W, _ = mat.shape
+        px = (xn[:, m0] + 1.0) * 0.5 * (W - 1)
+        py = (xn[:, m1] + 1.0) * 0.5 * (H - 1)
+        pz = (xn[:, v] + 1.0) * 0.5 * (vec.shape[0] - 1)
+        want = j_vm._plane_packed_mxu(mat, px, py) * j_vm._line_mxu(vec, pz)
+        np.testing.assert_allclose(prod[i], np.asarray(want), rtol=FWD_TOL,
+                                   atol=FWD_TOL, err_msg=f"branch {i}")
