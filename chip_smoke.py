@@ -21,7 +21,16 @@
    one distill step on the GPU against the same step on the CPU (plain) at
    test sizes; and checks that 10 stage-3 steps on a fixed batch lower the
    loss.
-5. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+5. Trains a full-width hash teacher through `Trainer.train` (the quality
+   recipe: the synthetic scene with 100 training views at 96x96, PVDConfig
+   defaults except grid_size 64, 3000 steps: 256 padded warm-up steps,
+   then the compacted path), renders the 3 test views with the eval
+   renderer and fails below 25 dB test PSNR.  Then holds K7 (table
+   gradient), K8 and K9 (padded composite) against their plain versions on
+   inputs from that run, profiles one padded and one compacted teacher
+   step, and holds one small teacher step (padded and compacted) on the
+   GPU against the CPU plain step.
+6. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails or no GPU is present.
@@ -42,26 +51,38 @@ import torch
 
 from pvd_tpu_torch import kernels
 from pvd_tpu_torch.config import ModelSpec, PVDConfig
-from pvd_tpu_torch.engine.optim import build_optimizer, cosine_schedule
+from pvd_tpu_torch.data.poses import pose_spherical
+from pvd_tpu_torch.data.synth import make_synthetic_scene
+from pvd_tpu_torch.engine.optim import (build_optimizer, cosine_schedule,
+                                        exp_decay_schedule)
 from pvd_tpu_torch.engine.train_steps import (TrainState, chunk_rays,
                                               make_distill_step,
                                               make_eval_renderer,
-                                              make_occ_update)
+                                              make_occ_update,
+                                              make_teacher_step)
+from pvd_tpu_torch.engine.trainer import Trainer
 from pvd_tpu_torch.models.api import param_group_label, trainable_label
 from pvd_tpu_torch.models.hash_field import grid_spec
 from pvd_tpu_torch.models.vm_field import normalize
 from pvd_tpu_torch.ops.aabb import near_far_from_aabb
-from pvd_tpu_torch.ops.composite import (composite_rays_compact,
+from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
+                                         composite_rays_bwd_plain,
+                                         composite_rays_compact,
                                          composite_rays_compact_bwd,
                                          composite_rays_compact_fwd,
-                                         composite_rays_compact_plain)
+                                         composite_rays_compact_plain,
+                                         composite_rays_fwd,
+                                         composite_rays_plain)
 from pvd_tpu_torch.ops.fma import fma32
-from pvd_tpu_torch.ops.hashgrid import hash_encode, hash_encode_plain
+from pvd_tpu_torch.ops.hashgrid import (hash_encode, hash_encode_bwd,
+                                        hash_encode_bwd_plain,
+                                        hash_encode_plain, level_corners)
 from pvd_tpu_torch.ops.rays import get_rays, nerf_matrix_to_ngp
 from pvd_tpu_torch.ops.vm_sample import (vm_sample_bwd, vm_sample_bwd_plain,
                                          vm_sample_fwd, vm_sample_plain)
-from pvd_tpu_torch.params import (hash_field_from_jax, vm_field_from_jax,
-                                  vm_tree_from_field)
+from pvd_tpu_torch.params import (hash_field_from_jax, hash_tree_from_field,
+                                  vm_field_from_jax, vm_tree_from_field)
+from pvd_tpu_torch.utils.metrics import PSNRMeter
 from pvd_tpu_torch.render.occupancy import (grid_coords, init_occupancy_state,
                                             query_points, set_bitfield)
 from pvd_tpu_torch.render.renderer import (compact_samples, dt_min_of,
@@ -77,7 +98,8 @@ RES, CHUNK = 800, 4096
 OUR_KERNELS = ("hash_encode_fwd_kernel", "march_rays_kernel",
                "segment_bounds_kernel", "composite_kernel",
                "vm_sample_fwd_kernel", "vm_sample_bwd_kernel",
-               "composite_bwd_kernel")
+               "composite_bwd_kernel", "hash_encode_bwd_kernel",
+               "composite_padded_fwd_kernel", "composite_padded_bwd_kernel")
 TOL_K1, TOL_K2_DD, TOL_K3 = 1e-5, 1e-6, 1e-5
 # K4: the same f32 ops; K5: fp32 atomics add in a varying order, so each
 # gradient leaf is held to 1e-4 of its max |g|; K6: the closed form against
@@ -106,6 +128,22 @@ STEP_PARAM_TOL, STEP_MASK_FRAC = 1e-6, 1e-3
 # end-to-end image and depth, kernel path on the GPU vs plain path on the
 # CPU: the same samples (K2 is exact), f32 heads summed in other orders
 E2E_RES, E2E_CHUNK, TOL_E2E = 64, 1024, 1e-4
+# the teacher recipe of the repo's quality A/B (tools/quality_ab.py): 100
+# training views at 96x96, grid 64, 3000 steps; the JAX package's run of
+# it reached ~31.5 dB test PSNR
+RECIPE = dict(n_train=100, n_val=0, n_test=3, H=96, W=96, grid_size=64,
+              iters=3000)
+PSNR_FLOOR = 25.0
+TEACHER_KERNELS = ("hash_encode", "march_rays", "composite_rays_compact",
+                   "composite_rays_compact_bwd", "hash_encode_bwd",
+                   "composite_rays", "composite_rays_bwd")
+# K7: fp32 atomics add in a varying order, so the gradient is held to 1e-4
+# of its max |g|; K8: the same f32 ops as the plain cumprod, other order;
+# K9: the closed form against autograd through the plain composite
+TOL_K7_REL, TOL_K8, TOL_K9 = 1e-4, 1e-5, 1e-5
+# teacher step at test sizes (tests/test_torch_teacher.py's), GPU vs CPU
+SMALL_TEACHER_CFG = dict(num_rays=256, grid_size=32, max_steps=128,
+                         max_samples=32, precision="fp32")
 
 
 def object_like_bitfield(H: int) -> np.ndarray:
@@ -140,23 +178,6 @@ def surface_bitfield(H: int) -> np.ndarray:
         r = np.sqrt((X - c[0]) ** 2 + (Y - c[1]) ** 2 + (Z - c[2]) ** 2)
         g |= np.abs(r - rad) < 0.005
     return g.reshape(-1)
-
-
-def pose_spherical(theta_deg: float, phi_deg: float, radius: float):
-    """Blender-style spherical c2w (the NeRF synthetic test orbit)."""
-    c2w = np.eye(4, dtype=np.float32)
-    c2w[2, 3] = radius
-    phi = phi_deg / 180.0 * np.pi
-    rot_phi = np.array([[1, 0, 0, 0], [0, np.cos(phi), -np.sin(phi), 0],
-                        [0, np.sin(phi), np.cos(phi), 0], [0, 0, 0, 1]],
-                       np.float32)
-    th = theta_deg / 180.0 * np.pi
-    rot_theta = np.array([[np.cos(th), 0, -np.sin(th), 0], [0, 1, 0, 0],
-                          [np.sin(th), 0, np.cos(th), 0], [0, 0, 0, 1]],
-                         np.float32)
-    flip = np.array([[-1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0],
-                     [0, 0, 0, 1]], np.float32)
-    return flip @ rot_theta @ rot_phi @ c2w
 
 
 def random_hash_params(spec, rng: np.random.Generator) -> dict:
@@ -254,7 +275,10 @@ def max_abs(a, b) -> float:
 COUNTED = {"hash_encode": hash_encode, "march_rays": march_rays,
            "composite_rays_compact": composite_rays_compact,
            "vm_sample_fwd": vm_sample_fwd, "vm_sample_bwd": vm_sample_bwd,
-           "composite_rays_compact_bwd": composite_rays_compact_bwd}
+           "composite_rays_compact_bwd": composite_rays_compact_bwd,
+           "hash_encode_bwd": hash_encode_bwd,
+           "composite_rays": composite_rays,
+           "composite_rays_bwd": composite_rays_bwd}
 
 
 def counters() -> dict:
@@ -617,6 +641,320 @@ def fixed_batch_descent(cfg, spec_stu, spec_tea, opt, state, teacher, pose,
     return losses
 
 
+def drive_teacher(seed: int) -> tuple:
+    """The recipe through Trainer.train, then the test views through the
+    trainer's eval renderer.  Returns (trainer, scene, info)."""
+    cfg = PVDConfig(grid_size=RECIPE["grid_size"], iters=RECIPE["iters"],
+                    seed=seed)
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(n_train=RECIPE["n_train"],
+                                 n_val=RECIPE["n_val"],
+                                 n_test=RECIPE["n_test"], H=RECIPE["H"],
+                                 W=RECIPE["W"], seed=seed, scale=cfg.scale)
+    scene_s = time.perf_counter() - t0
+    trainer = Trainer(cfg)
+    log(f"teacher recipe: {RECIPE['n_train']} views {RECIPE['H']}x"
+        f"{RECIPE['W']} (scene made in {scene_s:.1f} s), grid "
+        f"{cfg.grid_size}, {cfg.iters} steps of {cfg.num_rays} rays, "
+        f"max_samples {cfg.max_samples}, samples_per_ray "
+        f"{cfg.samples_per_ray:g} after the warm-up; table "
+        f"{trainer.state.field.grid.table_size} rows, heads "
+        f"{trainer.spec.compute_dtype}")
+    trainer.train(scene["train"])
+    stats = trainer.train_stats
+    hist = trainer.history
+    first = float(np.mean([float(m["psnr"]) for m in hist[:16]]))
+    last = float(np.mean([float(m["psnr"]) for m in hist[-16:]]))
+    test = scene["test"]
+    meter = PSNRMeter()
+    renders = []
+    for pose, img in zip(test.poses, test.images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.eval_render(trainer.state.field, trainer.state.occ,
+                                  pose, test.intrinsics, test.H, test.W)
+        torch.cuda.synchronize()
+        renders.append((time.perf_counter() - t0) * 1e3)
+        gt = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+        pred = out.image.cpu().numpy()
+        if not (np.isfinite(pred).all() and pred.shape == gt.shape):
+            raise RuntimeError("teacher eval render: bad image")
+        meter.update(pred, gt)
+    psnr = meter.measure()
+    occ = trainer.state.occ
+    info = {"test_psnr": psnr, "train_psnr_first16": first,
+            "train_psnr_last16": last, "render_ms": renders,
+            "train_stats": stats, "rspec_final": {
+                "max_samples": trainer.rspec.max_samples,
+                "samples_per_ray": trainer.rspec.samples_per_ray},
+            "occupied": float(occ.bitfield.float().mean()),
+            "last_metrics": {k: float(v) for k, v in hist[-1].items()}}
+    log(f"teacher: test PSNR {psnr:.3f} dB over {len(test)} views (floor "
+        f"{PSNR_FLOOR}); train-batch PSNR first 16 steps {first:.3f}, last "
+        f"16 {last:.3f}; final S_max {trainer.rspec.max_samples}, budget/ray "
+        f"{trainer.rspec.samples_per_ray:g}; grid occupied "
+        f"{info['occupied']:.4f}; renders "
+        + " ".join(f"{ms:.1f}" for ms in renders) + " ms")
+    log("teacher train_stats " + json.dumps(stats))
+    if not psnr >= PSNR_FLOOR:
+        raise RuntimeError(f"teacher test PSNR {psnr:.3f} < {PSNR_FLOOR}")
+    if not last > first:
+        raise RuntimeError("teacher train-batch PSNR did not rise")
+    return trainer, scene, info
+
+
+def teacher_batch(trainer, scene, gen, rspec):
+    """One batch of the teacher path on the trained grid: 8192 pixels of
+    training view 0, marched (perturbed) with `rspec`."""
+    train = scene["train"]
+    dev = trainer.device
+    cfg = trainer.cfg
+    pose = torch.as_tensor(train.poses[0], device=dev)
+    intr = tuple(float(v) for v in train.intrinsics)
+    inds = torch.randint(0, train.H * train.W, (cfg.num_rays,),
+                         generator=gen, device=dev)
+    rays = get_rays(pose[None], intr, train.H, train.W, inds)
+    o = rays["rays_o"][0].contiguous()
+    d = rays["rays_d"][0].contiguous()
+    occ = trainer.state.occ
+    nears, fars = near_far_from_aabb(o, d, occ.aabb_train, rspec.min_near)
+    u = torch.rand(cfg.num_rays, generator=gen, device=dev)
+    samples = march_rays(occ.bitfield, o, d, nears, fars, rspec, u)
+    return o, d, samples
+
+
+def check_teacher_kernels(trainer, scene, gen) -> tuple:
+    """K7 at the padded and compacted shapes, K8 (with and without early
+    stop) and K9 at the padded shape, on the trained field's samples."""
+    field = trainer.state.field
+    gs = field.grid
+    table = field.encoder.detach()
+    b = trainer.rspec.bound
+    dev = trainer.device
+    # the warm-up's padded shape, and the compacted path's after autotune
+    rs_pad = dataclasses.replace(trainer.rspec,
+                                 max_samples=trainer.cfg.max_samples,
+                                 samples_per_ray=0.0)
+    o, d, s = teacher_batch(trainer, scene, gen, rs_pad)
+    N, S = s.mask.shape
+    xyz = fma32(s.t[..., None], d[:, None, :], o[:, None, :]).clamp(-b, b)
+    x01_pad = ((xyz.reshape(-1, 3) + b) / (2.0 * b)).contiguous()
+    g_pad = torch.randn(N * S, gs.output_dim, generator=gen, device=dev) \
+        * s.mask.reshape(-1, 1)
+    rs_c = trainer.rspec
+    _, _, s_c = teacher_batch(trainer, scene, gen, rs_c)
+    budget = rs_c.sample_budget(trainer.cfg.num_rays)
+    cmp = compact_samples(s_c.mask, budget, prefix=True)
+    rid = cmp.ray_id
+    t_c = s_c.t.reshape(-1)[cmp.idx]
+    xyz_c = fma32(t_c[:, None], d[rid], o[rid]).clamp(-b, b)
+    x01_c = ((xyz_c + b) / (2.0 * b)).contiguous()
+    g_c = torch.randn(budget, gs.output_dim, generator=gen, device=dev) \
+        * cmp.valid[:, None]
+
+    def k7_case(x01, g):
+        k = hash_encode_bwd(x01, g, gs)
+        p = hash_encode_bwd_plain(x01, g, gs)
+        err_abs = max_abs(k, p)
+        err = err_abs / float(p.abs().max())
+        P = x01.shape[0]
+        active = int((g.reshape(P, gs.num_levels, 2) != 0).any(-1).sum())
+        # bytes: x01 and g read once, the dense [T, 2] gradient written once
+        bnd = bound(P * 12 + P * gs.output_dim * 4 + gs.table_size * 8,
+                    active * 8 * 6)
+        return k, p, err, err_abs, bnd, active
+
+    results, extra = [], {}
+    k7p = k7_case(x01_pad, g_pad)
+    t7p = timings(lambda: hash_encode_bwd(x01_pad, g_pad, gs),
+                  lambda: hash_encode_bwd_plain(x01_pad, g_pad, gs))
+    extra["hash_encode_bwd_padded"] = dict(
+        err=k7p[2], abs_err=k7p[3], bound=k7p[4], active_pairs=k7p[5],
+        points=x01_pad.shape[0], **t7p)
+    k7c = k7_case(x01_c, g_c)
+    # library yardstick: one index_add_ of the precomputed corner
+    # contributions (the scatter alone, without the corner math)
+    rows, vals = [], []
+    for level in range(gs.num_levels):
+        w, r = level_corners(x01_c, gs, level)
+        rows.append(r.reshape(-1))
+        vals.append((w[:, :, None] * g_c[None, :, 2 * level:2 * level + 2])
+                    .reshape(-1, 2))
+    rows, vals = torch.cat(rows), torch.cat(vals)
+
+    def lib7():
+        return torch.zeros(gs.table_size, 2, device=dev).index_add_(
+            0, rows, vals)
+
+    results.append(dict(
+        name="hash_encode_bwd", source="pvd_tpu_torch/csrc/hash_encode.cu",
+        replaces="pvd_tpu/ops/hashgrid.py:284", err=k7c[2], abs_err=k7c[3],
+        tol=TOL_K7_REL, err_kind="max |kernel - plain| / max |plain|",
+        **timings(lambda: hash_encode_bwd(x01_c, g_c, gs),
+                  lambda: hash_encode_bwd_plain(x01_c, g_c, gs)),
+        library_ms=cuda_ms(lib7),
+        library_call="index_add_ of the precomputed corner contributions "
+        "(scatter only)", bound=k7c[4],
+        shape=f"M={budget} compacted points ({int(cmp.valid.sum())} valid, "
+        f"{k7c[5]} active (point, level) pairs) x {gs.num_levels} levels"))
+    del rows, vals
+    log(f"K7 padded shape: {x01_pad.shape[0]} points, {k7p[5]} active "
+        f"pairs: rel err {k7p[2]:.3g}, kernel {t7p['ms']:.4f} ms (call "
+        f"{t7p['call_ms']:.4f}), plain {t7p['plain_ms']:.4f} ms, bound "
+        f"{k7p[4][0]:.4f} ms ({k7p[4][1]})")
+
+    # K8 / K9 on the trained field's padded samples
+    with torch.no_grad():
+        f = field(xyz.reshape(-1, 3), d[:, None, :].expand(N, S, 3)
+                  .reshape(-1, 3))
+    sig = (f.sigma.reshape(N, S) * rs_pad.density_scale).contiguous()
+    rgb = f.rgb.reshape(N, S, 3).contiguous()
+    args8 = (sig, rgb, s.dt, s.delta_depth, s.mask)
+    err8 = 0.0
+    for early in (False, True):
+        k8 = composite_rays_fwd(*args8, early_stop=early)
+        p8 = composite_rays_plain(*args8, early_stop=early)
+        err8 = max(err8, max(max_abs(a, c) for a, c in zip(k8, p8)))
+    n_valid = int(s.mask.sum())
+    ws = k8[0]
+    log(f"K8/K9 block: [{N}, {S}], {n_valid} valid slots (mask_frac "
+        f"{n_valid / (N * S):.4f}), weights_sum mean {float(ws.mean()):.4f}")
+    b8 = bound(N * S * 25 + N * S * 4 + N * 20, N * S * 16)
+    results.append(dict(
+        name="composite_rays", source="pvd_tpu_torch/csrc/composite.cu",
+        replaces="pvd_tpu/ops/composite.py:97", err=err8, tol=TOL_K8,
+        **timings(lambda: composite_rays_fwd(*args8),
+                  lambda: composite_rays_plain(*args8)),
+        library_ms=None, bound=b8,
+        shape=f"[{N}, {S}] padded slots ({n_valid} valid), early_stop "
+        "off and on"))
+    gs9 = (torch.randn(N, generator=gen, device=dev),
+           torch.randn(N, generator=gen, device=dev),
+           torch.randn(N, 3, generator=gen, device=dev),
+           torch.randn(N, S, generator=gen, device=dev))
+    weights = composite_rays_fwd(*args8)[3]
+    k9 = composite_rays_bwd(*args8, weights, *gs9)
+    p9 = composite_rays_bwd_plain(*args8, *gs9)
+    err9 = max(max_abs(a, c) for a, c in zip(k9, p9))
+    b9 = bound(N * S * 29 + N * 20 + N * S * 4 + N * S * 16, N * S * 30)
+    results.append(dict(
+        name="composite_rays_bwd", source="pvd_tpu_torch/csrc/composite.cu",
+        replaces="pvd_tpu/ops/composite.py:97", err=err9, tol=TOL_K9,
+        **timings(lambda: composite_rays_bwd(*args8, weights, *gs9),
+                  lambda: composite_rays_bwd_plain(*args8, *gs9)),
+        library_ms=None, bound=b9,
+        shape=f"[{N}, {S}] padded slots ({n_valid} valid)"))
+    return results, extra
+
+
+def teacher_step_flavors(trainer, scene) -> dict:
+    """Launches of one teacher step and a profile of one step, for the
+    padded (warm-up) and the compacted flavor, on the trained state."""
+    train = scene["train"]
+    out = {}
+    images = torch.as_tensor(train.images_flat(), device=trainer.device)
+    poses = torch.as_tensor(train.poses, device=trainer.device)
+    flavors = {"padded": dataclasses.replace(
+        trainer.rspec, max_samples=trainer.cfg.max_samples,
+        samples_per_ray=0.0), "compacted": trainer.rspec}
+    for name, rs in flavors.items():
+        step = make_teacher_step(trainer.spec, rs, trainer.opt, trainer.cfg,
+                                 train.intrinsics, train.H, train.W,
+                                 image_channels=4, device=trainer.device)
+        for i in range(3):  # warm-up
+            step(trainer.state, poses[i], images[i], trainer.generator)
+        torch.cuda.synchronize()
+        reset_counters()
+        step(trainer.state, poses[3], images[3], trainer.generator)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counters().items() if v}
+        prof = profile(lambda: step(trainer.state, poses[4], images[4],
+                                    trainer.generator))
+        log(f"teacher {name} step: launches {json.dumps(launched)}; profile "
+            f"wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['device_busy_ms']:.2f} ms (share "
+            f"{prof['device_busy_share']:.3f})")
+        for row in prof["top"]:
+            log(f"  {row['ms']:9.3f} ms {row['calls']:6d} x {row['kernel']}")
+        for kname, row in prof["ours"].items():
+            log(f"  ours: {row['ms']:9.3f} ms {row['calls']:6d} x {kname}")
+        out[name] = {"launches_per_step": launched, "profile": prof}
+    return out
+
+
+def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """One teacher step at test sizes, padded and compacted: kernels on
+    the GPU against the plain path on the CPU, same params and draws."""
+    rng = np.random.default_rng(12)
+    spec = ModelSpec(**SMALL_TEA)
+    tree = random_hash_params(spec, rng)
+    bits = rng.uniform(size=32 ** 3) < 0.25
+    image = rng.uniform(size=(SMALL_HW ** 2, 4)).astype(np.float32)
+    image[:, 3] = rng.choice([0.0, 1.0, 0.3], size=SMALL_HW ** 2)
+    pose = nerf_matrix_to_ngp(pose_spherical(30.0, -30.0, 4.0), scale=0.8)
+    n = SMALL_TEACHER_CFG["num_rays"]
+    inds = torch.from_numpy(rng.integers(0, SMALL_HW ** 2, n))
+    rays = get_rays(torch.from_numpy(pose)[None], SMALL_INTR, SMALL_HW,
+                    SMALL_HW, inds)
+    o, d = rays["rays_o"][0].contiguous(), rays["rays_d"][0].contiguous()
+    pix = torch.from_numpy(image)[inds]
+    bg = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+    report = {}
+    for spr in (0.0, 16.0):
+        cfg = PVDConfig(**SMALL_TEACHER_CFG, samples_per_ray=spr)
+        res = []
+        for where in devices:
+            field = hash_field_from_jax(tree, spec, where)
+            occ = set_bitfield(init_occupancy_state(cfg.render_spec(), where),
+                               torch.from_numpy(bits).to(where))
+            params = dict(field.named_parameters())
+            opt = build_optimizer(params, param_group_label(spec),
+                                  trainable_label(spec, ""),
+                                  exp_decay_schedule(1e-2, 100),
+                                  exp_decay_schedule(1e-3, 100))
+            state = TrainState(field=field, opt_state=opt.init(params),
+                               occ=occ)
+            step = make_teacher_step(spec, cfg.render_spec(), opt, cfg,
+                                     SMALL_INTR, SMALL_HW, SMALL_HW, 4,
+                                     device=where)
+            state, m = step.core(state, *(t.to(where)
+                                          for t in (o, d, pix, bg, u)))
+            res.append(({k: float(v) for k, v in m.items()},
+                        hash_tree_from_field(field, grad=True),
+                        hash_tree_from_field(field)))
+        (lg, gg, pg), (lc, gc, pc) = res
+        loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12)
+                       for k in lc)
+        grad_err = param_err = 0.0
+        grad_ok = True
+        for a, b, pa, pb in zip(tree_leaves(gg), tree_leaves(gc),
+                                tree_leaves(pg), tree_leaves(pc)):
+            scale = float(np.abs(b).max())
+            grad_err = max(grad_err, float(np.abs(a - b).max())
+                           / max(scale, 1e-30))
+            grad_ok &= bool(np.all(np.abs(a - b) <= STEP_GRAD_REL_ATOL
+                                   * scale + STEP_GRAD_RTOL * np.abs(b)))
+            hold = (np.abs(b) > STEP_MASK_FRAC * scale) | (b == 0)
+            param_err = max(param_err, float(np.abs(pa - pb)[hold].max()))
+        flavor = "compacted" if spr else "padded"
+        log(f"teacher step GPU kernels vs CPU plain (test sizes, {flavor}, "
+            f"f32 heads): max rel loss/metric diff {loss_err:.3g} (tol "
+            f"{STEP_LOSS_RTOL:g}); max grad diff / leaf max {grad_err:.3g} "
+            f"(tol {STEP_GRAD_REL_ATOL:g} + rtol {STEP_GRAD_RTOL:g}); max "
+            f"param diff under the gradient mask {param_err:.3g} (tol "
+            f"{STEP_PARAM_TOL:g}); loss {lc['loss']:.6g}, mask_frac "
+            f"{lc['mask_frac']:.3f}")
+        if not (loss_err <= STEP_LOSS_RTOL and grad_ok
+                and param_err <= STEP_PARAM_TOL):
+            raise RuntimeError(f"the GPU teacher step ({flavor}) disagrees "
+                               "with the CPU plain step")
+        report[flavor] = {"loss_rel_err": loss_err,
+                          "grad_err_rel_leaf_max": grad_err,
+                          "param_err": param_err}
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -883,6 +1221,21 @@ def main(argv=None) -> int:
     descent = fixed_batch_descent(cfg, spec_stu, spec, opt, state, field,
                                   pose_t, intr, gen)
 
+    # ---- main path 3: teacher training (the recipe) + its test renders --
+    reset_counters()
+    trainer, scene, teacher = drive_teacher(args.seed)
+    teacher_launches = counters()
+    log(f"launches on the teacher path ({RECIPE['iters']} steps, "
+        f"{RECIPE['n_test']} renders): {json.dumps(teacher_launches)}")
+    for name in TEACHER_KERNELS:
+        if teacher_launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the "
+                               "teacher path")
+    t_results, t_extra = check_teacher_kernels(trainer, scene, gen)
+    results += t_results
+    flavors = teacher_step_flavors(trainer, scene)
+    teacher_check = small_teacher_gpu_vs_cpu()
+
     bad = [r["name"] for r in results if not r["err"] <= r["tol"]]
     for r in results:
         lib = r.get("library_ms")
@@ -902,11 +1255,21 @@ def main(argv=None) -> int:
         if name in SERVE_KERNELS:
             f = {"launches": launches[name],
                  "launches_per_image": launches[name] / len(poses)}
-        else:
+        elif distill_launches[name]:
             f = {"launches": distill_launches[name]}
+        else:
+            f = {"launches": teacher_launches[name]}
         f["launches_distill"] = distill_launches[name]
         f["launches_per_distill_step"] = distill_launches[name] / n_steps
+        f["launches_teacher"] = teacher_launches[name]
+        f["launches_per_teacher_step"] = {
+            flv: v["launches_per_step"].get(name, 0)
+            for flv, v in flavors.items()}
         return f
+
+    def brief(prof):
+        return {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                     "device_busy_share", "ours")}
 
     line = {"kernels": [{
         "name": r["name"], "route": "cuda", "source": r["source"],
@@ -921,10 +1284,14 @@ def main(argv=None) -> int:
         "library_call": r.get("library_call"), "shape": r["shape"]}
         for r in results],
         "sweep_ms": sweep_ms, "images": images, "build_s": build_s,
-        "e2e_max_abs_diff": e2e_err, "profile": prof,
-        "distill": {"stages": stages, "profile_stage3": prof_d,
+        "e2e_max_abs_diff": e2e_err, "profile": brief(prof),
+        "distill": {"stages": stages, "profile_stage3": brief(prof_d),
                     "gpu_vs_cpu_step": step_check,
                     "fixed_batch_losses": descent},
+        "teacher": {**teacher, "kernel_extra": t_extra,
+                    "profiles": {k: brief(v["profile"])
+                                 for k, v in flavors.items()},
+                    "gpu_vs_cpu_step": teacher_check},
         "card": card}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

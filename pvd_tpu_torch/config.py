@@ -1,8 +1,8 @@
 """Typed configuration (port of pvd_tpu/config.py:20-163).
 
-Only the fields this port reads so far (the serving path and the distill
-step).  Defaults and derived properties (`RenderSpec.cascades`,
-`RenderSpec.sample_budget`) are the JAX package's.
+Only the fields this port reads so far (the serving path, the distill
+step and the teacher Trainer).  Defaults and derived properties
+(`RenderSpec.cascades`, `RenderSpec.sample_budget`) are the JAX package's.
 """
 
 from __future__ import annotations
@@ -77,24 +77,33 @@ class RenderSpec:
 
 @dataclasses.dataclass
 class PVDConfig:
-    """The experiment fields the serving path and the distill step read
-    (config.py:165-318)."""
+    """The experiment fields the serving path, the distill step and the
+    teacher Trainer read (config.py:165-318)."""
 
+    seed: int = 0
     iters: int = 40000
     lr: float = 1e-2
     num_rays: int = 8192
     max_steps: int = 1024
+    update_extra_interval: int = 16
+    max_ray_batch: int = 4096
     precision: str = "bf16"
+    color_space: str = "srgb"
+    preload: bool = True
     bound: float = 1.0
+    scale: float = 0.8
     dt_gamma: float = 0.0
     min_near: float = 0.2
     density_thresh: float = 10.0
+    bg_radius: float = -1.0
     grid_size: int = 128
+    error_map: bool = False
     model_type: str = "hash"
     teacher_type: str = "hash"
     sigma_clip_min: float = -2.0
     sigma_clip_max: float = 7.0
     resolution0: int = 300
+    upsample_model_steps: tuple = ()
     # distillation
     distill_mode: str = "no_fix_mlp"  # fix_mlp | no_fix_mlp
     loss_type: str = "L2"  # L2 | normL2 | normL1 | smoothL1
@@ -106,6 +115,10 @@ class PVDConfig:
     ema_decay: float = -1.0
     max_samples: int = 96
     samples_per_ray: float = 16.0
+    autotune_budget: bool = True
+    n_devices: int = 1
+    scan_steps: int = 0
+    wall_budget: float = 0.0
 
     def model_spec(self, model_type: str | None = None) -> ModelSpec:
         return ModelSpec(

@@ -1,4 +1,5 @@
-// K1: multi-resolution hash-grid encode (INGP), forward, D = 3, C = 2.
+// K1: multi-resolution hash-grid encode (INGP), forward, D = 3, C = 2;
+// K7: its table gradient.
 //
 // Replaces pvd_tpu/ops/hashgrid.py:533 hash_encode in exact mode: the
 // corner rows of _corner_rows (:193) and the weighted corner sum of
@@ -24,6 +25,24 @@
 // read once per warp through L1, the output row of the point is written as
 // contiguous float2s, and 32 independent gathers per warp keep enough loads
 // in flight to cover L2 latency.  Per-level constants come by value.
+//
+// K7: the table gradient, replacing pvd_tpu/ops/hashgrid.py:284
+// _corner_gather_sum_bwd (hashed levels) and the autodiff of the packed
+// dense gather (build_packed_dense, :420) for the dense levels:
+//   g_table[offset_l + row(corner k)] += w_k * g[n, l]
+// over the same 8 corners, rows and weights as K1 (the shared
+// corner_setup below).  No gradient reaches x01: sample positions come from
+// the march, so the JAX package's g_w term has no consumer here.
+// One thread per (point, level) issues 16 fp32 atomicAdds (2 channels x 8
+// corners) into a zeroed [T, 2] gradient.  Pairs whose upstream g is exactly
+// (0, 0) return at once: on the padded [N, S] path most slots are invalid
+// and the composite's backward gives them zero gradient.  Points outside
+// [0, 1]^3 have zero weights and return too.
+// Bound on the H100: memory.  Per (point, level) it reads 8 B of g and does
+// 8 read-modify-writes of 8 B at scattered rows, plus the wrapper's 42 MB
+// memset of the gradient.  The coarse dense levels (16^3 ...) and hash
+// collisions put many atomics on few rows; the sums' order varies from run
+// to run, so the card check uses a relative tolerance.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,6 +58,56 @@ struct HashLevels {
   float scale[PVD_MAX_LEVELS];
 };
 
+// Corner setup of one (point, level): lattice base, fractions and level
+// constants, computed exactly as the plain version does.
+struct Corners {
+  float fx, fy, fz, gx, gy, gz;
+  uint32_t ix, iy, iz, side;
+  bool hashed;
+};
+
+__device__ __forceinline__ Corners corner_setup(float x, float y, float z,
+                                                int l, const HashLevels& lv) {
+  Corners c;
+  const float s = lv.scale[l];
+  const float px = __fmaf_rn(x, s, 0.5f);
+  const float py = __fmaf_rn(y, s, 0.5f);
+  const float pz = __fmaf_rn(z, s, 0.5f);
+  const float bx = floorf(px), by = floorf(py), bz = floorf(pz);
+  c.fx = __fsub_rn(px, bx);
+  c.fy = __fsub_rn(py, by);
+  c.fz = __fsub_rn(pz, bz);
+  c.gx = __fsub_rn(1.f, c.fx);
+  c.gy = __fsub_rn(1.f, c.fy);
+  c.gz = __fsub_rn(1.f, c.fz);
+  c.ix = (uint32_t)(int)bx;
+  c.iy = (uint32_t)(int)by;
+  c.iz = (uint32_t)(int)bz;
+  c.side = (uint32_t)lv.side[l];
+  c.hashed = lv.hashed[l] != 0;
+  return c;
+}
+
+// Weight and level-relative row of corner k (bit d of k: +1 along dim d).
+__device__ __forceinline__ float corner_weight(const Corners& c, int k) {
+  return __fmul_rn(__fmul_rn((k & 1) ? c.fx : c.gx, (k & 2) ? c.fy : c.gy),
+                   (k & 4) ? c.fz : c.gz);
+}
+
+__device__ __forceinline__ uint32_t corner_row(const Corners& c, int k,
+                                               uint32_t hash_mask) {
+  const uint32_t cx = c.ix + (k & 1), cy = c.iy + ((k >> 1) & 1),
+                 cz = c.iz + ((k >> 2) & 1);
+  return c.hashed
+             ? ((cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u)) & hash_mask
+             : cx + cy * c.side + cz * c.side * c.side;
+}
+
+// (x < 0) | (x > 1) as in hashgrid.py:571 (a NaN passes, like JAX's)
+__device__ __forceinline__ bool outside(float x, float y, float z) {
+  return x < 0.f || x > 1.f || y < 0.f || y > 1.f || z < 0.f || z > 1.f;
+}
+
 __global__ void hash_encode_fwd_kernel(const float* __restrict__ x01,
                                        const float2* __restrict__ table,
                                        float2* __restrict__ out,
@@ -50,41 +119,46 @@ __global__ void hash_encode_fwd_kernel(const float* __restrict__ x01,
   const float x = __ldg(x01 + 3 * n);
   const float y = __ldg(x01 + 3 * n + 1);
   const float z = __ldg(x01 + 3 * n + 2);
-  // (x < 0) | (x > 1) as in hashgrid.py:571 (a NaN passes, like JAX's)
-  if (x < 0.f || x > 1.f || y < 0.f || y > 1.f || z < 0.f || z > 1.f) {
+  if (outside(x, y, z)) {
     out[gid] = make_float2(0.f, 0.f);
     return;
   }
-  const float s = lv.scale[l];
-  const float px = __fmaf_rn(x, s, 0.5f);
-  const float py = __fmaf_rn(y, s, 0.5f);
-  const float pz = __fmaf_rn(z, s, 0.5f);
-  const float bx = floorf(px), by = floorf(py), bz = floorf(pz);
-  const float fx = __fsub_rn(px, bx), fy = __fsub_rn(py, by),
-              fz = __fsub_rn(pz, bz);
-  const float gx = __fsub_rn(1.f, fx), gy = __fsub_rn(1.f, fy),
-              gz = __fsub_rn(1.f, fz);
-  const uint32_t ix = (uint32_t)(int)bx, iy = (uint32_t)(int)by,
-                 iz = (uint32_t)(int)bz;
-  const uint32_t side = (uint32_t)lv.side[l];
-  const bool hashed = lv.hashed[l] != 0;
+  const Corners c = corner_setup(x, y, z, l, lv);
   const float2* tl = table + lv.offset[l];
   float a0 = 0.f, a1 = 0.f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const uint32_t dx = k & 1, dy = (k >> 1) & 1, dz = (k >> 2) & 1;
-    const float w = __fmul_rn(__fmul_rn(dx ? fx : gx, dy ? fy : gy),
-                              dz ? fz : gz);
-    const uint32_t cx = ix + dx, cy = iy + dy, cz = iz + dz;
-    const uint32_t row =
-        hashed ? ((cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u)) &
-                     lv.hash_mask
-               : cx + cy * side + cz * side * side;
-    const float2 v = __ldg(tl + row);
+    const float w = corner_weight(c, k);
+    const float2 v = __ldg(tl + corner_row(c, k, lv.hash_mask));
     a0 = __fmaf_rn(w, v.x, a0);
     a1 = __fmaf_rn(w, v.y, a1);
   }
   out[gid] = make_float2(a0, a1);
+}
+
+__global__ void hash_encode_bwd_kernel(const float* __restrict__ x01,
+                                       const float2* __restrict__ g,
+                                       float* __restrict__ grad,
+                                       long long n_points, HashLevels lv) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_points * lv.n_levels) return;
+  const float2 gv = g[gid];
+  if (gv.x == 0.f && gv.y == 0.f) return;
+  const long long n = gid / lv.n_levels;
+  const int l = (int)(gid - n * lv.n_levels);
+  const float x = __ldg(x01 + 3 * n);
+  const float y = __ldg(x01 + 3 * n + 1);
+  const float z = __ldg(x01 + 3 * n + 2);
+  if (outside(x, y, z)) return;
+  const Corners c = corner_setup(x, y, z, l, lv);
+  float* gl = grad + 2 * (long long)lv.offset[l];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float w = corner_weight(c, k);
+    float* dst = gl + 2 * (long long)corner_row(c, k, lv.hash_mask);
+    atomicAdd(dst, __fmul_rn(w, gv.x));
+    atomicAdd(dst + 1, __fmul_rn(w, gv.y));
+  }
 }
 
 extern "C" int pvd_hash_encode_fwd(const float* x01, const float* table,
@@ -98,5 +172,18 @@ extern "C" int pvd_hash_encode_fwd(const float* x01, const float* table,
                            (cudaStream_t)stream>>>(
       x01, reinterpret_cast<const float2*>(table),
       reinterpret_cast<float2*>(out), n_points, lv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pvd_hash_encode_bwd(const float* x01, const float* g,
+                                   float* grad_table, long long n_points,
+                                   HashLevels lv, void* stream) {
+  if (n_points == 0) return 0;
+  const long long total = n_points * lv.n_levels;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  hash_encode_bwd_kernel<<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(
+      x01, reinterpret_cast<const float2*>(g), grad_table, n_points, lv);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,9 @@
 """Training and serving steps (port of pvd_tpu/engine/train_steps.py).
 
+  * the teacher step (train_steps.py:85-118, 193-347), single-step preload
+    flavor: GT pixels gathered from the device-resident image, composited
+    on a per-pixel random background, a perturbed render, the image MSE,
+    then AdamW;
   * the distillation step (train_steps.py:121-190, 456-524), single-step
     flavor: the student renders with a perturbed march, the frozen teacher
     replays the student's compacted samples under `torch.no_grad()` (the
@@ -7,9 +11,9 @@
   * the occupancy refresh and the chunked full-image eval renderer
     (train_steps.py:621-731).
 
-The scan, error-map, EMA and data-parallel flavors and the teacher step are
-not ported yet (ROADMAP A9, A16, A17).  The state is updated in place: the
-student's parameters and the optimizer moments.
+The host-batcher, scan, error-map, EMA and data-parallel flavors are not
+ported yet (ROADMAP A9, A16, A17).  The state is updated in place: the
+trained field's parameters and the optimizer moments.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from pvd_tpu_torch.ops.rays import get_rays, pixel_dirs, random_pixels, rotate
 from pvd_tpu_torch.render.occupancy import (OccupancyState,
                                             update_density_grid)
 from pvd_tpu_torch.render.renderer import render_rays
+from pvd_tpu_torch.utils.misc import srgb_to_linear
 
 
 def _check_device(device: torch.device, **items):
@@ -44,8 +49,9 @@ def _param_device(field) -> torch.device:
 
 @dataclasses.dataclass
 class TrainState:
-    """A student in training: `field` (an nn.Module, updated in place),
-    its AdamW state, its occupancy grid and the step counter."""
+    """A field in training (teacher or student): `field` (an nn.Module,
+    updated in place), its AdamW state, its occupancy grid and the step
+    counter."""
 
     field: Any
     opt_state: AdamWState
@@ -90,6 +96,114 @@ def rgb_loss(pred, gt, loss_type: str):
         return torch.where(a < beta, 0.5 * a * a / beta,
                            a - 0.5 * beta).mean()
     raise ValueError(f"unknown loss_type {loss_type}")
+
+
+def compose_gt(pix, image_channels: int, bg_radius: float, bg):
+    """GT pixels for teacher training (train_steps.py:85-99): an RGBA
+    image composites rgb * a + bg * (1 - a), on white when a background
+    model exists (bg_radius > 0) and on the per-pixel random `bg` [N, 3]
+    otherwise.  Returns (gt [N, 3], the background to render with)."""
+    if image_channels == 4:
+        bg = 1.0 if bg_radius > 0 else bg
+        gt = pix[..., :3] * pix[..., 3:] + bg * (1.0 - pix[..., 3:])
+    else:
+        bg = 1.0
+        gt = pix[..., :3]
+    return gt, bg
+
+
+def teacher_loss(field, spec: ModelSpec, rspec: RenderSpec, cfg: PVDConfig,
+                 occ, o, d, gt, bg, u):
+    """The teacher objective (train_steps.py:102-118): the perturbed
+    render's image against gt, plus the VM L1 for a VM field.  Returns
+    (loss, (render outputs, per-ray MSE [N]))."""
+    out = render_rays(field, spec, rspec, occ, o, d, training=True,
+                      bg_color=bg, u=u)
+    per_ray = ((out["image"] - gt) ** 2).mean(-1)
+    if cfg.loss_type == "L2":
+        loss = per_ray.mean()
+    else:
+        loss = rgb_loss(out["image"], gt, cfg.loss_type)
+    if spec.model_type == "vm" and cfg.l1_reg_weight > 0:
+        loss = loss + cfg.l1_reg_weight * vm_density_l1(field)
+    return loss, (out, per_ray)
+
+
+def _adamw_step(state: TrainState, opt: GroupedAdamW, loss):
+    """Backward of `loss`, one AdamW update of the state's field, step + 1;
+    the gradients stay in `.grad`."""
+    params = dict(state.field.named_parameters())
+    loss.backward()
+    for p in params.values():  # leaves the loss does not reach
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    opt.update_(params, {n: p.grad for n, p in params.items()},
+                state.opt_state)
+    state.step += 1
+
+
+def _zero_grads(field):
+    for p in field.parameters():
+        p.grad = None
+
+
+def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
+                      cfg: PVDConfig, intrinsics, H: int, W: int,
+                      image_channels: int, device="cuda"):
+    """One teacher training step, single-step preload flavor
+    (train_steps.py:193-347, no error map, no EMA).
+
+    Returns step(state, pose [4, 4], image_flat [H*W, C], generator) ->
+    (state, metrics): it draws `cfg.num_rays` uniform pixels, then the
+    per-pixel background [N, 3] and the march perturbation u [N], all from
+    `generator`, gathers the pixels from `image_flat` (on the device) and
+    calls `step.core`, i.e. teacher_step_core(state, o, d, pix, bg, u) ->
+    (state, metrics): the color-space conversion, `compose_gt`, the loss,
+    its gradients (left in the field's `.grad`), one AdamW update and
+    step + 1.  Metrics: loss, psnr (of the batch against its gt),
+    budget_hit, mask_frac and, on the compacted path, compact_frac.
+    """
+    if cfg.bg_radius > 0:
+        raise NotImplementedError("bg_radius > 0 needs the background model "
+                                  "(ROADMAP A12)")
+    device = resolve_device(device)
+    intr = tuple(float(v) for v in intrinsics)
+
+    def teacher_step_core(state: TrainState, o, d, pix, bg, u):
+        _check_device(device, field=_param_device(state.field), rays_o=o,
+                      pix=pix)
+        if cfg.color_space == "linear":
+            pix = torch.cat([srgb_to_linear(pix[..., :3]), pix[..., 3:]],
+                            dim=-1)
+        gt, bg_r = compose_gt(pix, image_channels, cfg.bg_radius, bg)
+        _zero_grads(state.field)
+        loss, (out, _) = teacher_loss(state.field, spec, rspec, cfg,
+                                      state.occ, o, d, gt, bg_r, u)
+        _adamw_step(state, opt, loss)
+        with torch.no_grad():
+            metrics = {
+                "loss": loss.detach(),
+                "psnr": -10.0 * torch.log10(
+                    ((out["image"] - gt) ** 2).mean() + 1e-12),
+                "budget_hit": out["budget_hit_frac"],
+                "mask_frac": out["mask_frac"]}
+            if "compact_frac" in out:
+                metrics["compact_frac"] = out["compact_frac"]
+        return state, metrics
+
+    def step(state: TrainState, pose, image_flat, generator: torch.Generator):
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
+        inds = random_pixels(generator, cfg.num_rays, H, W, device)
+        rays = get_rays(pose[None], intr, H, W, inds)
+        pix = image_flat[inds]
+        n = inds.shape[0]
+        bg = torch.rand(n, 3, generator=generator, device=device)
+        u = torch.rand(n, generator=generator, device=device)
+        return teacher_step_core(state, rays["rays_o"][0].contiguous(),
+                                 rays["rays_d"][0].contiguous(), pix, bg, u)
+
+    step.core = teacher_step_core
+    return step
 
 
 def distill_loss(student, teacher, spec_stu: ModelSpec, spec_tea: ModelSpec,
@@ -179,19 +293,11 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
     def distill_step_core(state: TrainState, teacher, occ_tea, o, d, bg, u):
         _check_device(device, student=_param_device(state.field),
                       teacher=_param_device(teacher), rays_o=o)
-        params = dict(state.field.named_parameters())
-        for p in params.values():
-            p.grad = None
+        _zero_grads(state.field)
         loss, (logs, _) = distill_loss(
             state.field, teacher, spec_stu, spec_tea, rspec, cfg, stage,
             state.occ, occ_tea, o, d, bg, u, state.step)
-        loss.backward()
-        for p in params.values():  # leaves the loss does not reach
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        opt.update_(params, {n: p.grad for n, p in params.items()},
-                    state.opt_state)
-        state.step += 1
+        _adamw_step(state, opt, loss)
         return state, {k: v.detach() for k, v in logs.items()}
 
     def step(state: TrainState, teacher, occ_tea, pose,

@@ -38,7 +38,8 @@ MAX_LEVELS = 32  # csrc/hash_encode.cu PVD_MAX_LEVELS
 
 
 class HashLevels(ctypes.Structure):
-    """Per-level constants of K1, passed by value (csrc/hash_encode.cu)."""
+    """Per-level constants of K1 and K7, passed by value
+    (csrc/hash_encode.cu)."""
 
     _fields_ = [
         ("n_levels", ctypes.c_int),
@@ -82,6 +83,8 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     # x01, table, out, n_points, levels, stream
     "pvd_hash_encode_fwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
+    # x01, g [n, L*2], grad_table (zeroed), n_points, levels, stream
+    "pvd_hash_encode_bwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
     # rays_o, rays_d, nears, fars, u (nullable), bitfield, params,
     # t, dt, mask, delta_depth, t0, stream
     "pvd_march_rays": (_P, _P, _P, _P, _P, _P, MarchParams,
@@ -97,6 +100,15 @@ _SIGNATURES = {
     # stream
     "pvd_composite_compact_bwd": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
                                   _P, _P, _P, _P, _P, _P, _P),
+    # sigmas, rgbs, dt, delta_depth, mask [N, S], n_rays, S, early_stop,
+    # weights, weights_sum, depth, image, stream
+    "pvd_composite_padded_fwd": (_P, _P, _P, _P, _P, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                                 _P),
+    # sigmas, rgbs, dt, delta_depth, mask, weights (from the forward),
+    # n_rays, S, g_ws, g_depth, g_image, g_weights, d_sigma, d_rgb, stream
+    "pvd_composite_padded_bwd": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                                 ctypes.c_int, _P, _P, _P, _P, _P, _P, _P),
     # tables, xn, out [3, n, R], n, R, stream
     "pvd_vm_sample_fwd": (VMTables, _P, _P, ctypes.c_longlong, ctypes.c_int,
                           _P),
@@ -207,15 +219,6 @@ def check_cuda(name: str, **tensors) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
     return dev
-
-
-def check_no_grad(name: str, *tensors):
-    """For kernels without a backward: refuse to drop a gradient
-    silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP B); call "
-            "it under torch.no_grad()")
 
 
 def build_seconds() -> float:

@@ -3,6 +3,10 @@
 Encoder: 14 levels x 2 channels, base 16, desired resolution 2048*bound,
 2^19-row table -> 28-d encoding into the shared heads.  Positions map to
 [0, 1] through the cubic bound; the aabb is ignored, as in the JAX package.
+The field trains: `encoder` is a parameter, and `hash_encode` sends it a
+gradient (kernel K7 on the GPU) whenever grad mode is on.  The gradient is
+dense, as the JAX package's is, so AdamW updates all of its rows every
+step.
 """
 
 from __future__ import annotations

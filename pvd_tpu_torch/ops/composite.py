@@ -9,7 +9,10 @@
 `composite_rays_compact` works on the compacted sample stream: kernel K3
 forward and K6 backward (`csrc/composite.cu`) on CUDA tensors,
 `composite_rays_compact_plain` (differentiated by autograd) on CPU
-tensors.  `composite_rays` (padded [N, S] blocks) is plain PyTorch.
+tensors.  `composite_rays` works on padded [N, S] blocks: kernel K8
+forward and K9 backward on CUDA tensors, `composite_rays_plain` on CPU
+tensors.  Neither backward sends a gradient to dt, t_cum or delta_depth
+(they come from the march).
 """
 
 from __future__ import annotations
@@ -181,8 +184,8 @@ def composite_rays_compact(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
 composite_rays_compact.launches = 0
 
 
-def composite_rays(sigmas, rgbs, delta_t, delta_depth, mask,
-                   early_stop: bool = False):
+def composite_rays_plain(sigmas, rgbs, delta_t, delta_depth, mask,
+                         early_stop: bool = False):
     """Composite padded per-ray samples [N, S] (composite.py:97-123).
     Returns weights_sum [N], depth [N], image [N, 3], weights [N, S]."""
     m = mask.to(sigmas.dtype)
@@ -195,3 +198,134 @@ def composite_rays(sigmas, rgbs, delta_t, delta_depth, mask,
     t_cum = torch.cumsum(delta_depth * m, dim=-1)
     return (weights.sum(-1), (weights * t_cum).sum(-1),
             (weights[..., None] * rgbs).sum(-2), weights)
+
+
+def _check_padded(name, sigmas, rgbs, delta_t, delta_depth, mask):
+    dev = kernels.check_cuda(name, sigmas=sigmas, rgbs=rgbs, delta_t=delta_t,
+                             delta_depth=delta_depth, mask=mask)
+    if sigmas.ndim != 2:
+        raise ValueError(f"{name}: sigmas must be [N, S]")
+    N, S = sigmas.shape
+    for n, t, shape in (("sigmas", sigmas, (N, S)), ("rgbs", rgbs, (N, S, 3)),
+                        ("delta_t", delta_t, (N, S)),
+                        ("delta_depth", delta_depth, (N, S))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {n} must be float32 {shape}")
+    if mask.dtype != torch.bool or tuple(mask.shape) != (N, S):
+        raise ValueError(f"{name}: mask must be bool {(N, S)}")
+    return dev
+
+
+def composite_rays_fwd(sigmas, rgbs, delta_t, delta_depth, mask,
+                       early_stop: bool = False):
+    """Kernel K8 on CUDA tensors, no autograd.  Returns weights_sum [N],
+    depth [N], image [N, 3], weights [N, S]."""
+    dev = _check_padded("composite_rays", sigmas, rgbs, delta_t, delta_depth,
+                        mask)
+    N, S = sigmas.shape
+    weights = torch.empty(N, S, device=dev)
+    ws = torch.empty(N, device=dev)
+    depth = torch.empty(N, device=dev)
+    image = torch.empty(N, 3, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("pvd_composite_padded_fwd", sigmas.data_ptr(),
+                       rgbs.data_ptr(), delta_t.data_ptr(),
+                       delta_depth.data_ptr(), mask.data_ptr(), N, S,
+                       int(early_stop), weights.data_ptr(), ws.data_ptr(),
+                       depth.data_ptr(), image.data_ptr(),
+                       kernels.stream_ptr(sigmas))
+    composite_rays.launches += 1
+    return ws, depth, image, weights
+
+
+def composite_rays_bwd(sigmas, rgbs, delta_t, delta_depth, mask, weights,
+                       g_ws, g_depth, g_image, g_weights):
+    """Kernel K9: gradients (d sigmas [N, S], d rgbs [N, S, 3]) of a padded
+    composite (no early stop) from the upstream gradients of weights_sum
+    [N], depth [N], image [N, 3] and weights [N, S]; `weights` comes from
+    `composite_rays_fwd`.  CUDA tensors only; `composite_rays_bwd_plain`
+    is its PyTorch version."""
+    N, S = sigmas.shape
+    grads = {"g_ws": (g_ws, (N,)), "g_depth": (g_depth, (N,)),
+             "g_image": (g_image, (N, 3)), "g_weights": (g_weights, (N, S)),
+             "weights": (weights, (N, S))}
+    for n, (t, shape) in grads.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"composite_rays_bwd: {n} must be float32 "
+                             f"{shape}")
+    g_ws, g_depth, g_image, g_weights = (
+        t.contiguous() for t in (g_ws, g_depth, g_image, g_weights))
+    dev = _check_padded("composite_rays_bwd", sigmas, rgbs, delta_t,
+                        delta_depth, mask)
+    kernels.check_cuda("composite_rays_bwd", sigmas=sigmas, weights=weights,
+                       g_ws=g_ws, g_depth=g_depth, g_image=g_image,
+                       g_weights=g_weights)
+    d_sigma = torch.empty(N, S, device=dev)
+    d_rgb = torch.empty(N, S, 3, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("pvd_composite_padded_bwd", sigmas.data_ptr(),
+                       rgbs.data_ptr(), delta_t.data_ptr(),
+                       delta_depth.data_ptr(), mask.data_ptr(),
+                       weights.data_ptr(), N, S, g_ws.data_ptr(),
+                       g_depth.data_ptr(), g_image.data_ptr(),
+                       g_weights.data_ptr(), d_sigma.data_ptr(),
+                       d_rgb.data_ptr(), kernels.stream_ptr(sigmas))
+    composite_rays_bwd.launches += 1
+    return d_sigma, d_rgb
+
+
+composite_rays_bwd.launches = 0
+
+
+def composite_rays_bwd_plain(sigmas, rgbs, delta_t, delta_depth, mask,
+                             g_ws, g_depth, g_image, g_weights):
+    """K9's PyTorch version: autograd through `composite_rays_plain`."""
+    s = sigmas.detach().requires_grad_()
+    r = rgbs.detach().requires_grad_()
+    with torch.enable_grad():
+        outs = composite_rays_plain(s, r, delta_t, delta_depth, mask)
+        return torch.autograd.grad(outs, (s, r),
+                                   (g_ws, g_depth, g_image, g_weights))
+
+
+class _CompositePadded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sigmas, rgbs, delta_t, delta_depth, mask, early_stop):
+        ws, depth, image, weights = composite_rays_fwd(
+            sigmas, rgbs, delta_t, delta_depth, mask, early_stop)
+        ctx.save_for_backward(sigmas, rgbs, delta_t, delta_depth, mask,
+                              weights)
+        ctx.early_stop = early_stop
+        return ws, depth, image, weights
+
+    @staticmethod
+    def backward(ctx, g_ws, g_depth, g_image, g_weights):
+        if ctx.early_stop:
+            raise NotImplementedError(
+                "composite_rays: no backward with early_stop=True (an "
+                "inference-only setting)")
+        d_sigma, d_rgb = composite_rays_bwd(*ctx.saved_tensors, g_ws,
+                                            g_depth, g_image, g_weights)
+        return d_sigma, d_rgb, None, None, None, None
+
+
+def composite_rays(sigmas, rgbs, delta_t, delta_depth, mask,
+                   early_stop: bool = False):
+    """Composite padded per-ray samples [N, S], differentiable in sigmas
+    and rgbs.
+
+    Args: sigmas, delta_t, delta_depth [N, S] float32; rgbs [N, S, 3];
+    mask [N, S] bool.  Returns weights_sum [N], depth [N], image [N, 3],
+    weights [N, S].  CUDA tensors: forward K8, backward K9
+    (`csrc/composite.cu`); CPU tensors: the plain version, differentiated
+    by autograd.
+    """
+    if sigmas.device.type == "cpu":
+        return composite_rays_plain(sigmas, rgbs, delta_t, delta_depth, mask,
+                                    early_stop)
+    return _CompositePadded.apply(
+        sigmas.contiguous(), rgbs.contiguous(), delta_t.contiguous(),
+        delta_depth.contiguous(), mask.contiguous(), early_stop)
+
+
+composite_rays.launches = 0

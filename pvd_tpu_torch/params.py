@@ -54,6 +54,26 @@ def hash_field_from_jax(tree, spec: ModelSpec, device="cuda") -> HashField:
     return field
 
 
+def _val(p, grad: bool) -> np.ndarray:
+    """A parameter's value, or its `.grad` when `grad` (zeros where None),
+    as numpy."""
+    t = p if not grad else (p.grad if p.grad is not None
+                            else torch.zeros_like(p))
+    return t.detach().cpu().numpy()
+
+
+def hash_tree_from_field(field: HashField, grad: bool = False) -> dict:
+    """The JAX package's hash pytree (numpy leaves) of a HashField's
+    parameters, or of their `.grad` when `grad` (zeros where None)."""
+    return {
+        "encoder": _val(field.encoder, grad),
+        "sigma_net": [{"w": _val(lin.weight, grad).T.copy()}
+                      for lin in field.sigma_net],
+        "color_net": [{"w": _val(lin.weight, grad).T.copy()}
+                      for lin in field.color_net],
+    }
+
+
 def _leaf(x, want, name: str) -> np.ndarray:
     a = np.asarray(x, np.float32)
     if a.shape != tuple(want):
@@ -92,9 +112,7 @@ def vm_tree_from_field(field: VMField, grad: bool = False) -> dict:
     Rs = field.spec.vm_sigma_rank
 
     def val(p):
-        t = p if not grad else (p.grad if p.grad is not None
-                                else torch.zeros_like(p))
-        return t.detach().cpu().numpy()
+        return _val(p, grad)
 
     planes = [val(p) for p in field.planes]
     lines = [val(v) for v in field.lines]

@@ -7,7 +7,8 @@ dilated bitfield are march-side layouts of the same bits: the CUDA march
 
 Random draws are arguments: `update_density_grid` takes the jitter (and, in
 partial mode, the cells) as tensors, so a test can hand the JAX package's
-draws to both.
+draws to both.  `draw_occ_inputs` makes them from a `torch.Generator` as
+the JAX package draws them (occupancy.py:259-296).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from pvd_tpu_torch.config import RenderSpec
 from pvd_tpu_torch.device import resolve_device
+from pvd_tpu_torch.ops.fma import fma32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +74,81 @@ def query_points(coords, cas: int, jitter, rspec: RenderSpec):
     half = bound / H
     xyz = (2.0 * coords.float() / (H - 1) - 1.0) * (bound - half)
     return xyz + (jitter * 2.0 - 1.0) * half
+
+
+def draw_occ_inputs(generator: torch.Generator, state: OccupancyState,
+                    rspec: RenderSpec, full: bool):
+    """Random inputs of one `update_density_grid` call, on the grid's
+    device: (jitter, coords).
+
+    full: jitter [CAS, H^3, 3] uniform in [0, 1), coords None.
+    partial (occupancy.py:279-296): per cascade, H^3/4 uniform cells, then
+    H^3/4 cells resampled from the occupied ones (density > 0) by inverse
+    CDF, or the uniform cells again when none is occupied; jitter
+    [CAS, H^3/2, 3] and coords [CAS, H^3/2, 3].
+    """
+    H, C = rspec.grid_size, rspec.cascades
+    dev = state.density_grid.device
+    if full:
+        return torch.rand((C, H ** 3, 3), generator=generator,
+                          device=dev), None
+    n = H ** 3 // 4
+    jitters, coords = [], []
+    for cas in range(C):
+        rand_coords = torch.randint(0, H, (n, 3), generator=generator,
+                                    device=dev)
+        cdf = torch.cumsum((state.density_grid[cas].reshape(-1) > 0).float(),
+                           0)
+        total = cdf[-1]
+        u = torch.rand(n, generator=generator, device=dev) \
+            * total.clamp_min(1.0)
+        flat = torch.searchsorted(cdf, u, side="left").clamp(0, H ** 3 - 1)
+        occ_coords = torch.stack([flat // (H * H), (flat // H) % H, flat % H],
+                                 dim=-1)
+        occ_coords = torch.where(total > 0, occ_coords, rand_coords)
+        coords.append(torch.cat([rand_coords, occ_coords]))
+        jitters.append(torch.rand((2 * n, 3), generator=generator,
+                                  device=dev))
+    return torch.stack(jitters), torch.stack(coords)
+
+
+def mark_untrained_grid(state: OccupancyState, poses, intrinsics,
+                        rspec: RenderSpec, chunk: int = 64) -> OccupancyState:
+    """Mark cells seen by no training camera as -1 (occupancy.py:320-365).
+
+    poses [B, 4, 4] c2w (numpy or tensor); intrinsics (fx, fy, cx, cy).  A
+    cell counts as covered when its center lies in front of a camera and
+    inside its pinhole frustum, with a margin of one voxel.  The rotation
+    and the frustum test use XLA:CPU's FMA contractions (ops/fma.py), so the
+    marks equal the JAX package's.
+    """
+    H, C = rspec.grid_size, rspec.cascades
+    fx, fy, cx, cy = (float(v) for v in intrinsics)
+    grid = state.density_grid
+    dev = grid.device
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    world = 2.0 * grid_coords(H, dev).float() / (H - 1) - 1.0  # [M, 3]
+    counts = []
+    for cas in range(C):
+        bound = min(2.0 ** cas, rspec.bound)
+        half = bound / H
+        pts = world * (bound - half)
+        covered = torch.zeros(H ** 3, dtype=torch.int32, device=dev)
+        for head in range(0, poses.shape[0], chunk):
+            p = poses[head:head + chunk]
+            rel = pts[None] - p[:, None, :3, 3]  # [b, M, 3]
+            rot = p[:, None, :3, :3]  # [b, 1, 3, 3]
+            # rel @ R, the k-sum as XLA:CPU's FMA chain
+            cam = fma32(rel[..., 2:3], rot[..., 2, :],
+                        fma32(rel[..., 1:2], rot[..., 1, :],
+                              rel[..., 0:1] * rot[..., 0, :]))
+            mz = cam[..., 2] > 0
+            mx = cam[..., 0].abs() < fma32(cx / fx, cam[..., 2], half * 2)
+            my = cam[..., 1].abs() < fma32(cy / fy, cam[..., 2], half * 2)
+            covered += (mz & mx & my).sum(0, dtype=torch.int32)
+        counts.append(covered.reshape(H, H, H))
+    count = torch.stack(counts)
+    return state.replace(density_grid=torch.where(count == 0, -1.0, grid))
 
 
 def update_density_grid(

@@ -134,3 +134,59 @@ def test_composite_compact_grad_matches_jax(seed):
     # invalid slots get nothing
     assert not s_t.grad.numpy()[~valid].any()
     assert not r_t.grad.numpy()[~valid].any()
+
+
+def _padded_block(seed, N=16, S=24):
+    """A padded [N, S] block: arbitrary masks (eval) and prefix masks
+    (train), densities from empty to opaque, and upstream gradients of all
+    four outputs."""
+    rng = np.random.default_rng(seed)
+    mask = rng.uniform(size=(N, S)) < 0.6
+    lens = rng.integers(0, S + 1, N // 2)
+    mask[N // 2:] = np.arange(S)[None] < lens[:, None]
+    sig = rng.choice([0.0, 0.5, 3.0, 50.0, 1e4], size=(N, S)).astype(
+        np.float32)
+    sig *= rng.uniform(0.5, 1.5, (N, S)).astype(np.float32)
+    rgb = rng.uniform(0, 1, (N, S, 3)).astype(np.float32)
+    dt = np.where(mask, 0.027, rng.choice([0.0, 0.027], (N, S))).astype(
+        np.float32)
+    dd = rng.uniform(0.01, 0.1, (N, S)).astype(np.float32)
+    g = [rng.normal(size=s).astype(np.float32)
+         for s in ((N,), (N,), (N, 3), (N, S))]
+    return (sig, rgb, dt, dd, mask), g
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_composite_padded_grad_matches_jax(seed):
+    """d(sigma), d(rgb) of the padded composite against JAX's autodiff
+    (the cumprod), through autograd on the plain version and through
+    composite_rays_bwd_plain (K9's plain version)."""
+    import jax
+
+    from pvd_tpu_torch.ops.composite import composite_rays_bwd_plain
+
+    (sig, rgb, dt, dd, mask), g = _padded_block(seed)
+
+    def j_loss(s, r):
+        outs = j_composite_rays(s, r, jnp.asarray(dt), jnp.asarray(dd),
+                                jnp.asarray(mask))
+        return sum(jnp.sum(o * gi) for o, gi in zip(outs, g))
+
+    want = [np.asarray(w) for w in jax.grad(j_loss, argnums=(0, 1))(
+        jnp.asarray(sig), jnp.asarray(rgb))]
+    s_t = _t(sig).requires_grad_()
+    r_t = _t(rgb).requires_grad_()
+    outs = composite_rays(s_t, r_t, _t(dt), _t(dd), _t(mask))
+    sum((o * _t(gi)).sum() for o, gi in zip(outs, g)).backward()
+    plain = composite_rays_bwd_plain(_t(sig), _t(rgb), _t(dt), _t(dd),
+                                     _t(mask), *(_t(gi) for gi in g))
+    for got, w, name in ((s_t.grad, want[0], "sigma"),
+                         (r_t.grad, want[1], "rgb"),
+                         (plain[0], want[0], "sigma (bwd_plain)"),
+                         (plain[1], want[1], "rgb (bwd_plain)")):
+        assert np.abs(w).max() > 0
+        np.testing.assert_allclose(got.numpy(), w, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
+    # masked-out slots get nothing
+    assert not s_t.grad.numpy()[~mask].any()
+    assert not r_t.grad.numpy()[~mask].any()

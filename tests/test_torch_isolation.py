@@ -10,12 +10,17 @@ import torch
 from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
 from pvd_tpu_torch.engine.train_steps import (make_distill_step,
                                               make_eval_renderer,
-                                              make_occ_update)
+                                              make_occ_update,
+                                              make_teacher_step)
+from pvd_tpu_torch.engine.trainer import Trainer
 from pvd_tpu_torch.models.hash_field import HashField
 from pvd_tpu_torch.models.vm_field import VMField
-from pvd_tpu_torch.ops.composite import (composite_rays_compact,
+from pvd_tpu_torch.ops.composite import (composite_rays,
+                                         composite_rays_bwd,
+                                         composite_rays_compact,
                                          composite_rays_compact_bwd)
-from pvd_tpu_torch.ops.hashgrid import HashGridSpec, hash_encode
+from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, hash_encode,
+                                        hash_encode_bwd)
 from pvd_tpu_torch.ops.vm_sample import (vm_sample, vm_sample_bwd,
                                          vm_sample_fwd)
 from pvd_tpu_torch.params import vm_field_from_jax, vm_tree_from_field
@@ -38,6 +43,12 @@ def test_new_modules_are_checked():
     assert {"pvd_tpu_torch/models/vm_field.py",
             "pvd_tpu_torch/ops/vm_sample.py", "pvd_tpu_torch/engine/optim.py",
             "pvd_tpu_torch/engine/train_steps.py"} <= names
+    # the teacher slice's modules
+    assert {f"pvd_tpu_torch/{m}.py" for m in (
+        "ops/hashgrid", "models/hash_field", "params", "ops/composite",
+        "render/occupancy", "engine/train_steps", "utils/misc",
+        "utils/metrics", "engine/autotune", "data/poses", "data/synth",
+        "config", "engine/trainer")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -75,9 +86,12 @@ def _vm_tree():
     lambda: vm_field_from_jax(_vm_tree(), VM),
     lambda: make_distill_step(VM, SMALL, RSPEC, None, PVDConfig(),
                               (1, 1, 1, 1), 4, 4, stage=3),
+    lambda: make_teacher_step(SMALL, RSPEC, None, PVDConfig(), (1, 1, 1, 1),
+                              4, 4, image_channels=4),
+    lambda: Trainer(PVDConfig()),
 ], ids=["HashField", "make_occ_update", "make_eval_renderer",
         "init_occupancy_state", "VMField", "vm_field_from_jax",
-        "make_distill_step"])
+        "make_distill_step", "make_teacher_step", "Trainer"])
 def test_entry_points_need_a_gpu_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -139,3 +153,27 @@ def test_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError):
         hash_encode(torch.zeros(gs.table_size, 2, device="meta"),
                     torch.rand(5, 3), gs)
+
+
+def test_teacher_wrappers_take_the_plain_path_on_cpu_without_counting():
+    """K7 (through the hash encode's autograd), K8 and K9 (through the
+    padded composite's autograd): the plain versions on CPU tensors, and no
+    count."""
+    before = (hash_encode.launches, hash_encode_bwd.launches,
+              composite_rays.launches, composite_rays_bwd.launches)
+    gs = HashGridSpec(num_levels=2, log2_hashmap_size=12,
+                      desired_resolution=32)
+    table = torch.rand(gs.table_size, 2, requires_grad=True)
+    hash_encode(table, torch.rand(5, 3), gs).sum().backward()
+    assert table.grad.abs().sum() > 0
+    g = hash_encode_bwd(torch.rand(5, 3), torch.ones(5, 4), gs)
+    assert g.shape == (gs.table_size, 2)
+    sig = torch.ones(2, 3, requires_grad=True)
+    ws, _, img, w = composite_rays(
+        sig, torch.rand(2, 3, 3), torch.full((2, 3), 0.1), torch.ones(2, 3),
+        torch.tensor([[True, True, False], [True, False, False]]))
+    (ws.sum() + img.sum()).backward()
+    assert w.shape == (2, 3) and sig.grad[0, :2].abs().sum() > 0
+    assert sig.grad[0, 2] == 0 and sig.grad[1, 1:].abs().sum() == 0
+    assert (hash_encode.launches, hash_encode_bwd.launches,
+            composite_rays.launches, composite_rays_bwd.launches) == before
