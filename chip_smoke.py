@@ -30,7 +30,20 @@
    inputs from that run, profiles one padded and one compacted teacher
    step, and holds one small teacher step (padded and compacted) on the
    GPU against the CPU plain step.
-6. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+6. Runs the JAX package's quality A/B recipe (tools/quality_ab.py) through
+   the Trainer: the synthetic scene with 100/3/10 views at 96x96; a
+   cell-mode hash teacher (the 9 finest levels cell-packed, kernels K10 and
+   K11) for 3000 steps of 4096 rays at grid 64, whose val eval writes
+   `hash_best.ckpt` into a temporary workspace; then `Trainer(mode=
+   "distill")` loads that file and distills a VM student for 2000 steps
+   (stages 300/800, 4096 rays, max_samples 64, 6 samples per ray); both
+   are evaluated on the 10 test views (PSNR, SSIM).  Fails below 28.0 dB
+   (teacher), 27.5 dB (student) or more than 1.0 dB under the teacher.
+   Then holds K10 and K11 against their plain versions on the cell
+   teacher's padded and compacted batches, profiles one compacted teacher
+   step and one stage-3 distill step, and holds one small cell-mode
+   teacher step (padded and compacted) on the GPU against the CPU.
+7. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails or no GPU is present.
@@ -42,8 +55,10 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,7 +66,7 @@ import torch
 
 from pvd_tpu_torch import kernels
 from pvd_tpu_torch.config import ModelSpec, PVDConfig
-from pvd_tpu_torch.data.poses import pose_spherical
+from pvd_tpu_torch.data.poses import get_rand_poses, pose_spherical
 from pvd_tpu_torch.data.synth import make_synthetic_scene
 from pvd_tpu_torch.engine.optim import (build_optimizer, cosine_schedule,
                                         exp_decay_schedule)
@@ -74,8 +89,13 @@ from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
                                          composite_rays_fwd,
                                          composite_rays_plain)
 from pvd_tpu_torch.ops.fma import fma32
-from pvd_tpu_torch.ops.hashgrid import (hash_encode, hash_encode_bwd,
+from pvd_tpu_torch.ops.hashgrid import (cell_corners, hash_encode,
+                                        hash_encode_bwd,
                                         hash_encode_bwd_plain,
+                                        hash_encode_cell_bwd,
+                                        hash_encode_cell_bwd_plain,
+                                        hash_encode_cell_fwd,
+                                        hash_encode_cell_plain,
                                         hash_encode_plain, level_corners)
 from pvd_tpu_torch.ops.rays import get_rays, nerf_matrix_to_ngp
 from pvd_tpu_torch.ops.vm_sample import (vm_sample_bwd, vm_sample_bwd_plain,
@@ -99,7 +119,8 @@ OUR_KERNELS = ("hash_encode_fwd_kernel", "march_rays_kernel",
                "segment_bounds_kernel", "composite_kernel",
                "vm_sample_fwd_kernel", "vm_sample_bwd_kernel",
                "composite_bwd_kernel", "hash_encode_bwd_kernel",
-               "composite_padded_fwd_kernel", "composite_padded_bwd_kernel")
+               "composite_padded_fwd_kernel", "composite_padded_bwd_kernel",
+               "hash_cell_fwd_kernel", "hash_cell_bwd_kernel")
 TOL_K1, TOL_K2_DD, TOL_K3 = 1e-5, 1e-6, 1e-5
 # K4: the same f32 ops; K5: fp32 atomics add in a varying order, so each
 # gradient leaf is held to 1e-4 of its max |g|; K6: the closed form against
@@ -144,6 +165,32 @@ TOL_K7_REL, TOL_K8, TOL_K9 = 1e-4, 1e-5, 1e-5
 # teacher step at test sizes (tests/test_torch_teacher.py's), GPU vs CPU
 SMALL_TEACHER_CFG = dict(num_rays=256, grid_size=32, max_steps=128,
                          max_samples=32, precision="fp32")
+# the JAX package's quality A/B (tools/quality_ab.py:57-89): a cell-mode
+# hash teacher, its best checkpoint, hash -> VM distillation at 6 samples
+# per ray; its TPU run gave 31.40 dB (teacher) and 31.07 (student),
+# STATUS.md:78
+AB_SCENE = dict(n_train=100, n_val=3, n_test=10, H=96, W=96)
+AB_TEACHER = dict(model_type="hash", hash_cell_levels=9, iters=3000,
+                  grid_size=64, num_rays=4096, eval_interval=1000)
+AB_DISTILL = dict(teacher_type="hash", model_type="vm", hash_cell_levels=9,
+                  grid_size=64, iters=2000, stage1_iters=300,
+                  stage2_iters=800, num_rays=4096, max_samples=64,
+                  samples_per_ray=6.0, autotune_budget=False,
+                  eval_interval=1000)
+AB_JAX_TPU = {"teacher": 31.40, "student": 31.07}
+AB_TEACHER_FLOOR, AB_STUDENT_FLOOR, AB_MAX_DROP = 28.0, 27.5, 1.0
+AB_KERNELS = TEACHER_KERNELS + ("vm_sample_fwd", "vm_sample_bwd",
+                                "hash_encode_cell_fwd",
+                                "hash_encode_cell_bwd")
+# K10: the same f32 ops as the plain version in another order, held to
+# 1e-5 of max |out|; K11: fp32 atomics in a varying order, 1e-4 of the
+# gradient's max
+TOL_K10_REL, TOL_K11_REL = 1e-5, 1e-4
+# the cell spec of tests/test_cell_mode.py (2 cell levels) for the small
+# GPU-vs-CPU teacher step
+SMALL_CELL_TEA = dict(hash_num_levels=6, hash_base_res=4,
+                      hash_desired_res=64, hash_log2_size=9,
+                      hash_cell_levels=2, compute_dtype="float32")
 
 
 def object_like_bitfield(H: int) -> np.ndarray:
@@ -191,7 +238,7 @@ def random_hash_params(spec, rng: np.random.Generator) -> dict:
                  / np.float32(math.sqrt(i))}
                 for i, o in zip(dims[:-1], dims[1:])]
 
-    return {
+    tree = {
         "encoder": rng.uniform(-0.5, 0.5, (gs.table_size, 2))
         .astype(np.float32),
         "sigma_net": mlp([gs.output_dim, spec.hidden_dim,
@@ -199,6 +246,11 @@ def random_hash_params(spec, rng: np.random.Generator) -> dict:
         "color_net": mlp([spec.dir_sh_degree ** 2 + spec.geo_feat_dim,
                           spec.hidden_dim_color, spec.hidden_dim_color, 3]),
     }
+    if gs.cell_table_size:
+        tree["encoder_cell"] = rng.uniform(
+            -0.5, 0.5, (gs.cell_table_size, gs.cell_row_width)) \
+            .astype(np.float32)
+    return tree
 
 
 def random_vm_params(spec, rng: np.random.Generator) -> dict:
@@ -278,7 +330,9 @@ COUNTED = {"hash_encode": hash_encode, "march_rays": march_rays,
            "composite_rays_compact_bwd": composite_rays_compact_bwd,
            "hash_encode_bwd": hash_encode_bwd,
            "composite_rays": composite_rays,
-           "composite_rays_bwd": composite_rays_bwd}
+           "composite_rays_bwd": composite_rays_bwd,
+           "hash_encode_cell_fwd": hash_encode_cell_fwd,
+           "hash_encode_cell_bwd": hash_encode_cell_bwd}
 
 
 def counters() -> dict:
@@ -847,7 +901,7 @@ def check_teacher_kernels(trainer, scene, gen) -> tuple:
     return results, extra
 
 
-def teacher_step_flavors(trainer, scene) -> dict:
+def teacher_step_flavors(trainer, scene, label: str = "teacher") -> dict:
     """Launches of one teacher step and a profile of one step, for the
     padded (warm-up) and the compacted flavor, on the trained state."""
     train = scene["train"]
@@ -870,7 +924,7 @@ def teacher_step_flavors(trainer, scene) -> dict:
         launched = {k: v for k, v in counters().items() if v}
         prof = profile(lambda: step(trainer.state, poses[4], images[4],
                                     trainer.generator))
-        log(f"teacher {name} step: launches {json.dumps(launched)}; profile "
+        log(f"{label} {name} step: launches {json.dumps(launched)}; profile "
             f"wall {prof['wall_ms']:.2f} ms, device busy "
             f"{prof['device_busy_ms']:.2f} ms (share "
             f"{prof['device_busy_share']:.3f})")
@@ -882,11 +936,14 @@ def teacher_step_flavors(trainer, scene) -> dict:
     return out
 
 
-def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu")) -> dict:
+def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu"),
+                             spec_kw=SMALL_TEA) -> dict:
     """One teacher step at test sizes, padded and compacted: kernels on
-    the GPU against the plain path on the CPU, same params and draws."""
+    the GPU against the plain path on the CPU, same params and draws
+    (`spec_kw`: exact mode, or cell mode with SMALL_CELL_TEA)."""
     rng = np.random.default_rng(12)
-    spec = ModelSpec(**SMALL_TEA)
+    spec = ModelSpec(**spec_kw)
+    mode = "cell" if spec.hash_cell_levels else "exact"
     tree = random_hash_params(spec, rng)
     bits = rng.uniform(size=32 ** 3) < 0.25
     image = rng.uniform(size=(SMALL_HW ** 2, 4)).astype(np.float32)
@@ -938,8 +995,9 @@ def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu")) -> dict:
             hold = (np.abs(b) > STEP_MASK_FRAC * scale) | (b == 0)
             param_err = max(param_err, float(np.abs(pa - pb)[hold].max()))
         flavor = "compacted" if spr else "padded"
-        log(f"teacher step GPU kernels vs CPU plain (test sizes, {flavor}, "
-            f"f32 heads): max rel loss/metric diff {loss_err:.3g} (tol "
+        log(f"{mode}-mode teacher step GPU kernels vs CPU plain (test "
+            f"sizes, {flavor}, f32 heads): max rel loss/metric diff "
+            f"{loss_err:.3g} (tol "
             f"{STEP_LOSS_RTOL:g}); max grad diff / leaf max {grad_err:.3g} "
             f"(tol {STEP_GRAD_REL_ATOL:g} + rtol {STEP_GRAD_RTOL:g}); max "
             f"param diff under the gradient mask {param_err:.3g} (tol "
@@ -947,12 +1005,267 @@ def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu")) -> dict:
             f"{lc['mask_frac']:.3f}")
         if not (loss_err <= STEP_LOSS_RTOL and grad_ok
                 and param_err <= STEP_PARAM_TOL):
-            raise RuntimeError(f"the GPU teacher step ({flavor}) disagrees "
-                               "with the CPU plain step")
+            raise RuntimeError(f"the GPU {mode}-mode teacher step "
+                               f"({flavor}) disagrees with the CPU plain "
+                               "step")
         report[flavor] = {"loss_rel_err": loss_err,
                           "grad_err_rel_leaf_max": grad_err,
                           "param_err": param_err}
     return report
+
+
+def drive_ab_recipe(seed: int, workspace: str) -> tuple:
+    """The JAX package's quality A/B through the Trainer: a cell-mode hash
+    teacher whose val eval writes `hash_best.ckpt`, then a distill Trainer
+    that loads that file and trains a VM student; both evaluated on the
+    test views.  Returns (teacher trainer, student trainer, scene, info)."""
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(**AB_SCENE, seed=seed,
+                                 scale=PVDConfig().scale)
+    scene_s = time.perf_counter() - t0
+    cfg_t = PVDConfig(**AB_TEACHER, seed=seed,
+                      workspace=os.path.join(workspace, "teacher"))
+    tea = Trainer(cfg_t)
+    gs = tea.state.field.grid
+    log(f"A/B recipe: {AB_SCENE} (scene made in {scene_s:.1f} s); teacher "
+        f"hash, cell levels {gs.cell_levels} (cell table "
+        f"{gs.cell_table_size} x {gs.cell_row_width}, corner table "
+        f"{gs.table_size} x 2), {cfg_t.iters} steps of {cfg_t.num_rays} "
+        f"rays, grid {cfg_t.grid_size}, heads {tea.spec.compute_dtype}")
+    tea.train(scene["train"], valid_ds=scene["val"])
+    best = os.path.join(tea.workspace, "checkpoints", "hash_best.ckpt")
+    if not os.path.exists(best):
+        raise RuntimeError(f"the teacher's val eval wrote no {best}")
+    st_t = tea.evaluate(scene["test"])
+    hist = tea.history
+    first = float(np.mean([float(m["psnr"]) for m in hist[:16]]))
+    last = float(np.mean([float(m["psnr"]) for m in hist[-16:]]))
+
+    cfg_d = PVDConfig(**AB_DISTILL, seed=seed,
+                      workspace=os.path.join(workspace, "h2v"))
+    stu = Trainer(cfg_d, mode="distill")
+    stu.load_teacher(best)
+    log(f"A/B distill: vm {stu.spec_stu.vm_resolution} ranks "
+        f"{stu.spec_stu.vm_sigma_rank}/{stu.spec_stu.vm_color_rank}, "
+        f"{cfg_d.iters} steps (stages at {cfg_d.stage1_iters}/"
+        f"{cfg_d.stage2_iters}) of {cfg_d.num_rays} rays, max_samples "
+        f"{cfg_d.max_samples}, samples_per_ray {cfg_d.samples_per_ray:g}; "
+        f"teacher from {os.path.basename(best)}")
+    stu.train(scene["train"], valid_ds=scene["val"])
+    st_s = stu.evaluate(scene["test"])
+    st_tt = stu.evaluate(scene["test"], use_teacher=True)
+
+    def brief(st):
+        return {k: st[k] for k in ("psnr", "ssim", "eval_s_per_image",
+                                   "eval_s_first_image")}
+
+    info = {"teacher": brief(st_t), "student": brief(st_s),
+            "teacher_reloaded": brief(st_tt),
+            "teacher_train_psnr_first16": first,
+            "teacher_train_psnr_last16": last,
+            "teacher_train_stats": tea.train_stats,
+            "student_train_stats": stu.train_stats,
+            "teacher_rspec_final": {
+                "max_samples": tea.rspec.max_samples,
+                "samples_per_ray": tea.rspec.samples_per_ray},
+            "jax_tpu_reference": AB_JAX_TPU}
+    for name, st in (("teacher", st_t), ("student", st_s),
+                     ("teacher reloaded by the distill Trainer", st_tt)):
+        log(f"A/B {name}: test PSNR {st['psnr']:.3f} dB, SSIM "
+            f"{st['ssim']:.4f} over {len(scene['test'])} views, "
+            f"{st['eval_s_per_image'] * 1e3:.1f} ms per image")
+    log(f"A/B reference (JAX package, TPU, STATUS.md:78): teacher "
+        f"{AB_JAX_TPU['teacher']}, student {AB_JAX_TPU['student']}")
+    log("A/B teacher train_stats " + json.dumps(tea.train_stats))
+    log("A/B student train_stats " + json.dumps(stu.train_stats))
+    pt, ps = st_t["psnr"], st_s["psnr"]
+    if not (np.isfinite(pt) and pt >= AB_TEACHER_FLOOR):
+        raise RuntimeError(f"A/B teacher test PSNR {pt:.3f} < "
+                           f"{AB_TEACHER_FLOOR}")
+    if not (np.isfinite(ps) and ps >= AB_STUDENT_FLOOR
+            and ps >= pt - AB_MAX_DROP):
+        raise RuntimeError(f"A/B student test PSNR {ps:.3f}: floor "
+                           f"{AB_STUDENT_FLOOR}, teacher {pt:.3f} - "
+                           f"{AB_MAX_DROP}")
+    if abs(st_tt["psnr"] - pt) > 1e-3:
+        raise RuntimeError("the teacher reloaded from its checkpoint "
+                           f"renders {st_tt['psnr']:.3f} dB, trained "
+                           f"{pt:.3f}")
+    if not last > first:
+        raise RuntimeError("A/B teacher train-batch PSNR did not rise")
+    return tea, stu, scene, info
+
+
+def cell_case(trainer, x01, valid, gen) -> dict:
+    """K10 and K11 against their plain versions on one batch of the cell
+    teacher's points, with times, bounds and library yardsticks."""
+    field = trainer.state.field
+    gs = field.grid
+    table, cell = field.encoder.detach(), field.encoder_cell.detach()
+    dev = x01.device
+    P, Lc = x01.shape[0], len(gs.cell_levels)
+    # K1 + K10 into one output, and K10 alone, against the plain versions
+    with torch.no_grad():
+        full_k = hash_encode(table, x01, gs, cell)
+    full_p = hash_encode_plain(table, x01, gs, cell)
+    # K10 alone fills the cell levels' slots of the shared [P, 28] output
+    out10 = torch.zeros(P, gs.output_dim, device=dev)
+    cols = [c for lv in gs.cell_levels for c in (2 * lv, 2 * lv + 1)]
+    k10 = hash_encode_cell_fwd(cell, x01, gs, out10)[:, cols]
+    p10 = hash_encode_cell_plain(cell, x01, gs)
+    err10 = max(max_abs(full_k, full_p) / float(full_p.abs().max()),
+                max_abs(k10, p10) / float(p10.abs().max()))
+    abs10 = max(max_abs(full_k, full_p), max_abs(k10, p10))
+    g = torch.randn(P, gs.output_dim, generator=gen, device=dev) \
+        * valid.reshape(-1, 1)
+    k11 = hash_encode_cell_bwd(x01, g, gs)
+    p11 = hash_encode_cell_bwd_plain(x01, g, gs)
+    abs11 = max_abs(k11, p11)
+    err11 = abs11 / float(p11.abs().max())
+    # the corner rows and weights each (point, cell level) pair needs
+    rows, ws = [], []
+    for level in gs.cell_levels:
+        w, r = cell_corners(x01, gs, level)
+        rows.append(r)
+        ws.append(w.T)
+    rows, ws = torch.stack(rows, 1), torch.stack(ws, 1)  # [P, Lc], [.., 8]
+    inside = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    g_cell = g.reshape(P, gs.num_levels, 2)[:, gs.cell_levels]  # [P, Lc, 2]
+    active = (g_cell != 0).any(-1) & inside[:, None]
+    n_active = int(active.sum())
+    touched = int(rows[inside].unique().numel())
+    # bytes: x01 and the touched 64-byte rows read once, [P, Lc, 2] out
+    # written once; ops: ~50 per pair (lattice, 8 weights, 16 FMAs)
+    b10 = bound(P * 12 + touched * 64 + P * Lc * 8, P * Lc * 50)
+    # bytes: x01 and g's cell slots read once, the dense [Tc, 16] gradient
+    # written once; ops: ~66 per active pair (the weights, 16 products)
+    b11 = bound(P * 12 + P * Lc * 8 + gs.cell_table_size * 64,
+                n_active * 66)
+    # library yardsticks on the precomputed rows and weights: one
+    # embedding_bag (gather + weighted sum over the 8 corners of a row,
+    # viewed as [Tc * 8, 2]) and one index_add_ (the scatter alone)
+    import torch.nn.functional as F
+
+    bag_idx = (rows[..., None] * 8 + torch.arange(8, device=dev)) \
+        .reshape(-1, 8)
+    bag_w = ws.reshape(-1, 8).contiguous()
+    cell8 = cell.reshape(-1, 2)
+
+    def lib10():
+        return F.embedding_bag(bag_idx, cell8, mode="sum",
+                               per_sample_weights=bag_w)
+
+    lib10_err = max_abs(lib10().reshape(P, Lc * 2), p10)
+    add_rows = rows.reshape(-1)
+    add_vals = (ws[..., :, None] * g_cell[:, :, None, :]).reshape(P * Lc, 16)
+
+    def lib11():
+        return torch.zeros(gs.cell_table_size, 16, device=dev).index_add_(
+            0, add_rows, add_vals)
+
+    return {"err10": err10, "abs10": abs10, "err11": err11, "abs11": abs11,
+            "points": P, "pairs": P * Lc, "active_pairs": n_active,
+            "touched_rows": touched, "bound10": b10, "bound11": b11,
+            "t10": timings(lambda: hash_encode_cell_fwd(cell, x01, gs,
+                                                        out10),
+                           lambda: hash_encode_cell_plain(cell, x01, gs)),
+            "t11": timings(lambda: hash_encode_cell_bwd(x01, g, gs),
+                           lambda: hash_encode_cell_bwd_plain(x01, g, gs)),
+            "lib10_ms": cuda_ms(lib10), "lib10_abs_err": lib10_err,
+            "lib11_ms": cuda_ms(lib11)}
+
+
+def check_cell_kernels(trainer, scene, gen) -> tuple:
+    """K10 and K11 on the cell teacher's padded warm-up batch and its
+    compacted batch (the kernels line carries the compacted one)."""
+    b = trainer.rspec.bound
+    rs_pad = dataclasses.replace(trainer.rspec,
+                                 max_samples=trainer.cfg.max_samples,
+                                 samples_per_ray=0.0)
+    o, d, s = teacher_batch(trainer, scene, gen, rs_pad)
+    xyz = fma32(s.t[..., None], d[:, None, :], o[:, None, :]).clamp(-b, b)
+    x01_pad = ((xyz.reshape(-1, 3) + b) / (2.0 * b)).contiguous()
+    rs_c = trainer.rspec
+    _, _, s_c = teacher_batch(trainer, scene, gen, rs_c)
+    budget = rs_c.sample_budget(trainer.cfg.num_rays)
+    cmp = compact_samples(s_c.mask, budget, prefix=True)
+    rid = cmp.ray_id
+    t_c = s_c.t.reshape(-1)[cmp.idx]
+    xyz_c = fma32(t_c[:, None], d[rid], o[rid]).clamp(-b, b)
+    x01_c = ((xyz_c + b) / (2.0 * b)).contiguous()
+    cases = {"padded": cell_case(trainer, x01_pad, s.mask.reshape(-1), gen),
+             "compacted": cell_case(trainer, x01_c, cmp.valid, gen)}
+    for name, c in cases.items():
+        log(f"K10/K11 {name} batch: {c['points']} points, {c['pairs']} "
+            f"(point, cell level) pairs ({c['active_pairs']} active), "
+            f"{c['touched_rows']} cell rows touched; K10 rel err "
+            f"{c['err10']:.3g}, {c['t10']['ms']:.4f} ms (call "
+            f"{c['t10']['call_ms']:.4f}, plain {c['t10']['plain_ms']:.4f}, "
+            f"embedding_bag {c['lib10_ms']:.4f}, bound "
+            f"{c['bound10'][0]:.4f} {c['bound10'][1]}); K11 rel err "
+            f"{c['err11']:.3g}, {c['t11']['ms']:.4f} ms (call "
+            f"{c['t11']['call_ms']:.4f}, plain {c['t11']['plain_ms']:.4f}, "
+            f"index_add_ {c['lib11_ms']:.4f}, bound {c['bound11'][0]:.4f} "
+            f"{c['bound11'][1]})")
+        if not (c["err10"] <= TOL_K10_REL and c["err11"] <= TOL_K11_REL):
+            raise RuntimeError(f"K10/K11 disagree with their plain versions "
+                               f"on the {name} batch")
+    c = cases["compacted"]
+    shape = (f"{c['points']} compacted pts x "
+             f"{len(trainer.state.field.grid.cell_levels)} cell levels "
+             f"({c['active_pairs']} active pairs)")
+    results = [
+        dict(name="hash_encode_cell_fwd",
+             source="pvd_tpu_torch/csrc/hash_encode.cu",
+             replaces="pvd_tpu/ops/hashgrid.py:332", err=c["err10"],
+             abs_err=c["abs10"], tol=TOL_K10_REL,
+             err_kind="max |kernel - plain| / max |plain|", **c["t10"],
+             library_ms=c["lib10_ms"],
+             library_call="F.embedding_bag(mode='sum', per_sample_weights) "
+             "on the precomputed corner rows and weights",
+             bound=c["bound10"], shape=shape),
+        dict(name="hash_encode_cell_bwd",
+             source="pvd_tpu_torch/csrc/hash_encode.cu",
+             replaces="pvd_tpu/ops/hashgrid.py:362", err=c["err11"],
+             abs_err=c["abs11"], tol=TOL_K11_REL,
+             err_kind="max |kernel - plain| / max |plain|", **c["t11"],
+             library_ms=c["lib11_ms"],
+             library_call="index_add_ of the precomputed row contributions "
+             "(scatter only)", bound=c["bound11"], shape=shape)]
+    extra = {"padded": cases["padded"],
+             "vector_atomics": bool(kernels.load()
+                                    .pvd_hash_cell_vector_atomics())}
+    return results, extra
+
+
+def distill_step_profile(stu, scene, gen) -> dict:
+    """Launches and a profile of one stage-3 step of the distill Trainer's
+    state, from one of its random poses."""
+    train = scene["train"]
+    intr = tuple(float(v) for v in train.intrinsics)
+    step = make_distill_step(stu.spec_stu, stu.spec_tea, stu.rspec, stu.opt,
+                             stu.cfg, intr, train.H, train.W, 3,
+                             device=stu.device)
+    pose = torch.as_tensor(get_rand_poses(np.random.default_rng(0))[0],
+                           device=stu.device)
+    for _ in range(3):  # warm-up
+        step(stu.state, stu.teacher, stu.occ_tea, pose, gen)
+    torch.cuda.synchronize()
+    reset_counters()
+    step(stu.state, stu.teacher, stu.occ_tea, pose, gen)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counters().items() if v}
+    prof = profile(lambda: step(stu.state, stu.teacher, stu.occ_tea, pose,
+                                gen))
+    log(f"A/B distill stage-3 step: launches {json.dumps(launched)}; "
+        f"profile wall {prof['wall_ms']:.2f} ms, device busy "
+        f"{prof['device_busy_ms']:.2f} ms (share "
+        f"{prof['device_busy_share']:.3f})")
+    for row in prof["top"]:
+        log(f"  {row['ms']:9.3f} ms {row['calls']:6d} x {row['kernel']}")
+    for kname, row in prof["ours"].items():
+        log(f"  ours: {row['ms']:9.3f} ms {row['calls']:6d} x {kname}")
+    return {"launches_per_step": launched, "profile": prof}
 
 
 def main(argv=None) -> int:
@@ -1235,6 +1548,28 @@ def main(argv=None) -> int:
     results += t_results
     flavors = teacher_step_flavors(trainer, scene)
     teacher_check = small_teacher_gpu_vs_cpu()
+    del trainer
+
+    # ---- main path 4: the quality A/B recipe (cell-mode teacher ->
+    # checkpoint -> distill Trainer -> test eval) ----------------------------
+    with tempfile.TemporaryDirectory(prefix="pvd_ab_") as ws:
+        reset_counters()
+        t0 = time.perf_counter()
+        tea_ab, stu_ab, scene_ab, ab = drive_ab_recipe(args.seed, ws)
+        ab["wall_s"] = time.perf_counter() - t0
+        ab_launches = counters()
+    log(f"launches on the A/B path ({AB_TEACHER['iters']} teacher + "
+        f"{AB_DISTILL['iters']} distill steps, evals included, "
+        f"{ab['wall_s']:.1f} s): {json.dumps(ab_launches)}")
+    for name in AB_KERNELS:
+        if ab_launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the A/B "
+                               "path")
+    c_results, c_extra = check_cell_kernels(tea_ab, scene_ab, gen)
+    results += c_results
+    ab_flavors = teacher_step_flavors(tea_ab, scene_ab, "cell teacher")
+    ab_distill = distill_step_profile(stu_ab, scene_ab, gen)
+    cell_check = small_teacher_gpu_vs_cpu(spec_kw=SMALL_CELL_TEA)
 
     bad = [r["name"] for r in results if not r["err"] <= r["tol"]]
     for r in results:
@@ -1255,10 +1590,17 @@ def main(argv=None) -> int:
         if name in SERVE_KERNELS:
             f = {"launches": launches[name],
                  "launches_per_image": launches[name] / len(poses)}
-        elif distill_launches[name]:
-            f = {"launches": distill_launches[name]}
         else:
-            f = {"launches": teacher_launches[name]}
+            # the first path that runs it
+            f = {"launches": next((n for n in (
+                distill_launches[name], teacher_launches[name],
+                ab_launches[name]) if n), 0)}
+        f["launches_ab"] = ab_launches[name]
+        f["launches_per_ab_step"] = {
+            "teacher_" + flv: v["launches_per_step"].get(name, 0)
+            for flv, v in ab_flavors.items()}
+        f["launches_per_ab_step"]["distill_stage3"] = \
+            ab_distill["launches_per_step"].get(name, 0)
         f["launches_distill"] = distill_launches[name]
         f["launches_per_distill_step"] = distill_launches[name] / n_steps
         f["launches_teacher"] = teacher_launches[name]
@@ -1292,6 +1634,12 @@ def main(argv=None) -> int:
                     "profiles": {k: brief(v["profile"])
                                  for k, v in flavors.items()},
                     "gpu_vs_cpu_step": teacher_check},
+        "ab_recipe": {**ab, "launches": ab_launches, "cell_kernels": c_extra,
+                      "teacher_profiles": {
+                          k: brief(v["profile"])
+                          for k, v in ab_flavors.items()},
+                      "distill_stage3_profile": brief(ab_distill["profile"]),
+                      "cell_gpu_vs_cpu_step": cell_check},
         "card": card}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

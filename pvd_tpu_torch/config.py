@@ -1,13 +1,17 @@
-"""Typed configuration (port of pvd_tpu/config.py:20-163).
+"""Typed configuration (port of pvd_tpu/config.py:20-328).
 
 Only the fields this port reads so far (the serving path, the distill
-step and the teacher Trainer).  Defaults and derived properties
-(`RenderSpec.cascades`, `RenderSpec.sample_budget`) are the JAX package's.
+step, the teacher and distill Trainer and its checkpoints).  Defaults and
+derived properties (`RenderSpec.cascades`, `RenderSpec.sample_budget`) are
+the JAX package's.  `PVDConfig.to_json` / `from_json` read and write the
+checkpoint's `config_json`; fields the other package does not have are
+dropped on read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
 MODEL_TYPES = ("hash", "mlp", "vm", "tensors")
@@ -32,6 +36,9 @@ class ModelSpec:
     hash_base_res: int = 16
     hash_log2_size: int = 19
     hash_desired_res: int = 2048
+    # the finest N hashed levels store a cell's 8 corners in one row of a
+    # separate cell table (ops/hashgrid.py); 0 = exact mode
+    hash_cell_levels: int = 0
     # vm (TensoRF-VM): plane/line ranks and per-axis resolution
     vm_sigma_rank: int = 16
     vm_color_rank: int = 48
@@ -78,11 +85,13 @@ class RenderSpec:
 @dataclasses.dataclass
 class PVDConfig:
     """The experiment fields the serving path, the distill step and the
-    teacher Trainer read (config.py:165-318)."""
+    Trainer read (config.py:165-318)."""
 
+    workspace: str = "workspace"
     seed: int = 0
     iters: int = 40000
     lr: float = 1e-2
+    ckpt: str = "latest"
     num_rays: int = 8192
     max_steps: int = 1024
     update_extra_interval: int = 16
@@ -98,14 +107,21 @@ class PVDConfig:
     bg_radius: float = -1.0
     grid_size: int = 128
     error_map: bool = False
+    # <0 no random-pose augmentation; 0 only random orbit poses; >0 one
+    # orbit pose per `rand_pose` scheduled poses (distillation only)
+    rand_pose: int = -1
+    data_type: str = "synthetic"  # synthetic | llff | tank
     model_type: str = "hash"
     teacher_type: str = "hash"
     sigma_clip_min: float = -2.0
     sigma_clip_max: float = 7.0
     resolution0: int = 300
+    resolution1: int = 300
     upsample_model_steps: tuple = ()
     # distillation
     distill_mode: str = "no_fix_mlp"  # fix_mlp | no_fix_mlp
+    stage1_iters: int = 2000
+    stage2_iters: int = 5000
     loss_type: str = "L2"  # L2 | normL2 | normL1 | smoothL1
     loss_rate_rgb: float = 1.0
     loss_rate_fea_sc: float = 0.002
@@ -113,12 +129,20 @@ class PVDConfig:
     loss_rate_sigma: float = 0.002
     l1_reg_weight: float = 1e-4
     ema_decay: float = -1.0
+    ckpt_teacher: str = ""
+    ckpt_student: str = ""
+    update_stu_extra: bool = False  # refresh student occupancy in distill
     max_samples: int = 96
     samples_per_ray: float = 16.0
     autotune_budget: bool = True
     n_devices: int = 1
     scan_steps: int = 0
+    hash_cell_levels: int = 0
+    eval_interval: int = 50  # epochs between evaluations on valid_ds
     wall_budget: float = 0.0
+
+    def __post_init__(self):
+        self.upsample_model_steps = tuple(self.upsample_model_steps)
 
     def model_spec(self, model_type: str | None = None) -> ModelSpec:
         return ModelSpec(
@@ -129,6 +153,7 @@ class PVDConfig:
             sigma_clip_min=self.sigma_clip_min,
             sigma_clip_max=self.sigma_clip_max,
             vm_resolution=(self.resolution0,) * 3,
+            hash_cell_levels=self.hash_cell_levels,
         )
 
     def render_spec(self) -> RenderSpec:
@@ -142,3 +167,12 @@ class PVDConfig:
             max_samples=self.max_samples,
             samples_per_ray=self.samples_per_ray,
         )
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "PVDConfig":
+        raw = json.loads(text)
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in fields})

@@ -38,12 +38,15 @@ MAX_LEVELS = 32  # csrc/hash_encode.cu PVD_MAX_LEVELS
 
 
 class HashLevels(ctypes.Structure):
-    """Per-level constants of K1 and K7, passed by value
-    (csrc/hash_encode.cu)."""
+    """The level list of one K1, K7, K10 or K11 launch and its per-level
+    constants, passed by value (csrc/hash_encode.cu): entry i fills level
+    slot `level[i]` of a row of `out_levels` slots."""
 
     _fields_ = [
         ("n_levels", ctypes.c_int),
+        ("out_levels", ctypes.c_int),
         ("hash_mask", ctypes.c_uint32),
+        ("level", ctypes.c_int * MAX_LEVELS),
         ("offset", ctypes.c_int * MAX_LEVELS),
         ("side", ctypes.c_int * MAX_LEVELS),
         ("hashed", ctypes.c_int * MAX_LEVELS),
@@ -85,6 +88,11 @@ _SIGNATURES = {
     "pvd_hash_encode_fwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
     # x01, g [n, L*2], grad_table (zeroed), n_points, levels, stream
     "pvd_hash_encode_bwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
+    # x01, cell_table [Tc, 16], out, n_points, cell levels, stream
+    "pvd_hash_cell_fwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
+    # x01, g [n, L*2], grad_cell (zeroed), n_points, cell levels, stream
+    "pvd_hash_cell_bwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
+    "pvd_hash_cell_vector_atomics": (),
     # rays_o, rays_d, nears, fars, u (nullable), bitfield, params,
     # t, dt, mask, delta_depth, t0, stream
     "pvd_march_rays": (_P, _P, _P, _P, _P, _P, MarchParams,

@@ -3,10 +3,13 @@
 Encoder: 14 levels x 2 channels, base 16, desired resolution 2048*bound,
 2^19-row table -> 28-d encoding into the shared heads.  Positions map to
 [0, 1] through the cubic bound; the aabb is ignored, as in the JAX package.
-The field trains: `encoder` is a parameter, and `hash_encode` sends it a
-gradient (kernel K7 on the GPU) whenever grad mode is on.  The gradient is
-dense, as the JAX package's is, so AdamW updates all of its rows every
-step.
+With `hash_cell_levels` > 0 the finest hashed levels are cell-packed
+(hash_field.py:31-56): the field then has a second table, `encoder_cell`
+[n_cell * 2^16, 16], and the corner table `encoder` holds only the other
+levels.  The field trains: the tables are parameters, and `hash_encode`
+sends each a gradient (kernels K7 and K11 on the GPU) whenever grad mode is
+on.  The gradients are dense, as the JAX package's are, so AdamW updates
+all of their rows every step.
 """
 
 from __future__ import annotations
@@ -30,14 +33,16 @@ def grid_spec(spec: ModelSpec) -> HashGridSpec:
         base_resolution=spec.hash_base_res,
         log2_hashmap_size=spec.hash_log2_size,
         desired_resolution=int(spec.hash_desired_res * spec.bound),
+        n_cell_levels=spec.hash_cell_levels,
     )
 
 
 class HashField(nn.Module):
-    """Hash table [T, 2] + sigma_net + color_net.
+    """Hash table [T, 2] (+ cell table [Tc, 16] in cell mode) + sigma_net
+    + color_net.
 
     `device` defaults to CUDA and raises without a GPU unless "cpu" is
-    passed.  Initial values follow the JAX package's init (table
+    passed.  Initial values follow the JAX package's init (tables
     U(-1e-4, 1e-4), Linear default init), drawn from `generator`.
     """
 
@@ -53,6 +58,12 @@ class HashField(nn.Module):
                             device=device)
         table.uniform_(-1e-4, 1e-4, generator=generator)
         self.encoder = nn.Parameter(table)
+        self.encoder_cell = None
+        if self.grid.cell_table_size:
+            cell = torch.empty(self.grid.cell_table_size,
+                               self.grid.cell_row_width, device=device)
+            cell.uniform_(-1e-4, 1e-4, generator=generator)
+            self.encoder_cell = nn.Parameter(cell)
         self.sigma_net = make_mlp(
             mlp_dims(self.grid.output_dim, spec.hidden_dim,
                      1 + spec.geo_feat_dim, spec.num_layers), device)
@@ -63,7 +74,7 @@ class HashField(nn.Module):
 
     def encode(self, x):
         x01 = (x + self.spec.bound) / (2.0 * self.spec.bound)
-        return hash_encode(self.encoder, x01, self.grid)
+        return hash_encode(self.encoder, x01, self.grid, self.encoder_cell)
 
     def forward(self, x, d, want_color: bool = True) -> FieldOut:
         """x: [N, 3] in [-bound, bound]; d: [N, 3] unit directions."""

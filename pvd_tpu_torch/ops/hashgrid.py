@@ -1,18 +1,25 @@
 """Multi-resolution hash-grid encoding, INGP (port of pvd_tpu/ops/hashgrid.py).
 
 `HashGridSpec` reproduces the JAX package's table layout exactly: per-level
-offsets rounded up to 8 rows, `per_level_scale`, `level_scale`, and which
-levels are hashed (hashgrid.py:37-143).  `hash_encode` is exact mode only
-(no cell levels, no baked or packed dense tables: those are TPU gather
-layouts of the same values).
+offsets rounded up to 8 rows, `per_level_scale`, `level_scale`, which
+levels are hashed, and the cell-packed levels (hashgrid.py:37-143).  With
+`n_cell_levels` > 0 the finest hashed levels are cell levels: each lattice
+cell's 2^D corner features sit in one row of a separate cell table
+[n_cell * 2^(log2_hashmap_size - D), 2^D * C], hashed by the cell's base
+coordinate, and those levels take no rows of the corner table.  The JAX
+package's packed and baked dense tables are TPU gather layouts of the same
+values and are not ported.
 
-`hash_encode` is differentiable in the table through an autograd
-Function: kernel K1 (`csrc/hash_encode.cu`) computes the forward encode and
-kernel K7 the table gradient on CUDA tensors; `hash_encode_plain` and
-`hash_encode_bwd_plain` are their PyTorch versions, used for CPU tensors
-and to check the kernels.  Positions carry no gradient (they come from the
-march), so the JAX package's gradient into the corner weights (`g_w` of
-`_corner_gather_sum_bwd`) has no counterpart here.
+`hash_encode` is differentiable in both tables through one autograd
+Function.  On CUDA tensors kernel K1 (`csrc/hash_encode.cu`) encodes the
+corner levels and K10 the cell levels into one output; K7 computes the
+corner table's gradient and K11 the cell table's.  `hash_encode_plain`,
+`hash_encode_cell_plain`, `hash_encode_bwd_plain` and
+`hash_encode_cell_bwd_plain` are their PyTorch versions, used for CPU
+tensors and to check the kernels.  Positions carry no gradient (they come
+from the march), so the JAX package's gradient into the corner weights
+(`g_w` of `_corner_gather_sum_bwd` and `_cell_gather_sum_bwd`) has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ class HashGridSpec:
     base_resolution: int = 16
     log2_hashmap_size: int = 19
     desired_resolution: int = 2048
+    n_cell_levels: int = 0
 
     @property
     def per_level_scale(self) -> float:
@@ -72,15 +80,50 @@ class HashGridSpec:
         return self.level_side(level) ** self.input_dim \
             > 2 ** self.log2_hashmap_size
 
+    def is_cell_level(self, level: int) -> bool:
+        return (self.n_cell_levels > 0
+                and level >= self.num_levels - self.n_cell_levels
+                and self.level_is_hashed(level))
+
+    # derived lists are cached: the wrappers read them on every call
+    @functools.cached_property
+    def cell_levels(self) -> list:
+        return [lv for lv in range(self.num_levels) if self.is_cell_level(lv)]
+
+    @functools.cached_property
+    def corner_levels(self) -> list:
+        """The levels read from the corner table (all but the cell ones)."""
+        return [lv for lv in range(self.num_levels)
+                if not self.is_cell_level(lv)]
+
     @property
+    def log2_cell_size(self) -> int:
+        return self.log2_hashmap_size - self.input_dim
+
+    @property
+    def cell_rows_per_level(self) -> int:
+        return 2 ** self.log2_cell_size
+
+    @property
+    def cell_table_size(self) -> int:
+        return len(self.cell_levels) * self.cell_rows_per_level
+
+    @property
+    def cell_row_width(self) -> int:
+        return 2 ** self.input_dim * self.level_dim
+
+    @functools.cached_property
     def offsets(self) -> np.ndarray:
-        """Cumulative level offsets [L+1] into the table, int64."""
+        """Cumulative level offsets [L+1] into the corner table, int64;
+        cell levels take no rows."""
         offsets, offset = [0], 0
         for lvl in range(self.num_levels):
-            res = int(np.ceil(self.base_resolution
-                              * self.per_level_scale ** lvl))
-            n = min(2 ** self.log2_hashmap_size, (res + 1) ** self.input_dim)
-            offset += int(np.ceil(n / 8) * 8)
+            if not self.is_cell_level(lvl):
+                res = int(np.ceil(self.base_resolution
+                                  * self.per_level_scale ** lvl))
+                n = min(2 ** self.log2_hashmap_size,
+                        (res + 1) ** self.input_dim)
+                offset += int(np.ceil(n / 8) * 8)
             offsets.append(offset)
         return np.asarray(offsets, np.int64)
 
@@ -89,92 +132,169 @@ class HashGridSpec:
         return int(self.offsets[-1])
 
 
-def level_corners(x01, spec: HashGridSpec, level: int):
-    """Weights [2^D, N] and absolute table rows [2^D, N] of one level's
-    corners, exactly as the kernels form them; out-of-range inputs get
-    weight 0 (hashgrid.py:571) and an in-range row."""
-    D = spec.input_dim
-    offsets = spec.offsets
-    off = int(offsets[level])
-    size = int(offsets[level + 1]) - off
-    side = spec.level_side(level)
+def _lattice(x01, spec: HashGridSpec, level: int):
+    """The level's lattice base (int64) and fractions of each point, and
+    okf, 0.0 for points outside [0, 1]^D (hashgrid.py:571, 591-601)."""
     okf = 1.0 - ((x01 < 0.0) | (x01 > 1.0)).any(dim=-1).float()
     pos = fma32(x01, np.float32(spec.level_scale(level)), 0.5)
     base = torch.floor(pos)
-    frac = pos - base
-    base_i = base.long()
-    ws, rows = [], []
+    return base.long(), pos - base, okf
+
+
+def _corner_weights(frac, okf, D: int):
+    """d-linear weights [2^D, N] in corner order (bit d of the corner id:
+    +1 along dim d), zero for points outside the cube."""
+    ws = []
     for k in range(2 ** D):
         bit = [(k >> d) & 1 for d in range(D)]
         w = frac[:, 0] if bit[0] else 1.0 - frac[:, 0]
         for d in range(1, D):
             w = w * (frac[:, d] if bit[d] else 1.0 - frac[:, d])
-        c = [base_i[:, d] + bit[d] for d in range(D)]
+        ws.append(w * okf)
+    return torch.stack(ws)
+
+
+def _xor_hash(c, D: int):
+    row = c[0] * PRIMES[0]
+    for d in range(1, D):
+        row = row ^ (c[d] * PRIMES[d])
+    return row
+
+
+def level_corners(x01, spec: HashGridSpec, level: int):
+    """Weights [2^D, N] and absolute corner-table rows [2^D, N] of one
+    corner level, exactly as the kernels form them; out-of-range inputs get
+    weight 0 and an in-range row."""
+    D = spec.input_dim
+    offsets = spec.offsets
+    off = int(offsets[level])
+    size = int(offsets[level + 1]) - off
+    side = spec.level_side(level)
+    base_i, frac, okf = _lattice(x01, spec, level)
+    rows = []
+    for k in range(2 ** D):
+        c = [base_i[:, d] + ((k >> d) & 1) for d in range(D)]
         if spec.level_is_hashed(level):
-            row = c[0] * PRIMES[0]
-            for d in range(1, D):
-                row = row ^ (c[d] * PRIMES[d])
-            row = row & (2 ** spec.log2_hashmap_size - 1)
+            row = _xor_hash(c, D) & (2 ** spec.log2_hashmap_size - 1)
         else:
             row = c[0]
             for d in range(1, D):
                 row = row + c[d] * side ** d
             # only out-of-range inputs leave the level; their weight is 0
             row = row.clamp(0, size - 1)
-        ws.append(w * okf)
         rows.append(off + row)
-    return torch.stack(ws), torch.stack(rows)
+    return _corner_weights(frac, okf, D), torch.stack(rows)
 
 
-def hash_encode_plain(table, x01, spec: HashGridSpec):
+def cell_corners(x01, spec: HashGridSpec, level: int):
+    """Weights [2^D, N] and absolute cell-table rows [N] of one cell level
+    (hashgrid.py:603-613): the row hashes the cell's base coordinate into
+    the level's block of 2^log2_cell_size rows."""
+    D = spec.input_dim
+    ci = spec.cell_levels.index(level)
+    base_i, frac, okf = _lattice(x01, spec, level)
+    row = _xor_hash([base_i[:, d] for d in range(D)], D) \
+        & (spec.cell_rows_per_level - 1)
+    return _corner_weights(frac, okf, D), row + ci * spec.cell_rows_per_level
+
+
+def hash_encode_cell_plain(cell_table, x01, spec: HashGridSpec):
+    """The cell levels' encode [N, n_cell * C], in level order
+    (hashgrid.py:332 `_cell_gather_sum`): sum_k w_k * row[k*C:(k+1)*C]."""
+    x01 = x01.float()
+    N, C, K = x01.shape[0], spec.level_dim, 2 ** spec.input_dim
+    outs = []
+    for level in spec.cell_levels:
+        w, rows = cell_corners(x01, spec, level)
+        vals = cell_table.index_select(0, rows).reshape(N, K, C)
+        acc = torch.zeros(N, C, device=x01.device)
+        for k in range(K):
+            acc = acc + w[k, :, None] * vals[:, k]
+        outs.append(acc)
+    if not outs:
+        return torch.zeros(N, 0, device=x01.device)
+    return torch.cat(outs, dim=-1)
+
+
+def hash_encode_plain(table, x01, spec: HashGridSpec, cell_table=None):
     """[N, D] positions in [0, 1] -> [N, L * C]; zero rows for inputs
-    outside [0, 1]^D (hashgrid.py:533-688, exact mode)."""
+    outside [0, 1]^D (hashgrid.py:533-688, corner and cell levels)."""
     x01 = x01.float()
     N, C = x01.shape[0], spec.level_dim
-    outs = []
-    for level in range(spec.num_levels):
+    outs = [None] * spec.num_levels
+    for level in spec.corner_levels:
         w, rows = level_corners(x01, spec, level)
         vals = table.index_select(0, rows.reshape(-1)).reshape(-1, N, C)
         acc = torch.zeros(N, C, device=x01.device)
         for k in range(w.shape[0]):
             acc = acc + w[k, :, None] * vals[k]
-        outs.append(acc)
+        outs[level] = acc
+    if spec.cell_levels:
+        cells = hash_encode_cell_plain(cell_table, x01, spec)
+        for i, level in enumerate(spec.cell_levels):
+            outs[level] = cells[:, i * C:(i + 1) * C]
     return torch.cat(outs, dim=-1)
 
 
 def hash_encode_bwd_plain(x01, g, spec: HashGridSpec):
-    """Table gradient [T, C] of `hash_encode` for the upstream gradient
-    g [N, L * C]: g_table[row] += w * g per corner (index_add_), the
-    scatter of hashgrid.py:284 `_corner_gather_sum_bwd` and of the packed
-    dense gather's autodiff."""
+    """Corner-table gradient [T, C] of `hash_encode` for the upstream
+    gradient g [N, L * C]: g_table[row] += w * g per corner (index_add_),
+    the scatter of hashgrid.py:284 `_corner_gather_sum_bwd` and of the
+    packed dense gather's autodiff."""
     x01 = x01.float()
     C = spec.level_dim
     g = g.float().reshape(x01.shape[0], spec.num_levels, C)
     grad = torch.zeros(spec.table_size, C, device=x01.device)
-    for level in range(spec.num_levels):
+    for level in spec.corner_levels:
         w, rows = level_corners(x01, spec, level)
         grad.index_add_(0, rows.reshape(-1),
                         (w[:, :, None] * g[None, :, level]).reshape(-1, C))
     return grad
 
 
+def hash_encode_cell_bwd_plain(x01, g, spec: HashGridSpec):
+    """Cell-table gradient [Tc, 2^D * C] for the upstream gradient
+    g [N, L * C]: row[k*C:(k+1)*C] += w_k * g per cell level (the table
+    part of hashgrid.py:362 `_cell_gather_sum_bwd`)."""
+    x01 = x01.float()
+    N, C = x01.shape[0], spec.level_dim
+    g = g.float().reshape(N, spec.num_levels, C)
+    grad = torch.zeros(spec.cell_table_size, spec.cell_row_width,
+                       device=x01.device)
+    for level in spec.cell_levels:
+        w, rows = cell_corners(x01, spec, level)
+        grad.index_add_(0, rows, (w.T[:, :, None] * g[:, None, level])
+                        .reshape(N, -1))
+    return grad
+
+
 @functools.cache
-def _levels(spec: HashGridSpec) -> kernels.HashLevels:
+def _levels(spec: HashGridSpec, cell: bool) -> kernels.HashLevels:
+    """The corner levels (K1/K7) or the cell levels (K10/K11) of `spec`, in
+    their slots of an [N, L] row of level outputs."""
+    levels = spec.cell_levels if cell else spec.corner_levels
     if spec.num_levels > kernels.MAX_LEVELS:
-        raise ValueError(f"K1 supports at most {kernels.MAX_LEVELS} levels")
+        raise ValueError(f"the hash kernels take at most {kernels.MAX_LEVELS}"
+                         " levels")
     lv = kernels.HashLevels()
-    lv.n_levels = spec.num_levels
-    lv.hash_mask = 2 ** spec.log2_hashmap_size - 1
+    lv.n_levels = len(levels)
+    lv.out_levels = spec.num_levels
+    lv.hash_mask = (spec.cell_rows_per_level if cell
+                    else 2 ** spec.log2_hashmap_size) - 1
     offsets = spec.offsets
-    for level in range(spec.num_levels):
-        lv.offset[level] = int(offsets[level])
-        lv.side[level] = spec.level_side(level)
-        lv.hashed[level] = int(spec.level_is_hashed(level))
+    for i, level in enumerate(levels):
+        lv.level[i] = level
+        lv.side[i] = spec.level_side(level)
+        lv.hashed[i] = int(cell or spec.level_is_hashed(level))
         # rounded to f32 once from the float64 value, as JAX does when it
         # multiplies an f32 array by a Python float
-        lv.scale[level] = float(np.float32(spec.level_scale(level)))
+        lv.scale[i] = float(np.float32(spec.level_scale(level)))
+        if cell:
+            lv.offset[i] = i * spec.cell_rows_per_level
+            continue
+        lv.offset[i] = int(offsets[level])
         size = int(offsets[level + 1] - offsets[level])
-        if lv.hashed[level] and size != 2 ** spec.log2_hashmap_size:
+        if lv.hashed[i] and size != 2 ** spec.log2_hashmap_size:
             raise ValueError("hashed level size must be the power-of-two cap")
     return lv
 
@@ -182,7 +302,8 @@ def _levels(spec: HashGridSpec) -> kernels.HashLevels:
 def _check_k1(name, spec: HashGridSpec, x01, **tensors):
     dev = kernels.check_cuda(name, x01=x01, **tensors)
     if spec.input_dim != 3 or spec.level_dim != 2:
-        raise NotImplementedError("K1/K7 cover D=3, C=2 (ROADMAP B1: D=2)")
+        raise NotImplementedError("K1/K7/K10/K11 cover D=3, C=2 (ROADMAP B1:"
+                                  " D=2)")
     if x01.dtype != torch.float32 or \
             any(t.dtype != torch.float32 for t in tensors.values()):
         raise TypeError(f"{name}: tensors must be float32")
@@ -191,11 +312,48 @@ def _check_k1(name, spec: HashGridSpec, x01, **tensors):
     return dev
 
 
-def hash_encode_fwd(table, x01, spec: HashGridSpec):
-    """Forward encode, no autograd: K1 on CUDA tensors, the plain version
-    on CPU tensors."""
+def _check_cell_table(cell_table, spec: HashGridSpec):
+    want = (spec.cell_table_size, spec.cell_row_width)
+    if cell_table is None or tuple(cell_table.shape) != want:
+        got = None if cell_table is None else tuple(cell_table.shape)
+        raise ValueError(f"cell table shape {got} != {want}")
+    if cell_table.data_ptr() % 16:
+        raise ValueError("cell table rows must be 16-byte aligned")
+
+
+def hash_encode_cell_fwd(cell_table, x01, spec: HashGridSpec, out):
+    """The cell levels' encode into their slots of `out` [N, L * 2] (the
+    other slots are left as they are): K10 on CUDA tensors, the plain
+    version on CPU tensors."""
+    n = x01.shape[0]
+    if tuple(out.shape) != (n, spec.output_dim):
+        raise ValueError(f"out must be [{n}, {spec.output_dim}]")
+    if x01.device.type == "cpu" and cell_table.device.type == "cpu":
+        cells = hash_encode_cell_plain(cell_table, x01, spec)
+        for i, level in enumerate(spec.cell_levels):
+            out[:, 2 * level:2 * level + 2] = cells[:, 2 * i:2 * i + 2]
+        return out
+    _check_k1("hash_encode_cell", spec, x01, cell_table=cell_table, out=out)
+    _check_cell_table(cell_table, spec)
+    with torch.cuda.device(x01.device):
+        kernels.launch("pvd_hash_cell_fwd", x01.data_ptr(),
+                       cell_table.data_ptr(), out.data_ptr(), n,
+                       _levels(spec, True), kernels.stream_ptr(x01))
+    hash_encode_cell_fwd.launches += 1
+    return out
+
+
+hash_encode_cell_fwd.launches = 0
+
+
+def hash_encode_fwd(table, x01, spec: HashGridSpec, cell_table=None):
+    """Forward encode, no autograd: K1 (corner levels) and K10 (cell
+    levels) on CUDA tensors, the plain version on CPU tensors."""
+    if spec.cell_levels and cell_table is None:
+        raise ValueError("hash_encode: the spec has cell levels; pass "
+                         "cell_table")
     if x01.device.type == "cpu" and table.device.type == "cpu":
-        return hash_encode_plain(table, x01, spec)
+        return hash_encode_plain(table, x01, spec, cell_table)
     _check_k1("hash_encode", spec, x01, table=table)
     if tuple(table.shape) != (spec.table_size, 2):
         raise ValueError(f"table shape {tuple(table.shape)} != "
@@ -204,17 +362,20 @@ def hash_encode_fwd(table, x01, spec: HashGridSpec):
         raise ValueError("hash_encode: table rows must be 8-byte aligned")
     n = x01.shape[0]
     out = torch.empty(n, spec.output_dim, device=x01.device)
-    with torch.cuda.device(x01.device):
-        kernels.launch("pvd_hash_encode_fwd", x01.data_ptr(),
-                       table.data_ptr(), out.data_ptr(), n, _levels(spec),
-                       kernels.stream_ptr(x01))
-    hash_encode.launches += 1
+    if spec.corner_levels:
+        with torch.cuda.device(x01.device):
+            kernels.launch("pvd_hash_encode_fwd", x01.data_ptr(),
+                           table.data_ptr(), out.data_ptr(), n,
+                           _levels(spec, False), kernels.stream_ptr(x01))
+        hash_encode.launches += 1
+    if spec.cell_levels:
+        hash_encode_cell_fwd(cell_table, x01, spec, out=out)
     return out
 
 
 def hash_encode_bwd(x01, g, spec: HashGridSpec):
-    """Table gradient [T, 2] for the upstream gradient g [N, L * 2]: K7 on
-    CUDA tensors, the plain version on CPU tensors."""
+    """Corner-table gradient [T, 2] for the upstream gradient g [N, L * 2]:
+    K7 on CUDA tensors, the plain version on CPU tensors."""
     if x01.device.type == "cpu" and g.device.type == "cpu":
         return hash_encode_bwd_plain(x01, g, spec)
     _check_k1("hash_encode_bwd", spec, x01, g=g)
@@ -222,44 +383,77 @@ def hash_encode_bwd(x01, g, spec: HashGridSpec):
         raise ValueError(f"g must be [{x01.shape[0]}, {spec.output_dim}], "
                          f"got {tuple(g.shape)}")
     grad = torch.zeros(spec.table_size, 2, device=x01.device)
-    with torch.cuda.device(x01.device):
-        kernels.launch("pvd_hash_encode_bwd", x01.data_ptr(), g.data_ptr(),
-                       grad.data_ptr(), x01.shape[0], _levels(spec),
-                       kernels.stream_ptr(x01))
-    hash_encode_bwd.launches += 1
+    if spec.corner_levels:
+        with torch.cuda.device(x01.device):
+            kernels.launch("pvd_hash_encode_bwd", x01.data_ptr(),
+                           g.data_ptr(), grad.data_ptr(), x01.shape[0],
+                           _levels(spec, False), kernels.stream_ptr(x01))
+        hash_encode_bwd.launches += 1
     return grad
 
 
 hash_encode_bwd.launches = 0
 
 
+def hash_encode_cell_bwd(x01, g, spec: HashGridSpec):
+    """Cell-table gradient [Tc, 16] for the upstream gradient g [N, L * 2]:
+    K11 on CUDA tensors, the plain version on CPU tensors.  Dense: AdamW
+    updates every row, as optax does."""
+    if x01.device.type == "cpu" and g.device.type == "cpu":
+        return hash_encode_cell_bwd_plain(x01, g, spec)
+    _check_k1("hash_encode_cell_bwd", spec, x01, g=g)
+    if tuple(g.shape) != (x01.shape[0], spec.output_dim):
+        raise ValueError(f"g must be [{x01.shape[0]}, {spec.output_dim}], "
+                         f"got {tuple(g.shape)}")
+    grad = torch.zeros(spec.cell_table_size, spec.cell_row_width,
+                       device=x01.device)
+    with torch.cuda.device(x01.device):
+        kernels.launch("pvd_hash_cell_bwd", x01.data_ptr(), g.data_ptr(),
+                       grad.data_ptr(), x01.shape[0],
+                       _levels(spec, True), kernels.stream_ptr(x01))
+    hash_encode_cell_bwd.launches += 1
+    return grad
+
+
+hash_encode_cell_bwd.launches = 0
+
+
 class _HashEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, x01, spec):
+    def forward(ctx, table, cell_table, x01, spec):
         ctx.save_for_backward(x01)
         ctx.spec = spec
-        return hash_encode_fwd(table, x01, spec)
+        return hash_encode_fwd(table, x01, spec, cell_table)
 
     @staticmethod
     def backward(ctx, g):
         (x01,) = ctx.saved_tensors
-        return hash_encode_bwd(x01, g.contiguous(), ctx.spec), None, None
+        g = g.contiguous()
+        g_table = g_cell = None
+        if ctx.needs_input_grad[0]:
+            g_table = hash_encode_bwd(x01, g, ctx.spec)
+        if ctx.needs_input_grad[1]:
+            g_cell = hash_encode_cell_bwd(x01, g, ctx.spec)
+        return g_table, g_cell, None, None
 
 
-def hash_encode(table, x01, spec: HashGridSpec):
+def hash_encode(table, x01, spec: HashGridSpec, cell_table=None):
     """Hash encode [N, 3] positions in [0, 1] -> [N, L * C],
-    differentiable in `table` (forward K1, backward K7 on CUDA tensors;
-    the plain versions on CPU tensors).  `x01` takes no gradient: it must
-    not require one while grad mode is on."""
+    differentiable in `table` and `cell_table` (forward K1 + K10, backward
+    K7 + K11 on CUDA tensors; the plain versions on CPU tensors).
+    `cell_table` [n_cell * 2^16, 16] is needed when the spec has cell
+    levels.  `x01` takes no gradient: it must not require one while grad
+    mode is on."""
     if not torch.is_grad_enabled():
-        return hash_encode_fwd(table, x01, spec)
+        return hash_encode_fwd(table, x01, spec, cell_table)
     if x01.requires_grad:
         raise NotImplementedError(
             "hash_encode: no gradient into the positions (they come from "
             "the march); detach x01")
-    if table.requires_grad:
-        return _HashEncode.apply(table, x01, spec)
-    return hash_encode_fwd(table, x01, spec)
+    if table.requires_grad or (cell_table is not None
+                               and cell_table.requires_grad):
+        return _HashEncode.apply(table, cell_table, x01, spec)
+    return hash_encode_fwd(table, x01, spec, cell_table)
 
 
 hash_encode.launches = 0

@@ -3,8 +3,9 @@
 The JAX package keeps a field as a pytree of arrays; these functions take
 it with numpy (or any array-protocol) leaves, so no JAX is needed here:
   * hash field: {"encoder": [T, 2], "sigma_net": [{"w": [in, out]}, ...],
-    "color_net": [...]}; keys starting with "_" (the TPU's packed and baked
-    gather tables) are ignored;
+    "color_net": [...]}, and "encoder_cell": [Tc, 16] in cell mode; keys
+    starting with "_" (the TPU's packed and baked gather tables) are
+    ignored;
   * VM field: {"sigma_mat": 3 x [res[m1], res[m0], Rs], "sigma_vec":
     3 x [res[v], Rs], "color_mat", "color_vec" likewise with Rc,
     "basis_mat": {"w": [3 * Rc, geo]}, "color_net": [...]};
@@ -47,8 +48,15 @@ def hash_field_from_jax(tree, spec: ModelSpec, device="cuda") -> HashField:
     if table.shape != want:
         raise ValueError(f"encoder has shape {table.shape}; the spec's "
                          f"HashGridSpec.offsets give {want}")
+    if (field.encoder_cell is None) != ("encoder_cell" not in tree):
+        raise ValueError("encoder_cell is in the tree but not in the spec, "
+                         "or the other way round (hash_cell_levels)")
     with torch.no_grad():
         field.encoder.copy_(torch.from_numpy(table))
+        if field.encoder_cell is not None:
+            field.encoder_cell.copy_(torch.from_numpy(_leaf(
+                tree["encoder_cell"], field.encoder_cell.shape,
+                "encoder_cell")))
         _load_mlp(field.sigma_net, tree["sigma_net"], "sigma_net")
         _load_mlp(field.color_net, tree["color_net"], "color_net")
     return field
@@ -65,13 +73,16 @@ def _val(p, grad: bool) -> np.ndarray:
 def hash_tree_from_field(field: HashField, grad: bool = False) -> dict:
     """The JAX package's hash pytree (numpy leaves) of a HashField's
     parameters, or of their `.grad` when `grad` (zeros where None)."""
-    return {
+    tree = {
         "encoder": _val(field.encoder, grad),
         "sigma_net": [{"w": _val(lin.weight, grad).T.copy()}
                       for lin in field.sigma_net],
         "color_net": [{"w": _val(lin.weight, grad).T.copy()}
                       for lin in field.color_net],
     }
+    if field.encoder_cell is not None:
+        tree["encoder_cell"] = _val(field.encoder_cell, grad)
+    return tree
 
 
 def _leaf(x, want, name: str) -> np.ndarray:
@@ -142,3 +153,20 @@ def occupancy_from_jax(state, device="cuda") -> OccupancyState:
         aabb_train=t(state.aabb_train, torch.float32),
         aabb_infer=t(state.aabb_infer, torch.float32),
     )
+
+
+def field_from_tree(tree, spec: ModelSpec, device="cuda"):
+    """The field of `spec.model_type` holding the JAX pytree `tree`."""
+    if spec.model_type == "hash":
+        return hash_field_from_jax(tree, spec, device)
+    if spec.model_type == "vm":
+        return vm_field_from_jax(tree, spec, device)
+    raise NotImplementedError(f"model_type {spec.model_type!r} is not "
+                              "ported yet (ROADMAP A12)")
+
+
+def tree_from_field(field, grad: bool = False) -> dict:
+    """The JAX pytree (numpy leaves) of a hash or VM field."""
+    if isinstance(field, HashField):
+        return hash_tree_from_field(field, grad)
+    return vm_tree_from_field(field, grad)

@@ -3,7 +3,9 @@
 Grids are row-major [CAS, H, H, H]; the bitfield is a flat bool
 [CAS * H^3].  The TPU's supercell probe masks (`neighbor_masks`) and the
 dilated bitfield are march-side layouts of the same bits: the CUDA march
-(K2) reads `bitfield` directly, so neither is kept.
+(K2) reads `bitfield` directly, so neither is kept in the state.
+`dilate_bitfield` makes the dilated one for checkpoints, which carry it for
+the JAX package.
 
 Random draws are arguments: `update_density_grid` takes the jitter (and, in
 partial mode, the cells) as tensors, so a test can hand the JAX package's
@@ -57,6 +59,22 @@ def set_bitfield(state: OccupancyState, bitfield) -> OccupancyState:
         raise ValueError(f"bitfield has shape {tuple(bitfield.shape)}, state "
                          f"expects ({C}*{H}^3,) = ({C * H * H * H},)")
     return state.replace(bitfield=bitfield.to(torch.bool))
+
+
+def dilate_bitfield(bitfield, H: int, radius: int = 2):
+    """Max-dilate a flat [CAS * H^3] bool occupancy by `radius` cells per
+    axis, separably (occupancy.py:176-197)."""
+    C = bitfield.shape[0] // (H * H * H)
+    g = bitfield.reshape(C, H, H, H)
+    for axis in (1, 2, 3):
+        acc = g.clone()
+        for r in range(1, radius + 1):
+            lo = g.narrow(axis, 0, H - r)  # cell i sees i - r
+            hi = g.narrow(axis, r, H - r)  # cell i sees i + r
+            acc.narrow(axis, r, H - r).logical_or_(lo)
+            acc.narrow(axis, 0, H - r).logical_or_(hi)
+        g = acc
+    return g.reshape(-1)
 
 
 def grid_coords(H: int, device) -> torch.Tensor:

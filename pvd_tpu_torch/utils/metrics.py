@@ -1,8 +1,10 @@
-"""PSNR on the host (port of pvd_tpu/utils/metrics.py:19-38).
+"""PSNR and SSIM on the host (port of pvd_tpu/utils/metrics.py:19-89).
 
-One scalar per image over the whole [H, W, 3] array, mean over images, as
-the reference's PSNRMeter.  SSIM and LPIPS are not ported yet (ROADMAP
-A11).
+PSNR: one scalar per image over the whole [H, W, 3] array, mean over
+images, as the reference's PSNRMeter.  SSIM: the tf.image.ssim
+formulation (separable 11x11 Gaussian, sigma 1.5, k1 0.01, k2 0.03) in
+float64 numpy, as the JAX package computes it.  LPIPS (and the JAX
+package's random-feature proxy) is not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -32,3 +34,39 @@ class PSNRMeter:
 
     def report(self) -> str:
         return f"PSNR = {self.measure():.6f}"
+
+
+def _gaussian_kernel(size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    x = np.arange(size, dtype=np.float64) - (size - 1) / 2
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return k / k.sum()
+
+
+def _filter2_sep(img: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """Separable 'valid' convolution over H and W of [H, W, C]."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    win = sliding_window_view(img, len(k), axis=0)  # [H-10, W, C, 11]
+    out = np.tensordot(win, k, axes=([-1], [0]))
+    win = sliding_window_view(out, len(k), axis=1)
+    return np.tensordot(win, k, axes=([-1], [0]))
+
+
+def compute_ssim(img0, img1, max_val: float = 1.0, filter_size: int = 11,
+                 filter_sigma: float = 1.5, k1: float = 0.01,
+                 k2: float = 0.03) -> float:
+    """Mean SSIM over an [H, W, C] pair in [0, max_val]."""
+    img0 = np.asarray(img0, np.float64)
+    img1 = np.asarray(img1, np.float64)
+    k = _gaussian_kernel(filter_size, filter_sigma)
+    mu0 = _filter2_sep(img0, k)
+    mu1 = _filter2_sep(img1, k)
+    mu00, mu11, mu01 = mu0 * mu0, mu1 * mu1, mu0 * mu1
+    s00 = _filter2_sep(img0 * img0, k) - mu00
+    s11 = _filter2_sep(img1 * img1, k) - mu11
+    s01 = _filter2_sep(img0 * img1, k) - mu01
+    c1 = (k1 * max_val) ** 2
+    c2 = (k2 * max_val) ** 2
+    ssim_map = ((2 * mu01 + c1) * (2 * s01 + c2)) / (
+        (mu00 + mu11 + c1) * (s00 + s11 + c2))
+    return float(np.mean(ssim_map))

@@ -1,9 +1,22 @@
-"""Color space (port of pvd_tpu/utils/misc.py:17-20): the teacher step's
-`color_space="linear"` branch."""
+"""Small helpers (port of pvd_tpu/utils/misc.py:11-20): seeding and the
+teacher step's `color_space="linear"` conversion."""
 
 from __future__ import annotations
 
+import os
+import random
+
+import numpy as np
 import torch
+
+
+def seed_everything(seed: int):
+    """Seed Python's, numpy's and torch's global generators (the JAX
+    package seeds the first two; its device draws take explicit keys)."""
+    random.seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def srgb_to_linear(x):

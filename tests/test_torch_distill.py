@@ -1,6 +1,8 @@
 """pvd_tpu_torch's distillation step against the JAX package (CPU).
 
-A hash teacher (4 levels, 2^14 table) and a VM student at a non-cubic
+A hash teacher (4 levels, 2^14 table; or, for the whole step, the
+cell-mode teacher of tests/test_cell_mode.py: 6 levels, base 4, desired
+64, a 2^9 table, the 2 finest hashed levels cell-packed) and a VM student at a non-cubic
 resolution (ranks 4 and 12) share an occupancy grid (grid 32, 128 march
 steps); 256 rays, 32 slots per ray, 8 samples per ray of budget, f32 heads.
 The JAX package's draws are regenerated from its key in its order
@@ -68,19 +70,22 @@ TEA_KW = dict(hash_num_levels=4, hash_log2_size=14, hash_desired_res=128,
               compute_dtype="float32")
 STU_KW = dict(model_type="vm", vm_sigma_rank=4, vm_color_rank=12,
               vm_resolution=(20, 24, 28), compute_dtype="float32")
+CELL_TEA_KW = dict(hash_num_levels=6, hash_base_res=4, hash_desired_res=64,
+                   hash_log2_size=9, hash_cell_levels=2,
+                   compute_dtype="float32")
 KEY = jax.random.PRNGKey(7)
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _build(tea_kw):
     cfg_j = JPVDConfig(**CFG_KW)
     rspec_j = cfg_j.render_spec()
-    spec_tj, spec_sj = JModelSpec(**TEA_KW), JModelSpec(**STU_KW)
+    spec_tj, spec_sj = JModelSpec(**tea_kw), JModelSpec(**STU_KW)
     tea = jax.tree_util.tree_map(
         np.asarray, j_hash.init(jax.random.PRNGKey(3), spec_tj))
     rng = np.random.default_rng(3)
-    tea["encoder"] = rng.uniform(-1, 1, tea["encoder"].shape) \
-        .astype(np.float32)
+    for k in ("encoder", "encoder_cell"):
+        if k in tea:
+            tea[k] = rng.uniform(-1, 1, tea[k].shape).astype(np.float32)
     stu = jax.tree_util.tree_map(
         np.asarray, j_vm.init(jax.random.PRNGKey(4), spec_sj))
     occ_j = j_set_bitfield(j_init_occ(rspec_j), jnp.asarray(
@@ -99,46 +104,55 @@ def setup():
                                                  (cfg_j.num_rays,))),
                  k_perturb=k_perturb)
     return dict(cfg_j=cfg_j, rspec_j=rspec_j, spec_tj=spec_tj,
-                spec_sj=spec_sj, tea=tea, stu=stu, occ_j=occ_j, pose=pose,
-                draws=draws)
+                spec_sj=spec_sj, tea_kw=tea_kw, tea=tea, stu=stu,
+                occ_j=occ_j, pose=pose, draws=draws)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _build(TEA_KW)
+
+
+@pytest.fixture(scope="module")
+def cell_setup():
+    return _build(CELL_TEA_KW)
+
+
+def _jax_grads(s, stage, spr=CFG_KW["samples_per_ray"]):
+    """JAX distill_loss under value_and_grad, step 0, computed once per
+    (stage, samples_per_ray); samples_per_ray 0 is the padded path."""
+    cache = s.setdefault("jax_grads", {})
+    if (stage, spr) in cache:
+        return cache[stage, spr]
+    tea = jax.tree_util.tree_map(jnp.asarray, s["tea"])
+    dr = s["draws"]
+    rspec = dataclasses.replace(s["rspec_j"], samples_per_ray=spr)
+
+    def f(p):
+        return j_distill_loss(
+            p, tea, s["spec_sj"], s["spec_tj"], rspec, s["cfg_j"],
+            stage, s["occ_j"], s["occ_j"], jnp.asarray(dr["o"]),
+            jnp.asarray(dr["d"]), jnp.asarray(dr["bg"]), dr["k_perturb"],
+            jnp.int32(0))
+
+    (loss, (logs, _)), grads = jax.jit(
+        jax.value_and_grad(f, has_aux=True))(
+            jax.tree_util.tree_map(jnp.asarray, s["stu"]))
+    cache[stage, spr] = (float(loss),
+                         jax.tree_util.tree_map(np.asarray, logs),
+                         jax.tree_util.tree_map(np.asarray, grads))
+    return cache[stage, spr]
 
 
 @pytest.fixture(scope="module")
 def jax_stages(setup):
-    """JAX distill_loss under value_and_grad, step 0, computed once per
-    (stage, samples_per_ray); samples_per_ray 0 is the padded path."""
-    s = setup
-    tea = jax.tree_util.tree_map(jnp.asarray, s["tea"])
-    dr = s["draws"]
-    out = {}
-
-    def get(stage, spr=CFG_KW["samples_per_ray"]):
-        if (stage, spr) in out:
-            return out[stage, spr]
-        rspec = dataclasses.replace(s["rspec_j"], samples_per_ray=spr)
-
-        def f(p):
-            return j_distill_loss(
-                p, tea, s["spec_sj"], s["spec_tj"], rspec, s["cfg_j"],
-                stage, s["occ_j"], s["occ_j"], jnp.asarray(dr["o"]),
-                jnp.asarray(dr["d"]), jnp.asarray(dr["bg"]), dr["k_perturb"],
-                jnp.int32(0))
-
-        (loss, (logs, _)), grads = jax.jit(
-            jax.value_and_grad(f, has_aux=True))(
-                jax.tree_util.tree_map(jnp.asarray, s["stu"]))
-        out[stage, spr] = (float(loss),
-                           jax.tree_util.tree_map(np.asarray, logs),
-                           jax.tree_util.tree_map(np.asarray, grads))
-        return out[stage, spr]
-
-    return get
+    return lambda *a: _jax_grads(setup, *a)
 
 
 def _port(setup):
     s = setup
     cfg = PVDConfig(**CFG_KW)
-    teacher = hash_field_from_jax(s["tea"], ModelSpec(**TEA_KW), "cpu")
+    teacher = hash_field_from_jax(s["tea"], ModelSpec(**s["tea_kw"]), "cpu")
     student = vm_field_from_jax(s["stu"], ModelSpec(**STU_KW), "cpu")
     occ = occupancy_from_jax(s["occ_j"], "cpu")
     dr = {k: torch.from_numpy(np.array(v)) for k, v in s["draws"].items()
@@ -189,10 +203,9 @@ def test_distill_loss_matches_jax(setup, jax_stages, stage, spr):
         assert all(lin.weight.grad is None for lin in student.color_net)
 
 
-def test_whole_step_matches_jax(setup, jax_stages):
+def _check_whole_step(s):
     """One jitted JAX make_distill_step at stage 3 against the port's
     distill_step_core on the regenerated draws."""
-    s = setup
     stu_tree = jax.tree_util.tree_map(jnp.asarray, s["stu"])
     j_opt = j_optim.build_optimizer(
         stu_tree, j_label(s["spec_sj"]), j_trainable(s["spec_sj"], ""),
@@ -206,7 +219,7 @@ def test_whole_step_matches_jax(setup, jax_stages):
                                                            s["tea"]),
                            s["occ_j"], jnp.asarray(s["pose"]), KEY)
 
-    cfg, teacher, student, occ, dr = _port(setup)
+    cfg, teacher, student, occ, dr = _port(s)
     spec_s = ModelSpec(**STU_KW)
     params = dict(student.named_parameters())
     opt = optim.build_optimizer(
@@ -214,16 +227,20 @@ def test_whole_step_matches_jax(setup, jax_stages):
         optim.cosine_schedule(1e-2, ITERS), optim.cosine_schedule(1e-3,
                                                                   ITERS))
     state = TrainState(field=student, opt_state=opt.init(params), occ=occ)
-    step = make_distill_step(spec_s, ModelSpec(**TEA_KW), cfg.render_spec(),
-                             opt, cfg, INTR, H, W, stage=3, device="cpu")
+    step = make_distill_step(spec_s, ModelSpec(**s["tea_kw"]),
+                             cfg.render_spec(), opt, cfg, INTR, H, W,
+                             stage=3, device="cpu")
     state, logs = step.core(state, teacher, occ, dr["o"], dr["d"], dr["bg"],
                             dr["u"])
     assert state.step == 1 and int(j_new.step) == 1
     np.testing.assert_allclose(logs["loss"].item(), float(j_logs["loss"]),
                                rtol=LOSS_RTOL)
-    _assert_grads(student, jax_stages(3)[2])
+    for k in j_logs:
+        np.testing.assert_allclose(logs[k].item(), float(j_logs[k]),
+                                   rtol=LOSS_RTOL, err_msg=k)
+    _assert_grads(student, _jax_grads(s, 3)[2])
     got = vm_tree_from_field(student)
-    g_want = jax.tree_util.tree_leaves(jax_stages(3)[2])
+    g_want = jax.tree_util.tree_leaves(_jax_grads(s, 3)[2])
     n_held = 0
     for (path, w), g, gw in zip(
             jax.tree_util.tree_flatten_with_path(j_new.params)[0],
@@ -234,6 +251,17 @@ def test_whole_step_matches_jax(setup, jax_stages):
                                    err_msg=jax.tree_util.keystr(path))
         n_held += int(hold.sum())
     assert n_held > 0.9 * sum(np.size(x) for x in g_want)
+
+
+def test_whole_step_matches_jax(setup):
+    _check_whole_step(setup)
+
+
+def test_cell_teacher_whole_step_matches_jax(cell_setup):
+    """The same step with a cell-mode teacher: its replay reads both of its
+    tables, the cell levels through the cell encode."""
+    assert "encoder_cell" in cell_setup["tea"]
+    _check_whole_step(cell_setup)
 
 
 @pytest.mark.parametrize("loss_type", ["L2", "normL2", "normL1", "smoothL1"])

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
+from pvd_tpu_torch.engine.checkpoint import load_checkpoint
 from pvd_tpu_torch.engine.train_steps import (make_distill_step,
                                               make_eval_renderer,
                                               make_occ_update,
@@ -20,7 +21,8 @@ from pvd_tpu_torch.ops.composite import (composite_rays,
                                          composite_rays_compact,
                                          composite_rays_compact_bwd)
 from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, hash_encode,
-                                        hash_encode_bwd)
+                                        hash_encode_bwd, hash_encode_cell_bwd,
+                                        hash_encode_cell_fwd)
 from pvd_tpu_torch.ops.vm_sample import (vm_sample, vm_sample_bwd,
                                          vm_sample_fwd)
 from pvd_tpu_torch.params import vm_field_from_jax, vm_tree_from_field
@@ -49,6 +51,8 @@ def test_new_modules_are_checked():
         "render/occupancy", "engine/train_steps", "utils/misc",
         "utils/metrics", "engine/autotune", "data/poses", "data/synth",
         "config", "engine/trainer")} <= names
+    # the quality-recipe slice's
+    assert "pvd_tpu_torch/engine/checkpoint.py" in names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -89,9 +93,15 @@ def _vm_tree():
     lambda: make_teacher_step(SMALL, RSPEC, None, PVDConfig(), (1, 1, 1, 1),
                               4, 4, image_channels=4),
     lambda: Trainer(PVDConfig()),
+    lambda: Trainer(PVDConfig(model_type="vm"), mode="distill"),
+    lambda: HashField(ModelSpec(hash_num_levels=6, hash_base_res=4,
+                                hash_desired_res=64, hash_log2_size=9,
+                                hash_cell_levels=2)),
+    lambda: load_checkpoint("no_such_file.ckpt"),
 ], ids=["HashField", "make_occ_update", "make_eval_renderer",
         "init_occupancy_state", "VMField", "vm_field_from_jax",
-        "make_distill_step", "make_teacher_step", "Trainer"])
+        "make_distill_step", "make_teacher_step", "Trainer",
+        "Trainer-distill", "HashField-cell", "load_checkpoint"])
 def test_entry_points_need_a_gpu_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -177,3 +187,22 @@ def test_teacher_wrappers_take_the_plain_path_on_cpu_without_counting():
     assert sig.grad[0, 2] == 0 and sig.grad[1, 1:].abs().sum() == 0
     assert (hash_encode.launches, hash_encode_bwd.launches,
             composite_rays.launches, composite_rays_bwd.launches) == before
+
+
+def test_cell_wrappers_take_the_plain_path_on_cpu_without_counting():
+    """K10 and K11 (through the hash encode's autograd, and called
+    directly): the plain versions on CPU tensors, and no count."""
+    before = (hash_encode_cell_fwd.launches, hash_encode_cell_bwd.launches)
+    gs = HashGridSpec(num_levels=6, base_resolution=4, desired_resolution=64,
+                      log2_hashmap_size=9, n_cell_levels=2)
+    table = torch.rand(gs.table_size, 2)
+    cell = torch.rand(gs.cell_table_size, 16, requires_grad=True)
+    hash_encode(table, torch.rand(5, 3), gs, cell).sum().backward()
+    assert cell.grad.abs().sum() > 0
+    out = hash_encode_cell_fwd(cell.detach(), torch.rand(5, 3), gs,
+                               torch.zeros(5, 12))
+    assert out[:, 8:].abs().sum() > 0 and not out[:, :8].any()
+    g = hash_encode_cell_bwd(torch.rand(5, 3), torch.ones(5, 12), gs)
+    assert g.shape == (gs.cell_table_size, 16)
+    assert (hash_encode_cell_fwd.launches,
+            hash_encode_cell_bwd.launches) == before

@@ -75,18 +75,21 @@ CFG_KW = dict(num_rays=256, grid_size=32, max_steps=128, max_samples=32,
               samples_per_ray=16.0, precision="fp32")
 SPEC_KW = dict(hash_num_levels=4, hash_log2_size=14, hash_desired_res=128,
                compute_dtype="float32")
+CELL_SPEC_KW = dict(hash_num_levels=6, hash_base_res=4, hash_desired_res=64,
+                    hash_log2_size=9, hash_cell_levels=2,
+                    compute_dtype="float32")
 KEY = jax.random.PRNGKey(5)
 
 
-@pytest.fixture(scope="module")
-def setup():
+def _build(spec_kw, seed):
     cfg_j = JPVDConfig(**CFG_KW)
-    spec_j = JModelSpec(**SPEC_KW)
+    spec_j = JModelSpec(**spec_kw)
     tree = jax.tree_util.tree_map(
         np.asarray, j_hash.init(jax.random.PRNGKey(2), spec_j))
-    rng = np.random.default_rng(6)
-    tree["encoder"] = rng.uniform(-1, 1, tree["encoder"].shape) \
-        .astype(np.float32)
+    rng = np.random.default_rng(seed)
+    for k in ("encoder", "encoder_cell"):
+        if k in tree:
+            tree[k] = rng.uniform(-1, 1, tree[k].shape).astype(np.float32)
     occ_j = j_set_bitfield(j_init_occ(cfg_j.render_spec()), jnp.asarray(
         rng.uniform(size=32 ** 3) < 0.25))
     pose = nerf_matrix_to_ngp(j_pose_spherical(30.0, -30.0, 4.0), scale=0.8)
@@ -105,8 +108,21 @@ def setup():
                  u=np.asarray(jax.random.uniform(k_perturb,
                                                  (cfg_j.num_rays,))),
                  k_bg=k_bg, k_perturb=k_perturb)
-    return dict(cfg_j=cfg_j, spec_j=spec_j, tree=tree, occ_j=occ_j,
-                pose=pose, image=image, draws=draws)
+    return dict(cfg_j=cfg_j, spec_j=spec_j, spec_kw=spec_kw, tree=tree,
+                occ_j=occ_j, pose=pose, image=image, draws=draws)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _build(SPEC_KW, 6)
+
+
+@pytest.fixture(scope="module")
+def cell_setup():
+    """A cell-mode teacher: the spec of tests/test_cell_mode.py (6 levels,
+    base 4, desired 64, a 2^9 table; levels 0-1 dense, 2-3 hashed, 4-5
+    cell-packed)."""
+    return _build(CELL_SPEC_KW, 8)
 
 
 def _rspec_j(s, spr):
@@ -117,46 +133,39 @@ def _cfg_j(s, color_space):
     return dataclasses.replace(s["cfg_j"], color_space=color_space)
 
 
-@pytest.fixture(scope="module")
-def jax_grads(setup):
-    """JAX teacher_loss under value_and_grad, per (samples_per_ray,
+def _jax_grads(s, spr, color_space):
+    """JAX teacher_loss under value_and_grad, cached per (samples_per_ray,
     color space)."""
-    s = setup
+    cache = s.setdefault("jax_grads", {})
+    if (spr, color_space) in cache:
+        return cache[spr, color_space]
     dr = s["draws"]
-    out = {}
 
-    def get(spr, color_space):
-        if (spr, color_space) in out:
-            return out[spr, color_space]
+    def f(p):
+        pix = jnp.asarray(dr["pix"])
+        if color_space == "linear":
+            pix = jnp.concatenate([j_srgb_to_linear(pix[..., :3]),
+                                   pix[..., 3:]], axis=-1)
+        gt, bg = j_compose_gt(pix, 4, s["spec_j"].bg_radius, dr["k_bg"])
+        loss, (o, _) = j_teacher_loss(
+            p, s["spec_j"], _rspec_j(s, spr), _cfg_j(s, color_space),
+            s["occ_j"], jnp.asarray(dr["o"]), jnp.asarray(dr["d"]), gt, bg,
+            dr["k_perturb"])
+        return loss, {"mask_frac": o["mask_frac"],
+                      "budget_hit": o["budget_hit_frac"]}
 
-        def f(p):
-            pix = jnp.asarray(dr["pix"])
-            if color_space == "linear":
-                pix = jnp.concatenate([j_srgb_to_linear(pix[..., :3]),
-                                       pix[..., 3:]], axis=-1)
-            gt, bg = j_compose_gt(pix, 4, s["spec_j"].bg_radius, dr["k_bg"])
-            loss, (o, _) = j_teacher_loss(
-                p, s["spec_j"], _rspec_j(s, spr), _cfg_j(s, color_space),
-                s["occ_j"],
-                jnp.asarray(dr["o"]), jnp.asarray(dr["d"]), gt, bg,
-                dr["k_perturb"])
-            return loss, {"mask_frac": o["mask_frac"],
-                          "budget_hit": o["budget_hit_frac"]}
-
-        (loss, logs), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(
-            jax.tree_util.tree_map(jnp.asarray, s["tree"]))
-        out[spr, color_space] = (
-            float(loss), jax.tree_util.tree_map(np.asarray, logs),
-            jax.tree_util.tree_map(np.asarray, grads))
-        return out[spr, color_space]
-
-    return get
+    (loss, logs), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(
+        jax.tree_util.tree_map(jnp.asarray, s["tree"]))
+    cache[spr, color_space] = (
+        float(loss), jax.tree_util.tree_map(np.asarray, logs),
+        jax.tree_util.tree_map(np.asarray, grads))
+    return cache[spr, color_space]
 
 
 def _port_step(s, spr, color_space):
     """The port's teacher_step_core on the regenerated draws."""
     cfg = PVDConfig(**CFG_KW, color_space=color_space)
-    spec = ModelSpec(**SPEC_KW)
+    spec = ModelSpec(**s["spec_kw"])
     field = hash_field_from_jax(s["tree"], spec, "cpu")
     occ = occupancy_from_jax(s["occ_j"], "cpu")
     params = dict(field.named_parameters())
@@ -179,15 +188,10 @@ def _leaves(tree):
     return jax.tree_util.tree_flatten_with_path(tree)[0]
 
 
-@pytest.mark.parametrize("spr,color_space", [(0.0, "srgb"), (16.0, "srgb"),
-                                             (16.0, "linear")],
-                         ids=["padded", "compacted", "compacted-linear"])
-def test_teacher_step_matches_jax(setup, jax_grads, spr, color_space):
+def _check_whole_step(s, spr, color_space):
     """One whole JAX make_teacher_step against the port's step.core on the
-    same draws: loss and metrics, every gradient leaf (the hash table
-    included), and the params after the AdamW update; the last case
-    trains on linear-space GT (color_space "linear")."""
-    s = setup
+    same draws: loss and metrics, every gradient leaf (the tables
+    included), and the params after the AdamW update."""
     tree = jax.tree_util.tree_map(jnp.asarray, s["tree"])
     j_opt = j_optim.build_optimizer(
         tree, j_label(s["spec_j"]), j_trainable(s["spec_j"], ""),
@@ -201,7 +205,7 @@ def test_teacher_step_matches_jax(setup, jax_grads, spr, color_space):
     j_new, _, j_metrics = j_step(j_state, jnp.asarray(s["pose"]),
                                  jnp.asarray(s["image"]),
                                  jnp.zeros(128 * 128, jnp.float32), KEY)
-    want_loss, want_logs, want_grads = jax_grads(spr, color_space)
+    want_loss, want_logs, want_grads = _jax_grads(s, spr, color_space)
 
     state, metrics = _port_step(s, spr, color_space)
     assert state.step == 1 and int(j_new.step) == 1
@@ -220,6 +224,7 @@ def test_teacher_step_matches_jax(setup, jax_grads, spr, color_space):
 
     got_g = hash_tree_from_field(state.field, grad=True)
     got_p = hash_tree_from_field(state.field)
+    assert set(got_g) == set(want_grads)
     n_held = n_all = 0
     for (path, gw), (_, pw), g, p in zip(
             _leaves(want_grads), _leaves(j_new.params),
@@ -237,11 +242,30 @@ def test_teacher_step_matches_jax(setup, jax_grads, spr, color_space):
     # table rows reached only by far corners carry gradients under the
     # noise mark: ~80% of all entries are held
     assert n_held > 0.75 * n_all
-    # the table's gradient reaches the dense level and the hashed ones
-    enc = got_g["encoder"]
-    offsets = state.field.grid.offsets
-    for lvl in range(state.field.grid.num_levels):
+    # the gradients reach every level: dense, hashed and cell-packed
+    grid = state.field.grid
+    enc, offsets = got_g["encoder"], grid.offsets
+    for lvl in grid.corner_levels:
         assert np.abs(enc[offsets[lvl]:offsets[lvl + 1]]).max() > 0
+    rows = grid.cell_rows_per_level
+    for i in range(len(grid.cell_levels)):
+        assert np.abs(got_g["encoder_cell"][i * rows:(i + 1) * rows]).max() > 0
+
+
+@pytest.mark.parametrize("spr,color_space", [(0.0, "srgb"), (16.0, "srgb"),
+                                             (16.0, "linear")],
+                         ids=["padded", "compacted", "compacted-linear"])
+def test_teacher_step_matches_jax(setup, spr, color_space):
+    """Exact mode; the last case trains on linear-space GT (color_space
+    "linear")."""
+    _check_whole_step(setup, spr, color_space)
+
+
+@pytest.mark.parametrize("spr", [0.0, 16.0], ids=["padded", "compacted"])
+def test_cell_teacher_step_matches_jax(cell_setup, spr):
+    """Cell mode: the step trains both tables (`encoder_cell` among the
+    gradient leaves), padded and compacted."""
+    _check_whole_step(cell_setup, spr, "srgb")
 
 
 @pytest.mark.parametrize("channels,bg_radius", [(4, -1.0), (4, 1.0),

@@ -33,8 +33,9 @@ def scene():
 
 
 @pytest.fixture(scope="module")
-def run(scene):
-    trainer = Trainer(PVDConfig(**CFG), device="cpu")
+def run(scene, tmp_path_factory):
+    ws = str(tmp_path_factory.mktemp("ws_teacher"))
+    trainer = Trainer(PVDConfig(**CFG, workspace=ws), device="cpu")
     trainer.train(scene["train"])
     return trainer
 
@@ -69,10 +70,11 @@ def test_run_bookkeeping(run):
     assert stats["padded_ms_per_step"] > 0 and stats["occ_full_ms"] > 0
 
 
-def test_warmup_ends_with_the_sample_budget(scene):
+def test_warmup_ends_with_the_sample_budget(scene, tmp_path):
     """The first autotune tick after the warmup turns the compacted path
     on (interval 1 keeps it short: 16 warmup steps)."""
-    cfg = PVDConfig(**{**CFG, "iters": 18, "update_extra_interval": 1})
+    cfg = PVDConfig(**{**CFG, "iters": 18, "update_extra_interval": 1},
+                    workspace=str(tmp_path))
     trainer = Trainer(cfg, device="cpu")
     trainer.train(scene["train"])
     assert trainer._warmup_spr == 0.0 and trainer.rspec.samples_per_ray > 0
@@ -94,10 +96,21 @@ def test_unported_options_raise(kw):
         Trainer(PVDConfig(**kw), device="cpu")
 
 
-def test_unported_modes_and_methods_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(PVDConfig(), mode="distill", device="cpu")
-    tr = Trainer(PVDConfig(**CFG), device="cpu")
-    for call in (tr.evaluate, tr.save, tr.try_resume):
+def test_unported_modes_and_methods_raise(scene, tmp_path):
+    """Distillation takes a hash teacher and a VM student only; evaluate
+    writes no images or video and computes no LPIPS."""
+    for kw in (dict(), dict(model_type="mlp"),
+               dict(model_type="vm", teacher_type="vm"),
+               dict(model_type="vm", ema_decay=0.9),
+               dict(model_type="vm", upsample_model_steps=(5,))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+            Trainer(PVDConfig(**kw), mode="distill", device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        Trainer(PVDConfig(), mode="serve", device="cpu")
+    tr = Trainer(PVDConfig(**CFG, workspace=str(tmp_path)), device="cpu")
+    test = scene["test"]
+    for kw in (dict(save_dir=str(tmp_path)), dict(write_video=True),
+               dict(lpips=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            tr.evaluate(test, **kw)
+    assert not tr.try_resume()  # nothing saved in a fresh workspace
