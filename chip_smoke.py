@@ -24,8 +24,9 @@
 5. Trains a full-width hash teacher through `Trainer.train` (the quality
    recipe: the synthetic scene with 100 training views at 96x96, PVDConfig
    defaults except grid_size 64, 3000 steps: 256 padded warm-up steps,
-   then the compacted path), renders the 3 test views with the eval
-   renderer and fails below 25 dB test PSNR.  Then holds K7 (table
+   then the compacted path; its checkpoints go to a temporary workspace),
+   evaluates the 3 test views with `Trainer.evaluate` and fails below
+   25 dB test PSNR.  Then holds K7 (table
    gradient), K8 and K9 (padded composite) against their plain versions on
    inputs from that run, profiles one padded and one compacted teacher
    step, and holds one small teacher step (padded and compacted) on the
@@ -102,7 +103,6 @@ from pvd_tpu_torch.ops.vm_sample import (vm_sample_bwd, vm_sample_bwd_plain,
                                          vm_sample_fwd, vm_sample_plain)
 from pvd_tpu_torch.params import (hash_field_from_jax, hash_tree_from_field,
                                   vm_field_from_jax, vm_tree_from_field)
-from pvd_tpu_torch.utils.metrics import PSNRMeter
 from pvd_tpu_torch.render.occupancy import (grid_coords, init_occupancy_state,
                                             query_points, set_bitfield)
 from pvd_tpu_torch.render.renderer import (compact_samples, dt_min_of,
@@ -695,11 +695,12 @@ def fixed_batch_descent(cfg, spec_stu, spec_tea, opt, state, teacher, pose,
     return losses
 
 
-def drive_teacher(seed: int) -> tuple:
-    """The recipe through Trainer.train, then the test views through the
-    trainer's eval renderer.  Returns (trainer, scene, info)."""
+def drive_teacher(seed: int, workspace: str) -> tuple:
+    """The recipe through Trainer.train (its checkpoints go to
+    `workspace`), then `Trainer.evaluate` on the test views.  Returns
+    (trainer, scene, info)."""
     cfg = PVDConfig(grid_size=RECIPE["grid_size"], iters=RECIPE["iters"],
-                    seed=seed)
+                    seed=seed, workspace=workspace)
     t0 = time.perf_counter()
     scene = make_synthetic_scene(n_train=RECIPE["n_train"],
                                  n_val=RECIPE["n_val"],
@@ -719,38 +720,27 @@ def drive_teacher(seed: int) -> tuple:
     hist = trainer.history
     first = float(np.mean([float(m["psnr"]) for m in hist[:16]]))
     last = float(np.mean([float(m["psnr"]) for m in hist[-16:]]))
-    test = scene["test"]
-    meter = PSNRMeter()
-    renders = []
-    for pose, img in zip(test.poses, test.images):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = trainer.eval_render(trainer.state.field, trainer.state.occ,
-                                  pose, test.intrinsics, test.H, test.W)
-        torch.cuda.synchronize()
-        renders.append((time.perf_counter() - t0) * 1e3)
-        gt = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
-        pred = out.image.cpu().numpy()
-        if not (np.isfinite(pred).all() and pred.shape == gt.shape):
-            raise RuntimeError("teacher eval render: bad image")
-        meter.update(pred, gt)
-    psnr = meter.measure()
+    ev = trainer.evaluate(scene["test"])
+    psnr = ev["psnr"]
     occ = trainer.state.occ
-    info = {"test_psnr": psnr, "train_psnr_first16": first,
-            "train_psnr_last16": last, "render_ms": renders,
+    info = {"test_psnr": psnr, "test_ssim": ev["ssim"],
+            "train_psnr_first16": first, "train_psnr_last16": last,
+            "eval_s_per_image": ev["eval_s_per_image"],
+            "eval_s_first_image": ev["eval_s_first_image"],
             "train_stats": stats, "rspec_final": {
                 "max_samples": trainer.rspec.max_samples,
                 "samples_per_ray": trainer.rspec.samples_per_ray},
             "occupied": float(occ.bitfield.float().mean()),
             "last_metrics": {k: float(v) for k, v in hist[-1].items()}}
-    log(f"teacher: test PSNR {psnr:.3f} dB over {len(test)} views (floor "
-        f"{PSNR_FLOOR}); train-batch PSNR first 16 steps {first:.3f}, last "
-        f"16 {last:.3f}; final S_max {trainer.rspec.max_samples}, budget/ray "
+    log(f"teacher: test PSNR {psnr:.3f} dB, SSIM {ev['ssim']:.4f} over "
+        f"{len(scene['test'])} views (floor {PSNR_FLOOR}); train-batch PSNR "
+        f"first 16 steps {first:.3f}, last 16 {last:.3f}; final S_max "
+        f"{trainer.rspec.max_samples}, budget/ray "
         f"{trainer.rspec.samples_per_ray:g}; grid occupied "
-        f"{info['occupied']:.4f}; renders "
-        + " ".join(f"{ms:.1f}" for ms in renders) + " ms")
+        f"{info['occupied']:.4f}; render {ev['eval_s_per_image'] * 1e3:.1f}"
+        f" ms per image (first {ev['eval_s_first_image'] * 1e3:.1f})")
     log("teacher train_stats " + json.dumps(stats))
-    if not psnr >= PSNR_FLOOR:
+    if not (np.isfinite(psnr) and psnr >= PSNR_FLOOR):
         raise RuntimeError(f"teacher test PSNR {psnr:.3f} < {PSNR_FLOOR}")
     if not last > first:
         raise RuntimeError("teacher train-batch PSNR did not rise")
@@ -1534,10 +1524,11 @@ def main(argv=None) -> int:
     descent = fixed_batch_descent(cfg, spec_stu, spec, opt, state, field,
                                   pose_t, intr, gen)
 
-    # ---- main path 3: teacher training (the recipe) + its test renders --
-    reset_counters()
-    trainer, scene, teacher = drive_teacher(args.seed)
-    teacher_launches = counters()
+    # ---- main path 3: teacher training (the recipe) + its test eval -----
+    with tempfile.TemporaryDirectory(prefix="pvd_teacher_") as ws:
+        reset_counters()
+        trainer, scene, teacher = drive_teacher(args.seed, ws)
+        teacher_launches = counters()
     log(f"launches on the teacher path ({RECIPE['iters']} steps, "
         f"{RECIPE['n_test']} renders): {json.dumps(teacher_launches)}")
     for name in TEACHER_KERNELS:

@@ -91,7 +91,6 @@ class PVDConfig:
     seed: int = 0
     iters: int = 40000
     lr: float = 1e-2
-    ckpt: str = "latest"
     num_rays: int = 8192
     max_steps: int = 1024
     update_extra_interval: int = 16
@@ -116,7 +115,6 @@ class PVDConfig:
     sigma_clip_min: float = -2.0
     sigma_clip_max: float = 7.0
     resolution0: int = 300
-    resolution1: int = 300
     upsample_model_steps: tuple = ()
     # distillation
     distill_mode: str = "no_fix_mlp"  # fix_mlp | no_fix_mlp
@@ -129,8 +127,6 @@ class PVDConfig:
     loss_rate_sigma: float = 0.002
     l1_reg_weight: float = 1e-4
     ema_decay: float = -1.0
-    ckpt_teacher: str = ""
-    ckpt_student: str = ""
     update_stu_extra: bool = False  # refresh student occupancy in distill
     max_samples: int = 96
     samples_per_ray: float = 16.0

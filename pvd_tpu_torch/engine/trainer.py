@@ -227,17 +227,7 @@ class Trainer:
         """Resume the trained field, its grid and its step from a
         checkpoint; the optimizer starts afresh (trainer.py:224-246)."""
         payload = ckpt.load_checkpoint(path, self.device)
-        params = payload["params"]
-        if self.spec_stu.model_type == "vm":
-            # the live resolution from the loaded plane and line shapes
-            m0, v0 = params["sigma_mat"][0], params["sigma_vec"][0]
-            res = (m0.shape[1], m0.shape[0], v0.shape[0])
-            if res != tuple(self.spec_stu.vm_resolution):
-                self.spec_stu = dataclasses.replace(self.spec_stu,
-                                                    vm_resolution=res)
-                self._steps.clear()
-                self._rebuild_renderers()
-        field = field_from_tree(params, self.spec_stu, self.device)
+        field = field_from_tree(payload["params"], self.spec_stu, self.device)
         self.state = TrainState(
             field=field, opt_state=self.opt.init(dict(
                 field.named_parameters())),
@@ -514,13 +504,11 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, ds, use_teacher: bool = False,
                  save_dir: Optional[str] = None, write_video: bool = False,
-                 refresh_occ: bool = False, lpips: bool = False) -> dict:
+                 lpips: bool = False) -> dict:
         """Full-image eval of `ds` (trainer.py:1034-1126): PSNR and SSIM
         against the GT composited on white, and the render seconds per
         image (`eval_s_per_image`, the minimum over images, and
         `eval_s_first_image`).  `use_teacher` renders the distill teacher.
-        `refresh_occ` runs one full occupancy update from the current
-        params first.
 
         Writes no PNG, depth image or video (the JAX package writes them
         with cv2, which the GPU machine lacks), and computes no LPIPS:
@@ -529,13 +517,6 @@ class Trainer:
             _unported("evaluate's PNG and video output (cv2)", "A11")
         if lpips:
             _unported("LPIPS and its proxy", "A11")
-        if refresh_occ and not use_teacher:
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            jitter, coords = draw_occ_inputs(gen, self.state.occ, self.rspec,
-                                             True)
-            self.state.occ = self._occ_update(
-                self.state.occ, self.state.field, full=True, jitter=jitter,
-                coords=coords)
         if use_teacher:
             field, occ, render = self.teacher, self.occ_tea, \
                 self.eval_render_tea

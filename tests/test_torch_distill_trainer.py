@@ -31,7 +31,7 @@ CFG = dict(iters=160, num_rays=512, grid_size=32, max_steps=128,
            density_thresh=0.01, lr=1e-2, seed=0, hash_cell_levels=9)
 DISTILL = dict(model_type="vm", teacher_type="hash", iters=70,
                stage1_iters=20, stage2_iters=40, num_rays=256,
-               resolution0=24, resolution1=24)
+               resolution0=24)
 PSNR_FLOOR = 14.0
 
 
@@ -100,9 +100,28 @@ def test_distill_hash_to_vm_all_stages(student, teacher, scene):
     assert np.isfinite(st["psnr"]) and np.isfinite(st["ssim"])
     st_tea = trainer.evaluate(scene["test"], use_teacher=True)
     assert st_tea["psnr"] > PSNR_FLOOR, st_tea
-    # the warm start copied the teacher's color head
-    w_s = trainer.state.field.color_net[0].weight
-    assert w_s.shape == trainer.teacher.color_net[0].weight.shape
+
+
+def test_load_teacher_warm_starts_student(student, tmp_path):
+    """`load_teacher` hands the student the frozen teacher's color head
+    (the one head both fields share) and keeps the student's own VM
+    planes, lines and basis."""
+    _, path = student
+    cfg = PVDConfig(**{**CFG, **DISTILL}, workspace=str(tmp_path))
+    trainer = Trainer(cfg, mode="distill", device="cpu")
+    before = {k: v.clone() for k, v in trainer.state.field.state_dict()
+              .items()}
+    trainer.load_teacher(path)
+    stu, tea = trainer.state.field, trainer.teacher
+    for a, b in zip(stu.color_net, tea.color_net):
+        assert torch.equal(a.weight, b.weight)
+    copied = {f"color_net.{k}" for k in tea.color_net.state_dict()}
+    assert copied <= set(before)
+    for k, v in stu.state_dict().items():
+        if k not in copied:
+            assert torch.equal(v, before[k]), k
+    assert any(not torch.equal(stu.state_dict()[k], before[k])
+               for k in copied)
 
 
 def test_distill_checkpoint_and_resume(student):
