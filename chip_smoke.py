@@ -44,7 +44,25 @@
    teacher's padded and compacted batches, profiles one compacted teacher
    step and one stage-3 distill step, and holds one small cell-mode
    teacher step (padded and compacted) on the GPU against the CPU.
-7. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+7. Runs the large-scene configuration (bench.py:376-380's cascade config
+   plus the background model: bound 2, so two occupancy cascades, the
+   geometric march dt_gamma 1/256, bg_radius 32, grid 128, 1024 march
+   steps, max_samples 64, 4096 rays) through the Trainer on the synthetic
+   scene with 100/3/10 views at 96x96, its images composited over a sky
+   dome on the background sphere: a cell-mode hash teacher (3000
+   steps; the 256-step padded warm-up, then compacted) whose val eval
+   writes `hash_best.ckpt`, then `Trainer(mode="distill")` loads it and
+   distills a VM student (2000 steps, stages 300/800, 6 samples per ray);
+   both evaluated on the 10 test views.  Fails below 25 dB (teacher),
+   24 dB (student) or more than 1.5 dB under the teacher.  Every march of
+   this path is K14 (the geometric lattice) and every composite blends in
+   the field's background through K12 (and K13 in training).  Then holds
+   K12, K13 and K14 against their plain versions at this phase's shapes,
+   renders one 800x800 view of the teacher through make_eval_renderer,
+   profiles a teacher and a stage-3 distill step, and holds one small
+   large-scene teacher step (padded and compacted) and one stage-3 distill
+   step on the GPU against the CPU plain steps.
+8. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails or no GPU is present.
@@ -77,10 +95,11 @@ from pvd_tpu_torch.engine.train_steps import (TrainState, chunk_rays,
                                               make_occ_update,
                                               make_teacher_step)
 from pvd_tpu_torch.engine.trainer import Trainer
-from pvd_tpu_torch.models.api import param_group_label, trainable_label
+from pvd_tpu_torch.models.api import (bg_grid_spec, param_group_label,
+                                      trainable_label)
 from pvd_tpu_torch.models.hash_field import grid_spec
 from pvd_tpu_torch.models.vm_field import normalize
-from pvd_tpu_torch.ops.aabb import near_far_from_aabb
+from pvd_tpu_torch.ops.aabb import near_far_from_aabb, polar01_from_ray
 from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
                                          composite_rays_bwd_plain,
                                          composite_rays_compact,
@@ -97,7 +116,8 @@ from pvd_tpu_torch.ops.hashgrid import (cell_corners, hash_encode,
                                         hash_encode_cell_bwd_plain,
                                         hash_encode_cell_fwd,
                                         hash_encode_cell_plain,
-                                        hash_encode_plain, level_corners)
+                                        hash_encode_fwd, hash_encode_plain,
+                                        level_corners)
 from pvd_tpu_torch.ops.rays import get_rays, nerf_matrix_to_ngp
 from pvd_tpu_torch.ops.vm_sample import (vm_sample_bwd, vm_sample_bwd_plain,
                                          vm_sample_fwd, vm_sample_plain)
@@ -105,9 +125,9 @@ from pvd_tpu_torch.params import (hash_field_from_jax, hash_tree_from_field,
                                   vm_field_from_jax, vm_tree_from_field)
 from pvd_tpu_torch.render.occupancy import (grid_coords, init_occupancy_state,
                                             query_points, set_bitfield)
-from pvd_tpu_torch.render.renderer import (compact_samples, dt_min_of,
-                                           march_rays, march_rays_plain,
-                                           render_rays)
+from pvd_tpu_torch.render.renderer import (_t_lattice_geom, compact_samples,
+                                           dt_min_of, march_rays,
+                                           march_rays_plain, render_rays)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 outside the
 # tensor cores; the bounds below are the larger of bytes/BW and ops/F32
@@ -120,7 +140,9 @@ OUR_KERNELS = ("hash_encode_fwd_kernel", "march_rays_kernel",
                "vm_sample_fwd_kernel", "vm_sample_bwd_kernel",
                "composite_bwd_kernel", "hash_encode_bwd_kernel",
                "composite_padded_fwd_kernel", "composite_padded_bwd_kernel",
-               "hash_cell_fwd_kernel", "hash_cell_bwd_kernel")
+               "hash_cell_fwd_kernel", "hash_cell_bwd_kernel",
+               "hash_encode2_fwd_kernel", "hash_encode2_bwd_kernel",
+               "march_rays_geom_kernel")
 TOL_K1, TOL_K2_DD, TOL_K3 = 1e-5, 1e-6, 1e-5
 # K4: the same f32 ops; K5: fp32 atomics add in a varying order, so each
 # gradient leaf is held to 1e-4 of its max |g|; K6: the closed form against
@@ -191,6 +213,49 @@ TOL_K10_REL, TOL_K11_REL = 1e-5, 1e-4
 SMALL_CELL_TEA = dict(hash_num_levels=6, hash_base_res=4,
                       hash_desired_res=64, hash_log2_size=9,
                       hash_cell_levels=2, compute_dtype="float32")
+# the large-scene configuration: bench.py:376-380's cascade config (bound 2,
+# dt_gamma 1/256, grid 128, 1024 steps, max_samples 64, 4096 rays, VM 300^3
+# at 6 samples per ray, the teacher with 9 cell levels as bench.py:164-166
+# builds it) plus the background model at tests/test_renderer.py:333's
+# radius; the A/B recipe's scene and schedule
+LS_SCENE = AB_SCENE
+# the scene's images are RGB over a sky dome on the background sphere
+# (bg_radius in NGP units = bg_radius / scale in the scene's): on the
+# plain white background white floaters fill the outer cascade and
+# overflow the sample budget, in the JAX package's Trainer as in the
+# port's (tools/torch_large_scene_witness.py)
+LS_SCALE = PVDConfig().scale
+LS_SKY_RADIUS = 32.0 / LS_SCALE
+LS_COMMON = dict(bound=2.0, dt_gamma=1.0 / 256.0, bg_radius=32.0,
+                 grid_size=128, max_steps=1024, max_samples=64,
+                 num_rays=4096, hash_cell_levels=9, eval_interval=1000)
+LS_TEACHER = dict(LS_COMMON, model_type="hash", iters=3000)
+LS_DISTILL = dict(LS_COMMON, teacher_type="hash", model_type="vm",
+                  resolution0=300, iters=2000, stage1_iters=300,
+                  stage2_iters=800, samples_per_ray=6.0,
+                  autotune_budget=False)
+LS_TEACHER_FLOOR, LS_STUDENT_FLOOR, LS_MAX_DROP = 25.0, 24.0, 1.5
+LS_KERNELS = ("hash_encode", "hash_encode_cell_fwd", "hash_encode_bwd",
+              "hash_encode_cell_bwd", "march_rays_geom", "hash_encode_2d_fwd",
+              "hash_encode_2d_bwd", "composite_rays", "composite_rays_bwd",
+              "composite_rays_compact", "composite_rays_compact_bwd",
+              "vm_sample_fwd", "vm_sample_bwd")
+# K12: the same f32 ops as the plain version in another order, 1e-5 of max
+# |out|; K13: fp32 atomics in a varying order, 1e-4 of the gradient's max;
+# K14: t, dt, mask, t0 bit-exact and delta_depth 1e-6, as K2
+TOL_K12_REL, TOL_K13_REL, TOL_K14_DD = 1e-5, 1e-4, 1e-6
+LS_RENDER_RES = 800
+# the small large-scene steps (tests/test_torch_large_scene.py's sizes)
+SMALL_LS = dict(bound=2.0, dt_gamma=1.0 / 256.0, bg_radius=32.0)
+SMALL_LS_TEA = dict(SMALL_TEA, bound=2.0, bg_radius=32.0)
+SMALL_LS_STU = dict(SMALL_STU, vm_resolution=(32, 32, 32), bound=2.0,
+                    bg_radius=32.0)
+# occupancy of their random grid: tests/test_torch_large_scene.py's 10%.
+# At 25% in both cascades the geometric march fills ~88% of the padded
+# slots and nearly every ray is opaque: the background's gradient then
+# scales with 1 - weights_sum, a cancellation whose rounding differs
+# between two composites' summation orders
+SMALL_LS_OCC = 0.1
 
 
 def object_like_bitfield(H: int) -> np.ndarray:
@@ -250,6 +315,27 @@ def random_hash_params(spec, rng: np.random.Generator) -> dict:
         tree["encoder_cell"] = rng.uniform(
             -0.5, 0.5, (gs.cell_table_size, gs.cell_row_width)) \
             .astype(np.float32)
+    return with_bg(tree, spec, rng)
+
+
+def with_bg(tree: dict, spec, rng: np.random.Generator) -> dict:
+    """`tree` plus a seeded background subtree when spec.bg_radius > 0: the
+    2-D table from U(-1e-4, 1e-4), the reference's init, and the MLP with
+    bound 1/sqrt(fan_in).  An O(1) table would move the 2048-cell level's
+    features by ~1e-4 per ulp of a polar coordinate (CUDA's atan2 and the
+    CPU's differ by an ulp or two), enough to flip a ReLU of the background
+    MLP somewhere in a batch and move its gradients by ~1% of their max;
+    K12 and K13 are held on the trained table instead."""
+    if spec.bg_radius > 0:
+        bg = bg_grid_spec()
+        dims = [bg.output_dim + spec.dir_sh_degree ** 2, spec.hidden_dim_bg,
+                3]
+        tree["bg"] = {
+            "encoder": rng.uniform(-1e-4, 1e-4, (bg.table_size, 2))
+            .astype(np.float32),
+            "net": [{"w": rng.uniform(-1, 1, (i, o)).astype(np.float32)
+                     / np.float32(math.sqrt(i))}
+                    for i, o in zip(dims[:-1], dims[1:])]}
     return tree
 
 
@@ -277,7 +363,7 @@ def random_vm_params(spec, rng: np.random.Generator) -> dict:
     dims = [spec.dir_sh_degree ** 2 + spec.geo_feat_dim,
             spec.hidden_dim_color, spec.hidden_dim_color, 3]
     tree["color_net"] = [lin(i, o) for i, o in zip(dims[:-1], dims[1:])]
-    return tree
+    return with_bg(tree, spec, rng)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3,
@@ -324,24 +410,32 @@ def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-COUNTED = {"hash_encode": hash_encode, "march_rays": march_rays,
-           "composite_rays_compact": composite_rays_compact,
-           "vm_sample_fwd": vm_sample_fwd, "vm_sample_bwd": vm_sample_bwd,
-           "composite_rays_compact_bwd": composite_rays_compact_bwd,
-           "hash_encode_bwd": hash_encode_bwd,
-           "composite_rays": composite_rays,
-           "composite_rays_bwd": composite_rays_bwd,
-           "hash_encode_cell_fwd": hash_encode_cell_fwd,
-           "hash_encode_cell_bwd": hash_encode_cell_bwd}
+# each kernel's launch counter: (wrapper, attribute); K12, K13 and K14
+# count on the wrappers of K1, K7 and K2, which launch them
+COUNTED = {"hash_encode": (hash_encode, "launches"),
+           "march_rays": (march_rays, "launches"),
+           "composite_rays_compact": (composite_rays_compact, "launches"),
+           "vm_sample_fwd": (vm_sample_fwd, "launches"),
+           "vm_sample_bwd": (vm_sample_bwd, "launches"),
+           "composite_rays_compact_bwd": (composite_rays_compact_bwd,
+                                          "launches"),
+           "hash_encode_bwd": (hash_encode_bwd, "launches"),
+           "composite_rays": (composite_rays, "launches"),
+           "composite_rays_bwd": (composite_rays_bwd, "launches"),
+           "hash_encode_cell_fwd": (hash_encode_cell_fwd, "launches"),
+           "hash_encode_cell_bwd": (hash_encode_cell_bwd, "launches"),
+           "hash_encode_2d_fwd": (hash_encode, "launches_2d"),
+           "hash_encode_2d_bwd": (hash_encode_bwd, "launches_2d"),
+           "march_rays_geom": (march_rays, "launches_geom")}
 
 
 def counters() -> dict:
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTED.items()}
 
 
 def reset_counters():
-    for fn in COUNTED.values():
-        fn.launches = 0
+    for fn, attr in COUNTED.values():
+        setattr(fn, attr, 0)
 
 
 def log(msg: str):
@@ -591,24 +685,86 @@ def check_composite_bwd(comp, gen) -> dict:
         shape=f"M={M} slots ({n_valid} valid), N={N} rays")
 
 
-def tree_leaves(tree) -> list:
-    """The arrays of a VM params tree, in sorted key order."""
-    out = []
-    for k in sorted(tree):
-        for x in (tree[k] if isinstance(tree[k], list) else [tree[k]]):
-            out.append(x["w"] if isinstance(x, dict) else x)
+def named_leaves(tree, prefix: str = "") -> list:
+    """(name, array) of a params tree's leaves, dict keys in sorted order
+    ("bg.net.0.w", "encoder", ...)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in named_leaves(
+            tree[k], f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, x in enumerate(tree)
+                for leaf in named_leaves(x, f"{prefix}.{i}")]
+    return [(prefix, np.asarray(tree))]
+
+
+def bg_allowance(scale: float) -> np.ndarray:
+    """Extra absolute gradient tolerance of the background table's rows for
+    1-ulp differences of their polar coordinates (CUDA's and the CPU's
+    atan2, sqrt and division round differently): a level-l corner weight
+    moves by up to level_scale(l) * 2^-24 in each of two dimensions, so
+    level l's rows get 2 * level_scale(l) * 2^-24 of the leaf's max |g|.
+    The background MLP's leaves get none: at the table's init scale
+    (`with_bg`) such a move shifts their inputs by ~1e-8."""
+    grid = bg_grid_spec()
+    out = np.empty((grid.table_size, 1), np.float32)
+    for lvl in range(grid.num_levels):
+        out[grid.offsets[lvl]:grid.offsets[lvl + 1]] = \
+            2.0 * grid.level_scale(lvl) * 2.0 ** -24 * scale
     return out
 
 
-def small_step_gpu_vs_cpu() -> dict:
+def compare_steps(gpu, cpu) -> dict:
+    """One step's (logs, gradient tree, params tree) on the GPU against the
+    CPU plain step's: the largest relative log difference, whether every
+    gradient leaf is within STEP_GRAD_REL_ATOL of its max |g| plus
+    STEP_GRAD_RTOL (the background table: plus `bg_allowance`), the largest
+    gradient difference over the leaf's max and its leaf, and the largest
+    param
+    difference where the gradient is clear of rounding noise or exactly 0
+    (Adam's first step is lr * sign(g))."""
+    (lg, gg, pg), (lc, gc, pc) = gpu, cpu
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
+    grad_err = param_err = 0.0
+    grad_leaf = ""
+    failed = []
+    for (name, a), (_, b), (_, pa), (_, pb) in zip(
+            named_leaves(gg), named_leaves(gc), named_leaves(pg),
+            named_leaves(pc)):
+        scale = float(np.abs(b).max())
+        err = float(np.abs(a - b).max()) / max(scale, 1e-30)
+        if err > grad_err:
+            grad_err, grad_leaf = err, name
+        atol = STEP_GRAD_REL_ATOL * scale
+        if name == "bg.encoder":
+            atol = atol + bg_allowance(scale)
+        hold = (np.abs(b) > STEP_MASK_FRAC * scale) | (b == 0)
+        p_err = float(np.abs(pa - pb)[hold].max())
+        param_err = max(param_err, p_err)
+        if not (np.all(np.abs(a - b) <= atol + STEP_GRAD_RTOL * np.abs(b))
+                and p_err <= STEP_PARAM_TOL):
+            failed.append(name)
+    if failed:
+        log(f"  leaves over their tolerance: {failed}")
+    ok = loss_err <= STEP_LOSS_RTOL and not failed
+    return {"loss_rel_err": loss_err, "grad_err_rel_leaf_max": grad_err,
+            "grad_err_leaf": grad_leaf, "param_err": param_err, "ok": ok}
+
+
+def small_step_gpu_vs_cpu(devices=("cuda", "cpu"),
+                          large: bool = False) -> dict:
     """One stage-3 distill step at test sizes: kernels on the GPU against
-    the plain path on the CPU, same params and draws."""
+    the plain path on the CPU, same params and draws (`large`: the
+    large-scene settings, two cascades, dt_gamma and both fields'
+    backgrounds)."""
     rng = np.random.default_rng(11)
-    cfg = PVDConfig(**SMALL_CFG)
-    spec_tea, spec_stu = ModelSpec(**SMALL_TEA), ModelSpec(**SMALL_STU)
+    cfg = PVDConfig(**SMALL_CFG, **(SMALL_LS if large else {}))
+    spec_tea = ModelSpec(**(SMALL_LS_TEA if large else SMALL_TEA))
+    spec_stu = ModelSpec(**(SMALL_LS_STU if large else SMALL_STU))
     tea_tree = random_hash_params(spec_tea, rng)
     stu_tree = random_vm_params(spec_stu, rng)
-    bits = rng.uniform(size=cfg.grid_size ** 3) < 0.25
+    bits = rng.uniform(size=cfg.render_spec().cascades
+                       * cfg.grid_size ** 3) < (SMALL_LS_OCC if large
+                                                else 0.25)
     pose = nerf_matrix_to_ngp(pose_spherical(30.0, -30.0, 4.0), scale=0.8)
     inds = torch.from_numpy(rng.integers(0, SMALL_HW ** 2, cfg.num_rays))
     rays = get_rays(torch.from_numpy(pose)[None], SMALL_INTR, SMALL_HW,
@@ -618,7 +774,7 @@ def small_step_gpu_vs_cpu() -> dict:
                           .astype(np.float32))
     u = torch.from_numpy(rng.uniform(size=cfg.num_rays).astype(np.float32))
     res = {}
-    for where in ("cuda", "cpu"):
+    for where in devices:
         teacher = hash_field_from_jax(tea_tree, spec_tea, where)
         student = vm_field_from_jax(stu_tree, spec_stu, where)
         occ = set_bitfield(init_occupancy_state(cfg.render_spec(), where),
@@ -638,34 +794,21 @@ def small_step_gpu_vs_cpu() -> dict:
         res[where] = ({k: float(v) for k, v in logs.items()},
                       vm_tree_from_field(student, grad=True),
                       vm_tree_from_field(student))
-    (lg, gg, pg), (lc, gc, pc) = res["cuda"], res["cpu"]
-    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc)
-    grad_err = param_err = 0.0
-    grad_ok = True
-    for a, b, pa, pb in zip(tree_leaves(gg), tree_leaves(gc),
-                            tree_leaves(pg), tree_leaves(pc)):
-        scale = float(np.abs(b).max())
-        grad_err = max(grad_err, float(np.abs(a - b).max())
-                       / max(scale, 1e-30))
-        grad_ok &= bool(np.all(np.abs(a - b) <= STEP_GRAD_REL_ATOL * scale
-                               + STEP_GRAD_RTOL * np.abs(b)))
-        # Adam's first step is lr * sign(g): hold params where g is clear
-        # of rounding noise, or exactly 0 (weight decay alone)
-        hold = (np.abs(b) > STEP_MASK_FRAC * scale) | (b == 0)
-        param_err = max(param_err, float(np.abs(pa - pb)[hold].max()))
-    param_ok = param_err <= STEP_PARAM_TOL
-    log(f"distill step GPU kernels vs CPU plain (test sizes, stage 3, f32 "
-        f"heads): max rel loss/log diff {loss_err:.3g} (tol "
-        f"{STEP_LOSS_RTOL:g}); max grad diff / leaf max {grad_err:.3g} "
-        f"(tol {STEP_GRAD_REL_ATOL:g} + rtol {STEP_GRAD_RTOL:g}); max param "
-        f"diff under the gradient mask {param_err:.3g} (tol "
-        f"{STEP_PARAM_TOL:g}); loss {lc['loss']:.6g}, compact_frac "
-        f"{lc['compact_frac']:.3f}")
-    if not (loss_err <= STEP_LOSS_RTOL and grad_ok and param_ok):
-        raise RuntimeError("the GPU distill step disagrees with the CPU "
-                           "plain step")
-    return {"loss_rel_err": loss_err, "grad_err_rel_leaf_max": grad_err,
-            "param_err": param_err}
+    c = compare_steps(res[devices[0]], res[devices[1]])
+    lc = res[devices[1]][0]
+    label = "large-scene distill step" if large else "distill step"
+    log(f"{label} GPU kernels vs CPU plain (test sizes, stage 3, f32 "
+        f"heads): max rel loss/log diff {c['loss_rel_err']:.3g} (tol "
+        f"{STEP_LOSS_RTOL:g}); max grad diff / leaf max "
+        f"{c['grad_err_rel_leaf_max']:.3g} ({c['grad_err_leaf']}; tol "
+        f"{STEP_GRAD_REL_ATOL:g} + rtol {STEP_GRAD_RTOL:g}); max param diff "
+        f"under the gradient mask "
+        f"{c['param_err']:.3g} (tol {STEP_PARAM_TOL:g}); loss "
+        f"{lc['loss']:.6g}, compact_frac {lc['compact_frac']:.3f}")
+    if not c.pop("ok"):
+        raise RuntimeError(f"the GPU {label} disagrees with the CPU plain "
+                           "step")
+    return c
 
 
 def fixed_batch_descent(cfg, spec_stu, spec_tea, opt, state, teacher, pose,
@@ -904,7 +1047,8 @@ def teacher_step_flavors(trainer, scene, label: str = "teacher") -> dict:
     for name, rs in flavors.items():
         step = make_teacher_step(trainer.spec, rs, trainer.opt, trainer.cfg,
                                  train.intrinsics, train.H, train.W,
-                                 image_channels=4, device=trainer.device)
+                                 image_channels=images.shape[-1],
+                                 device=trainer.device)
         for i in range(3):  # warm-up
             step(trainer.state, poses[i], images[i], trainer.generator)
         torch.cuda.synchronize()
@@ -926,16 +1070,21 @@ def teacher_step_flavors(trainer, scene, label: str = "teacher") -> dict:
     return out
 
 
-def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu"),
-                             spec_kw=SMALL_TEA) -> dict:
+def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu"), spec_kw=SMALL_TEA,
+                             cfg_kw=None) -> dict:
     """One teacher step at test sizes, padded and compacted: kernels on
     the GPU against the plain path on the CPU, same params and draws
-    (`spec_kw`: exact mode, or cell mode with SMALL_CELL_TEA)."""
+    (`spec_kw`: exact mode, cell mode with SMALL_CELL_TEA, or the large
+    scene's SMALL_LS_TEA with `cfg_kw` SMALL_LS)."""
     rng = np.random.default_rng(12)
     spec = ModelSpec(**spec_kw)
-    mode = "cell" if spec.hash_cell_levels else "exact"
+    cfg_kw = cfg_kw or {}
+    mode = ("large-scene" if spec.bg_radius > 0 else
+            "cell" if spec.hash_cell_levels else "exact")
     tree = random_hash_params(spec, rng)
-    bits = rng.uniform(size=32 ** 3) < 0.25
+    C = PVDConfig(**cfg_kw).render_spec().cascades
+    bits = rng.uniform(size=C * 32 ** 3) < (SMALL_LS_OCC
+                                            if spec.bg_radius > 0 else 0.25)
     image = rng.uniform(size=(SMALL_HW ** 2, 4)).astype(np.float32)
     image[:, 3] = rng.choice([0.0, 1.0, 0.3], size=SMALL_HW ** 2)
     pose = nerf_matrix_to_ngp(pose_spherical(30.0, -30.0, 4.0), scale=0.8)
@@ -949,7 +1098,7 @@ def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu"),
     u = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
     report = {}
     for spr in (0.0, 16.0):
-        cfg = PVDConfig(**SMALL_TEACHER_CFG, samples_per_ray=spr)
+        cfg = PVDConfig(**SMALL_TEACHER_CFG, samples_per_ray=spr, **cfg_kw)
         res = []
         for where in devices:
             field = hash_field_from_jax(tree, spec, where)
@@ -970,37 +1119,23 @@ def small_teacher_gpu_vs_cpu(devices=("cuda", "cpu"),
             res.append(({k: float(v) for k, v in m.items()},
                         hash_tree_from_field(field, grad=True),
                         hash_tree_from_field(field)))
-        (lg, gg, pg), (lc, gc, pc) = res
-        loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12)
-                       for k in lc)
-        grad_err = param_err = 0.0
-        grad_ok = True
-        for a, b, pa, pb in zip(tree_leaves(gg), tree_leaves(gc),
-                                tree_leaves(pg), tree_leaves(pc)):
-            scale = float(np.abs(b).max())
-            grad_err = max(grad_err, float(np.abs(a - b).max())
-                           / max(scale, 1e-30))
-            grad_ok &= bool(np.all(np.abs(a - b) <= STEP_GRAD_REL_ATOL
-                                   * scale + STEP_GRAD_RTOL * np.abs(b)))
-            hold = (np.abs(b) > STEP_MASK_FRAC * scale) | (b == 0)
-            param_err = max(param_err, float(np.abs(pa - pb)[hold].max()))
+        c = compare_steps(*res)
+        lc = res[1][0]
         flavor = "compacted" if spr else "padded"
         log(f"{mode}-mode teacher step GPU kernels vs CPU plain (test "
             f"sizes, {flavor}, f32 heads): max rel loss/metric diff "
-            f"{loss_err:.3g} (tol "
-            f"{STEP_LOSS_RTOL:g}); max grad diff / leaf max {grad_err:.3g} "
-            f"(tol {STEP_GRAD_REL_ATOL:g} + rtol {STEP_GRAD_RTOL:g}); max "
-            f"param diff under the gradient mask {param_err:.3g} (tol "
+            f"{c['loss_rel_err']:.3g} (tol {STEP_LOSS_RTOL:g}); max grad "
+            f"diff / leaf max {c['grad_err_rel_leaf_max']:.3g} "
+            f"({c['grad_err_leaf']}; tol {STEP_GRAD_REL_ATOL:g} + rtol "
+            f"{STEP_GRAD_RTOL:g}); max param "
+            f"diff under the gradient mask {c['param_err']:.3g} (tol "
             f"{STEP_PARAM_TOL:g}); loss {lc['loss']:.6g}, mask_frac "
             f"{lc['mask_frac']:.3f}")
-        if not (loss_err <= STEP_LOSS_RTOL and grad_ok
-                and param_err <= STEP_PARAM_TOL):
+        if not c.pop("ok"):
             raise RuntimeError(f"the GPU {mode}-mode teacher step "
                                f"({flavor}) disagrees with the CPU plain "
                                "step")
-        report[flavor] = {"loss_rel_err": loss_err,
-                          "grad_err_rel_leaf_max": grad_err,
-                          "param_err": param_err}
+        report[flavor] = c
     return report
 
 
@@ -1228,7 +1363,7 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
     return results, extra
 
 
-def distill_step_profile(stu, scene, gen) -> dict:
+def distill_step_profile(stu, scene, gen, label: str = "A/B") -> dict:
     """Launches and a profile of one stage-3 step of the distill Trainer's
     state, from one of its random poses."""
     train = scene["train"]
@@ -1247,7 +1382,7 @@ def distill_step_profile(stu, scene, gen) -> dict:
     launched = {k: v for k, v in counters().items() if v}
     prof = profile(lambda: step(stu.state, stu.teacher, stu.occ_tea, pose,
                                 gen))
-    log(f"A/B distill stage-3 step: launches {json.dumps(launched)}; "
+    log(f"{label} distill stage-3 step: launches {json.dumps(launched)}; "
         f"profile wall {prof['wall_ms']:.2f} ms, device busy "
         f"{prof['device_busy_ms']:.2f} ms (share "
         f"{prof['device_busy_share']:.3f})")
@@ -1256,6 +1391,317 @@ def distill_step_profile(stu, scene, gen) -> dict:
     for kname, row in prof["ours"].items():
         log(f"  ours: {row['ms']:9.3f} ms {row['calls']:6d} x {kname}")
     return {"launches_per_step": launched, "profile": prof}
+
+
+def drive_large_scene(seed: int, workspace: str) -> tuple:
+    """The large-scene configuration through the Trainer: a cell-mode hash
+    teacher with a background model on two cascades and the geometric
+    march, whose val eval writes `hash_best.ckpt`; a distill Trainer that
+    loads that file and trains a VM student (its background warm-started
+    from the teacher's); both evaluated on the test views.  Returns
+    (teacher trainer, student trainer, scene, info)."""
+    t0 = time.perf_counter()
+    scene = make_synthetic_scene(**LS_SCENE, seed=seed, scale=LS_SCALE,
+                                 sky_radius=LS_SKY_RADIUS)
+    scene_s = time.perf_counter() - t0
+    cfg_t = PVDConfig(**LS_TEACHER, seed=seed,
+                      workspace=os.path.join(workspace, "teacher"))
+    tea = Trainer(cfg_t)
+    gs = tea.state.field.grid
+    log(f"large scene: {LS_SCENE} (scene made in {scene_s:.1f} s); bound "
+        f"{cfg_t.bound} ({tea.rspec.cascades} cascades of "
+        f"{cfg_t.grid_size}^3), dt_gamma {cfg_t.dt_gamma:g}, max_steps "
+        f"{cfg_t.max_steps}, bg_radius {cfg_t.bg_radius:g} (background "
+        f"table {tea.state.field.bg.grid.table_size} x 2); teacher hash, "
+        f"cell levels {gs.cell_levels}, {cfg_t.iters} steps of "
+        f"{cfg_t.num_rays} rays, heads {tea.spec.compute_dtype}")
+    tea.train(scene["train"], valid_ds=scene["val"])
+    best = os.path.join(tea.workspace, "checkpoints", "hash_best.ckpt")
+    if not os.path.exists(best):
+        raise RuntimeError(f"the teacher's val eval wrote no {best}")
+    st_t = tea.evaluate(scene["test"])
+    hist = tea.history
+    first = float(np.mean([float(m["psnr"]) for m in hist[:16]]))
+    last = float(np.mean([float(m["psnr"]) for m in hist[-16:]]))
+
+    cfg_d = PVDConfig(**LS_DISTILL, seed=seed,
+                      workspace=os.path.join(workspace, "h2v"))
+    stu = Trainer(cfg_d, mode="distill")
+    stu.load_teacher(best)
+    bg_copied = all(torch.equal(a, b) for a, b in zip(
+        stu.state.field.bg.parameters(), stu.teacher.bg.parameters()))
+    log(f"large-scene distill: vm {stu.spec_stu.vm_resolution}, "
+        f"{cfg_d.iters} steps (stages at {cfg_d.stage1_iters}/"
+        f"{cfg_d.stage2_iters}) of {cfg_d.num_rays} rays, max_samples "
+        f"{cfg_d.max_samples}, samples_per_ray {cfg_d.samples_per_ray:g}; "
+        f"student background warm-started from the teacher's: {bg_copied}")
+    if not bg_copied:
+        raise RuntimeError("load_teacher did not copy the background")
+    stu.train(scene["train"], valid_ds=scene["val"])
+    st_s = stu.evaluate(scene["test"])
+    st_tt = stu.evaluate(scene["test"], use_teacher=True)
+
+    def brief(st):
+        return {k: st[k] for k in ("psnr", "ssim", "eval_s_per_image",
+                                   "eval_s_first_image")}
+
+    info = {"teacher": brief(st_t), "student": brief(st_s),
+            "teacher_reloaded": brief(st_tt),
+            "teacher_train_psnr_first16": first,
+            "teacher_train_psnr_last16": last,
+            "teacher_train_stats": tea.train_stats,
+            "student_train_stats": stu.train_stats,
+            "teacher_rspec_final": {
+                "max_samples": tea.rspec.max_samples,
+                "samples_per_ray": tea.rspec.samples_per_ray},
+            "teacher_occupied": [float(b.float().mean()) for b in
+                                 tea.state.occ.bitfield.reshape(
+                                     tea.rspec.cascades, -1)]}
+    for name, st in (("teacher", st_t), ("student", st_s),
+                     ("teacher reloaded by the distill Trainer", st_tt)):
+        log(f"large-scene {name}: test PSNR {st['psnr']:.3f} dB, SSIM "
+            f"{st['ssim']:.4f} over {len(scene['test'])} views, "
+            f"{st['eval_s_per_image'] * 1e3:.1f} ms per image")
+    log(f"large-scene grid occupied per cascade "
+        f"{info['teacher_occupied']}; final S_max "
+        f"{tea.rspec.max_samples}, budget/ray {tea.rspec.samples_per_ray:g}")
+    log("large-scene teacher train_stats " + json.dumps(tea.train_stats))
+    log("large-scene student train_stats " + json.dumps(stu.train_stats))
+    pt, ps = st_t["psnr"], st_s["psnr"]
+    if not (np.isfinite(pt) and pt >= LS_TEACHER_FLOOR):
+        raise RuntimeError(f"large-scene teacher test PSNR {pt:.3f} < "
+                           f"{LS_TEACHER_FLOOR}")
+    if not (np.isfinite(ps) and ps >= LS_STUDENT_FLOOR
+            and ps >= pt - LS_MAX_DROP):
+        raise RuntimeError(f"large-scene student test PSNR {ps:.3f}: floor "
+                           f"{LS_STUDENT_FLOOR}, teacher {pt:.3f} - "
+                           f"{LS_MAX_DROP}")
+    # the distill Trainer renders its teacher with the student's sample
+    # budget, so hold the reloaded teacher to the trained one's parameters
+    reloaded = all(torch.equal(a, b) for a, b in zip(
+        stu.teacher.parameters(), tea.state.field.parameters()))
+    if not reloaded:
+        raise RuntimeError("the large-scene teacher reloaded from its "
+                           "checkpoint differs from the trained one")
+    if not last > first:
+        raise RuntimeError("large-scene teacher train-batch PSNR did not "
+                           "rise")
+    return tea, stu, scene, info
+
+
+def k14_case(bits, o, d, nears, fars, rs, u=None) -> dict:
+    """K14 against its plain version on one batch: t, dt, mask and t0
+    bit-exact, delta_depth within TOL_K14_DD; times and the bound.  Ops:
+    ~24 per lattice point the function needs (the recurrence's 4, the
+    cascade pick and lookup's ~20): every point in eval mode; in train mode
+    each ray's points up to its S-th occupied one or to far."""
+    k = march_rays(bits, o, d, nears, fars, rs, u)
+    p = march_rays_plain(bits, o, d, nears, fars, rs, u)
+    exact = all(torch.equal(getattr(k, f), getattr(p, f))
+                for f in ("t", "dt", "mask", "t0"))
+    err = max_abs(k.delta_depth, p.delta_depth)
+    N, S, L = o.shape[0], rs.max_samples, rs.max_steps
+    if S >= L:
+        points = N * L
+    else:
+        # the lattice the rays need: up to the S-th occupied point or far
+        rs_e = dataclasses.replace(rs, max_samples=L)
+        occ = march_rays_plain(bits, o, d, nears, fars, rs_e, u).mask
+        live = (_t_lattice_geom(p.t0, rs) < fars[:, None]).sum(1)
+        rank = torch.cumsum(occ.long(), 1)
+        stop = torch.where(rank[:, -1] >= S,
+                           (rank < S).sum(1) + 1, torch.full_like(live, L))
+        points = int(torch.minimum(live, stop).sum())
+    bnd = bound(N * 32 + bits.numel() + N * S * 13 + N * 4, points * 24)
+    return {"exact": exact, "dd_err": err, "samples": int(k.mask.sum()),
+            "points": points, "bound": bnd,
+            **timings(lambda: march_rays(bits, o, d, nears, fars, rs, u),
+                      lambda: march_rays_plain(bits, o, d, nears, fars, rs,
+                                               u))}
+
+
+def k12_k13_case(table, x01, gen) -> dict:
+    """K12 and K13 against their plain versions on polar points x01
+    [P, 2] with a dense random upstream gradient (every composited ray's
+    background takes one); library yardsticks F.grid_sample (the three
+    dense levels only: the hashed level 3 has no library call) and
+    index_add_ of the precomputed corner contributions (the scatter
+    alone)."""
+    import torch.nn.functional as F
+
+    gs = bg_grid_spec()
+    P = x01.shape[0]
+    k12 = hash_encode_fwd(table, x01, gs)
+    p12 = hash_encode_plain(table, x01, gs)
+    abs12 = max_abs(k12, p12)
+    g = torch.randn(P, gs.output_dim, generator=gen, device=x01.device)
+    k13 = hash_encode_bwd(x01, g, gs)
+    p13 = hash_encode_bwd_plain(x01, g, gs)
+    abs13 = max_abs(k13, p13)
+    rows, vals = [], []
+    for level in range(gs.num_levels):
+        w, r = level_corners(x01, gs, level)
+        rows.append(r.reshape(-1))
+        vals.append((w[:, :, None] * g[None, :, 2 * level:2 * level + 2])
+                    .reshape(-1, 2))
+    touched = int(torch.cat(rows).unique().numel())
+    # bytes: x01 once, the touched rows once, the [P, 8] output once
+    b12 = bound(P * 8 + touched * 8 + P * gs.output_dim * 4,
+                P * gs.num_levels * 30)
+    # bytes: x01 and g once, the dense [T, 2] gradient written once
+    b13 = bound(P * 8 + P * gs.output_dim * 4 + gs.table_size * 8,
+                P * gs.num_levels * 38)
+    rows, vals = torch.cat(rows), torch.cat(vals)
+    dense = [gs.level_side(lv) for lv in range(gs.num_levels)
+             if not gs.level_is_hashed(lv)]
+    offs = gs.offsets
+    ims = [table[offs[i]:offs[i] + side * side].reshape(side, side, 2)
+           .permute(2, 0, 1)[None].contiguous()
+           for i, side in enumerate(dense)]
+    grid = (x01 * 2.0 - 1.0)[None, None]
+
+    def lib12():
+        return [F.grid_sample(im, grid, mode="bilinear",
+                              padding_mode="border", align_corners=False)
+                for im in ims]
+
+    def lib13():
+        return torch.zeros(gs.table_size, 2, device=x01.device).index_add_(
+            0, rows, vals)
+
+    return {"err12": abs12 / float(p12.abs().max()), "abs12": abs12,
+            "err13": abs13 / float(p13.abs().max()), "abs13": abs13,
+            "points": P, "touched_rows": touched, "bound12": b12,
+            "bound13": b13,
+            "t12": timings(lambda: hash_encode_fwd(table, x01, gs),
+                           lambda: hash_encode_plain(table, x01, gs)),
+            "t13": timings(lambda: hash_encode_bwd(x01, g, gs),
+                           lambda: hash_encode_bwd_plain(x01, g, gs)),
+            "lib12_ms": cuda_ms(lib12), "lib13_ms": cuda_ms(lib13)}
+
+
+def check_large_scene_kernels(tea, scene, gen) -> tuple:
+    """K14 on a test view's chunk of 4096 rays in eval mode (1024 slots)
+    and on a training batch of 4096 rays in train mode (64 slots, perturbed
+    start), on the trained teacher's two-cascade grid; K12 and K13 on
+    those 4096 rays' polar points and on the 262,144 of a 512x512 view,
+    with the trained teacher's background table."""
+    dev = tea.device
+    occ = tea.state.occ
+    bits = occ.bitfield
+    test = scene["test"]
+    intr = tuple(float(v) for v in test.intrinsics)
+    rs_eval = dataclasses.replace(tea.rspec, max_samples=tea.rspec.max_steps)
+    pose = torch.as_tensor(test.poses[0], device=dev)
+    head = (test.H * test.W // 2) // CHUNK * CHUNK
+    o, d = chunk_rays(pose, intr, test.H, test.W,
+                      max(0, min(head, test.H * test.W - CHUNK)), CHUNK)
+    o, d = o.contiguous(), d.contiguous()
+    nears, fars = near_far_from_aabb(o, d, occ.aabb_infer,
+                                     rs_eval.min_near)
+    ev = k14_case(bits, o, d, nears, fars, rs_eval)
+    rs_train = dataclasses.replace(tea.rspec,
+                                   max_samples=tea.cfg.max_samples,
+                                   samples_per_ray=0.0)
+    o_t, d_t, _ = teacher_batch(tea, scene, gen, rs_train)
+    n_t, f_t = near_far_from_aabb(o_t, d_t, occ.aabb_train, rs_train.min_near)
+    u = torch.rand(o_t.shape[0], generator=gen, device=dev)
+    tr = k14_case(bits, o_t, d_t, n_t, f_t, rs_train, u)
+    for name, c in (("eval", ev), ("train", tr)):
+        log(f"K14 {name}: {c['samples']} samples, {c['points']} lattice "
+            f"points needed; t/dt/mask/t0 exact {c['exact']}, delta_depth "
+            f"err {c['dd_err']:.3g}; kernel {c['ms']:.4f} ms (call "
+            f"{c['call_ms']:.4f}), plain {c['plain_ms']:.4f} ms, bound "
+            f"{c['bound'][0]:.4f} ms ({c['bound'][1]})")
+        if not (c["exact"] and c["dd_err"] <= TOL_K14_DD):
+            raise RuntimeError(f"K14 differs from the plain march ({name})")
+    table = tea.state.field.bg.encoder.detach()
+    side = 512
+    big_intr = tuple(v * side / test.H for v in intr)
+    o_b, d_b = chunk_rays(pose, big_intr, side, side, 0, side * side)
+    cases = {"4096": k12_k13_case(table, polar01_from_ray(
+        o_t, d_t, tea.spec.bg_radius).contiguous(), gen),
+        "262144": k12_k13_case(table, polar01_from_ray(
+            o_b, d_b, tea.spec.bg_radius).contiguous(), gen)}
+    for name, c in cases.items():
+        log(f"K12/K13 at {name} polar points ({c['touched_rows']} rows "
+            f"touched): K12 rel err {c['err12']:.3g}, {c['t12']['ms']:.4f} "
+            f"ms (call {c['t12']['call_ms']:.4f}, plain "
+            f"{c['t12']['plain_ms']:.4f}, grid_sample on the dense levels "
+            f"{c['lib12_ms']:.4f}, bound {c['bound12'][0]:.5f} "
+            f"{c['bound12'][1]}); K13 rel err {c['err13']:.3g}, "
+            f"{c['t13']['ms']:.4f} ms (call {c['t13']['call_ms']:.4f}, "
+            f"plain {c['t13']['plain_ms']:.4f}, index_add_ "
+            f"{c['lib13_ms']:.4f}, bound {c['bound13'][0]:.5f} "
+            f"{c['bound13'][1]})")
+        if not (c["err12"] <= TOL_K12_REL and c["err13"] <= TOL_K13_REL):
+            raise RuntimeError(f"K12/K13 disagree with their plain versions "
+                               f"at {name} points")
+    c = cases["4096"]
+    results = [
+        dict(name="march_rays_geom", source="pvd_tpu_torch/csrc/march.cu",
+             replaces="pvd_tpu/render/renderer.py:643", err=ev["dd_err"],
+             tol=TOL_K14_DD, ms=ev["ms"], call_ms=ev["call_ms"],
+             plain_ms=ev["plain_ms"], bound=ev["bound"], library_ms=None,
+             library_call="no single call",
+             shape=f"N={CHUNK} rays x L={rs_eval.max_steps} eval slots, two "
+             "cascades (t/dt/mask/t0 bit-exact)"),
+        dict(name="hash_encode_2d_fwd",
+             source="pvd_tpu_torch/csrc/hash_encode.cu",
+             replaces="pvd_tpu/ops/hashgrid.py:533", err=c["err12"],
+             abs_err=c["abs12"], tol=TOL_K12_REL,
+             err_kind="max |kernel - plain| / max |plain|", **c["t12"],
+             library_ms=c["lib12_ms"],
+             library_call="F.grid_sample on the 3 dense levels only (the "
+             "hashed level 3 has no library call)", bound=c["bound12"],
+             shape=f"{c['points']} polar points x 4 levels"),
+        dict(name="hash_encode_2d_bwd",
+             source="pvd_tpu_torch/csrc/hash_encode.cu",
+             replaces="pvd_tpu/ops/hashgrid.py:284", err=c["err13"],
+             abs_err=c["abs13"], tol=TOL_K13_REL,
+             err_kind="max |kernel - plain| / max |plain|", **c["t13"],
+             library_ms=c["lib13_ms"],
+             library_call="index_add_ of the precomputed corner "
+             "contributions (scatter only)", bound=c["bound13"],
+             shape=f"{c['points']} polar points x 4 levels")]
+    extra = {"k14_eval": ev, "k14_train": tr, "k12_k13": cases}
+    return results, extra
+
+
+def render_large_scene(tea, scene) -> dict:
+    """One 800x800 view of the trained large-scene teacher through
+    make_eval_renderer: K14 in eval mode and K12 once per chunk."""
+    test = scene["test"]
+    res = LS_RENDER_RES
+    intr = tuple(float(v) * res / test.H for v in test.intrinsics)
+    render = make_eval_renderer(tea.spec, tea.rspec, chunk=CHUNK,
+                                device=tea.device)
+    render(tea.state.field, tea.state.occ, test.poses[0], intr, 64, 64)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = render(tea.state.field, tea.state.occ, test.poses[0], intr, res,
+                 res)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v for k, v in counters().items() if v}
+    n_chunks = -(-res * res // CHUNK)
+    finite = bool(torch.isfinite(out.image).all()
+                  and torch.isfinite(out.depth).all())
+    hit = float((out.weights_sum > 0.01).float().mean())
+    log(f"large-scene render {res}x{res}: {ms:.1f} ms, rungs {out.rungs}, "
+        f"truncated chunks {out.truncated_chunks}, samples/ray "
+        f"{out.samples / res ** 2:.3f}, finite {finite}, rays with "
+        f"weights_sum>0.01 {hit:.4f}; launches {json.dumps(launched)}")
+    if not (finite and out.image.shape == (res, res, 3) and hit > 0):
+        raise RuntimeError("large-scene render: bad image")
+    for name in ("march_rays_geom", "hash_encode_2d_fwd"):
+        if launched.get(name, 0) < n_chunks:
+            raise RuntimeError(f"large-scene render: {name} launched "
+                               f"{launched.get(name, 0)} times for "
+                               f"{n_chunks} chunks")
+    return {"ms": ms, "rungs": out.rungs, "launches": launched,
+            "samples_per_ray": out.samples / res ** 2, "hit_frac": hit}
 
 
 def main(argv=None) -> int:
@@ -1561,6 +2007,35 @@ def main(argv=None) -> int:
     ab_flavors = teacher_step_flavors(tea_ab, scene_ab, "cell teacher")
     ab_distill = distill_step_profile(stu_ab, scene_ab, gen)
     cell_check = small_teacher_gpu_vs_cpu(spec_kw=SMALL_CELL_TEA)
+    del tea_ab, stu_ab
+
+    # ---- main path 5: the large-scene configuration (two cascades, the
+    # geometric march, the background model): teacher -> checkpoint ->
+    # distill Trainer -> test eval ----------------------------------------
+    with tempfile.TemporaryDirectory(prefix="pvd_large_") as ws:
+        reset_counters()
+        t0 = time.perf_counter()
+        tea_ls, stu_ls, scene_ls, ls = drive_large_scene(args.seed, ws)
+        ls["wall_s"] = time.perf_counter() - t0
+        ls_launches = counters()
+    log(f"launches on the large-scene path ({LS_TEACHER['iters']} teacher "
+        f"+ {LS_DISTILL['iters']} distill steps, evals included, "
+        f"{ls['wall_s']:.1f} s): {json.dumps(ls_launches)}")
+    for name in LS_KERNELS:
+        if ls_launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the "
+                               "large-scene path")
+    if ls_launches["march_rays"]:
+        raise RuntimeError("the large-scene path marched with K2")
+    l_results, l_extra = check_large_scene_kernels(tea_ls, scene_ls, gen)
+    results += l_results
+    ls_render = render_large_scene(tea_ls, scene_ls)
+    ls_flavors = teacher_step_flavors(tea_ls, scene_ls, "large-scene teacher")
+    ls_distill = distill_step_profile(stu_ls, scene_ls, gen, "large-scene")
+    ls_checks = {
+        "teacher": small_teacher_gpu_vs_cpu(spec_kw=SMALL_LS_TEA,
+                                            cfg_kw=SMALL_LS),
+        "distill_stage3": small_step_gpu_vs_cpu(large=True)}
 
     bad = [r["name"] for r in results if not r["err"] <= r["tol"]]
     for r in results:
@@ -1585,7 +2060,13 @@ def main(argv=None) -> int:
             # the first path that runs it
             f = {"launches": next((n for n in (
                 distill_launches[name], teacher_launches[name],
-                ab_launches[name]) if n), 0)}
+                ab_launches[name], ls_launches[name]) if n), 0)}
+        f["launches_large_scene"] = ls_launches[name]
+        f["launches_per_large_scene_step"] = {
+            "teacher_" + flv: v["launches_per_step"].get(name, 0)
+            for flv, v in ls_flavors.items()}
+        f["launches_per_large_scene_step"]["distill_stage3"] = \
+            ls_distill["launches_per_step"].get(name, 0)
         f["launches_ab"] = ab_launches[name]
         f["launches_per_ab_step"] = {
             "teacher_" + flv: v["launches_per_step"].get(name, 0)
@@ -1631,6 +2112,14 @@ def main(argv=None) -> int:
                           for k, v in ab_flavors.items()},
                       "distill_stage3_profile": brief(ab_distill["profile"]),
                       "cell_gpu_vs_cpu_step": cell_check},
+        "large_scene": {**ls, "launches": ls_launches,
+                        "kernels": l_extra, "render_800": ls_render,
+                        "teacher_profiles": {
+                            k: brief(v["profile"])
+                            for k, v in ls_flavors.items()},
+                        "distill_stage3_profile": brief(
+                            ls_distill["profile"]),
+                        "gpu_vs_cpu_steps": ls_checks},
         "card": card}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -1,7 +1,8 @@
 """Typed configuration (port of pvd_tpu/config.py:20-328).
 
 Only the fields this port reads so far (the serving path, the distill
-step, the teacher and distill Trainer and its checkpoints).  Defaults and
+step, the teacher and distill Trainer, its checkpoints and the background
+model).  Defaults and
 derived properties (`RenderSpec.cascades`, `RenderSpec.sample_budget`) are
 the JAX package's.  `PVDConfig.to_json` / `from_json` read and write the
 checkpoint's `config_json`; fields the other package does not have are
@@ -43,6 +44,10 @@ class ModelSpec:
     vm_sigma_rank: int = 16
     vm_color_rank: int = 48
     vm_resolution: tuple = (300, 300, 300)
+    # background sphere model (bg_radius > 0 enables it, for any field)
+    bg_radius: float = -1.0
+    num_layers_bg: int = 2
+    hidden_dim_bg: int = 64
     # matmul input dtype of the MLP heads ("float32" | "bfloat16")
     compute_dtype: str = "float32"
 
@@ -150,6 +155,7 @@ class PVDConfig:
             sigma_clip_max=self.sigma_clip_max,
             vm_resolution=(self.resolution0,) * 3,
             hash_cell_levels=self.hash_cell_levels,
+            bg_radius=self.bg_radius,
         )
 
     def render_spec(self) -> RenderSpec:

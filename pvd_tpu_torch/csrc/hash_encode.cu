@@ -1,6 +1,7 @@
 // K1: multi-resolution hash-grid encode (INGP), forward, D = 3, C = 2;
 // K7: its table gradient;
-// K10: the cell-packed levels' encode; K11: the cell table's gradient.
+// K10: the cell-packed levels' encode; K11: the cell table's gradient;
+// K12, K13: K1 and K7 on a 2-D grid (the background model's).
 //
 // K1 replaces pvd_tpu/ops/hashgrid.py:533 hash_encode's corner levels: the
 // corner rows of _corner_rows (:193) and the weighted corner sum of
@@ -73,6 +74,27 @@
 // active pair; order varies from run to run (atomics), so the card check
 // uses a relative tolerance.
 
+// K12: the D = 2 encode, replacing pvd_tpu/ops/hashgrid.py:533 hash_encode
+// at input_dim 2 as pvd_tpu/models/api.py:127 background_rgb calls it: the
+// polar coordinates of the background sphere, (polar + 1) / 2 in [0, 1]^2,
+// on bg_grid_spec's 4 levels x 2 channels (resolutions 16/81/407/2048:
+// levels 0-2 dense and row-major, c0 + c1 * side; level 3 hashed,
+// (c0 * 1 ^ c1 * 2654435761) & (2^19 - 1)), a 697,776 x 2 table (5.6 MB).
+// It is K1's body instantiated at D = 2: the same x01 * scale + 0.5 FMA,
+// bilinear weights over 4 corners and the same per-(point, level) thread;
+// inputs outside [0, 1]^2 give 0.  Bound on the H100: memory, 4 rows of
+// 8 B per (point, level) from a table that fits the L2, 8 B read and 32 B
+// written per point; one launch per composited batch, on N rays, not on
+// the samples, so it is small beside K1.
+//
+// K13: its table gradient, K7's body at D = 2: fp32 atomicAdd of w * g into
+// a zeroed dense [697,776, 2] gradient, one per corner and channel (8 per
+// (point, level)); pairs with g = (0, 0) and points outside the square exit
+// first.  Bound: memory, the wrapper's 5.6 MB zero-fill plus 4 scattered
+// read-modify-writes of 8 B per active pair.  The coarse dense levels (17^2
+// vertices at level 0) put many rays' atomics on few rows; the order of the
+// sums varies from run to run, so the card check uses a relative tolerance.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,115 +119,174 @@ struct HashLevels {
   float scale[PVD_MAX_LEVELS];
 };
 
-// Corner setup of one (point, level entry): lattice base, fractions and
-// level constants, computed exactly as the plain version does.
+// Corner setup of one (point, level entry) of a D-dimensional grid: lattice
+// base, fractions and level constants, computed exactly as the plain
+// version does.
+template <int D>
 struct Corners {
-  float fx, fy, fz, gx, gy, gz;
-  uint32_t ix, iy, iz, side;
+  float f[D], g[D];  // fractions and 1 - fractions
+  uint32_t i[D];     // lattice base
+  uint32_t side;
   bool hashed;
 };
 
-__device__ __forceinline__ Corners corner_setup(float x, float y, float z,
-                                                int l, const HashLevels& lv) {
-  Corners c;
+template <int D>
+__device__ __forceinline__ void load_point(const float* __restrict__ x01,
+                                           long long n, float (&x)[D]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) x[d] = __ldg(x01 + D * n + d);
+}
+
+template <int D>
+__device__ __forceinline__ Corners<D> corner_setup(const float (&x)[D], int l,
+                                                   const HashLevels& lv) {
+  Corners<D> c;
   const float s = lv.scale[l];
-  const float px = __fmaf_rn(x, s, 0.5f);
-  const float py = __fmaf_rn(y, s, 0.5f);
-  const float pz = __fmaf_rn(z, s, 0.5f);
-  const float bx = floorf(px), by = floorf(py), bz = floorf(pz);
-  c.fx = __fsub_rn(px, bx);
-  c.fy = __fsub_rn(py, by);
-  c.fz = __fsub_rn(pz, bz);
-  c.gx = __fsub_rn(1.f, c.fx);
-  c.gy = __fsub_rn(1.f, c.fy);
-  c.gz = __fsub_rn(1.f, c.fz);
-  c.ix = (uint32_t)(int)bx;
-  c.iy = (uint32_t)(int)by;
-  c.iz = (uint32_t)(int)bz;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float p = __fmaf_rn(x[d], s, 0.5f);
+    const float b = floorf(p);
+    c.f[d] = __fsub_rn(p, b);
+    c.g[d] = __fsub_rn(1.f, c.f[d]);
+    c.i[d] = (uint32_t)(int)b;
+  }
   c.side = (uint32_t)lv.side[l];
   c.hashed = lv.hashed[l] != 0;
   return c;
 }
 
-// Weight and level-relative row of corner k (bit d of k: +1 along dim d).
-__device__ __forceinline__ float corner_weight(const Corners& c, int k) {
-  return __fmul_rn(__fmul_rn((k & 1) ? c.fx : c.gx, (k & 2) ? c.fy : c.gy),
-                   (k & 4) ? c.fz : c.gz);
+// Weight of corner k (bit d of k: +1 along dim d), multiplied left to right
+// over the dimensions.
+template <int D>
+__device__ __forceinline__ float corner_weight(const Corners<D>& c, int k) {
+  float w = (k & 1) ? c.f[0] : c.g[0];
+#pragma unroll
+  for (int d = 1; d < D; ++d)
+    w = __fmul_rn(w, ((k >> d) & 1) ? c.f[d] : c.g[d]);
+  return w;
 }
 
-__device__ __forceinline__ uint32_t corner_row(const Corners& c, int k,
+__device__ __forceinline__ uint32_t prime(int d) {
+  return d == 0 ? 1u : (d == 1 ? 2654435761u : 805459861u);
+}
+
+// Level-relative row of corner k: the xor-prime hash (mod 2^32) & mask on a
+// hashed level, row-major c0 + c1 * side + c2 * side^2 on a dense one.
+template <int D>
+__device__ __forceinline__ uint32_t corner_row(const Corners<D>& c, int k,
                                                uint32_t hash_mask) {
-  const uint32_t cx = c.ix + (k & 1), cy = c.iy + ((k >> 1) & 1),
-                 cz = c.iz + ((k >> 2) & 1);
-  return c.hashed
-             ? ((cx * 1u) ^ (cy * 2654435761u) ^ (cz * 805459861u)) & hash_mask
-             : cx + cy * c.side + cz * c.side * c.side;
+  uint32_t h = 0u, r = 0u, stride = 1u;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const uint32_t cd = c.i[d] + ((k >> d) & 1);
+    h ^= cd * prime(d);
+    r += cd * stride;
+    stride *= c.side;
+  }
+  return c.hashed ? (h & hash_mask) : r;
 }
 
-// (x < 0) | (x > 1) as in hashgrid.py:571 (a NaN passes, like JAX's)
-__device__ __forceinline__ bool outside(float x, float y, float z) {
-  return x < 0.f || x > 1.f || y < 0.f || y > 1.f || z < 0.f || z > 1.f;
+// (x < 0) | (x > 1) in any dimension, as in hashgrid.py:571 (a NaN passes,
+// like JAX's)
+template <int D>
+__device__ __forceinline__ bool outside(const float (&x)[D]) {
+  bool o = false;
+#pragma unroll
+  for (int d = 0; d < D; ++d) o = o || x[d] < 0.f || x[d] > 1.f;
+  return o;
 }
 
-__global__ void hash_encode_fwd_kernel(const float* __restrict__ x01,
-                                       const float2* __restrict__ table,
-                                       float2* __restrict__ out,
-                                       long long n_points, HashLevels lv) {
+// K1 (D = 3) and K12 (D = 2): one thread per (point, level entry).
+template <int D>
+__device__ __forceinline__ void encode_fwd(const float* __restrict__ x01,
+                                           const float2* __restrict__ table,
+                                           float2* __restrict__ out,
+                                           long long n_points,
+                                           const HashLevels& lv) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n_points * lv.n_levels) return;
   const long long n = gid / lv.n_levels;
   const int l = (int)(gid - n * lv.n_levels);
   float2* o = out + n * lv.out_levels + lv.level[l];
-  const float x = __ldg(x01 + 3 * n);
-  const float y = __ldg(x01 + 3 * n + 1);
-  const float z = __ldg(x01 + 3 * n + 2);
-  if (outside(x, y, z)) {
+  float x[D];
+  load_point<D>(x01, n, x);
+  if (outside<D>(x)) {
     *o = make_float2(0.f, 0.f);
     return;
   }
-  const Corners c = corner_setup(x, y, z, l, lv);
+  const Corners<D> c = corner_setup<D>(x, l, lv);
   const float2* tl = table + lv.offset[l];
   float a0 = 0.f, a1 = 0.f;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float w = corner_weight(c, k);
-    const float2 v = __ldg(tl + corner_row(c, k, lv.hash_mask));
+  for (int k = 0; k < (1 << D); ++k) {
+    const float w = corner_weight<D>(c, k);
+    const float2 v = __ldg(tl + corner_row<D>(c, k, lv.hash_mask));
     a0 = __fmaf_rn(w, v.x, a0);
     a1 = __fmaf_rn(w, v.y, a1);
   }
   *o = make_float2(a0, a1);
 }
 
-__global__ void hash_encode_bwd_kernel(const float* __restrict__ x01,
-                                       const float2* __restrict__ g,
-                                       float* __restrict__ grad,
-                                       long long n_points, HashLevels lv) {
+// K7 (D = 3) and K13 (D = 2): 2 * 2^D fp32 atomics per active pair.
+template <int D>
+__device__ __forceinline__ void encode_bwd(const float* __restrict__ x01,
+                                           const float2* __restrict__ g,
+                                           float* __restrict__ grad,
+                                           long long n_points,
+                                           const HashLevels& lv) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n_points * lv.n_levels) return;
   const long long n = gid / lv.n_levels;
   const int l = (int)(gid - n * lv.n_levels);
   const float2 gv = g[n * lv.out_levels + lv.level[l]];
   if (gv.x == 0.f && gv.y == 0.f) return;
-  const float x = __ldg(x01 + 3 * n);
-  const float y = __ldg(x01 + 3 * n + 1);
-  const float z = __ldg(x01 + 3 * n + 2);
-  if (outside(x, y, z)) return;
-  const Corners c = corner_setup(x, y, z, l, lv);
+  float x[D];
+  load_point<D>(x01, n, x);
+  if (outside<D>(x)) return;
+  const Corners<D> c = corner_setup<D>(x, l, lv);
   float* gl = grad + 2 * (long long)lv.offset[l];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float w = corner_weight(c, k);
-    float* dst = gl + 2 * (long long)corner_row(c, k, lv.hash_mask);
+  for (int k = 0; k < (1 << D); ++k) {
+    const float w = corner_weight<D>(c, k);
+    float* dst = gl + 2 * (long long)corner_row<D>(c, k, lv.hash_mask);
     atomicAdd(dst, __fmul_rn(w, gv.x));
     atomicAdd(dst + 1, __fmul_rn(w, gv.y));
   }
 }
 
+__global__ void hash_encode_fwd_kernel(const float* __restrict__ x01,
+                                       const float2* __restrict__ table,
+                                       float2* __restrict__ out,
+                                       long long n_points, HashLevels lv) {
+  encode_fwd<3>(x01, table, out, n_points, lv);
+}
+
+__global__ void hash_encode_bwd_kernel(const float* __restrict__ x01,
+                                       const float2* __restrict__ g,
+                                       float* __restrict__ grad,
+                                       long long n_points, HashLevels lv) {
+  encode_bwd<3>(x01, g, grad, n_points, lv);
+}
+
+__global__ void hash_encode2_fwd_kernel(const float* __restrict__ x01,
+                                        const float2* __restrict__ table,
+                                        float2* __restrict__ out,
+                                        long long n_points, HashLevels lv) {
+  encode_fwd<2>(x01, table, out, n_points, lv);
+}
+
+__global__ void hash_encode2_bwd_kernel(const float* __restrict__ x01,
+                                        const float2* __restrict__ g,
+                                        float* __restrict__ grad,
+                                        long long n_points, HashLevels lv) {
+  encode_bwd<2>(x01, g, grad, n_points, lv);
+}
+
 // The cell row of one (point, cell level entry): corner 0's hashed row
 // (the cell's base coordinate) plus the entry's block of the cell table.
-__device__ __forceinline__ long long cell_row(const Corners& c, int l,
+__device__ __forceinline__ long long cell_row(const Corners<3>& c, int l,
                                               const HashLevels& lv) {
-  return (long long)lv.offset[l] + corner_row(c, 0, lv.hash_mask);
+  return (long long)lv.offset[l] + corner_row<3>(c, 0, lv.hash_mask);
 }
 
 __global__ void hash_cell_fwd_kernel(const float* __restrict__ x01,
@@ -217,20 +298,20 @@ __global__ void hash_cell_fwd_kernel(const float* __restrict__ x01,
   const long long n = gid / lv.n_levels;
   const int l = (int)(gid - n * lv.n_levels);
   float2* o = out + n * lv.out_levels + lv.level[l];
-  const float x = __ldg(x01 + 3 * n);
-  const float y = __ldg(x01 + 3 * n + 1);
-  const float z = __ldg(x01 + 3 * n + 2);
-  if (outside(x, y, z)) {
+  float x[3];
+  load_point<3>(x01, n, x);
+  if (outside<3>(x)) {
     *o = make_float2(0.f, 0.f);
     return;
   }
-  const Corners c = corner_setup(x, y, z, l, lv);
+  const Corners<3> c = corner_setup<3>(x, l, lv);
   const float4* r = cell + 4 * cell_row(c, l, lv);
   const float4 v[4] = {__ldg(r), __ldg(r + 1), __ldg(r + 2), __ldg(r + 3)};
   float a0 = 0.f, a1 = 0.f;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const float w0 = corner_weight(c, 2 * q), w1 = corner_weight(c, 2 * q + 1);
+    const float w0 = corner_weight<3>(c, 2 * q);
+    const float w1 = corner_weight<3>(c, 2 * q + 1);
     a0 = __fmaf_rn(w0, v[q].x, a0);
     a1 = __fmaf_rn(w0, v[q].y, a1);
     a0 = __fmaf_rn(w1, v[q].z, a0);
@@ -249,15 +330,15 @@ __global__ void hash_cell_bwd_kernel(const float* __restrict__ x01,
   const int l = (int)(gid - n * lv.n_levels);
   const float2 gv = g[n * lv.out_levels + lv.level[l]];
   if (gv.x == 0.f && gv.y == 0.f) return;
-  const float x = __ldg(x01 + 3 * n);
-  const float y = __ldg(x01 + 3 * n + 1);
-  const float z = __ldg(x01 + 3 * n + 2);
-  if (outside(x, y, z)) return;
-  const Corners c = corner_setup(x, y, z, l, lv);
+  float x[3];
+  load_point<3>(x01, n, x);
+  if (outside<3>(x)) return;
+  const Corners<3> c = corner_setup<3>(x, l, lv);
   float4* dst = grad + 4 * cell_row(c, l, lv);
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const float w0 = corner_weight(c, 2 * q), w1 = corner_weight(c, 2 * q + 1);
+    const float w0 = corner_weight<3>(c, 2 * q);
+    const float w1 = corner_weight<3>(c, 2 * q + 1);
     const float4 add = make_float4(__fmul_rn(w0, gv.x), __fmul_rn(w0, gv.y),
                                    __fmul_rn(w1, gv.x), __fmul_rn(w1, gv.y));
 #if PVD_VECTOR_ATOMICS && defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
@@ -296,6 +377,29 @@ extern "C" int pvd_hash_encode_bwd(const float* x01, const float* g,
   const int threads = 256;
   hash_encode_bwd_kernel<<<(unsigned)n_blocks(n_points, lv, threads), threads,
                            0, (cudaStream_t)stream>>>(
+      x01, reinterpret_cast<const float2*>(g), grad_table, n_points, lv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pvd_hash_encode2_fwd(const float* x01, const float* table,
+                                    float* out, long long n_points,
+                                    HashLevels lv, void* stream) {
+  if (n_points == 0 || lv.n_levels == 0) return 0;
+  const int threads = 256;
+  hash_encode2_fwd_kernel<<<(unsigned)n_blocks(n_points, lv, threads),
+                            threads, 0, (cudaStream_t)stream>>>(
+      x01, reinterpret_cast<const float2*>(table),
+      reinterpret_cast<float2*>(out), n_points, lv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pvd_hash_encode2_bwd(const float* x01, const float* g,
+                                    float* grad_table, long long n_points,
+                                    HashLevels lv, void* stream) {
+  if (n_points == 0 || lv.n_levels == 0) return 0;
+  const int threads = 256;
+  hash_encode2_bwd_kernel<<<(unsigned)n_blocks(n_points, lv, threads),
+                            threads, 0, (cudaStream_t)stream>>>(
       x01, reinterpret_cast<const float2*>(g), grad_table, n_points, lv);
   return (int)cudaGetLastError();
 }

@@ -158,14 +158,12 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
     per-pixel background [N, 3] and the march perturbation u [N], all from
     `generator`, gathers the pixels from `image_flat` (on the device) and
     calls `step.core`, i.e. teacher_step_core(state, o, d, pix, bg, u) ->
-    (state, metrics): the color-space conversion, `compose_gt`, the loss,
+    (state, metrics): the color-space conversion, `compose_gt` (GT on white
+    and the field's own background when it has one), the loss,
     its gradients (left in the field's `.grad`), one AdamW update and
     step + 1.  Metrics: loss, psnr (of the batch against its gt),
     budget_hit, mask_frac and, on the compacted path, compact_frac.
     """
-    if cfg.bg_radius > 0:
-        raise NotImplementedError("bg_radius > 0 needs the background model "
-                                  "(ROADMAP A12)")
     device = resolve_device(device)
     intr = tuple(float(v) for v in intrinsics)
 
@@ -213,8 +211,9 @@ def distill_loss(student, teacher, spec_stu: ModelSpec, spec_tea: ModelSpec,
 
     o, d [N, 3] rays; bg [N, 3] background; u [N] march perturbation;
     step: the student's step counter (the feature-loss rate decays
-    0.995^step).  Returns (loss, (logs, per_ray)); gradients reach the
-    student only.
+    0.995^step).  At stage 3 a model with a background model composites
+    over its own background instead of `bg` (render_rays).  Returns (loss,
+    (logs, per_ray)); gradients reach the student only.
     """
     both_have_fea = "tensors" not in (spec_stu.model_type,
                                       spec_tea.model_type)

@@ -23,11 +23,15 @@ and evaluate `valid_ds` every `eval_interval` epochs and at the end,
 keeping `{name}_best.ckpt` by PSNR.  Checkpoints are the JAX package's
 format (`engine/checkpoint.py`).
 
+Both modes take the large-scene settings: bound > 1 (two or more
+occupancy cascades), the geometric march (dt_gamma > 0) and the background
+model (bg_radius > 0), which both fields then own and train.
+
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
 EMA, the error map, scan steps, data parallelism, the host batcher, VM
-resizing, the wall budget, the background model, teachers other than hash
-and students other than VM, and in `evaluate` the PNG/video writing (cv2)
-and LPIPS (ROADMAP A10-A17).
+resizing, the wall budget, teachers other than hash and students other
+than VM, and in `evaluate` the PNG/video writing (cv2) and LPIPS (ROADMAP
+A10-A17).
 """
 
 from __future__ import annotations
@@ -85,7 +89,6 @@ def _check_cfg(cfg: PVDConfig, mode: str):
         (cfg.n_devices != 1, "data parallelism (n_devices != 1)", "A17"),
         (bool(cfg.upsample_model_steps), "VM resizing", "A12"),
         (cfg.wall_budget > 0, "the wall budget", "A10"),
-        (cfg.bg_radius > 0, "the background model (bg_radius > 0)", "A12"),
     )
     for bad, what, item in checks:
         if bad:

@@ -38,9 +38,9 @@ MAX_LEVELS = 32  # csrc/hash_encode.cu PVD_MAX_LEVELS
 
 
 class HashLevels(ctypes.Structure):
-    """The level list of one K1, K7, K10 or K11 launch and its per-level
-    constants, passed by value (csrc/hash_encode.cu): entry i fills level
-    slot `level[i]` of a row of `out_levels` slots."""
+    """The level list of one K1, K7, K10, K11, K12 or K13 launch and its
+    per-level constants, passed by value (csrc/hash_encode.cu): entry i
+    fills level slot `level[i]` of a row of `out_levels` slots."""
 
     _fields_ = [
         ("n_levels", ctypes.c_int),
@@ -55,7 +55,8 @@ class HashLevels(ctypes.Structure):
 
 
 class MarchParams(ctypes.Structure):
-    """Static march settings of K2, passed by value (csrc/march.cu)."""
+    """Static march settings of K2 and K14, passed by value
+    (csrc/march.cu)."""
 
     _fields_ = [
         ("n_rays", ctypes.c_int),
@@ -66,6 +67,8 @@ class MarchParams(ctypes.Structure):
         ("bound", ctypes.c_float),
         ("dt_min", ctypes.c_float),
         ("mip_bound0", ctypes.c_float),
+        ("dt_gamma", ctypes.c_float),
+        ("dt_max", ctypes.c_float),
     ]
 
 
@@ -93,10 +96,16 @@ _SIGNATURES = {
     # x01, g [n, L*2], grad_cell (zeroed), n_points, cell levels, stream
     "pvd_hash_cell_bwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
     "pvd_hash_cell_vector_atomics": (),
+    # K12 / K13: as pvd_hash_encode_fwd / _bwd, x01 [n, 2]
+    "pvd_hash_encode2_fwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
+    "pvd_hash_encode2_bwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
     # rays_o, rays_d, nears, fars, u (nullable), bitfield, params,
     # t, dt, mask, delta_depth, t0, stream
     "pvd_march_rays": (_P, _P, _P, _P, _P, _P, MarchParams,
                        _P, _P, _P, _P, _P, _P),
+    # K14 (dt_gamma > 0): the same arguments
+    "pvd_march_rays_geom": (_P, _P, _P, _P, _P, _P, MarchParams,
+                            _P, _P, _P, _P, _P, _P),
     # sigmas, rgbs, dt, t_cum, ray_id, valid, n_samples, n_rays,
     # early_stop, bounds (scratch [2, N] int32, zeroed), weights,
     # weights_sum, depth, image, stream

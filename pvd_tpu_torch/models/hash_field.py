@@ -9,7 +9,8 @@ With `hash_cell_levels` > 0 the finest hashed levels are cell-packed
 levels.  The field trains: the tables are parameters, and `hash_encode`
 sends each a gradient (kernels K7 and K11 on the GPU) whenever grad mode is
 on.  The gradients are dense, as the JAX package's are, so AdamW updates
-all of their rows every step.
+all of their rows every step.  With `bg_radius` > 0 the field owns a
+background model, `bg` (`models/api.Background`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 
 from pvd_tpu_torch.config import ModelSpec
 from pvd_tpu_torch.device import resolve_device
+from pvd_tpu_torch.models.api import make_background
 from pvd_tpu_torch.models.common import make_mlp, mlp_dims
 from pvd_tpu_torch.models.heads import (FieldOut, shared_density,
                                         shared_sigma_color)
@@ -39,7 +41,7 @@ def grid_spec(spec: ModelSpec) -> HashGridSpec:
 
 class HashField(nn.Module):
     """Hash table [T, 2] (+ cell table [Tc, 16] in cell mode) + sigma_net
-    + color_net.
+    + color_net (+ the background model `bg` when bg_radius > 0).
 
     `device` defaults to CUDA and raises without a GPU unless "cpu" is
     passed.  Initial values follow the JAX package's init (tables
@@ -71,6 +73,7 @@ class HashField(nn.Module):
             mlp_dims(spec.dir_sh_degree ** 2 + spec.geo_feat_dim,
                      spec.hidden_dim_color, 3, spec.num_layers_color),
             device)
+        self.bg = make_background(spec, device, generator)
 
     def encode(self, x):
         x01 = (x + self.spec.bound) / (2.0 * self.spec.bound)

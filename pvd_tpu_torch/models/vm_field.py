@@ -11,7 +11,9 @@ one plane x line sample (`ops/vm_sample.py`, kernels K4/K5) serves both, as
 the JAX package's `_joint_feats` fuses them; channels [:Rs] are the sigma
 factors.  AdamW acts elementwise, so the concatenation changes no update.
 
-Positions are normalized by the aabb and carry no gradient.
+Positions are normalized by the aabb and carry no gradient.  With
+`bg_radius` > 0 the field owns a background model, `bg`
+(`models/api.Background`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 
 from pvd_tpu_torch.config import ModelSpec
 from pvd_tpu_torch.device import resolve_device
+from pvd_tpu_torch.models.api import make_background
 from pvd_tpu_torch.models.common import apply_mlp, make_mlp, mlp_dims
 from pvd_tpu_torch.models.heads import FieldOut, compute_dtype
 from pvd_tpu_torch.ops.activation import trunc_exp
@@ -34,7 +37,8 @@ def normalize(x, aabb):
 
 
 class VMField(nn.Module):
-    """VM planes and lines + basis matrix + color_net.
+    """VM planes and lines + basis matrix + color_net (+ the background
+    model `bg` when bg_radius > 0).
 
     `device` defaults to CUDA and raises without a GPU unless "cpu" is
     passed.  Initial values follow the JAX package's init: planes and lines
@@ -68,6 +72,7 @@ class VMField(nn.Module):
             mlp_dims(spec.dir_sh_degree ** 2 + spec.geo_feat_dim,
                      spec.hidden_dim_color, 3, spec.num_layers_color),
             device)
+        self.bg = make_background(spec, device, generator)
 
     def _projection(self):
         """[3, R, 1 + geo]: sigma ranks sum into channel 0, color ranks go

@@ -13,7 +13,9 @@ values and are not ported.
 `hash_encode` is differentiable in both tables through one autograd
 Function.  On CUDA tensors kernel K1 (`csrc/hash_encode.cu`) encodes the
 corner levels and K10 the cell levels into one output; K7 computes the
-corner table's gradient and K11 the cell table's.  `hash_encode_plain`,
+corner table's gradient and K11 the cell table's.  A 2-D grid (input_dim
+2, the background model's, which has no cell levels) goes through K12
+(encode) and K13 (table gradient) instead.  `hash_encode_plain`,
 `hash_encode_cell_plain`, `hash_encode_bwd_plain` and
 `hash_encode_cell_bwd_plain` are their PyTorch versions, used for CPU
 tensors and to check the kernels.  Positions carry no gradient (they come
@@ -270,8 +272,8 @@ def hash_encode_cell_bwd_plain(x01, g, spec: HashGridSpec):
 
 @functools.cache
 def _levels(spec: HashGridSpec, cell: bool) -> kernels.HashLevels:
-    """The corner levels (K1/K7) or the cell levels (K10/K11) of `spec`, in
-    their slots of an [N, L] row of level outputs."""
+    """The corner levels (K1/K7, K12/K13) or the cell levels (K10/K11) of
+    `spec`, in their slots of an [N, L] row of level outputs."""
     levels = spec.cell_levels if cell else spec.corner_levels
     if spec.num_levels > kernels.MAX_LEVELS:
         raise ValueError(f"the hash kernels take at most {kernels.MAX_LEVELS}"
@@ -299,17 +301,38 @@ def _levels(spec: HashGridSpec, cell: bool) -> kernels.HashLevels:
     return lv
 
 
-def _check_k1(name, spec: HashGridSpec, x01, **tensors):
+def _check_k1(name, spec: HashGridSpec, x01, dims=(3,), **tensors):
+    """CUDA, float32, contiguous, x01 [N, D]; `dims` are the input
+    dimensions the kernel takes (K1/K7 3, K12/K13 2, the cell kernels 3)."""
     dev = kernels.check_cuda(name, x01=x01, **tensors)
-    if spec.input_dim != 3 or spec.level_dim != 2:
-        raise NotImplementedError("K1/K7/K10/K11 cover D=3, C=2 (ROADMAP B1:"
-                                  " D=2)")
+    if spec.input_dim not in dims or spec.level_dim != 2:
+        raise NotImplementedError(
+            f"{name}: the kernel takes input_dim {dims} and level_dim 2, got "
+            f"{spec.input_dim} and {spec.level_dim}")
     if x01.dtype != torch.float32 or \
             any(t.dtype != torch.float32 for t in tensors.values()):
         raise TypeError(f"{name}: tensors must be float32")
-    if x01.ndim != 2 or x01.shape[1] != 3:
-        raise ValueError(f"x01 must be [N, 3], got {tuple(x01.shape)}")
+    if spec.input_dim == 2 and spec.cell_levels:
+        raise NotImplementedError("cell levels are 3-D only, as in the JAX "
+                                  "package")
+    if x01.ndim != 2 or x01.shape[1] != spec.input_dim:
+        raise ValueError(f"x01 must be [N, {spec.input_dim}], got "
+                         f"{tuple(x01.shape)}")
     return dev
+
+
+def _check_table(table, spec: HashGridSpec):
+    if tuple(table.shape) != (spec.table_size, 2):
+        raise ValueError(f"table shape {tuple(table.shape)} != "
+                         f"({spec.table_size}, 2)")
+    if table.data_ptr() % 8:
+        raise ValueError("hash_encode: table rows must be 8-byte aligned")
+
+
+def _check_g(g, x01, spec: HashGridSpec):
+    if tuple(g.shape) != (x01.shape[0], spec.output_dim):
+        raise ValueError(f"g must be [{x01.shape[0]}, {spec.output_dim}], "
+                         f"got {tuple(g.shape)}")
 
 
 def _check_cell_table(cell_table, spec: HashGridSpec):
@@ -346,28 +369,37 @@ def hash_encode_cell_fwd(cell_table, x01, spec: HashGridSpec, out):
 hash_encode_cell_fwd.launches = 0
 
 
+def _count_corner_launch(counted, spec: HashGridSpec):
+    """The corner kernels count on the wrapper `counted`: K1/K7 in
+    `.launches`, K12/K13 (a 2-D grid, the background's) in
+    `.launches_2d`."""
+    if spec.input_dim == 2:
+        counted.launches_2d += 1
+    else:
+        counted.launches += 1
+
+
 def hash_encode_fwd(table, x01, spec: HashGridSpec, cell_table=None):
-    """Forward encode, no autograd: K1 (corner levels) and K10 (cell
-    levels) on CUDA tensors, the plain version on CPU tensors."""
+    """Forward encode, no autograd: K1 (corner levels; K12 for a 2-D grid)
+    and K10 (cell levels) on CUDA tensors, the plain version on CPU
+    tensors."""
     if spec.cell_levels and cell_table is None:
         raise ValueError("hash_encode: the spec has cell levels; pass "
                          "cell_table")
     if x01.device.type == "cpu" and table.device.type == "cpu":
         return hash_encode_plain(table, x01, spec, cell_table)
-    _check_k1("hash_encode", spec, x01, table=table)
-    if tuple(table.shape) != (spec.table_size, 2):
-        raise ValueError(f"table shape {tuple(table.shape)} != "
-                         f"({spec.table_size}, 2)")
-    if table.data_ptr() % 8:
-        raise ValueError("hash_encode: table rows must be 8-byte aligned")
+    _check_k1("hash_encode", spec, x01, dims=(2, 3), table=table)
+    _check_table(table, spec)
     n = x01.shape[0]
     out = torch.empty(n, spec.output_dim, device=x01.device)
     if spec.corner_levels:
+        entry = ("pvd_hash_encode2_fwd" if spec.input_dim == 2
+                 else "pvd_hash_encode_fwd")
         with torch.cuda.device(x01.device):
-            kernels.launch("pvd_hash_encode_fwd", x01.data_ptr(),
-                           table.data_ptr(), out.data_ptr(), n,
-                           _levels(spec, False), kernels.stream_ptr(x01))
-        hash_encode.launches += 1
+            kernels.launch(entry, x01.data_ptr(), table.data_ptr(),
+                           out.data_ptr(), n, _levels(spec, False),
+                           kernels.stream_ptr(x01))
+        _count_corner_launch(hash_encode, spec)
     if spec.cell_levels:
         hash_encode_cell_fwd(cell_table, x01, spec, out=out)
     return out
@@ -375,24 +407,25 @@ def hash_encode_fwd(table, x01, spec: HashGridSpec, cell_table=None):
 
 def hash_encode_bwd(x01, g, spec: HashGridSpec):
     """Corner-table gradient [T, 2] for the upstream gradient g [N, L * 2]:
-    K7 on CUDA tensors, the plain version on CPU tensors."""
+    K7 (K13 for a 2-D grid) on CUDA tensors, the plain version on CPU
+    tensors."""
     if x01.device.type == "cpu" and g.device.type == "cpu":
         return hash_encode_bwd_plain(x01, g, spec)
-    _check_k1("hash_encode_bwd", spec, x01, g=g)
-    if tuple(g.shape) != (x01.shape[0], spec.output_dim):
-        raise ValueError(f"g must be [{x01.shape[0]}, {spec.output_dim}], "
-                         f"got {tuple(g.shape)}")
+    _check_k1("hash_encode_bwd", spec, x01, dims=(2, 3), g=g)
+    _check_g(g, x01, spec)
     grad = torch.zeros(spec.table_size, 2, device=x01.device)
     if spec.corner_levels:
+        entry = ("pvd_hash_encode2_bwd" if spec.input_dim == 2
+                 else "pvd_hash_encode_bwd")
         with torch.cuda.device(x01.device):
-            kernels.launch("pvd_hash_encode_bwd", x01.data_ptr(),
-                           g.data_ptr(), grad.data_ptr(), x01.shape[0],
+            kernels.launch(entry, x01.data_ptr(), g.data_ptr(),
+                           grad.data_ptr(), x01.shape[0],
                            _levels(spec, False), kernels.stream_ptr(x01))
-        hash_encode_bwd.launches += 1
+        _count_corner_launch(hash_encode_bwd, spec)
     return grad
 
 
-hash_encode_bwd.launches = 0
+hash_encode_bwd.launches = hash_encode_bwd.launches_2d = 0
 
 
 def hash_encode_cell_bwd(x01, g, spec: HashGridSpec):
@@ -402,9 +435,7 @@ def hash_encode_cell_bwd(x01, g, spec: HashGridSpec):
     if x01.device.type == "cpu" and g.device.type == "cpu":
         return hash_encode_cell_bwd_plain(x01, g, spec)
     _check_k1("hash_encode_cell_bwd", spec, x01, g=g)
-    if tuple(g.shape) != (x01.shape[0], spec.output_dim):
-        raise ValueError(f"g must be [{x01.shape[0]}, {spec.output_dim}], "
-                         f"got {tuple(g.shape)}")
+    _check_g(g, x01, spec)
     grad = torch.zeros(spec.cell_table_size, spec.cell_row_width,
                        device=x01.device)
     with torch.cuda.device(x01.device):
@@ -438,9 +469,10 @@ class _HashEncode(torch.autograd.Function):
 
 
 def hash_encode(table, x01, spec: HashGridSpec, cell_table=None):
-    """Hash encode [N, 3] positions in [0, 1] -> [N, L * C],
+    """Hash encode [N, D] positions in [0, 1] -> [N, L * C],
     differentiable in `table` and `cell_table` (forward K1 + K10, backward
-    K7 + K11 on CUDA tensors; the plain versions on CPU tensors).
+    K7 + K11 on CUDA tensors, K12 and K13 for a 2-D grid; the plain
+    versions on CPU tensors).
     `cell_table` [n_cell * 2^16, 16] is needed when the spec has cell
     levels.  `x01` takes no gradient: it must not require one while grad
     mode is on."""
@@ -456,4 +488,4 @@ def hash_encode(table, x01, spec: HashGridSpec, cell_table=None):
     return hash_encode_fwd(table, x01, spec, cell_table)
 
 
-hash_encode.launches = 0
+hash_encode.launches = hash_encode.launches_2d = 0

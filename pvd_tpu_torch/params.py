@@ -9,6 +9,8 @@ it with numpy (or any array-protocol) leaves, so no JAX is needed here:
   * VM field: {"sigma_mat": 3 x [res[m1], res[m0], Rs], "sigma_vec":
     3 x [res[v], Rs], "color_mat", "color_vec" likewise with Rc,
     "basis_mat": {"w": [3 * Rc, geo]}, "color_net": [...]};
+  * either field with a background model (bg_radius > 0) also holds
+    "bg": {"encoder": [697776, 2], "net": [{"w": [in, out]}, ...]};
   * occupancy state: density_grid, bitfield, mean_density, iter_density,
     aabb_train, aabb_infer (the TPU probe masks are not carried).
 """
@@ -39,6 +41,25 @@ def _load_mlp(layers, tree_layers, name: str):
         lin.weight.data.copy_(torch.from_numpy(w.T.copy()))
 
 
+def _load_bg(field, tree):
+    """Copy the tree's "bg" subtree into the field's background model; each
+    must have one when the other does."""
+    if (field.bg is None) != ("bg" not in tree):
+        raise ValueError("bg is in the tree but not in the spec, or the other"
+                         " way round (bg_radius)")
+    if field.bg is None:
+        return
+    field.bg.encoder.copy_(torch.from_numpy(_leaf(
+        tree["bg"]["encoder"], field.bg.encoder.shape, "bg.encoder")))
+    _load_mlp(field.bg.net, tree["bg"]["net"], "bg.net")
+
+
+def _bg_tree(field, grad: bool):
+    return {"encoder": _val(field.bg.encoder, grad),
+            "net": [{"w": _val(lin.weight, grad).T.copy()}
+                    for lin in field.bg.net]}
+
+
 def hash_field_from_jax(tree, spec: ModelSpec, device="cuda") -> HashField:
     """HashField holding the JAX params `tree` (see module docstring)."""
     device = resolve_device(device)
@@ -59,6 +80,7 @@ def hash_field_from_jax(tree, spec: ModelSpec, device="cuda") -> HashField:
                 "encoder_cell")))
         _load_mlp(field.sigma_net, tree["sigma_net"], "sigma_net")
         _load_mlp(field.color_net, tree["color_net"], "color_net")
+        _load_bg(field, tree)
     return field
 
 
@@ -82,6 +104,8 @@ def hash_tree_from_field(field: HashField, grad: bool = False) -> dict:
     }
     if field.encoder_cell is not None:
         tree["encoder_cell"] = _val(field.encoder_cell, grad)
+    if field.bg is not None:
+        tree["bg"] = _bg_tree(field, grad)
     return tree
 
 
@@ -114,6 +138,7 @@ def vm_field_from_jax(tree, spec: ModelSpec, device="cuda") -> VMField:
         field.basis_mat.copy_(torch.from_numpy(
             _leaf(basis["w"], field.basis_mat.shape, "basis_mat.w").copy()))
         _load_mlp(field.color_net, tree["color_net"], "color_net")
+        _load_bg(field, tree)
     return field
 
 
@@ -127,7 +152,7 @@ def vm_tree_from_field(field: VMField, grad: bool = False) -> dict:
 
     planes = [val(p) for p in field.planes]
     lines = [val(v) for v in field.lines]
-    return {
+    tree = {
         "sigma_mat": [p[..., :Rs].copy() for p in planes],
         "sigma_vec": [v[..., :Rs].copy() for v in lines],
         "color_mat": [p[..., Rs:].copy() for p in planes],
@@ -136,6 +161,9 @@ def vm_tree_from_field(field: VMField, grad: bool = False) -> dict:
         "color_net": [{"w": val(lin.weight).T.copy()}
                       for lin in field.color_net],
     }
+    if field.bg is not None:
+        tree["bg"] = _bg_tree(field, grad)
+    return tree
 
 
 def occupancy_from_jax(state, device="cuda") -> OccupancyState:

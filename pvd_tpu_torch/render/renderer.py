@@ -2,11 +2,13 @@
 
 march -> compact -> field -> composite, as in the JAX package:
 
-  1. `march_rays`: the per-ray t-lattice t_k = t0 + k * dt_min, an
-     occupancy lookup at each lattice point, and [N, S] sample slots
-     (every lattice slot in eval mode, S >= L; the first S occupied points
-     in train mode).  Kernel K2 (`csrc/march.cu`) on CUDA tensors;
-     `march_rays_plain` (the JAX package's plain-lattice path,
+  1. `march_rays`: the per-ray t-lattice (t_k = t0 + k * dt_min, or with
+     dt_gamma > 0 the geometric t += clip(t * dt_gamma, dt_min, dt_max)),
+     an occupancy lookup at each lattice point in the cascade its position
+     and its own step pick, and [N, S] sample slots (every lattice slot in
+     eval mode, S >= L; the first S occupied points in train mode).
+     Kernel K2 (`csrc/march.cu`), or K14 for dt_gamma > 0, on CUDA
+     tensors; `march_rays_plain` (the JAX package's plain-lattice path,
      `_t_lattice` + `_occupancy_lookup`) on CPU tensors.
   2. `compact_samples`: the first `budget` valid samples of the batch, in
      ray order (plain PyTorch).
@@ -15,7 +17,8 @@ march -> compact -> field -> composite, as in the JAX package:
 
 Training adds a perturbed march start, a per-ray background, early returns
 for distill stages 1 and 2, and the teacher's replay of the student's
-samples (`render_rays`).
+samples (`render_rays`).  A field with a background model (bg_radius > 0)
+composites over its own background instead of `bg_color`.
 
 The TPU's probe-mask marches, window-hierarchical first-S and lazy-t
 layouts produce the same samples and are not ported.
@@ -31,7 +34,7 @@ import torch
 
 from pvd_tpu_torch import kernels
 from pvd_tpu_torch.config import ModelSpec, RenderSpec
-from pvd_tpu_torch.models.api import field_forward
+from pvd_tpu_torch.models.api import background_of_rays, field_forward
 from pvd_tpu_torch.ops.aabb import near_far_from_aabb
 from pvd_tpu_torch.ops.composite import composite_rays, composite_rays_compact
 from pvd_tpu_torch.ops.fma import fma32
@@ -61,21 +64,48 @@ def dt_min_of(rspec: RenderSpec) -> float:
     return float(np.float32(2.0 * SQRT3 / rspec.max_steps))
 
 
-def _check_march_spec(rspec: RenderSpec):
-    if rspec.dt_gamma != 0.0:
-        raise NotImplementedError(
-            "dt_gamma > 0 (the t += clip(t*dt_gamma) lattice) is not ported "
-            "yet: ROADMAP B3")
+def dt_max_of(rspec: RenderSpec) -> float:
+    """The geometric lattice's largest step 2 sqrt(3) 2^(C-1) / H, as
+    float32 (renderer.py:175)."""
+    return float(np.float32(2.0 * SQRT3 * 2 ** (rspec.cascades - 1)
+                            / rspec.grid_size))
 
 
 def _march_start(nears, u, dt_min: float):
     return nears if u is None else fma32(dt_min, u, nears)
 
 
-def _occupancy_lookup(bitfield, pos, dt: float, rspec: RenderSpec):
-    """Occupancy bit at each position [..., 3] (renderer.py:231-256): the
-    cascade is the larger frexp exponent of max|pos| and dt*H/2, each
-    clipped to [0, C-1]."""
+def _t_lattice_geom(t0, rspec: RenderSpec):
+    """[N, L] geometric lattice (dt_gamma > 0) as the JAX scan computes it
+    (renderer.py:164-196): t <- t + clip(t * dt_gamma, dt_min, dt_max),
+    each op rounded to float32 on its own (the clip keeps XLA from
+    contracting the multiply into the add)."""
+    g = float(np.float32(rspec.dt_gamma))
+    lo, hi = dt_min_of(rspec), dt_max_of(rspec)
+    ts = torch.empty(t0.shape[0], rspec.max_steps, device=t0.device)
+    t = t0.float()
+    for k in range(rspec.max_steps):
+        ts[:, k] = t
+        t = t + torch.clamp(t * g, lo, hi)
+    return ts
+
+
+def _dt_from_t(t, valid, rspec: RenderSpec):
+    """Each sample's step as the exact closed form of its t on the lattice
+    (renderer.py:213-228): dt_min, or clip(t * dt_gamma, dt_min, dt_max)
+    for dt_gamma > 0; 0 where not `valid` (None: every point is)."""
+    if rspec.dt_gamma == 0.0:
+        dt = torch.full_like(t, dt_min_of(rspec))
+    else:
+        g = float(np.float32(rspec.dt_gamma))
+        dt = torch.clamp(t * g, dt_min_of(rspec), dt_max_of(rspec))
+    return dt if valid is None else torch.where(valid, dt, 0.0)
+
+
+def _occupancy_lookup(bitfield, pos, dt, rspec: RenderSpec):
+    """Occupancy bit at each position [..., 3] (renderer.py:231-256) for the
+    step dt (a float, or [...] per point): the cascade is the larger frexp
+    exponent of max|pos| and (dt*H)*0.5, each clipped to [0, C-1]."""
     H, C = rspec.grid_size, rspec.cascades
     if C == 1:
         level = None
@@ -83,9 +113,9 @@ def _occupancy_lookup(bitfield, pos, dt: float, rspec: RenderSpec):
     else:
         mx = pos.abs().amax(dim=-1)
         lvl_pos = torch.frexp(mx).exponent.clamp(0, C - 1)
-        _, e_dt = math.frexp(float(np.float32(np.float32(dt) * np.float32(H))
-                                   * np.float32(0.5)))
-        level = lvl_pos.clamp_min(min(max(e_dt, 0), C - 1)).long()
+        dt = torch.as_tensor(dt, dtype=torch.float32, device=pos.device)
+        lvl_dt = torch.frexp(dt * H * 0.5).exponent.clamp(0, C - 1)
+        level = torch.maximum(lvl_pos, lvl_dt).long()
         mip_bound = torch.exp2(level.float()).clamp_max(rspec.bound)[..., None]
     n = (0.5 * (pos / mip_bound + 1.0) * H).int().clamp(0, H - 1).long()
     flat = (n[..., 0] * H + n[..., 1]) * H + n[..., 2]
@@ -97,16 +127,20 @@ def _occupancy_lookup(bitfield, pos, dt: float, rspec: RenderSpec):
 def march_rays_plain(bitfield, rays_o, rays_d, nears, fars,
                      rspec: RenderSpec, u=None) -> MarchedSamples:
     """Plain PyTorch march (renderer.py:643-805, plain-lattice path)."""
-    _check_march_spec(rspec)
     N = rays_o.shape[0]
     S, L = rspec.max_samples, rspec.max_steps
     dt_min = dt_min_of(rspec)
     t0 = _march_start(nears, u, dt_min)
-    k = torch.arange(L, dtype=torch.float32, device=rays_o.device)
-    ts = fma32(k[None, :], dt_min, t0[:, None])  # [N, L]
+    if rspec.dt_gamma > 0:
+        ts = _t_lattice_geom(t0, rspec)
+        dts = _dt_from_t(ts, None, rspec)
+    else:
+        k = torch.arange(L, dtype=torch.float32, device=rays_o.device)
+        ts = fma32(k[None, :], dt_min, t0[:, None])  # [N, L]
+        dts = dt_min
     pos = fma32(ts[..., None], rays_d[:, None, :], rays_o[:, None, :])
     pos = pos.clamp(-rspec.bound, rspec.bound)
-    occ = _occupancy_lookup(bitfield, pos, dt_min, rspec) \
+    occ = _occupancy_lookup(bitfield, pos, dts, rspec) \
         & (ts < fars[:, None])
     if S >= L:  # eval: every lattice point keeps its slot
         mask = torch.zeros(N, S, dtype=torch.bool, device=rays_o.device)
@@ -123,7 +157,8 @@ def march_rays_plain(bitfield, rays_o, rays_d, nears, fars,
         mask = torch.arange(S, device=rays_o.device)[None, :] \
             < keep.sum(dim=1, keepdim=True)
     t_out = torch.where(mask, t_lat, 0.0)
-    dt_out = torch.where(mask, dt_min, 0.0)
+    # dt is the closed form of t, as the lattice applied it
+    dt_out = _dt_from_t(t_out, mask, rspec)
     # delta_depth_i = u_i - max(t0, u of the previous valid slot), u = t + dt
     uu = t_out + dt_out
     run = torch.cummax(torch.where(mask, uu, -torch.inf), dim=1).values
@@ -134,20 +169,14 @@ def march_rays_plain(bitfield, rays_o, rays_d, nears, fars,
                           mask=mask, t0=t0)
 
 
-def march_rays(bitfield, rays_o, rays_d, nears, fars, rspec: RenderSpec,
-               u=None) -> MarchedSamples:
-    """March rays through the occupancy grid into [N, S] sample slots.
-
-    bitfield [C*H^3] bool; rays_o, rays_d [N, 3]; nears, fars [N];
-    u: optional [N] uniform perturbation, t0 = near + dt_min * u.
-    K2 on CUDA tensors, the plain version on CPU tensors.
-    """
-    if rays_o.device.type == "cpu":
-        return march_rays_plain(bitfield, rays_o, rays_d, nears, fars, rspec,
-                                u)
-    _check_march_spec(rspec)
+def _march_cuda(bitfield, rays_o, rays_d, nears, fars, rspec: RenderSpec,
+                u) -> MarchedSamples:
+    """Check the inputs, launch K2 (K14 on the geometric lattice,
+    dt_gamma > 0) and count the launch on `march_rays`."""
+    geom = rspec.dt_gamma > 0
+    entry = "pvd_march_rays_geom" if geom else "pvd_march_rays"
     extra = {} if u is None else {"u": u}
-    dev = kernels.check_cuda("march_rays", bitfield=bitfield, rays_o=rays_o,
+    dev = kernels.check_cuda(entry, bitfield=bitfield, rays_o=rays_o,
                              rays_d=rays_d, nears=nears, fars=fars, **extra)
     N = rays_o.shape[0]
     S, L, H, C = (rspec.max_samples, rspec.max_steps, rspec.grid_size,
@@ -163,24 +192,43 @@ def march_rays(bitfield, rays_o, rays_d, nears, fars, rspec: RenderSpec,
     p = kernels.MarchParams(
         n_rays=N, n_steps=L, max_samples=S, grid=H, cascades=C,
         bound=rspec.bound, dt_min=dt_min_of(rspec),
-        mip_bound0=min(1.0, rspec.bound))
+        mip_bound0=min(1.0, rspec.bound), dt_gamma=rspec.dt_gamma,
+        dt_max=dt_max_of(rspec))
     t = torch.empty(N, S, device=dev)
     dt = torch.empty(N, S, device=dev)
     mask = torch.empty(N, S, dtype=torch.bool, device=dev)
     dd = torch.empty(N, S, device=dev)
     t0 = torch.empty(N, device=dev)
     with torch.cuda.device(dev):
-        kernels.launch("pvd_march_rays", rays_o.data_ptr(), rays_d.data_ptr(),
+        kernels.launch(entry, rays_o.data_ptr(), rays_d.data_ptr(),
                        nears.data_ptr(), fars.data_ptr(),
                        None if u is None else u.data_ptr(),
                        bitfield.data_ptr(), p, t.data_ptr(), dt.data_ptr(),
                        mask.data_ptr(), dd.data_ptr(), t0.data_ptr(),
                        kernels.stream_ptr(rays_o))
-    march_rays.launches += 1
+    if geom:
+        march_rays.launches_geom += 1
+    else:
+        march_rays.launches += 1
     return MarchedSamples(t=t, dt=dt, delta_depth=dd, mask=mask, t0=t0)
 
 
-march_rays.launches = 0
+def march_rays(bitfield, rays_o, rays_d, nears, fars, rspec: RenderSpec,
+               u=None) -> MarchedSamples:
+    """March rays through the occupancy grid into [N, S] sample slots.
+
+    bitfield [C*H^3] bool; rays_o, rays_d [N, 3]; nears, fars [N];
+    u: optional [N] uniform perturbation, t0 = near + dt_min * u.
+    K2 on CUDA tensors (K14 when dt_gamma > 0, counted in
+    `.launches_geom`), the plain version on CPU tensors.
+    """
+    if rays_o.device.type == "cpu":
+        return march_rays_plain(bitfield, rays_o, rays_d, nears, fars, rspec,
+                                u)
+    return _march_cuda(bitfield, rays_o, rays_d, nears, fars, rspec, u)
+
+
+march_rays.launches = march_rays.launches_geom = 0
 
 
 def compact_samples(mask, budget: int, prefix: bool = False) -> CompactInfo:
@@ -228,7 +276,9 @@ def render_rays(field, spec: ModelSpec, rspec: RenderSpec,
     padded [N, S] block.
 
     Training arguments: `u` [N] perturbs each ray's march start by
-    dt_min * u; `bg_color` may be per ray [N, 3]; `want_color=False`
+    dt_min * u; `bg_color` may be per ray [N, 3] (a field with a
+    background model, spec.bg_radius > 0, composites over its own
+    background instead, on either path); `want_color=False`
     (distill stage 1) or `composite=False` (stage 2) return after the field
     with the point tensors only; `inherited`, `inherited_compact` and
     `inherited_t_c` replay another model's samples (the distill teacher
@@ -276,9 +326,9 @@ def render_rays(field, spec: ModelSpec, rspec: RenderSpec,
                       compact_frac=compact.total.float() / budget)
         if not (want_color and composite):
             return result
-        # dt is dt_min on every valid slot; the depth channel's running
+        # dt is the closed form of t; the depth channel's running
         # real-delta sum telescopes to (t + dt) - t0 (renderer.py:932-935)
-        dt_c = torch.where(compact.valid, dt_min_of(rspec), 0.0)
+        dt_c = _dt_from_t(t_c, compact.valid, rspec)
         t_cum_c = torch.where(compact.valid, t_c + dt_c - t0_c, 0.0)
         ws, depth_raw, image, weights = composite_rays_compact(
             out_f.sigma * rspec.density_scale, out_f.rgb, dt_c, t_cum_c,
@@ -303,6 +353,8 @@ def render_rays(field, spec: ModelSpec, rspec: RenderSpec,
             out_f.sigma.reshape(N, S) * rspec.density_scale,
             out_f.rgb.reshape(N, S, 3), samples.dt, samples.delta_depth,
             samples.mask, early_stop=early_stop)
+    if spec.bg_radius > 0:  # the field's own background (renderer.py:926)
+        bg_color = background_of_rays(field, spec, rays_o, rays_d)
     image = image + (1.0 - ws)[:, None] * bg_color
     depth = torch.clamp(depth_raw - nears, min=0.0) / (fars - nears + 1e-6)
     result.update(image=image, depth=depth, weights_sum=ws, weights=weights)

@@ -20,9 +20,10 @@ from pvd_tpu_torch.ops.composite import (composite_rays,
                                          composite_rays_bwd,
                                          composite_rays_compact,
                                          composite_rays_compact_bwd)
+from pvd_tpu_torch.models.api import bg_grid_spec
 from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, hash_encode,
                                         hash_encode_bwd, hash_encode_cell_bwd,
-                                        hash_encode_cell_fwd)
+                                        hash_encode_cell_fwd, hash_encode_fwd)
 from pvd_tpu_torch.ops.vm_sample import (vm_sample, vm_sample_bwd,
                                          vm_sample_fwd)
 from pvd_tpu_torch.params import vm_field_from_jax, vm_tree_from_field
@@ -53,6 +54,9 @@ def test_new_modules_are_checked():
         "config", "engine/trainer")} <= names
     # the quality-recipe slice's
     assert "pvd_tpu_torch/engine/checkpoint.py" in names
+    # the large-scene slice's (the background model lives in models/api)
+    assert {"pvd_tpu_torch/ops/aabb.py", "pvd_tpu_torch/models/api.py",
+            "pvd_tpu_torch/render/renderer.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -206,3 +210,31 @@ def test_cell_wrappers_take_the_plain_path_on_cpu_without_counting():
     assert g.shape == (gs.cell_table_size, 16)
     assert (hash_encode_cell_fwd.launches,
             hash_encode_cell_bwd.launches) == before
+
+
+def test_large_scene_wrappers_take_the_plain_path_on_cpu_without_counting():
+    """K12 and K13 (the 2-D encode, directly and through the hash encode's
+    autograd) and K14 (the geometric march): the plain versions on CPU
+    tensors, and no count."""
+    def counts():
+        return (hash_encode.launches, hash_encode.launches_2d,
+                hash_encode_bwd.launches, hash_encode_bwd.launches_2d,
+                march_rays.launches, march_rays.launches_geom)
+
+    before = counts()
+    gs = bg_grid_spec()
+    table = torch.rand(gs.table_size, 2, requires_grad=True)
+    hash_encode(table, torch.rand(5, 2), gs).sum().backward()
+    assert table.grad.abs().sum() > 0
+    assert hash_encode_fwd(table.detach(), torch.rand(5, 2), gs).shape \
+        == (5, 8)
+    assert hash_encode_bwd(torch.rand(5, 2), torch.ones(5, 8), gs).shape \
+        == (gs.table_size, 2)
+    rs = RenderSpec(bound=2.0, grid_size=32, max_steps=128, dt_gamma=1 / 256)
+    o = torch.zeros(3, 3) - torch.tensor([0.0, 0.0, 3.0])
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 3)
+    bits = torch.ones(2 * 32 ** 3, dtype=torch.bool)
+    near, far = torch.full((3,), 1.0), torch.full((3,), 5.0)
+    s = march_rays(bits, o, d, near, far, rs)
+    assert s.mask.any() and (s.dt[s.mask] > rs.max_steps ** -1).all()
+    assert counts() == before

@@ -89,7 +89,7 @@ def test_warmup_ends_with_the_sample_budget(scene, tmp_path):
 @pytest.mark.parametrize("kw", [
     dict(ema_decay=0.95), dict(error_map=True), dict(scan_steps=4),
     dict(n_devices=2), dict(preload=False), dict(upsample_model_steps=(5,)),
-    dict(wall_budget=60.0), dict(bg_radius=1.0), dict(model_type="vm")],
+    dict(wall_budget=60.0), dict(model_type="vm")],
     ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
