@@ -2,6 +2,10 @@
 """Smoke test of pvd_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --host-ab OTHER_CHECKOUT
+
+The second form only times the A/B recipe's teacher (phase 6) in this
+checkout and another one in turn, with a host profile of each (`host_ab`).
 
 1. Builds the CUDA kernels from pvd_tpu_torch/csrc (nvcc, sm_90a).
 2. Drives the serving path at the full INGP width (14 levels x 2, 2^19
@@ -58,35 +62,61 @@
    this path is K14 (the geometric lattice) and every composite blends in
    the field's background through K12 (and K13 in training).  Then holds
    K12, K13 and K14 against their plain versions at this phase's shapes,
-   renders one 800x800 view of the teacher through make_eval_renderer,
+   renders one 800x800 view of the teacher through make_eval_renderer
+   (and times `read_png` on it written with each scanline filter),
    profiles a teacher and a stage-3 distill step, and holds one small
    large-scene teacher step (padded and compacted) and one stage-3 distill
    step on the GPU against the CPU plain steps.
-8. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+8. Runs the distillation CLI on the A/B recipe (inside phase 6, on its
+   teacher): the same scene written to disk as a blender-format dataset
+   (`write_synthetic_scene`, 100/3/10 views at 96x96), then
+   `pvd_tpu_torch.cli.distill.main` with `--hash_cell_levels 9
+   --hash_bake_dense --ckpt_teacher hash_best.ckpt` and flags that give
+   the A/B distill config field for field (checked): it reads the scene
+   without cv2, bakes the frozen teacher's 5 dense levels (K16), distills
+   the 300^3 VM student for 2000 steps with every teacher replay through
+   K15 + K10 (no K1), writes checkpoints, results/*.png and metrics.json
+   and renames the workspace; then `--test` and `--test_teacher` render
+   it again.  Fails under 27.5 dB (student, 10 test views) or more than
+   1.0 dB under the A/B phase's exact-teacher student, and records the
+   baked-against-exact difference of teacher and student.  Holds K15 and
+   K16 against their plain versions at full width (bound 1: side 73, 5
+   dense levels, the A/B teacher's table; bound 2: side 59, 4 levels) at
+   131,072 and 2,097,152 points (points on the faces and outside
+   included), times them beside F.grid_sample, and profiles one stage-3
+   distill step with the baked teacher beside the exact one.
+9. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
-Exits non-zero, printing no result, if any phase fails or no GPU is present.
+Exits non-zero, printing no result, if any phase fails, no GPU is present
+or the package is not beside it (the script alone exits 1).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
 from pvd_tpu_torch import kernels
+from pvd_tpu_torch.cli import distill as distill_cli
 from pvd_tpu_torch.config import ModelSpec, PVDConfig
+from pvd_tpu_torch.data.png import read_png, write_png
 from pvd_tpu_torch.data.poses import get_rand_poses, pose_spherical
-from pvd_tpu_torch.data.synth import make_synthetic_scene
+from pvd_tpu_torch.data.synth import (make_synthetic_scene,
+                                      write_synthetic_scene)
 from pvd_tpu_torch.engine.optim import (build_optimizer, cosine_schedule,
                                         exp_decay_schedule)
 from pvd_tpu_torch.engine.train_steps import (TrainState, chunk_rays,
@@ -109,7 +139,10 @@ from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
                                          composite_rays_fwd,
                                          composite_rays_plain)
 from pvd_tpu_torch.ops.fma import fma32
-from pvd_tpu_torch.ops.hashgrid import (cell_corners, hash_encode,
+from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
+                                        build_baked_dense_plain, cell_corners,
+                                        hash_encode, hash_encode_baked_fwd,
+                                        hash_encode_baked_plain,
                                         hash_encode_bwd,
                                         hash_encode_bwd_plain,
                                         hash_encode_cell_bwd,
@@ -121,7 +154,8 @@ from pvd_tpu_torch.ops.hashgrid import (cell_corners, hash_encode,
 from pvd_tpu_torch.ops.rays import get_rays, nerf_matrix_to_ngp
 from pvd_tpu_torch.ops.vm_sample import (vm_sample_bwd, vm_sample_bwd_plain,
                                          vm_sample_fwd, vm_sample_plain)
-from pvd_tpu_torch.params import (hash_field_from_jax, hash_tree_from_field,
+from pvd_tpu_torch.params import (field_from_tree, hash_field_from_jax,
+                                  hash_tree_from_field, tree_from_field,
                                   vm_field_from_jax, vm_tree_from_field)
 from pvd_tpu_torch.render.occupancy import (grid_coords, init_occupancy_state,
                                             query_points, set_bitfield)
@@ -142,7 +176,8 @@ OUR_KERNELS = ("hash_encode_fwd_kernel", "march_rays_kernel",
                "composite_padded_fwd_kernel", "composite_padded_bwd_kernel",
                "hash_cell_fwd_kernel", "hash_cell_bwd_kernel",
                "hash_encode2_fwd_kernel", "hash_encode2_bwd_kernel",
-               "march_rays_geom_kernel")
+               "march_rays_geom_kernel", "hash_baked_fwd_kernel",
+               "hash_bake_kernel")
 TOL_K1, TOL_K2_DD, TOL_K3 = 1e-5, 1e-6, 1e-5
 # K4: the same f32 ops; K5: fp32 atomics add in a varying order, so each
 # gradient leaf is held to 1e-4 of its max |g|; K6: the closed form against
@@ -245,6 +280,18 @@ LS_KERNELS = ("hash_encode", "hash_encode_cell_fwd", "hash_encode_bwd",
 # K14: t, dt, mask, t0 bit-exact and delta_depth 1e-6, as K2
 TOL_K12_REL, TOL_K13_REL, TOL_K14_DD = 1e-5, 1e-4, 1e-6
 LS_RENDER_RES = 800
+# the distillation CLI on the A/B recipe with a baked teacher; its floors
+# are the A/B student's
+CLI_STUDENT_FLOOR, CLI_MAX_DROP = AB_STUDENT_FLOOR, AB_MAX_DROP
+CLI_KERNELS = ("hash_encode_baked_fwd", "build_baked_dense",
+               "hash_encode_cell_fwd", "march_rays", "vm_sample_fwd",
+               "vm_sample_bwd", "composite_rays_compact",
+               "composite_rays_compact_bwd")
+# K15: the same f32 products as the plain version, summed in another order,
+# 1e-5 of max |out|; K16: the same separately rounded products and sums as
+# the plain version, so exact is expected (held to 1e-6 of max |value|)
+TOL_K15_REL, TOL_K16_REL = 1e-5, 1e-6
+BAKE_POINTS = (131_072, 2_097_152)
 # the small large-scene steps (tests/test_torch_large_scene.py's sizes)
 SMALL_LS = dict(bound=2.0, dt_gamma=1.0 / 256.0, bg_radius=32.0)
 SMALL_LS_TEA = dict(SMALL_TEA, bound=2.0, bg_radius=32.0)
@@ -426,7 +473,9 @@ COUNTED = {"hash_encode": (hash_encode, "launches"),
            "hash_encode_cell_bwd": (hash_encode_cell_bwd, "launches"),
            "hash_encode_2d_fwd": (hash_encode, "launches_2d"),
            "hash_encode_2d_bwd": (hash_encode_bwd, "launches_2d"),
-           "march_rays_geom": (march_rays, "launches_geom")}
+           "march_rays_geom": (march_rays, "launches_geom"),
+           "hash_encode_baked_fwd": (hash_encode_baked_fwd, "launches"),
+           "build_baked_dense": (build_baked_dense, "launches")}
 
 
 def counters() -> dict:
@@ -1363,9 +1412,12 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
     return results, extra
 
 
-def distill_step_profile(stu, scene, gen, label: str = "A/B") -> dict:
+def distill_step_profile(stu, scene, gen, label: str = "A/B",
+                         teacher=None) -> dict:
     """Launches and a profile of one stage-3 step of the distill Trainer's
-    state, from one of its random poses."""
+    state, from one of its random poses (with `teacher` in place of the
+    Trainer's)."""
+    teacher = stu.teacher if teacher is None else teacher
     train = scene["train"]
     intr = tuple(float(v) for v in train.intrinsics)
     step = make_distill_step(stu.spec_stu, stu.spec_tea, stu.rspec, stu.opt,
@@ -1374,14 +1426,13 @@ def distill_step_profile(stu, scene, gen, label: str = "A/B") -> dict:
     pose = torch.as_tensor(get_rand_poses(np.random.default_rng(0))[0],
                            device=stu.device)
     for _ in range(3):  # warm-up
-        step(stu.state, stu.teacher, stu.occ_tea, pose, gen)
+        step(stu.state, teacher, stu.occ_tea, pose, gen)
     torch.cuda.synchronize()
     reset_counters()
-    step(stu.state, stu.teacher, stu.occ_tea, pose, gen)
+    step(stu.state, teacher, stu.occ_tea, pose, gen)
     torch.cuda.synchronize()
     launched = {k: v for k, v in counters().items() if v}
-    prof = profile(lambda: step(stu.state, stu.teacher, stu.occ_tea, pose,
-                                gen))
+    prof = profile(lambda: step(stu.state, teacher, stu.occ_tea, pose, gen))
     log(f"{label} distill stage-3 step: launches {json.dumps(launched)}; "
         f"profile wall {prof['wall_ms']:.2f} ms, device busy "
         f"{prof['device_busy_ms']:.2f} ms (share "
@@ -1391,6 +1442,267 @@ def distill_step_profile(stu, scene, gen, label: str = "A/B") -> dict:
     for kname, row in prof["ours"].items():
         log(f"  ours: {row['ms']:9.3f} ms {row['calls']:6d} x {kname}")
     return {"launches_per_step": launched, "profile": prof}
+
+
+def cli_argv(scene: str, workspace: str, best: str, seed: int) -> list:
+    """The distillation CLI's flags for the A/B distill config (AB_DISTILL)
+    with a baked teacher.  --preload: the CLI's flag defaults to off where
+    PVDConfig's field defaults to on (the distill Trainer reads neither)."""
+    d = dict(AB_DISTILL)
+    argv = [scene, "--workspace", workspace, "--seed", str(seed),
+            "--hash_bake_dense", "--ckpt_teacher", best, "--preload",
+            "--stage_iters", f"stage1={d.pop('stage1_iters')},"
+            f"stage2={d.pop('stage2_iters')}"]
+    if not d.pop("autotune_budget", True):
+        argv.append("--no_autotune_budget")
+    for k, v in d.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def drive_distill_cli(seed: int, workspace: str, best: str,
+                      ab: dict) -> dict:
+    """The distillation CLI with a baked teacher on the A/B recipe: the
+    scene written to disk, `main` trains and evaluates, then `--test` and
+    `--test_teacher` render the renamed workspace again."""
+    t0 = time.perf_counter()
+    scene = write_synthetic_scene(os.path.join(workspace, "scene"),
+                                  **AB_SCENE, seed=seed)
+    write_s = time.perf_counter() - t0
+    ws = os.path.join(workspace, "h2v_cli")
+    argv = cli_argv(scene, ws, best, seed)
+    _, cfg = distill_cli.parse_args(argv)
+    want = PVDConfig(**AB_DISTILL, seed=seed)
+    differ = sorted(f.name for f in dataclasses.fields(PVDConfig)
+                    if getattr(cfg, f.name) != getattr(want, f.name))
+    log(f"distill CLI: {' '.join(argv[1:])}")
+    log(f"distill CLI config differs from the A/B distill config in "
+        f"{differ}")
+    if set(differ) != {"hash_bake_dense", "path", "workspace",
+                       "ckpt_teacher"}:
+        raise RuntimeError(f"the CLI's config is not the A/B distill "
+                           f"config: {differ}")
+    t0 = time.perf_counter()
+    stats = distill_cli.main(argv)
+    train_s = time.perf_counter() - t0
+    done = glob.glob(ws + "-psnr*")
+    if len(done) != 1:
+        raise RuntimeError(f"no renamed workspace for {ws}: {done}")
+    done = done[0]
+    with open(os.path.join(done, "metrics.json")) as f:
+        metrics = json.load(f)
+    if metrics["psnr"] != stats["psnr"] or not glob.glob(
+            os.path.join(done, "checkpoints", "hash2vm_*.ckpt")):
+        raise RuntimeError("metrics.json or the checkpoints are missing")
+    again = cli_argv(scene, done, best, seed)
+    t0 = time.perf_counter()
+    test = distill_cli.main(again + ["--test"])
+    test_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test_tea = distill_cli.main(again + ["--test_teacher"])
+    test_tea_s = time.perf_counter() - t0
+    H, W = AB_SCENE["H"], AB_SCENE["W"]
+    for i in range(AB_SCENE["n_test"]):
+        for name, shape in ((f"hash2vm_{i:04d}.png", (H, W, 3)),
+                            (f"hash2vm_{i:04d}_depth.png", (H, W, 1))):
+            img = read_png(os.path.join(done, "results", name))
+            if img.shape != shape:
+                raise RuntimeError(f"{name}: shape {img.shape} != {shape}")
+    ps, pt = stats["psnr"], test_tea["psnr"]
+    exact_s, exact_t = ab["student"]["psnr"], ab["teacher_reloaded"]["psnr"]
+    info = {"argv": argv[1:], "scene_write_s": write_s, "train_s": train_s,
+            "test_s": test_s, "test_teacher_s": test_tea_s,
+            "student": {k: stats[k] for k in ("psnr", "ssim", "lpips_proxy",
+                                              "eval_s_per_image")},
+            "student_reloaded_psnr": test["psnr"],
+            "teacher": {k: test_tea[k] for k in ("psnr", "ssim",
+                                                 "lpips_proxy",
+                                                 "eval_s_per_image")},
+            "baked_minus_exact_db": {"teacher": pt - exact_t,
+                                     "student": ps - exact_s},
+            "train_stats": {k: v for k, v in stats.items()
+                            if k.startswith(("train_", "stage"))},
+            "workspace_files": sorted(os.listdir(done))}
+    log(f"distill CLI (baked teacher): scene written in {write_s:.1f} s; "
+        f"train+eval {train_s:.1f} s, --test {test_s:.1f} s, --test_teacher "
+        f"{test_tea_s:.1f} s; student {ps:.3f} dB (SSIM {stats['ssim']:.4f}, "
+        f"reloaded {test['psnr']:.3f}), baked teacher {pt:.3f} dB; exact "
+        f"A/B student {exact_s:.3f}, teacher {exact_t:.3f}: baked - exact "
+        f"student {ps - exact_s:+.3f}, teacher {pt - exact_t:+.3f} dB")
+    log("distill CLI train_stats " + json.dumps(info["train_stats"]))
+    if not (np.isfinite(ps) and ps >= CLI_STUDENT_FLOOR
+            and ps >= exact_s - CLI_MAX_DROP):
+        raise RuntimeError(f"baked-teacher student {ps:.3f} dB: floor "
+                           f"{CLI_STUDENT_FLOOR}, exact student {exact_s:.3f}"
+                           f" - {CLI_MAX_DROP}")
+    if abs(test["psnr"] - ps) > 1e-3 or not np.isfinite(pt):
+        raise RuntimeError(f"--test renders {test['psnr']:.3f} dB against "
+                           f"{ps:.3f}; --test_teacher {pt}")
+    return info
+
+
+def bake_case(table, gs, gen, n: int, cell=None) -> dict:
+    """K15 against its plain version on n points of [0, 1]^3 (corners,
+    faces, next to the far faces and outside included) from `table`'s bake,
+    and the whole baked encode (K15 + K10) against the plain one."""
+    dev = table.device
+    baked = build_baked_dense(table, gs)
+    x01 = torch.rand(n, 3, generator=gen, device=dev)
+    e = 1.0 - 2.0 ** -24
+    x01[:12] = torch.tensor(
+        [[0, 0, 0], [1, 1, 1], [0, 1, .5], [1, 0, 1], [1, 1, .3], [e, e, e],
+         [1, e, 0], [.55, 1, e], [-1e-3, .5, .5], [.5, 1.001, .5],
+         [.6, .55, -1], [1, 1, 1 + 1e-6]], device=dev)
+    Ld = len(gs.dense_levels)
+    cols = [2 * lv + c for lv in gs.dense_levels for c in (0, 1)]
+    out = torch.zeros(n, gs.output_dim, device=dev)
+    k15 = hash_encode_baked_fwd(baked, x01, gs, out)[:, cols]
+    p15 = hash_encode_baked_plain(baked, x01, gs)
+    abs15 = max_abs(k15, p15)
+    err15 = abs15 / float(p15.abs().max())
+    if cell is not None:
+        with torch.no_grad():
+            full = hash_encode(table, x01, gs, cell, baked)
+        full_p = hash_encode_plain(table, x01, gs, cell, baked)
+        err15 = max(err15, max_abs(full, full_p) / float(full_p.abs().max()))
+    fine = gs.dense_levels[-1]
+    side = gs.level_side(fine)
+    inside = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    _, rows = level_corners(x01, gs, fine)
+    touched = int((rows[:, inside] - int(gs.offsets[fine])).unique().numel())
+    # bytes: x01 and the touched vertex rows read once, the Ld dense slots
+    # written once; ops: ~26 per point for the lattice and 8 weights, 32
+    # per (point, level) for 16 FMAs
+    b15 = bound(n * 12 + touched * Ld * 8 + n * Ld * 8, n * (26 + 32 * Ld))
+    # library yardstick: F.grid_sample of the [1, Ld*2, s, s, s] vertex
+    # volume, align_corners=True (vertex 0 at -1, vertex s - 1 at +1), at
+    # each point's lattice position; zero padding outside
+    import torch.nn.functional as F
+
+    vol = baked.reshape(side, side, side, Ld * 2).permute(3, 0, 1, 2)[None]
+    vol = vol.contiguous()
+    pos = fma32(x01, float(np.float32(gs.level_scale(fine))), 0.5)
+    grid = (pos / (side - 1) * 2.0 - 1.0).reshape(1, n, 1, 1, 3)
+
+    def lib():
+        return F.grid_sample(vol, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    lib_err = max_abs(lib().reshape(Ld * 2, n).T[inside], p15[inside])
+    return {"points": n, "dense_levels": Ld, "side": side, "err15": err15,
+            "abs15": abs15, "touched_rows": touched, "bound15": b15,
+            "t15": timings(lambda: hash_encode_baked_fwd(baked, x01, gs,
+                                                         out),
+                           lambda: hash_encode_baked_plain(baked, x01, gs)),
+            "lib15_ms": cuda_ms(lib), "lib15_abs_err": lib_err}
+
+
+def check_bake_kernels(tea, gen) -> tuple:
+    """K16 and K15 at full width: bound 1 (side 73, 5 dense levels) on the
+    A/B teacher's trained table and cell table, bound 2 (side 59, 4 dense
+    levels) on a random table."""
+    field = tea.state.field
+    gs1, table1 = field.grid, field.encoder.detach()
+    gs2 = HashGridSpec(desired_resolution=4096, n_cell_levels=9)
+    table2 = torch.rand(gs2.table_size, 2, generator=gen,
+                        device=table1.device) * 2 - 1
+    k16 = {}
+    for name, gs, table in (("bound1", gs1, table1),
+                            ("bound2", gs2, table2)):
+        bk = build_baked_dense(table, gs)
+        bp = build_baked_dense_plain(table, gs)
+        fine_exact = torch.equal(bk[:, -2:], bp[:, -2:])
+        abs16 = max_abs(bk, bp)
+        err16 = abs16 / float(bp.abs().max())
+        side = gs.level_side(gs.dense_levels[-1])
+        Ld = len(gs.dense_levels)
+        read = sum(gs.level_side(lv) ** 3 for lv in gs.dense_levels) * 8
+        # bytes: every dense level's rows read once, the vertex table
+        # written once; ops: 48 per (vertex, coarse level), 8 corners of
+        # 2 weight products, 2 products and 2 sums
+        b16 = bound(read + side ** 3 * Ld * 8, side ** 3 * (Ld - 1) * 48)
+        k16[name] = {"side": side, "dense_levels": Ld, "err16": err16,
+                     "abs16": abs16, "fine_exact": fine_exact,
+                     "bound16": b16,
+                     "t16": timings(lambda: build_baked_dense(table, gs),
+                                    lambda: build_baked_dense_plain(table,
+                                                                    gs))}
+        log(f"K16 {name}: side {side}, {Ld} dense levels, fine level exact "
+            f"{fine_exact}, max |kernel - plain| {abs16:.3g} (rel "
+            f"{err16:.3g}); {k16[name]['t16']['ms']:.4f} ms (call "
+            f"{k16[name]['t16']['call_ms']:.4f}, plain "
+            f"{k16[name]['t16']['plain_ms']:.4f}, bound {b16[0]:.4f} "
+            f"{b16[1]})")
+        if not (fine_exact and err16 <= TOL_K16_REL):
+            raise RuntimeError(f"K16 disagrees with its plain version "
+                               f"({name})")
+    cases = {}
+    for name, gs, table, cell in (
+            ("bound1", gs1, table1, field.encoder_cell.detach()),
+            ("bound2", gs2, table2, None)):
+        for n in BAKE_POINTS:
+            c = bake_case(table, gs, gen, n, cell)
+            cases[f"{name}_{n}"] = c
+            log(f"K15 {name} at {n} points (side {c['side']}, "
+                f"{c['dense_levels']} dense levels, {c['touched_rows']} "
+                f"vertex rows touched): rel err {c['err15']:.3g}, "
+                f"{c['t15']['ms']:.4f} ms (call {c['t15']['call_ms']:.4f}, "
+                f"plain {c['t15']['plain_ms']:.4f}, F.grid_sample "
+                f"{c['lib15_ms']:.4f} [max diff {c['lib15_abs_err']:.3g}], "
+                f"bound {c['bound15'][0]:.4f} {c['bound15'][1]})")
+            if not c["err15"] <= TOL_K15_REL:
+                raise RuntimeError(f"K15 disagrees with its plain version "
+                                   f"({name}, {n} points)")
+    c, b = cases[f"bound1_{BAKE_POINTS[0]}"], k16["bound1"]
+    results = [
+        dict(name="hash_encode_baked_fwd",
+             source="pvd_tpu_torch/csrc/hash_encode.cu",
+             replaces="pvd_tpu/ops/hashgrid.py:635", err=c["err15"],
+             abs_err=c["abs15"], tol=TOL_K15_REL,
+             err_kind="max |kernel - plain| / max |plain|", **c["t15"],
+             library_ms=c["lib15_ms"],
+             library_call="F.grid_sample(align_corners=True) of the "
+             "[1, Ld*2, s, s, s] vertex volume at the points",
+             bound=c["bound15"],
+             shape=f"{c['points']} pts x {c['dense_levels']} dense levels "
+             f"(side {c['side']})"),
+        dict(name="build_baked_dense",
+             source="pvd_tpu_torch/csrc/hash_encode.cu",
+             replaces="pvd_tpu/ops/hashgrid.py:461", err=b["err16"],
+             abs_err=b["abs16"], tol=TOL_K16_REL,
+             err_kind="max |kernel - plain| / max |plain|", **b["t16"],
+             library_ms=None,
+             library_call="none: no single PyTorch call resamples with a "
+             "clipped base that extrapolates at the edges",
+             bound=b["bound16"],
+             shape=f"{b['side']}^3 vertices x {b['dense_levels']} dense "
+             "levels")]
+    return results, {"k15": cases, "k16": k16}
+
+
+def bake_step_profiles(stu, scene, gen) -> dict:
+    """One stage-3 distill step with the A/B student's teacher baked,
+    beside the same step with the exact teacher: launches and device time
+    of the teacher's encode (K15 + K10 against K1 + K10)."""
+    spec = dataclasses.replace(stu.spec_tea, hash_bake_dense=True)
+    baked = field_from_tree(tree_from_field(stu.teacher), spec,
+                            stu.device).requires_grad_(False).bake()
+    out = {"exact": distill_step_profile(stu, scene, gen, "exact-teacher"),
+           "baked": distill_step_profile(stu, scene, gen, "baked-teacher",
+                                         teacher=baked)}
+    for name, kernels_ in (("exact", ("hash_encode_fwd_kernel",
+                                      "hash_cell_fwd_kernel")),
+                           ("baked", ("hash_baked_fwd_kernel",
+                                      "hash_cell_fwd_kernel"))):
+        ours = out[name]["profile"]["ours"]
+        out[name]["teacher_encode_ms"] = sum(
+            ours.get(k, {}).get("ms", 0.0) for k in kernels_)
+    log(f"teacher encode per stage-3 step: exact (K1 + K10) "
+        f"{out['exact']['teacher_encode_ms']:.4f} ms, baked (K15 + K10) "
+        f"{out['baked']['teacher_encode_ms']:.4f} ms")
+    if out["baked"]["launches_per_step"].get("hash_encode", 0):
+        raise RuntimeError("the baked teacher's step launched K1")
+    return out
 
 
 def drive_large_scene(seed: int, workspace: str) -> tuple:
@@ -1668,6 +1980,46 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
     return results, extra
 
 
+def png_read_times(img: np.ndarray) -> dict:
+    """Seconds `read_png` takes for `img` [H, W, C] uint8 written with
+    each scanline filter on every row (None, Sub, Up, Average, Paeth; the
+    last two take the anti-diagonal passes), and `write_png`'s seconds;
+    every file must read back exactly."""
+    H, W, C = img.shape
+    x = img.astype(np.int32)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = {"none": 0, "sub": a, "up": b, "average": (a + b) >> 1,
+             "paeth": paeth}
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "img.png")
+        t0 = time.perf_counter()
+        write_png(path, img)
+        out["write_png_s"] = time.perf_counter() - t0
+        for ftype, (name, pred) in enumerate(preds.items()):
+            rows = ((x - pred) & 0xFF).astype(np.uint8).reshape(H, W * C)
+            raw = np.concatenate([np.full((H, 1), ftype, np.uint8), rows], 1)
+            with open(path, "wb") as f:
+                f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+                    ">IIBBBBB", W, H, 8, {3: 2, 4: 6}[C], 0, 0, 0))
+                    + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                    + chunk(b"IEND", b""))
+            t0 = time.perf_counter()
+            back = read_png(path)
+            out[f"read_png_{name}_s"] = time.perf_counter() - t0
+            if not np.array_equal(back, img):
+                raise RuntimeError(f"read_png: filter {name} read back wrong")
+    return out
+
+
 def render_large_scene(tea, scene) -> dict:
     """One 800x800 view of the trained large-scene teacher through
     make_eval_renderer: K14 in eval mode and K12 once per chunk."""
@@ -1700,19 +2052,129 @@ def render_large_scene(tea, scene) -> dict:
             raise RuntimeError(f"large-scene render: {name} launched "
                                f"{launched.get(name, 0)} times for "
                                f"{n_chunks} chunks")
+    u8 = (out.image.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    png = png_read_times(u8)
+    log(f"PNG codec on this {res}x{res} render (host): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in png.items()))
     return {"ms": ms, "rungs": out.rungs, "launches": launched,
-            "samples_per_ray": out.samples / res ** 2, "hit_frac": hit}
+            "samples_per_ray": out.samples / res ** 2, "hit_frac": hit,
+            "png": png}
+
+
+# `--host-ab DIR`: the A/B recipe's teacher alone (3000 steps, as phase
+# 6 trains it), in a fresh process per run with the package imported from
+# the checkout it runs in; then 512 more steps (256 padded, 256 compacted)
+# of a fresh Trainer under cProfile for the host's Python work per step
+HOST_AB_PROFILE_STEPS, HOST_AB_REPS = 512, 3
+HOST_AB_CHILD = r"""
+import cProfile, json, os, pstats, re, sys, tempfile
+import torch
+from pvd_tpu_torch import kernels
+from pvd_tpu_torch.config import PVDConfig
+from pvd_tpu_torch.data.synth import make_synthetic_scene
+from pvd_tpu_torch.engine.trainer import Trainer
+scene_kw, tea_kw, seed, steps = json.loads(sys.argv[1])
+kernels.build_seconds()
+torch.backends.cuda.matmul.allow_tf32 = False
+scene = make_synthetic_scene(**scene_kw, seed=seed, scale=PVDConfig().scale)
+with tempfile.TemporaryDirectory() as ws:
+    tea = Trainer(PVDConfig(**tea_kw, seed=seed, workspace=ws + "/t"))
+    tea.train(scene["train"], valid_ds=scene["val"])
+    short = Trainer(PVDConfig(**dict(tea_kw, iters=steps), seed=seed,
+                              workspace=ws + "/p"))
+    prof = cProfile.Profile()
+    prof.enable()
+    short.train(scene["train"])
+    prof.disable()
+ps = pstats.Stats(prof)
+here = os.getcwd() + os.sep
+
+
+def name(f, fn):  # file and function, no line number or address
+    return re.sub(" at 0x[0-9a-f]+", "", f"{f.replace(here, '')}({fn})")
+
+
+calls = {}
+for (f, n, fn), v in ps.stats.items():
+    calls[name(f, fn)] = calls.get(name(f, fn), 0.0) + v[1] / steps
+top = sorted(ps.stats.items(), key=lambda kv: -kv[1][2])[:12]
+print(json.dumps({
+    "train_stats": tea.train_stats,
+    "profiled_ms_per_step": 1e3 * short.train_stats["train_wall_s"] / steps,
+    "calls_per_step": ps.total_calls / steps,
+    "python_ms_per_step": 1e3 * ps.total_tt / steps,
+    "calls": calls,
+    "top": [[name(f, fn), v[1] / steps, 1e6 * v[2] / steps]
+            for (f, n, fn), v in top]}))
+"""
+
+
+def host_ab(other: str, seed: int) -> int:
+    """This checkout and `other` (another checkout of the repo) in turn,
+    HOST_AB_REPS runs each of HOST_AB_CHILD in the order this, other,
+    other, this, this, other, so that a drift over the call falls on both
+    alike; logs each run, the functions whose calls per step differ, and
+    one JSON summary line."""
+    trees = {"this": os.path.dirname(os.path.abspath(__file__)),
+             "other": os.path.abspath(other)}
+    arg = json.dumps([AB_SCENE, AB_TEACHER, seed, HOST_AB_PROFILE_STEPS])
+    runs = {"this": [], "other": []}
+    for i in range(HOST_AB_REPS):
+        for name in (("this", "other") if i % 2 == 0 else ("other", "this")):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-c", HOST_AB_CHILD, arg], cwd=trees[name],
+                env=dict(os.environ, PYTHONPATH=trees[name]),
+                capture_output=True, text=True, timeout=900)
+            if res.returncode:
+                log(f"host A/B {name} failed:\n{res.stderr[-3000:]}")
+                return 1
+            run = json.loads(res.stdout.strip().splitlines()[-1])
+            st = run["train_stats"]
+            runs[name].append(run)
+            log(f"host A/B {name} run {len(runs[name])}: process "
+                f"{time.perf_counter() - t0:.1f} s, train_wall_s "
+                f"{st['train_wall_s']:.2f}, padded "
+                f"{st['padded_ms_per_step']:.2f} / compacted "
+                f"{st['compacted_ms_per_step']:.2f} ms per step; profiled "
+                f"{run['profiled_ms_per_step']:.2f} ms per step, "
+                f"{run['calls_per_step']:.1f} Python calls and "
+                f"{run['python_ms_per_step']:.2f} ms in them per step")
+            log("  top " + json.dumps(run["top"][:8]))
+    a, b = runs["this"][0]["calls"], runs["other"][0]["calls"]
+    diff = {k: (a.get(k, 0.0), b.get(k, 0.0)) for k in set(a) | set(b)
+            if abs(a.get(k, 0.0) - b.get(k, 0.0)) > 1e-9}
+    for k, (x, y) in sorted(diff.items()):
+        log(f"calls per step differ: {k}: this {x:.3f}, other {y:.3f}")
+
+    def col(name, key):
+        return [r["train_stats"][key] if key in r["train_stats"] else r[key]
+                for r in runs[name]]
+
+    print(json.dumps({"host_ab": {
+        name: {key: col(name, key) for key in (
+            "train_wall_s", "padded_ms_per_step", "compacted_ms_per_step",
+            "profiled_ms_per_step", "calls_per_step", "python_ms_per_step")}
+        for name in runs}, "trees": trees}), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-ab", metavar="DIR", default=None,
+                    help="only time the A/B teacher in this checkout and "
+                         "in the checkout DIR in turn, with a host profile"
+                         " of each (see host_ab)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 1
+    if args.host_ab:
+        return host_ab(args.host_ab, args.seed)
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
 
     # ---- set-up -------------------------------------------------------
     card = subprocess.run(
@@ -1995,6 +2457,14 @@ def main(argv=None) -> int:
         tea_ab, stu_ab, scene_ab, ab = drive_ab_recipe(args.seed, ws)
         ab["wall_s"] = time.perf_counter() - t0
         ab_launches = counters()
+        # ---- main path 5: the distillation CLI on the A/B recipe, with
+        # the A/B teacher baked -----------------------------------------
+        best = os.path.join(tea_ab.workspace, "checkpoints", "hash_best.ckpt")
+        reset_counters()
+        t0 = time.perf_counter()
+        cli = drive_distill_cli(args.seed, ws, best, ab)
+        cli["wall_s"] = time.perf_counter() - t0
+        cli_launches = counters()
     log(f"launches on the A/B path ({AB_TEACHER['iters']} teacher + "
         f"{AB_DISTILL['iters']} distill steps, evals included, "
         f"{ab['wall_s']:.1f} s): {json.dumps(ab_launches)}")
@@ -2002,11 +2472,24 @@ def main(argv=None) -> int:
         if ab_launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never launched on the A/B "
                                "path")
+    log(f"launches on the distill-CLI path ({AB_DISTILL['iters']} steps, "
+        f"the final eval, --test and --test_teacher, {cli['wall_s']:.1f} "
+        f"s): {json.dumps(cli_launches)}")
+    for name in CLI_KERNELS:
+        if cli_launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the "
+                               "distill-CLI path")
+    if cli_launches["hash_encode"] or cli_launches["build_baked_dense"] != 3:
+        raise RuntimeError("the distill-CLI path launched K1 or did not bake "
+                           "once per load_teacher")
     c_results, c_extra = check_cell_kernels(tea_ab, scene_ab, gen)
     results += c_results
     ab_flavors = teacher_step_flavors(tea_ab, scene_ab, "cell teacher")
     ab_distill = distill_step_profile(stu_ab, scene_ab, gen)
     cell_check = small_teacher_gpu_vs_cpu(spec_kw=SMALL_CELL_TEA)
+    b_results, b_extra = check_bake_kernels(tea_ab, gen)
+    results += b_results
+    bake_profiles = bake_step_profiles(stu_ab, scene_ab, gen)
     del tea_ab, stu_ab
 
     # ---- main path 5: the large-scene configuration (two cascades, the
@@ -2060,7 +2543,11 @@ def main(argv=None) -> int:
             # the first path that runs it
             f = {"launches": next((n for n in (
                 distill_launches[name], teacher_launches[name],
-                ab_launches[name], ls_launches[name]) if n), 0)}
+                ab_launches[name], cli_launches[name], ls_launches[name])
+                if n), 0)}
+        f["launches_cli"] = cli_launches[name]
+        f["launches_per_baked_distill_step"] = \
+            bake_profiles["baked"]["launches_per_step"].get(name, 0)
         f["launches_large_scene"] = ls_launches[name]
         f["launches_per_large_scene_step"] = {
             "teacher_" + flv: v["launches_per_step"].get(name, 0)
@@ -2112,6 +2599,13 @@ def main(argv=None) -> int:
                           for k, v in ab_flavors.items()},
                       "distill_stage3_profile": brief(ab_distill["profile"]),
                       "cell_gpu_vs_cpu_step": cell_check},
+        "distill_cli": {**cli, "launches": cli_launches,
+                        "bake_kernels": b_extra,
+                        "stage3_profiles": {
+                            k: {"launches_per_step": v["launches_per_step"],
+                                "teacher_encode_ms": v["teacher_encode_ms"],
+                                **brief(v["profile"])}
+                            for k, v in bake_profiles.items()}},
         "large_scene": {**ls, "launches": ls_launches,
                         "kernels": l_extra, "render_800": ls_render,
                         "teacher_profiles": {
@@ -2120,7 +2614,8 @@ def main(argv=None) -> int:
                         "distill_stage3_profile": brief(
                             ls_distill["profile"]),
                         "gpu_vs_cpu_steps": ls_checks},
-        "card": card}
+        "card": card, "wall_s": time.perf_counter() - t_script}
+    log(f"chip_smoke wall {line['wall_s']:.1f} s (kernel build included)")
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
 """Typed configuration (port of pvd_tpu/config.py:20-328).
 
 Only the fields this port reads so far (the serving path, the distill
-step, the teacher and distill Trainer, its checkpoints and the background
-model).  Defaults and
-derived properties (`RenderSpec.cascades`, `RenderSpec.sample_budget`) are
-the JAX package's.  `PVDConfig.to_json` / `from_json` read and write the
-checkpoint's `config_json`; fields the other package does not have are
-dropped on read.
+step, the teacher and distill Trainer, its checkpoints, the background
+model and the distillation CLI).  Defaults and derived properties
+(`RenderSpec.cascades`, `RenderSpec.sample_budget`) are the JAX package's.
+`PVDConfig.to_json` / `from_json` read and write the checkpoint's
+`config_json` and the CLI's `args.json`.  A JAX config that sets one of
+the JAX package's options the port lacks (`UNPORTED`) to anything but its
+default raises NotImplementedError with the option's ROADMAP item; other
+keys the port lacks are dropped, as the JAX package drops unknown keys:
+among them the JAX package's `tensorboard` switch (the port writes no
+event files).
 """
 
 from __future__ import annotations
@@ -40,6 +44,11 @@ class ModelSpec:
     # the finest N hashed levels store a cell's 8 corners in one row of a
     # separate cell table (ops/hashgrid.py); 0 = exact mode
     hash_cell_levels: int = 0
+    # a FROZEN field (the distill teacher) evaluates every dense level from
+    # one table on the finest dense level's lattice, baked once
+    # (ops/hashgrid.build_baked_dense); exact for the finest dense level,
+    # the coarser ones resampled onto its vertices
+    hash_bake_dense: bool = False
     # vm (TensoRF-VM): plane/line ranks and per-axis resolution
     vm_sigma_rank: int = 16
     vm_color_rank: int = 48
@@ -92,15 +101,18 @@ class PVDConfig:
     """The experiment fields the serving path, the distill step and the
     Trainer read (config.py:165-318)."""
 
+    path: str = ""
     workspace: str = "workspace"
     seed: int = 0
     iters: int = 40000
     lr: float = 1e-2
+    ckpt: str = "latest"
     num_rays: int = 8192
     max_steps: int = 1024
     update_extra_interval: int = 16
     max_ray_batch: int = 4096
     precision: str = "bf16"
+    mode: str = "blender"
     color_space: str = "srgb"
     preload: bool = True
     bound: float = 1.0
@@ -115,11 +127,13 @@ class PVDConfig:
     # orbit pose per `rand_pose` scheduled poses (distillation only)
     rand_pose: int = -1
     data_type: str = "synthetic"  # synthetic | llff | tank
+    downscale: int = 1
     model_type: str = "hash"
     teacher_type: str = "hash"
     sigma_clip_min: float = -2.0
     sigma_clip_max: float = 7.0
     resolution0: int = 300
+    resolution1: int = 300
     upsample_model_steps: tuple = ()
     # distillation
     distill_mode: str = "no_fix_mlp"  # fix_mlp | no_fix_mlp
@@ -132,6 +146,8 @@ class PVDConfig:
     loss_rate_sigma: float = 0.002
     l1_reg_weight: float = 1e-4
     ema_decay: float = -1.0
+    ckpt_teacher: str = ""
+    ckpt_student: str = ""
     update_stu_extra: bool = False  # refresh student occupancy in distill
     max_samples: int = 96
     samples_per_ray: float = 16.0
@@ -139,7 +155,11 @@ class PVDConfig:
     n_devices: int = 1
     scan_steps: int = 0
     hash_cell_levels: int = 0
+    hash_bake_dense: bool = False  # bake the frozen teacher's dense levels
     eval_interval: int = 50  # epochs between evaluations on valid_ds
+    # wall-clock budget of Trainer.train in seconds (0 = none): once spent,
+    # training ends at the next epoch boundary with the normal final
+    # checkpoint and eval
     wall_budget: float = 0.0
 
     def __post_init__(self):
@@ -155,6 +175,7 @@ class PVDConfig:
             sigma_clip_max=self.sigma_clip_max,
             vm_resolution=(self.resolution0,) * 3,
             hash_cell_levels=self.hash_cell_levels,
+            hash_bake_dense=self.hash_bake_dense,
             bg_radius=self.bg_radius,
         )
 
@@ -174,7 +195,37 @@ class PVDConfig:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
     @classmethod
-    def from_json(cls, text: str) -> "PVDConfig":
-        raw = json.loads(text)
+    def from_dict(cls, raw: dict) -> "PVDConfig":
+        """The config of `raw`'s fields; raises NotImplementedError for an
+        `UNPORTED` option set to anything but the JAX package's default,
+        and drops keys that neither package has."""
+        for name, value in raw.items():
+            if name in UNPORTED:
+                default, item = UNPORTED[name]
+                got = tuple(value) if isinstance(value, list) else value
+                if got != default:
+                    raise NotImplementedError(
+                        f"PVDConfig: {name}={value!r} is not ported yet "
+                        f"(ROADMAP {item}; the default is {default!r})")
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in fields})
+
+    @classmethod
+    def from_json(cls, text: str) -> "PVDConfig":
+        return cls.from_dict(json.loads(text))
+
+
+# the JAX package's PVDConfig fields the port does not have yet: their
+# JAX defaults and ROADMAP items
+UNPORTED = {
+    "num_steps": (512, "A14"),
+    "upsample_steps": (0, "A14"),
+    "PE": (10, "A12"),
+    "nerf_layer_num": (8, "A12"),
+    "nerf_layer_wide": (256, "A12"),
+    "skip": (3, "A12"),
+    "plenoxel_degree": (3, "A12"),
+    "plenoxel_res": ((128, 128, 128), "A12"),
+    "enable_edit_plenoxel": (False, "A12"),
+    "mesh_shape": (None, "A17"),
+}

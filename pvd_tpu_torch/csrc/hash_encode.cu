@@ -1,7 +1,8 @@
 // K1: multi-resolution hash-grid encode (INGP), forward, D = 3, C = 2;
 // K7: its table gradient;
 // K10: the cell-packed levels' encode; K11: the cell table's gradient;
-// K12, K13: K1 and K7 on a 2-D grid (the background model's).
+// K12, K13: K1 and K7 on a 2-D grid (the background model's);
+// K15: the baked dense levels' encode; K16: the bake of a frozen table.
 //
 // K1 replaces pvd_tpu/ops/hashgrid.py:533 hash_encode's corner levels: the
 // corner rows of _corner_rows (:193) and the weighted corner sum of
@@ -94,11 +95,49 @@
 // read-modify-writes of 8 B per active pair.  The coarse dense levels (17^2
 // vertices at level 0) put many rays' atomics on few rows; the order of the
 // sums varies from run to run, so the card check uses a relative tolerance.
+//
+// K15: the baked dense levels' encode, replacing the baked branch of
+// pvd_tpu/ops/hashgrid.py:533 hash_encode (:584-590, :635-646) for a frozen
+// table.  The bake (K16) stores at every vertex of the finest dense level's
+// lattice (side_f per axis) the features of all Ld dense levels, one row of
+// Ld * 2 floats.  Per point: the finest dense level's base cell and 8
+// trilinear weights exactly as K1 forms them (corner_setup, corner_weight:
+// the x01 * scale + 0.5 FMA, zeros outside [0, 1]^3), then the 8 corner
+// rows c0 + c1 * side_f + c2 * side_f^2 of the vertex table, and for each
+// dense level j the weighted corner sum of its 2 floats into level slot
+// level[j] of the [N, L * 2] output that K1 (the other corner levels) and
+// K10 (the cell levels) fill too.  A point inside the cube never reaches
+// past the far faces (base <= side_f - 2), where the JAX package's packed
+// rows hold zeros.  The TPU packs the 8 neighbours into one row for its
+// row-rate-bound gather engine; here one thread per point reads the 8 rows
+// of Ld * 8 bytes (40 B at Ld 5) directly: pairs of rows (x, x + 1) are
+// adjacent, so a point touches 4 runs of 80 B.  The corner sum runs in
+// corner order with FMAs, not XLA's 0/1 matmul order.  The level loop is
+// unrolled to PVD_MAX_BAKED with compile-time indices, so the by-value
+// level list stays in registers and constant memory.
+// Bound on the H100: memory.  12 B of x01 in and Ld * 8 B out per point,
+// and the vertex table (15.6 MB at side 73, Ld 5) once, which fits the 50 MB
+// L2; the 8 corner rows per point are L2 hits after the first touch.
+//
+// K16: the bake, replacing pvd_tpu/ops/hashgrid.py:461 build_baked_dense
+// (its unpacked vertex table; ops/packing.pack_rows_3d is a TPU layout).
+// One thread per (fine vertex, dense level j): the finest level (the last
+// entry) copies its vertex's row; a coarser level evaluates its trilinear
+// feature at the vertex from the base b and fraction f of each axis
+// coordinate, computed on the host in float64 as the JAX package does
+// (b clipped to [0, side_l - 2], so f extrapolates at the edges), with
+// w = (wx * wy) * wz and acc = acc + row * w over the corners in the order
+// k = dx + 2 dy + 4 dz, each product and sum rounded on its own
+// (__fmul_rn, __fadd_rn): the JAX package builds the table with eager ops,
+// which XLA:CPU does not contract into FMAs, so K16 equals it bit for bit.
+// Runs once per load_teacher.  Bound: memory, the fine level's rows read
+// once and the vertex table written once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define PVD_MAX_LEVELS 32
+#define PVD_MAX_BAKED 8
 
 #if defined(__CUDACC_VER_MAJOR__) && \
     (__CUDACC_VER_MAJOR__ > 12 ||      \
@@ -353,6 +392,90 @@ __global__ void hash_cell_bwd_kernel(const float* __restrict__ x01,
   }
 }
 
+// K15: one thread per point; entry j of lv is dense level j (slot
+// level[j]); entry 0 carries the finest dense level's side and scale.
+__global__ void hash_baked_fwd_kernel(const float* __restrict__ x01,
+                                      const float2* __restrict__ baked,
+                                      float2* __restrict__ out,
+                                      long long n_points, HashLevels lv) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_points) return;
+  float2* o = out + n * lv.out_levels;
+  const int ld = lv.n_levels;
+  float x[3];
+  load_point<3>(x01, n, x);
+  if (outside<3>(x)) {
+#pragma unroll
+    for (int j = 0; j < PVD_MAX_BAKED; ++j)
+      if (j < ld) o[lv.level[j]] = make_float2(0.f, 0.f);
+    return;
+  }
+  const Corners<3> c = corner_setup<3>(x, 0, lv);
+  float w[8];
+  long long row[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    w[k] = corner_weight<3>(c, k);
+    row[k] = (long long)corner_row<3>(c, k, 0u) * ld;
+  }
+#pragma unroll
+  for (int j = 0; j < PVD_MAX_BAKED; ++j) {
+    if (j >= ld) break;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float2 v = __ldg(baked + row[k] + j);
+      a0 = __fmaf_rn(w[k], v.x, a0);
+      a1 = __fmaf_rn(w[k], v.y, a1);
+    }
+    o[lv.level[j]] = make_float2(a0, a1);
+  }
+}
+
+// K16: one thread per (fine vertex, dense level entry j), j fastest so a
+// warp writes whole rows of the vertex table.
+__global__ void hash_bake_kernel(const float2* __restrict__ table,
+                                 const int* __restrict__ b,
+                                 const float* __restrict__ f,
+                                 float2* __restrict__ baked, int side_f,
+                                 HashLevels lv) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n_vert = (long long)side_f * side_f * side_f;
+  const int ld = lv.n_levels;
+  if (gid >= n_vert * ld) return;
+  const long long v = gid / ld;
+  const int j = (int)(gid - v * ld);
+  const float2* tl = table + lv.offset[j];
+  if (j == ld - 1) {  // the finest dense level: its own vertex
+    baked[gid] = __ldg(tl + v);
+    return;
+  }
+  const int ix[3] = {(int)(v % side_f), (int)((v / side_f) % side_f),
+                     (int)(v / ((long long)side_f * side_f))};
+  int bs[3];
+  float fs[3], gs[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    bs[d] = __ldg(b + j * side_f + ix[d]);
+    fs[d] = __ldg(f + j * side_f + ix[d]);
+    gs[d] = __fsub_rn(1.f, fs[d]);
+  }
+  const long long s = lv.side[j];
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dx = k & 1, dy = (k >> 1) & 1, dz = (k >> 2) & 1;
+    const float w = __fmul_rn(__fmul_rn(dx ? fs[0] : gs[0],
+                                        dy ? fs[1] : gs[1]),
+                              dz ? fs[2] : gs[2]);
+    const float2 t = __ldg(tl + (bs[0] + dx) + (bs[1] + dy) * s
+                           + (bs[2] + dz) * s * s);
+    a0 = __fadd_rn(a0, __fmul_rn(t.x, w));
+    a1 = __fadd_rn(a1, __fmul_rn(t.y, w));
+  }
+  baked[gid] = make_float2(a0, a1);
+}
+
 static long long n_blocks(long long n_points, const HashLevels& lv,
                           int threads) {
   return (n_points * lv.n_levels + threads - 1) / threads;
@@ -425,6 +548,32 @@ extern "C" int pvd_hash_cell_bwd(const float* x01, const float* g,
                          (cudaStream_t)stream>>>(
       x01, reinterpret_cast<const float2*>(g),
       reinterpret_cast<float4*>(grad_cell), n_points, lv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pvd_hash_baked_fwd(const float* x01, const float* baked,
+                                  float* out, long long n_points,
+                                  HashLevels lv, void* stream) {
+  if (n_points == 0 || lv.n_levels == 0) return 0;
+  if (lv.n_levels > PVD_MAX_BAKED) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  hash_baked_fwd_kernel<<<(unsigned)((n_points + threads - 1) / threads),
+                          threads, 0, (cudaStream_t)stream>>>(
+      x01, reinterpret_cast<const float2*>(baked),
+      reinterpret_cast<float2*>(out), n_points, lv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pvd_hash_bake(const float* table, const int* b, const float* f,
+                             float* baked, int side_f, HashLevels lv,
+                             void* stream) {
+  if (lv.n_levels == 0) return 0;
+  const int threads = 256;
+  const long long n = (long long)side_f * side_f * side_f * lv.n_levels;
+  hash_bake_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                     (cudaStream_t)stream>>>(
+      reinterpret_cast<const float2*>(table), b, f,
+      reinterpret_cast<float2*>(baked), side_f, lv);
   return (int)cudaGetLastError();
 }
 

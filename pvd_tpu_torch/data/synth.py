@@ -1,16 +1,17 @@
 """Procedural test scene: analytic renders of colored spheres (port of
 pvd_tpu/data/synth.py:18-118).
 
-The JAX package writes the scene as a blender-format dataset (PNG files
-and transforms JSON) that `data/provider.py:NeRFDataset` reads back.  This
-port makes the same arrays in memory, with no files and no cv2: the same
-ray-traced spheres in the same `default_rng(seed)` draw order across the
-train, val and test splits, returned as NeRFDataset would read them:
-  * images quantised to uint8 then divided by 255 (the PNG round trip);
-  * poses in the NGP convention, `nerf_matrix_to_ngp(pose, scale)`;
-  * intrinsics (fx, fy, cx, cy) with cx = H / 2 and cy = W / 2, the
-    provider's quirk (provider.py:142-145).
-Reading PNG datasets from disk is not ported yet (ROADMAP A15).
+The same ray-traced spheres in the same `default_rng(seed)` draw order
+across the train, val and test splits, two ways:
+  * `write_synthetic_scene(root, ...)` writes them as the JAX package's
+    `make_synthetic_scene(root, ...)` does: a blender-format dataset of
+    RGBA PNG files (`data/png.py`, no cv2) and `transforms_{split}.json`,
+    for `data/provider.NeRFDataset` to read back;
+  * `make_synthetic_scene(...)` returns the arrays in memory, as
+    NeRFDataset would read them: images quantised to uint8 then divided
+    by 255 (the PNG round trip), poses in the NGP convention
+    (`nerf_matrix_to_ngp(pose, scale)`), intrinsics (fx, fy, cx, cy) with
+    cx = H / 2 and cy = W / 2, the provider's quirk (provider.py:142-145).
 
 With `sky_radius` > 0 the scene is an unbounded one, as the large-scene
 configuration (bound > 1, the background model) expects: each image is
@@ -23,9 +24,12 @@ floaters, and the outer occupancy cascade fills with them.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 
+from pvd_tpu_torch.data.png import write_png
 from pvd_tpu_torch.data.poses import pose_spherical
 from pvd_tpu_torch.ops.rays import nerf_matrix_to_ngp
 
@@ -127,6 +131,45 @@ def _sky(pose: np.ndarray, H: int, W: int, focal: float,
     return np.clip(sky * bands[..., None], 0.0, 1.0)
 
 
+def _frames(counts: dict, H: int, W: int, seed: int, textured: bool,
+            sky_radius: float = 0.0):
+    """(split, k, blender pose [4, 4] float32, uint8 image [H, W, 4], RGB
+    over the sky when sky_radius > 0) in the JAX package's draw order."""
+    rng = np.random.default_rng(seed)
+    focal = W / (2.0 * np.tan(CAMERA_ANGLE_X / 2))
+    for split, n in counts.items():
+        for k in range(n):
+            theta = rng.uniform(-180, 180)
+            phi = rng.uniform(-60, -10)
+            pose = pose_spherical(theta, phi, 4.0)
+            img = _render_analytic(pose, H, W, focal, textured=textured)
+            if sky_radius > 0:
+                img = (img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+                       * _sky(pose, H, W, focal, sky_radius))
+            yield split, k, pose, (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def write_synthetic_scene(root: str, n_train: int = 12, n_val: int = 2,
+                          n_test: int = 3, H: int = 64, W: int = 64,
+                          seed: int = 0, textured: bool = False) -> str:
+    """Write the scene to `root` as the JAX package's
+    `make_synthetic_scene(root, ...)` does (synth.py:84-118): the same
+    frames, poses, camera_angle_x and pixels.  Returns root."""
+    counts = {"train": n_train, "val": n_val, "test": n_test}
+    frames = {split: [] for split in counts}
+    for split in counts:
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+    for split, k, pose, img in _frames(counts, H, W, seed, textured):
+        fname = f"./{split}/r_{k}"
+        frames[split].append({"file_path": fname,
+                              "transform_matrix": pose.tolist()})
+        write_png(os.path.join(root, f"{split}/r_{k}.png"), img)
+    for split, fr in frames.items():
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": CAMERA_ANGLE_X, "frames": fr}, f)
+    return root
+
+
 def make_synthetic_scene(n_train: int = 12, n_val: int = 2, n_test: int = 3,
                          H: int = 64, W: int = 64, seed: int = 0,
                          textured: bool = False, scale: float = 0.8,
@@ -135,27 +178,19 @@ def make_synthetic_scene(n_train: int = 12, n_val: int = 2, n_test: int = 3,
     pose scale (`PVDConfig.scale`).  `sky_radius` > 0: RGB images over a
     sky dome of that radius in blender units (bg_radius / scale puts it on
     the background model's sphere); else RGBA on nothing."""
-    rng = np.random.default_rng(seed)
+    counts = {"train": n_train, "val": n_val, "test": n_test}
     focal = W / (2.0 * np.tan(CAMERA_ANGLE_X / 2))
     intrinsics = np.array([focal, focal, H / 2, W / 2], np.float32)
-    splits = {}
-    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
-        poses, images = [], []
-        for _ in range(n):
-            theta = rng.uniform(-180, 180)
-            phi = rng.uniform(-60, -10)
-            pose = pose_spherical(theta, phi, 4.0)
-            img = _render_analytic(pose, H, W, focal, textured=textured)
-            if sky_radius > 0:
-                img = (img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
-                       * _sky(pose, H, W, focal, sky_radius))
-            q = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-            images.append(q.astype(np.float32) / 255.0)
-            poses.append(nerf_matrix_to_ngp(pose, scale=scale))
-        splits[split] = SceneSplit(
-            poses=np.stack(poses) if poses else np.zeros((0, 4, 4),
-                                                         np.float32),
-            images=np.stack(images) if images else np.zeros(
-                (0, H, W, 3 if sky_radius > 0 else 4), np.float32),
-            intrinsics=intrinsics, H=H, W=W)
-    return splits
+    poses = {split: [] for split in counts}
+    images = {split: [] for split in counts}
+    for split, _, pose, q in _frames(counts, H, W, seed, textured,
+                                     sky_radius):
+        images[split].append(q.astype(np.float32) / 255.0)
+        poses[split].append(nerf_matrix_to_ngp(pose, scale=scale))
+    C = 3 if sky_radius > 0 else 4
+    return {split: SceneSplit(
+        poses=np.stack(poses[split]) if poses[split]
+        else np.zeros((0, 4, 4), np.float32),
+        images=np.stack(images[split]) if images[split]
+        else np.zeros((0, H, W, C), np.float32),
+        intrinsics=intrinsics, H=H, W=W) for split in counts}

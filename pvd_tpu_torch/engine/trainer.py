@@ -10,7 +10,8 @@ One device, preloaded images, single steps, in two modes
     The first 16 x update_extra_interval steps render uncompacted (the
     padded [N, S] path) while the fresh grid converges; at the first
     autotune tick after them the sample budget turns on.
-  mode="distill": a frozen hash teacher (`load_teacher`, a checkpoint file)
+  mode="distill": a frozen hash teacher (`load_teacher`, a checkpoint file;
+    baked with `hash_bake_dense`, as the JAX package's attach_packed does)
     and a VM student warm-started from the teacher's shared heads; the
     student inherits the teacher's occupancy grid and does not refresh it
     unless `update_stu_extra`; each epoch draws fresh random poses
@@ -20,8 +21,12 @@ One device, preloaded images, single steps, in two modes
 Both modes run in epochs (the training images, or one epoch's random
 poses), write step checkpoints over the last two epochs and at the end,
 and evaluate `valid_ds` every `eval_interval` epochs and at the end,
-keeping `{name}_best.ckpt` by PSNR.  Checkpoints are the JAX package's
-format (`engine/checkpoint.py`).
+keeping `{name}_best.ckpt` by PSNR.  A `wall_budget` ends training early
+at an epoch boundary, with the normal final checkpoint and eval.
+Checkpoints are the JAX package's format (`engine/checkpoint.py`).
+`evaluate` writes each view's PNG and depth PNG (`data/png.py`) and
+optionally a video, and reports PSNR, SSIM and the JAX package's LPIPS
+proxy.
 
 Both modes take the large-scene settings: bound > 1 (two or more
 occupancy cascades), the geometric march (dt_gamma > 0) and the background
@@ -29,9 +34,9 @@ model (bg_radius > 0), which both fields then own and train.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
 EMA, the error map, scan steps, data parallelism, the host batcher, VM
-resizing, the wall budget, teachers other than hash and students other
-than VM, and in `evaluate` the PNG/video writing (cv2) and LPIPS (ROADMAP
-A10-A17).
+resizing, teachers other than hash and students other than VM (ROADMAP
+A12-A17).  Real LPIPS needs pretrained weights that neither machine has;
+like the JAX package without them, `evaluate` reports the proxy.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import numpy as np
 import torch
 
 from pvd_tpu_torch.config import PVDConfig
+from pvd_tpu_torch.data.png import write_png
 from pvd_tpu_torch.data.poses import get_rand_poses, rand_orbit_poses
 from pvd_tpu_torch.device import resolve_device
 from pvd_tpu_torch.engine import checkpoint as ckpt
@@ -62,7 +68,7 @@ from pvd_tpu_torch.params import field_from_tree, tree_from_field
 from pvd_tpu_torch.render.occupancy import (draw_occ_inputs,
                                             init_occupancy_state,
                                             mark_untrained_grid)
-from pvd_tpu_torch.utils.metrics import PSNRMeter, compute_ssim
+from pvd_tpu_torch.utils.metrics import PSNRMeter, compute_ssim, lpips_proxy
 
 MODES = ("teacher", "distill")
 
@@ -88,7 +94,6 @@ def _check_cfg(cfg: PVDConfig, mode: str):
         (cfg.scan_steps > 1, "scan steps", "A16"),
         (cfg.n_devices != 1, "data parallelism (n_devices != 1)", "A17"),
         (bool(cfg.upsample_model_steps), "VM resizing", "A12"),
-        (cfg.wall_budget > 0, "the wall budget", "A10"),
     )
     for bad, what, item in checks:
         if bad:
@@ -216,6 +221,9 @@ class Trainer:
                 " and bound must match the teacher's training settings")
         self.teacher = field_from_tree(payload["params"], self.spec_tea,
                                        self.device).requires_grad_(False)
+        if self.spec_tea.model_type == "hash":
+            # frozen: bake the dense levels once (attach_packed)
+            self.teacher.bake()
         self.occ_tea = payload["occ"]
         tree = ckpt.warm_start_student(tree_from_field(self.state.field),
                                        payload["params"])
@@ -230,7 +238,18 @@ class Trainer:
         """Resume the trained field, its grid and its step from a
         checkpoint; the optimizer starts afresh (trainer.py:224-246)."""
         payload = ckpt.load_checkpoint(path, self.device)
-        field = field_from_tree(payload["params"], self.spec_stu, self.device)
+        params = payload["params"]
+        if self.spec_stu.model_type == "vm":
+            # the live resolution from the loaded plane and line shapes
+            # (trainer.py:240-245)
+            m0, v0 = params["sigma_mat"][0], params["sigma_vec"][0]
+            res = (m0.shape[1], m0.shape[0], v0.shape[0])
+            if res != tuple(self.spec_stu.vm_resolution):
+                self.spec_stu = dataclasses.replace(self.spec_stu,
+                                                    vm_resolution=res)
+                self._steps.clear()
+                self._rebuild_renderers()
+        field = field_from_tree(params, self.spec_stu, self.device)
         self.state = TrainState(
             field=field, opt_state=self.opt.init(dict(
                 field.named_parameters())),
@@ -461,6 +480,14 @@ class Trainer:
                              f" {msg} ({time.perf_counter() - t_start:.1f}s)")
                 step += 1
 
+            # a spent wall budget makes this epoch boundary the end of
+            # training, with the final checkpoint and eval (trainer.py:
+            # 962-973)
+            if (cfg.wall_budget > 0 and step < total
+                    and time.perf_counter() - t_start >= cfg.wall_budget):
+                self.log(f"[{self.name}] wall budget ({cfg.wall_budget:.0f}"
+                         f"s) spent at step {step}/{total}; finishing early")
+                total = step
             # epoch boundary: step checkpoints over the last two epochs,
             # then the periodic eval with best tracking (trainer.py:973-983)
             clock.mark(step)
@@ -504,34 +531,57 @@ class Trainer:
         return self.state
 
     # ------------------------------------------------------------------
+    def _write_video(self, path: str, frames, fps: int = 21):
+        """An mp4 through imageio when it has a codec, as the JAX package
+        writes it (trainer.py:990-1008, fps 21); else the JAX package's
+        log line."""
+        try:
+            import imageio
+
+            imageio.mimwrite(path, np.stack(frames), fps=fps, quality=8)
+        except Exception:
+            self.log(f"[evaluate] video write skipped (no codec): {path}")
+            return
+        self.log(f"[evaluate] wrote {path}")
+
     @torch.no_grad()
     def evaluate(self, ds, use_teacher: bool = False,
                  save_dir: Optional[str] = None, write_video: bool = False,
-                 lpips: bool = False) -> dict:
-        """Full-image eval of `ds` (trainer.py:1034-1126): PSNR and SSIM
-        against the GT composited on white, and the render seconds per
-        image (`eval_s_per_image`, the minimum over images, and
+                 refresh_occ: bool = False) -> dict:
+        """Full-image eval of `ds` (trainer.py:1010-1126): PSNR, SSIM and
+        the LPIPS proxy against the GT composited on white, and the render
+        seconds per image (`eval_s_per_image`, the minimum over images, and
         `eval_s_first_image`).  `use_teacher` renders the distill teacher.
 
-        Writes no PNG, depth image or video (the JAX package writes them
-        with cv2, which the GPU machine lacks), and computes no LPIPS:
-        asking for them raises (ROADMAP A11)."""
-        if save_dir is not None or write_video:
-            _unported("evaluate's PNG and video output (cv2)", "A11")
-        if lpips:
-            _unported("LPIPS and its proxy", "A11")
+        Writes `{name}_{i:04d}.png` and `{name}_{i:04d}_depth.png` per view
+        into `save_dir` (default `<workspace>/results`) and, with
+        `write_video`, `{name}_video.mp4` and `{name}_video_depth.mp4`.
+        `refresh_occ` first runs one full occupancy update of the trained
+        field from its current params (its jitter drawn from a generator
+        seeded 0, as the JAX package draws it from PRNGKey(0))."""
+        if refresh_occ and not use_teacher:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            jitter, coords = draw_occ_inputs(gen, self.state.occ, self.rspec,
+                                             True)
+            self.state.occ = self._occ_update(
+                self.state.occ, self.state.field, full=True, jitter=jitter,
+                coords=coords)
         if use_teacher:
             field, occ, render = self.teacher, self.occ_tea, \
                 self.eval_render_tea
         else:
             field, occ, render = self.state.field, self.state.occ, \
                 self.eval_render
-        meter, ssims, times = PSNRMeter(), [], []
+        save_dir = save_dir or os.path.join(self.workspace, "results")
+        os.makedirs(save_dir, exist_ok=True)
+        meter, ssims, lp, times = PSNRMeter(), [], [], []
+        frames, depth_frames = [], []
         for i in range(len(ds)):
             self._sync()
             t0 = time.perf_counter()
             out = render(field, occ, ds.poses[i], ds.intrinsics, ds.H, ds.W)
             img = out.image.cpu().numpy()
+            dep = out.depth.cpu().numpy()
             times.append(time.perf_counter() - t0)
             if ds.images is not None:
                 gt = ds.images[i]
@@ -539,12 +589,29 @@ class Trainer:
                     gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
                 meter.update(img, gt)
                 ssims.append(compute_ssim(img, gt))
+                lp.append(lpips_proxy(img, gt))
+            u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+            d8 = (np.clip(dep, 0, 1) * 255).astype(np.uint8)
+            write_png(os.path.join(save_dir, f"{self.name}_{i:04d}.png"), u8)
+            write_png(os.path.join(save_dir,
+                                   f"{self.name}_{i:04d}_depth.png"), d8)
+            frames.append(u8)
+            depth_frames.append(d8)
+        if write_video and frames:
+            self._write_video(
+                os.path.join(save_dir, f"{self.name}_video.mp4"), frames)
+            self._write_video(
+                os.path.join(save_dir, f"{self.name}_video_depth.mp4"),
+                [np.repeat(f[..., None], 3, axis=-1) for f in depth_frames])
         stats = {"psnr": meter.measure(),
                  "ssim": float(np.mean(ssims)) if ssims else 0.0}
         if times:
             stats["eval_s_per_image"] = min(times)
             stats["eval_s_first_image"] = times[0]
         stats.update(self.train_stats)
+        if lp:
+            # random-feature proxy, comparable only with itself
+            stats["lpips_proxy"] = float(np.mean(lp))
         self.stats = stats
         self.log(f"[evaluate:{self.name}] {stats}")
         return stats

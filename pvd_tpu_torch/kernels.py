@@ -35,12 +35,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MAX_LEVELS = 32  # csrc/hash_encode.cu PVD_MAX_LEVELS
+MAX_BAKED_LEVELS = 8  # csrc/hash_encode.cu PVD_MAX_BAKED
 
 
 class HashLevels(ctypes.Structure):
-    """The level list of one K1, K7, K10, K11, K12 or K13 launch and its
-    per-level constants, passed by value (csrc/hash_encode.cu): entry i
-    fills level slot `level[i]` of a row of `out_levels` slots."""
+    """The level list of one K1, K7, K10, K11, K12, K13, K15 or K16 launch
+    and its per-level constants, passed by value (csrc/hash_encode.cu):
+    entry i fills level slot `level[i]` of a row of `out_levels` slots."""
 
     _fields_ = [
         ("n_levels", ctypes.c_int),
@@ -99,6 +100,12 @@ _SIGNATURES = {
     # K12 / K13: as pvd_hash_encode_fwd / _bwd, x01 [n, 2]
     "pvd_hash_encode2_fwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
     "pvd_hash_encode2_bwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
+    # K15: x01, baked [side_f^3, Ld*2], out [n, L*2], n_points, levels,
+    # stream
+    "pvd_hash_baked_fwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
+    # K16: table, b [Ld, side_f] int32, f [Ld, side_f], baked, side_f,
+    # levels, stream
+    "pvd_hash_bake": (_P, _P, _P, _P, ctypes.c_int, HashLevels, _P),
     # rays_o, rays_d, nears, fars, u (nullable), bitfield, params,
     # t, dt, mask, delta_depth, t0, stream
     "pvd_march_rays": (_P, _P, _P, _P, _P, _P, MarchParams,

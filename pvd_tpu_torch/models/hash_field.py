@@ -11,6 +11,15 @@ sends each a gradient (kernels K7 and K11 on the GPU) whenever grad mode is
 on.  The gradients are dense, as the JAX package's are, so AdamW updates
 all of their rows every step.  With `bg_radius` > 0 the field owns a
 background model, `bg` (`models/api.Background`).
+
+A frozen field with `hash_bake_dense` may be baked (`bake`, the port of
+hash_field.py:59-84 attach_packed): its dense levels are evaluated once
+onto the finest dense level's lattice (`ops/hashgrid.build_baked_dense`,
+kernel K16) into the buffer `baked`, and `encode` reads them from there
+(kernel K15).  The buffer is not a parameter and never reaches a
+checkpoint (`params.tree_from_field` reads parameters only), as the JAX
+package's checkpoints drop its '_baked' table; encoding a baked field in
+grad mode raises.
 """
 
 from __future__ import annotations
@@ -24,7 +33,8 @@ from pvd_tpu_torch.models.api import make_background
 from pvd_tpu_torch.models.common import make_mlp, mlp_dims
 from pvd_tpu_torch.models.heads import (FieldOut, shared_density,
                                         shared_sigma_color)
-from pvd_tpu_torch.ops.hashgrid import HashGridSpec, hash_encode
+from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
+                                        hash_encode)
 
 
 def grid_spec(spec: ModelSpec) -> HashGridSpec:
@@ -74,10 +84,21 @@ class HashField(nn.Module):
                      spec.hidden_dim_color, 3, spec.num_layers_color),
             device)
         self.bg = make_background(spec, device, generator)
+        self.register_buffer("baked", None, persistent=False)
+
+    @torch.no_grad()
+    def bake(self):
+        """Bake the frozen table's dense levels when the spec asks for it
+        (`hash_bake_dense`) and the grid has dense levels, as attach_packed
+        does; else leave the field as it is."""
+        if self.spec.hash_bake_dense and self.grid.dense_levels:
+            self.baked = build_baked_dense(self.encoder.detach(), self.grid)
+        return self
 
     def encode(self, x):
         x01 = (x + self.spec.bound) / (2.0 * self.spec.bound)
-        return hash_encode(self.encoder, x01, self.grid, self.encoder_cell)
+        return hash_encode(self.encoder, x01, self.grid, self.encoder_cell,
+                           self.baked)
 
     def forward(self, x, d, want_color: bool = True) -> FieldOut:
         """x: [N, 3] in [-bound, bound]; d: [N, 3] unit directions."""

@@ -98,6 +98,21 @@ class HashGridSpec:
         return [lv for lv in range(self.num_levels)
                 if not self.is_cell_level(lv)]
 
+    @functools.cached_property
+    def dense_levels(self) -> list:
+        """The levels a bake merges (`baked_dense_plan`, hashgrid.py:451):
+        the dense corner levels of a 3-D grid; the last is the finest."""
+        if self.input_dim != 3:
+            return []
+        return [lv for lv in self.corner_levels
+                if not self.level_is_hashed(lv)]
+
+    @functools.cached_property
+    def unbaked_levels(self) -> list:
+        """The corner levels a baked encode still reads from the table."""
+        return [lv for lv in self.corner_levels
+                if lv not in self.dense_levels]
+
     @property
     def log2_cell_size(self) -> int:
         return self.log2_hashmap_size - self.input_dim
@@ -218,13 +233,40 @@ def hash_encode_cell_plain(cell_table, x01, spec: HashGridSpec):
     return torch.cat(outs, dim=-1)
 
 
-def hash_encode_plain(table, x01, spec: HashGridSpec, cell_table=None):
+def hash_encode_baked_plain(baked, x01, spec: HashGridSpec):
+    """The dense levels [N, Ld * C] from the baked vertex table
+    [side_f^3, Ld * C] (hashgrid.py:635-646): the 8 corner rows of each
+    point's cell on the finest dense level's lattice, weighted as that
+    level's corners; zero for points outside [0, 1]^3."""
+    x01 = x01.float()
+    fine = spec.dense_levels[-1]
+    w, rows = level_corners(x01, spec, fine)
+    # the fine level's rows, clamped to the lattice: only points outside
+    # the cube leave it, and their weight is 0
+    rows = (rows - int(spec.offsets[fine])).clamp(
+        0, spec.level_side(fine) ** 3 - 1)
+    vals = baked.index_select(0, rows.reshape(-1)).reshape(
+        8, x01.shape[0], baked.shape[1])
+    acc = torch.zeros(x01.shape[0], baked.shape[1], device=x01.device)
+    for k in range(8):
+        acc = acc + w[k, :, None] * vals[k]
+    return acc
+
+
+def hash_encode_plain(table, x01, spec: HashGridSpec, cell_table=None,
+                      baked=None):
     """[N, D] positions in [0, 1] -> [N, L * C]; zero rows for inputs
-    outside [0, 1]^D (hashgrid.py:533-688, corner and cell levels)."""
+    outside [0, 1]^D (hashgrid.py:533-688, corner and cell levels; with
+    `baked`, the dense levels from the baked vertex table)."""
     x01 = x01.float()
     N, C = x01.shape[0], spec.level_dim
     outs = [None] * spec.num_levels
-    for level in spec.corner_levels:
+    if baked is not None:
+        dense = hash_encode_baked_plain(baked, x01, spec)
+        for j, level in enumerate(spec.dense_levels):
+            outs[level] = dense[:, j * C:(j + 1) * C]
+    for level in (spec.corner_levels if baked is None
+                  else spec.unbaked_levels):
         w, rows = level_corners(x01, spec, level)
         vals = table.index_select(0, rows.reshape(-1)).reshape(-1, N, C)
         acc = torch.zeros(N, C, device=x01.device)
@@ -271,10 +313,13 @@ def hash_encode_cell_bwd_plain(x01, g, spec: HashGridSpec):
 
 
 @functools.cache
-def _levels(spec: HashGridSpec, cell: bool) -> kernels.HashLevels:
-    """The corner levels (K1/K7, K12/K13) or the cell levels (K10/K11) of
-    `spec`, in their slots of an [N, L] row of level outputs."""
-    levels = spec.cell_levels if cell else spec.corner_levels
+def _levels(spec: HashGridSpec, cell: bool,
+            baked: bool = False) -> kernels.HashLevels:
+    """The corner levels (K1/K7, K12/K13; with `baked`, those a baked
+    encode leaves to K1) or the cell levels (K10/K11) of `spec`, in their
+    slots of an [N, L] row of level outputs."""
+    levels = (spec.cell_levels if cell else
+              spec.unbaked_levels if baked else spec.corner_levels)
     if spec.num_levels > kernels.MAX_LEVELS:
         raise ValueError(f"the hash kernels take at most {kernels.MAX_LEVELS}"
                          " levels")
@@ -379,30 +424,189 @@ def _count_corner_launch(counted, spec: HashGridSpec):
         counted.launches += 1
 
 
-def hash_encode_fwd(table, x01, spec: HashGridSpec, cell_table=None):
+def _check_baked(baked, spec: HashGridSpec):
+    fine = spec.dense_levels[-1] if spec.dense_levels else None
+    want = (None if fine is None else
+            (spec.level_side(fine) ** 3, len(spec.dense_levels) * 2))
+    if want is None or tuple(baked.shape) != want:
+        raise ValueError(f"baked table shape {tuple(baked.shape)} != "
+                         f"{want} (the spec's dense levels)")
+    if baked.data_ptr() % 8:
+        raise ValueError("baked table rows must be 8-byte aligned")
+
+
+@functools.cache
+def _baked_levels(spec: HashGridSpec) -> kernels.HashLevels:
+    """K15's levels: entry j fills the slot of dense level j; entry 0
+    carries the finest dense level's lattice (side, scale), which K15's
+    corner setup reads."""
+    if len(spec.dense_levels) > kernels.MAX_BAKED_LEVELS:
+        raise ValueError(f"K15 takes at most {kernels.MAX_BAKED_LEVELS} "
+                         "dense levels")
+    lv = kernels.HashLevels()
+    fine = spec.dense_levels[-1]
+    lv.n_levels = len(spec.dense_levels)
+    lv.out_levels = spec.num_levels
+    lv.side[0] = spec.level_side(fine)
+    lv.scale[0] = float(np.float32(spec.level_scale(fine)))
+    for j, level in enumerate(spec.dense_levels):
+        lv.level[j] = level
+    return lv
+
+
+def hash_encode_baked_fwd(baked, x01, spec: HashGridSpec, out):
+    """The dense levels' encode from the baked vertex table into their
+    slots of `out` [N, L * 2] (the other slots are left as they are): K15
+    on CUDA tensors, the plain version on CPU tensors."""
+    n = x01.shape[0]
+    if tuple(out.shape) != (n, spec.output_dim):
+        raise ValueError(f"out must be [{n}, {spec.output_dim}]")
+    if x01.device.type == "cpu" and baked.device.type == "cpu":
+        dense = hash_encode_baked_plain(baked, x01, spec)
+        for j, level in enumerate(spec.dense_levels):
+            out[:, 2 * level:2 * level + 2] = dense[:, 2 * j:2 * j + 2]
+        return out
+    _check_k1("hash_encode_baked", spec, x01, baked=baked, out=out)
+    _check_baked(baked, spec)
+    with torch.cuda.device(x01.device):
+        kernels.launch("pvd_hash_baked_fwd", x01.data_ptr(),
+                       baked.data_ptr(), out.data_ptr(), n,
+                       _baked_levels(spec), kernels.stream_ptr(x01))
+    hash_encode_baked_fwd.launches += 1
+    return out
+
+
+hash_encode_baked_fwd.launches = 0
+
+
+def hash_encode_fwd(table, x01, spec: HashGridSpec, cell_table=None,
+                    baked=None):
     """Forward encode, no autograd: K1 (corner levels; K12 for a 2-D grid)
     and K10 (cell levels) on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors.  With `baked` (`build_baked_dense`'s vertex table) K15 fills
+    the dense levels and K1 runs only on the other corner levels."""
     if spec.cell_levels and cell_table is None:
         raise ValueError("hash_encode: the spec has cell levels; pass "
                          "cell_table")
     if x01.device.type == "cpu" and table.device.type == "cpu":
-        return hash_encode_plain(table, x01, spec, cell_table)
+        return hash_encode_plain(table, x01, spec, cell_table, baked)
     _check_k1("hash_encode", spec, x01, dims=(2, 3), table=table)
     _check_table(table, spec)
     n = x01.shape[0]
     out = torch.empty(n, spec.output_dim, device=x01.device)
-    if spec.corner_levels:
+    if baked is not None:
+        hash_encode_baked_fwd(baked, x01, spec, out=out)
+    if spec.corner_levels if baked is None else spec.unbaked_levels:
         entry = ("pvd_hash_encode2_fwd" if spec.input_dim == 2
                  else "pvd_hash_encode_fwd")
         with torch.cuda.device(x01.device):
             kernels.launch(entry, x01.data_ptr(), table.data_ptr(),
-                           out.data_ptr(), n, _levels(spec, False),
+                           out.data_ptr(), n,
+                           _levels(spec, False, baked is not None),
                            kernels.stream_ptr(x01))
         _count_corner_launch(hash_encode, spec)
     if spec.cell_levels:
         hash_encode_cell_fwd(cell_table, x01, spec, out=out)
     return out
+
+
+@functools.cache
+def _bake_axes(spec: HashGridSpec):
+    """Per dense level j, the lattice base b [Ld, side_f] (int32) and
+    fraction f [Ld, side_f] (float32) of each fine vertex coordinate on
+    level j's lattice, computed in float64 on the host as JAX does
+    (hashgrid.py:502-514): x01 = (v - 0.5) / scale_f, pos = x01 * scale_l
+    + 0.5, b = clip(floor(pos), 0, side_l - 2), f = float32(pos - b), which
+    extrapolates at the edges.  The finest level's row is b = v, f = 0."""
+    fine = spec.dense_levels[-1]
+    side_f = spec.level_side(fine)
+    v = np.arange(side_f, dtype=np.float64)
+    x01_axis = (v - 0.5) / spec.level_scale(fine)
+    bs, fs = [], []
+    for level in spec.dense_levels:
+        pos = x01_axis * spec.level_scale(level) + 0.5
+        b = np.clip(np.floor(pos).astype(np.int64), 0,
+                    spec.level_side(level) - 2)
+        if level == fine:
+            b = v.astype(np.int64)
+        bs.append(b)
+        fs.append((pos - b).astype(np.float32) if level != fine
+                  else np.zeros(side_f, np.float32))
+    return np.stack(bs).astype(np.int32), np.stack(fs)
+
+
+@functools.cache
+def _bake_axes_on(spec: HashGridSpec, dev: torch.device):
+    """`_bake_axes` on the device, copied there once."""
+    bs, fs = _bake_axes(spec)
+    return torch.from_numpy(bs).to(dev), torch.from_numpy(fs).to(dev)
+
+
+def build_baked_dense_plain(table, spec: HashGridSpec):
+    """The baked vertex table [side_f^3, Ld * C] of a frozen corner table
+    (hashgrid.py:461-530, before its neighbourhood packing): the finest
+    dense level's rows copied, each coarser dense level's trilinear feature
+    at every fine vertex, the 8 corners summed in the order k = dx + 2 dy
+    + 4 dz as acc + row * w, each product and sum rounded on its own (JAX
+    builds it with eager ops: no FMA), w = (wx * wy) * wz."""
+    fine = spec.dense_levels[-1]
+    side_f = spec.level_side(fine)
+    bs, fs = _bake_axes(spec)
+    offsets = spec.offsets
+    feats = []
+    for j, level in enumerate(spec.dense_levels):
+        off = int(offsets[level])
+        if level == fine:
+            feats.append(table[off:off + side_f ** 3])
+            continue
+        side_l = spec.level_side(level)
+        sub = table[off:off + side_l ** 3]
+        b = torch.from_numpy(bs[j]).to(table.device).long()
+        f = torch.from_numpy(fs[j]).to(table.device)
+        acc = torch.zeros(side_f ** 3, spec.level_dim, device=table.device)
+        for k in range(8):
+            dx, dy, dz = k & 1, (k >> 1) & 1, (k >> 2) & 1
+            idx = ((b + dx)[None, None, :] + (b + dy)[None, :, None] * side_l
+                   + (b + dz)[:, None, None] * side_l * side_l).reshape(-1)
+            w = ((f if dx else 1.0 - f)[None, None, :]
+                 * (f if dy else 1.0 - f)[None, :, None]
+                 * (f if dz else 1.0 - f)[:, None, None]).reshape(-1, 1)
+            acc = acc + sub[idx] * w
+        feats.append(acc)
+    return torch.cat(feats, dim=-1)
+
+
+def build_baked_dense(table, spec: HashGridSpec):
+    """The baked vertex table [side_f^3, Ld * 2] of a frozen corner table
+    [T, 2]: K16 on a CUDA table, the plain version on a CPU one."""
+    if not spec.dense_levels:
+        raise ValueError("build_baked_dense: the spec has no dense level")
+    if table.device.type == "cpu":
+        return build_baked_dense_plain(table, spec)
+    dev = kernels.check_cuda("build_baked_dense", table=table)
+    if table.dtype != torch.float32:
+        raise TypeError("build_baked_dense: the table must be float32")
+    _check_table(table, spec)
+    fine = spec.dense_levels[-1]
+    side_f = spec.level_side(fine)
+    b, f = _bake_axes_on(spec, dev)
+    # entry j: dense level j's table block; the last entry, the finest
+    # level, is copied
+    lv = kernels.HashLevels()
+    lv.n_levels = len(spec.dense_levels)
+    for j, level in enumerate(spec.dense_levels):
+        lv.offset[j] = int(spec.offsets[level])
+        lv.side[j] = spec.level_side(level)
+    baked = torch.empty(side_f ** 3, 2 * lv.n_levels, device=dev)
+    with torch.cuda.device(dev):
+        kernels.launch("pvd_hash_bake", table.data_ptr(), b.data_ptr(),
+                       f.data_ptr(), baked.data_ptr(), side_f, lv,
+                       kernels.stream_ptr(table))
+    build_baked_dense.launches += 1
+    return baked
+
+
+build_baked_dense.launches = 0
 
 
 def hash_encode_bwd(x01, g, spec: HashGridSpec):
@@ -468,16 +672,21 @@ class _HashEncode(torch.autograd.Function):
         return g_table, g_cell, None, None
 
 
-def hash_encode(table, x01, spec: HashGridSpec, cell_table=None):
+def hash_encode(table, x01, spec: HashGridSpec, cell_table=None,
+                baked=None):
     """Hash encode [N, D] positions in [0, 1] -> [N, L * C],
     differentiable in `table` and `cell_table` (forward K1 + K10, backward
     K7 + K11 on CUDA tensors, K12 and K13 for a 2-D grid; the plain
     versions on CPU tensors).
     `cell_table` [n_cell * 2^16, 16] is needed when the spec has cell
-    levels.  `x01` takes no gradient: it must not require one while grad
-    mode is on."""
+    levels.  `baked`, a frozen table's `build_baked_dense`, takes the dense
+    levels (K15) and has no gradient: grad mode must be off.  `x01` takes
+    no gradient: it must not require one while grad mode is on."""
+    if baked is not None and torch.is_grad_enabled():
+        raise RuntimeError("hash_encode: a baked table is frozen and has no"
+                           " gradient; encode under torch.no_grad()")
     if not torch.is_grad_enabled():
-        return hash_encode_fwd(table, x01, spec, cell_table)
+        return hash_encode_fwd(table, x01, spec, cell_table, baked)
     if x01.requires_grad:
         raise NotImplementedError(
             "hash_encode: no gradient into the positions (they come from "

@@ -3,8 +3,10 @@
 PSNR: one scalar per image over the whole [H, W, 3] array, mean over
 images, as the reference's PSNRMeter.  SSIM: the tf.image.ssim
 formulation (separable 11x11 Gaussian, sigma 1.5, k1 0.01, k2 0.03) in
-float64 numpy, as the JAX package computes it.  LPIPS (and the JAX
-package's random-feature proxy) is not ported yet (ROADMAP A11).
+float64 numpy, as the JAX package computes it.  `lpips_proxy` is the JAX
+package's random-feature stand-in for LPIPS (metrics.py:125-180), which it
+reports when the lpips package's pretrained weights are missing, as they
+are on both machines; real LPIPS is not ported.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 def psnr(pred, gt) -> float:
@@ -70,3 +74,45 @@ def compute_ssim(img0, img1, max_val: float = 1.0, filter_size: int = 11,
     ssim_map = ((2 * mu01 + c1) * (2 * s01 + c2)) / (
         (mu00 + mu11 + c1) * (s00 + s11 + c2))
     return float(np.mean(ssim_map))
+
+
+_PROXY_FILTERS = None
+
+
+def _proxy_filters():
+    """Fixed-seed random conv stacks of the perceptual proxy: 3 scales x 24
+    channels of 5x5 filters, seed 1789 (metrics.py:125-143)."""
+    global _PROXY_FILTERS
+    if _PROXY_FILTERS is None:
+        rng = np.random.default_rng(1789)
+        _PROXY_FILTERS = [
+            (rng.standard_normal((24, 3, 5, 5)) / np.sqrt(75.0)).astype(
+                np.float32)
+            for _ in range(3)
+        ]
+    return _PROXY_FILTERS
+
+
+def lpips_proxy(pred, gt) -> float:
+    """Perceptual distance proxy, NOT the reference's LPIPS: multi-scale
+    random-conv feature maps of [H, W, 3] images in [0, 1],
+    channel-normalised like LPIPS, mean squared feature difference summed
+    over 3 dyadic scales (metrics.py:146-180).  Comparable only with
+    itself (lower = closer)."""
+    def prep(x):
+        t = torch.from_numpy(np.asarray(x, np.float32)).permute(2, 0, 1)[None]
+        return t * 2.0 - 1.0
+
+    a, b = prep(pred), prep(gt)
+    total = 0.0
+    with torch.no_grad():
+        for w in _proxy_filters():
+            wt = torch.from_numpy(w)
+            fa = F.conv2d(a, wt, padding=2)
+            fb = F.conv2d(b, wt, padding=2)
+            fa = fa / (fa.norm(dim=1, keepdim=True) + 1e-10)
+            fb = fb / (fb.norm(dim=1, keepdim=True) + 1e-10)
+            total += float(((fa - fb) ** 2).sum(dim=1).mean())
+            a = F.avg_pool2d(a, 2)
+            b = F.avg_pool2d(b, 2)
+    return total

@@ -118,19 +118,31 @@ def cell_setup():
     return _build(CELL_TEA_KW)
 
 
-def _jax_grads(s, stage, spr=CFG_KW["samples_per_ray"]):
-    """JAX distill_loss under value_and_grad, step 0, computed once per
-    (stage, samples_per_ray); samples_per_ray 0 is the padded path."""
-    cache = s.setdefault("jax_grads", {})
-    if (stage, spr) in cache:
-        return cache[stage, spr]
+def _jax_teacher(s, bake: bool = False):
+    """The JAX teacher's spec and params; with `bake`, baked as the JAX
+    distill Trainer bakes it (attach_packed with hash_bake_dense)."""
     tea = jax.tree_util.tree_map(jnp.asarray, s["tea"])
+    if not bake:
+        return s["spec_tj"], tea
+    spec = dataclasses.replace(s["spec_tj"], hash_bake_dense=True)
+    tea = j_hash.attach_packed(tea, spec)
+    assert "_baked" in tea
+    return spec, tea
+
+
+def _jax_grads(s, stage, spr=CFG_KW["samples_per_ray"], bake=False):
+    """JAX distill_loss under value_and_grad, step 0, computed once per
+    (stage, samples_per_ray, bake); samples_per_ray 0 is the padded path."""
+    cache = s.setdefault("jax_grads", {})
+    if (stage, spr, bake) in cache:
+        return cache[stage, spr, bake]
+    spec_tj, tea = _jax_teacher(s, bake)
     dr = s["draws"]
     rspec = dataclasses.replace(s["rspec_j"], samples_per_ray=spr)
 
     def f(p):
         return j_distill_loss(
-            p, tea, s["spec_sj"], s["spec_tj"], rspec, s["cfg_j"],
+            p, tea, s["spec_sj"], spec_tj, rspec, s["cfg_j"],
             stage, s["occ_j"], s["occ_j"], jnp.asarray(dr["o"]),
             jnp.asarray(dr["d"]), jnp.asarray(dr["bg"]), dr["k_perturb"],
             jnp.int32(0))
@@ -138,10 +150,10 @@ def _jax_grads(s, stage, spr=CFG_KW["samples_per_ray"]):
     (loss, (logs, _)), grads = jax.jit(
         jax.value_and_grad(f, has_aux=True))(
             jax.tree_util.tree_map(jnp.asarray, s["stu"]))
-    cache[stage, spr] = (float(loss),
-                         jax.tree_util.tree_map(np.asarray, logs),
-                         jax.tree_util.tree_map(np.asarray, grads))
-    return cache[stage, spr]
+    cache[stage, spr, bake] = (float(loss),
+                               jax.tree_util.tree_map(np.asarray, logs),
+                               jax.tree_util.tree_map(np.asarray, grads))
+    return cache[stage, spr, bake]
 
 
 @pytest.fixture(scope="module")
@@ -149,10 +161,12 @@ def jax_stages(setup):
     return lambda *a: _jax_grads(setup, *a)
 
 
-def _port(setup):
+def _port(setup, bake=False):
     s = setup
     cfg = PVDConfig(**CFG_KW)
-    teacher = hash_field_from_jax(s["tea"], ModelSpec(**s["tea_kw"]), "cpu")
+    teacher = hash_field_from_jax(
+        s["tea"], ModelSpec(**s["tea_kw"], hash_bake_dense=bake),
+        "cpu").bake()
     student = vm_field_from_jax(s["stu"], ModelSpec(**STU_KW), "cpu")
     occ = occupancy_from_jax(s["occ_j"], "cpu")
     dr = {k: torch.from_numpy(np.array(v)) for k, v in s["draws"].items()
@@ -203,23 +217,25 @@ def test_distill_loss_matches_jax(setup, jax_stages, stage, spr):
         assert all(lin.weight.grad is None for lin in student.color_net)
 
 
-def _check_whole_step(s):
+def _check_whole_step(s, bake=False):
     """One jitted JAX make_distill_step at stage 3 against the port's
-    distill_step_core on the regenerated draws."""
+    distill_step_core on the regenerated draws; with `bake`, the teacher's
+    dense levels baked on both sides."""
     stu_tree = jax.tree_util.tree_map(jnp.asarray, s["stu"])
+    spec_tj, tea_j = _jax_teacher(s, bake)
     j_opt = j_optim.build_optimizer(
         stu_tree, j_label(s["spec_sj"]), j_trainable(s["spec_sj"], ""),
         j_optim.cosine_schedule(1e-2, ITERS),
         j_optim.cosine_schedule(1e-3, ITERS))
     j_state = JTrainState(params=stu_tree, opt_state=j_opt.init(stu_tree),
                           occ=s["occ_j"], step=jnp.int32(0))
-    j_step = j_make_step(s["spec_sj"], s["spec_tj"], s["rspec_j"], j_opt,
+    j_step = j_make_step(s["spec_sj"], spec_tj, s["rspec_j"], j_opt,
                          s["cfg_j"], INTR, H, W, stage=3)
-    j_new, j_logs = j_step(j_state, jax.tree_util.tree_map(jnp.asarray,
-                                                           s["tea"]),
-                           s["occ_j"], jnp.asarray(s["pose"]), KEY)
+    j_new, j_logs = j_step(j_state, tea_j, s["occ_j"],
+                           jnp.asarray(s["pose"]), KEY)
 
-    cfg, teacher, student, occ, dr = _port(s)
+    cfg, teacher, student, occ, dr = _port(s, bake)
+    assert (teacher.baked is not None) == bake
     spec_s = ModelSpec(**STU_KW)
     params = dict(student.named_parameters())
     opt = optim.build_optimizer(
@@ -227,9 +243,8 @@ def _check_whole_step(s):
         optim.cosine_schedule(1e-2, ITERS), optim.cosine_schedule(1e-3,
                                                                   ITERS))
     state = TrainState(field=student, opt_state=opt.init(params), occ=occ)
-    step = make_distill_step(spec_s, ModelSpec(**s["tea_kw"]),
-                             cfg.render_spec(), opt, cfg, INTR, H, W,
-                             stage=3, device="cpu")
+    step = make_distill_step(spec_s, teacher.spec, cfg.render_spec(), opt,
+                             cfg, INTR, H, W, stage=3, device="cpu")
     state, logs = step.core(state, teacher, occ, dr["o"], dr["d"], dr["bg"],
                             dr["u"])
     assert state.step == 1 and int(j_new.step) == 1
@@ -238,9 +253,9 @@ def _check_whole_step(s):
     for k in j_logs:
         np.testing.assert_allclose(logs[k].item(), float(j_logs[k]),
                                    rtol=LOSS_RTOL, err_msg=k)
-    _assert_grads(student, _jax_grads(s, 3)[2])
+    _assert_grads(student, _jax_grads(s, 3, bake=bake)[2])
     got = vm_tree_from_field(student)
-    g_want = jax.tree_util.tree_leaves(_jax_grads(s, 3)[2])
+    g_want = jax.tree_util.tree_leaves(_jax_grads(s, 3, bake=bake)[2])
     n_held = 0
     for (path, w), g, gw in zip(
             jax.tree_util.tree_flatten_with_path(j_new.params)[0],

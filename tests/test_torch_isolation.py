@@ -1,12 +1,15 @@
-"""pvd_tpu_torch stands alone: no JAX, GPU by default, no hidden fallback."""
+"""pvd_tpu_torch stands alone: no JAX, no cv2 or PIL, GPU by default, no
+hidden fallback."""
 
 import ast
+import os
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from pvd_tpu_torch.cli import distill as distill_cli
 from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
 from pvd_tpu_torch.engine.checkpoint import load_checkpoint
 from pvd_tpu_torch.engine.train_steps import (make_distill_step,
@@ -21,8 +24,10 @@ from pvd_tpu_torch.ops.composite import (composite_rays,
                                          composite_rays_compact,
                                          composite_rays_compact_bwd)
 from pvd_tpu_torch.models.api import bg_grid_spec
-from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, hash_encode,
-                                        hash_encode_bwd, hash_encode_cell_bwd,
+from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
+                                        hash_encode, hash_encode_baked_fwd,
+                                        hash_encode_bwd,
+                                        hash_encode_cell_bwd,
                                         hash_encode_cell_fwd, hash_encode_fwd)
 from pvd_tpu_torch.ops.vm_sample import (vm_sample, vm_sample_bwd,
                                          vm_sample_fwd)
@@ -33,7 +38,9 @@ from pvd_tpu_torch.render.renderer import march_rays
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pvd_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pvd_tpu", "cv2", "PIL"}
+# imported only inside the function that needs it (the video writer)
+LOCAL_ONLY = {"imageio"}
 
 
 def _port_files():
@@ -57,12 +64,16 @@ def test_new_modules_are_checked():
     # the large-scene slice's (the background model lives in models/api)
     assert {"pvd_tpu_torch/ops/aabb.py", "pvd_tpu_torch/models/api.py",
             "pvd_tpu_torch/render/renderer.py"} <= names
+    # the distillation CLI's
+    assert {f"pvd_tpu_torch/{m}.py" for m in (
+        "cli/common", "cli/distill", "data/png", "data/provider")} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     tree = ast.parse(path.read_text())
+    top = set(map(id, tree.body))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -73,6 +84,8 @@ def test_no_jax_imports(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, \
                 f"{path.name} imports {name}"
+            assert not (name.split(".")[0] in LOCAL_ONLY and id(node) in top), \
+                f"{path.name} imports {name} at module level"
 
 
 SMALL = ModelSpec(hash_num_levels=4, hash_log2_size=14, hash_desired_res=128)
@@ -102,10 +115,13 @@ def _vm_tree():
                                 hash_desired_res=64, hash_log2_size=9,
                                 hash_cell_levels=2)),
     lambda: load_checkpoint("no_such_file.ckpt"),
+    lambda: distill_cli.main(["no_such_scene", "--model_type", "vm",
+                              "--test"]),
 ], ids=["HashField", "make_occ_update", "make_eval_renderer",
         "init_occupancy_state", "VMField", "vm_field_from_jax",
         "make_distill_step", "make_teacher_step", "Trainer",
-        "Trainer-distill", "HashField-cell", "load_checkpoint"])
+        "Trainer-distill", "HashField-cell", "load_checkpoint",
+        "distill-cli"])
 def test_entry_points_need_a_gpu_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -238,3 +254,57 @@ def test_large_scene_wrappers_take_the_plain_path_on_cpu_without_counting():
     s = march_rays(bits, o, d, near, far, rs)
     assert s.mask.any() and (s.dt[s.mask] > rs.max_steps ** -1).all()
     assert counts() == before
+
+
+def test_bake_wrappers_take_the_plain_path_on_cpu_without_counting():
+    """K16 (the bake) and K15 (the baked encode, through `hash_encode` and
+    a baked field): the plain versions on CPU tensors, and no count; K1
+    does not count either."""
+    def counts():
+        return (build_baked_dense.launches, hash_encode_baked_fwd.launches,
+                hash_encode.launches)
+
+    before = counts()
+    gs = HashGridSpec(num_levels=5, base_resolution=4, desired_resolution=32,
+                      log2_hashmap_size=12)
+    table = torch.rand(gs.table_size, 2)
+    baked = build_baked_dense(table, gs)
+    assert baked.shape == (gs.level_side(gs.dense_levels[-1]) ** 3,
+                           2 * len(gs.dense_levels))
+    with torch.no_grad():
+        assert hash_encode(table, torch.rand(5, 3), gs,
+                           baked=baked).shape == (5, 10)
+    out = hash_encode_baked_fwd(baked, torch.rand(5, 3), gs,
+                                torch.zeros(5, 10))
+    dense = [2 * lv + c for lv in gs.dense_levels for c in (0, 1)]
+    assert out[:, dense].abs().sum() > 0
+    assert not out[:, [c for c in range(10) if c not in dense]].any()
+    field = HashField(ModelSpec(hash_num_levels=5, hash_base_res=4,
+                                hash_desired_res=32, hash_log2_size=12,
+                                hash_bake_dense=True), "cpu").bake()
+    with torch.no_grad():
+        assert field.density(torch.rand(6, 3)).shape[0] == 6
+    assert counts() == before
+
+
+@pytest.mark.parametrize("where", ["alone", "repo_without_gpu"])
+def test_chip_smoke_prints_no_result_without_the_package_or_a_gpu(
+        where, tmp_path):
+    """chip_smoke.py exits 1 and prints no {"ok": true} line when it stands
+    in a directory without the package (the script alone) or finds no
+    GPU; on the GPU, beside the package, it ends with that line and 0."""
+    import shutil
+    import subprocess
+    import sys
+
+    if where == "alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    else:
+        cwd = ROOT
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 1, run.stderr[-2000:]
+    assert '"ok"' not in run.stdout

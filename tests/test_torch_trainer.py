@@ -10,6 +10,8 @@ does), must beat the JAX test's floor of 14 dB; predicting the white
 background alone gives ~10 dB on this scene.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -89,16 +91,32 @@ def test_warmup_ends_with_the_sample_budget(scene, tmp_path):
 @pytest.mark.parametrize("kw", [
     dict(ema_decay=0.95), dict(error_map=True), dict(scan_steps=4),
     dict(n_devices=2), dict(preload=False), dict(upsample_model_steps=(5,)),
-    dict(wall_budget=60.0), dict(model_type="vm")],
+    dict(model_type="vm")],
     ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(PVDConfig(**kw), device="cpu")
 
 
+def test_wall_budget_ends_at_an_epoch_boundary(scene, tmp_path):
+    """A spent wall budget ends training at the next epoch boundary (one
+    epoch of the 10 training views here), with the final checkpoint and
+    the eval that writes the best one (trainer.py:962-983)."""
+    cfg = PVDConfig(**{**CFG, "iters": 100}, wall_budget=1e-6,
+                    workspace=str(tmp_path))
+    trainer = Trainer(cfg, device="cpu")
+    trainer.train(scene["train"], valid_ds=scene["val"])
+    assert trainer.state.step == len(scene["train"]) == 10
+    assert trainer.train_stats["train_steps"] == 10
+    ck = tmp_path / "checkpoints"
+    assert (ck / "hash_step00000010.ckpt").exists()
+    assert (ck / "hash_best.ckpt").exists()
+
+
 def test_unported_modes_and_methods_raise(scene, tmp_path):
     """Distillation takes a hash teacher and a VM student only; evaluate
-    writes no images or video and computes no LPIPS."""
+    writes each view's image and depth PNG, and a video only where
+    imageio has a codec."""
     for kw in (dict(), dict(model_type="mlp"),
                dict(model_type="vm", teacher_type="vm"),
                dict(model_type="vm", ema_decay=0.9),
@@ -109,8 +127,13 @@ def test_unported_modes_and_methods_raise(scene, tmp_path):
         Trainer(PVDConfig(), mode="serve", device="cpu")
     tr = Trainer(PVDConfig(**CFG, workspace=str(tmp_path)), device="cpu")
     test = scene["test"]
-    for kw in (dict(save_dir=str(tmp_path)), dict(write_video=True),
-               dict(lpips=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            tr.evaluate(test, **kw)
+    stats = tr.evaluate(test, save_dir=str(tmp_path / "out"),
+                        write_video=True)
+    names = sorted(os.listdir(tmp_path / "out"))
+    pngs = [f"hash_{i:04d}{s}.png" for i in range(len(test))
+            for s in ("", "_depth")]
+    assert set(pngs) <= set(names)
+    assert set(names) - set(pngs) <= {"hash_video.mp4",
+                                      "hash_video_depth.mp4"}
+    assert stats["lpips_proxy"] > 0 and "lpips_alex" not in stats
     assert not tr.try_resume()  # nothing saved in a fresh workspace
