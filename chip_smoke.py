@@ -21,7 +21,10 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    Each path's launch counters are zeroed just before it and read just
    after; every kernel of the path must have launched.
 4. Holds each kernel against its plain PyTorch version on inputs taken from
-   those paths, and times both (CUDA events, median after warm-up); holds
+   those paths, and times both (CUDA events, median after warm-up); K4
+   also on a ragged sample count, positions outside [-1, 1], tables off
+   16-byte alignment and ranks 5 and 16 (logging the float4 or scalar
+   instantiation each ran); holds
    one distill step on the GPU against the same step on the CPU (plain) at
    test sizes; and checks that 10 stage-3 steps on a fixed batch lower the
    loss.
@@ -61,7 +64,9 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    24 dB (student) or more than 1.5 dB under the teacher.  Every march of
    this path is K14 (the geometric lattice) and every composite blends in
    the field's background through K12 (and K13 in training).  Then holds
-   K12, K13 and K14 against their plain versions at this phase's shapes,
+   K12, K13 and K14 against their plain versions at this phase's shapes
+   (K13 also on 4096 points inside one level-0 cell and on points on and
+   outside the square's edges with a third of the upstream rows zero),
    renders one 800x800 view of the teacher through make_eval_renderer
    (and times `read_png` on it written with each scanline filter),
    profiles a teacher and a stage-3 distill step, and holds one small
@@ -152,8 +157,9 @@ from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
                                         hash_encode_fwd, hash_encode_plain,
                                         level_corners)
 from pvd_tpu_torch.ops.rays import get_rays, nerf_matrix_to_ngp
-from pvd_tpu_torch.ops.vm_sample import (vm_sample_bwd, vm_sample_bwd_plain,
-                                         vm_sample_fwd, vm_sample_plain)
+from pvd_tpu_torch.ops.vm_sample import (k4_variant, vm_sample_bwd,
+                                         vm_sample_bwd_plain, vm_sample_fwd,
+                                         vm_sample_plain)
 from pvd_tpu_torch.params import (field_from_tree, hash_field_from_jax,
                                   hash_tree_from_field, tree_from_field,
                                   vm_field_from_jax, vm_tree_from_field)
@@ -624,9 +630,13 @@ def check_vm_kernels(state, xn, compact, gen) -> list:
     planes = [p.detach() for p in state.field.planes]
     lines = [v.detach() for v in state.field.lines]
     M, R = xn.shape[0], planes[0].shape[-1]
+    kind, lanes = k4_variant(R, [t.data_ptr() for t in (*planes, *lines)])
     k4 = vm_sample_fwd(planes, lines, xn)
     p4 = vm_sample_plain(planes, lines, xn)
     err4 = max_abs(k4, p4)
+    log(f"K4 on the path: {kind} instantiation, {lanes} lanes per sample, "
+        f"M {M}, R {R}, one launch for the three branches")
+    cases4 = k4_cases(planes, lines, xn, gen)
     # the path's upstream gradient is zero on the invalid tail
     g = torch.randn(3, M, R, generator=gen, device=xn.device) \
         * compact.valid[None, :, None]
@@ -678,7 +688,8 @@ def check_vm_kernels(state, xn, compact, gen) -> list:
                        lambda: vm_sample_plain(planes, lines, xn)),
              library_ms=cuda_ms(lib_fwd),
              library_call="F.grid_sample x3 planes (the plane half of K4)",
-             bound=b4, shape=f"M={M} samples x 3 branches x R={R}"),
+             bound=b4, shape=f"M={M} samples x 3 branches x R={R}",
+             variant=kind, cases=cases4),
         dict(name="vm_sample_bwd", source="pvd_tpu_torch/csrc/vm_sample.cu",
              replaces="pvd_tpu/models/vm_field.py:173", err=err5,
              abs_err=abs5,
@@ -691,6 +702,50 @@ def check_vm_kernels(state, xn, compact, gen) -> list:
              "of K5)",
              bound=b5, shape=f"M={M} samples ({n_valid} valid) x 3 branches "
              f"x R={R}")]
+
+
+def k4_cases(planes, lines, xn, gen) -> dict:
+    """K4 where it can go wrong, each against vm_sample_plain at TOL_K4: a
+    ragged M (not a multiple of a block's samples), positions outside
+    [-1, 1] on every axis (the planes' tent weights vanish, the lines
+    extrapolate), tables one float off 16-byte alignment at R = 64 (the
+    scalar instantiation), R = 5 (scalar) and R = 16 (float4, 4 lanes);
+    each case logs the instantiation that ran."""
+    dev = xn.device
+    M, R = xn.shape[0], planes[0].shape[-1]
+
+    def tables(r, shift=0):
+        def make(*shape):
+            buf = torch.randn(math.prod(shape) + shift, generator=gen,
+                              device=dev) * 0.1
+            return buf[shift:].view(*shape)
+        return ([make(*p.shape[:2], r) for p in planes],
+                [make(v.shape[0], r) for v in lines])
+
+    xo = torch.rand(4099, 3, generator=gen, device=dev) * 2.6 - 1.3
+    xo[:6] = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0],
+                           [-1.3, 0.2, 1.3], [1.3, -1.3, 0.0],
+                           [0.0, 1.2, -1.2], [-1.0 - 2 ** -20, 1.0, 0.5]],
+                          device=dev)
+    mis, r5, r16 = tables(R, shift=1), tables(5), tables(16)
+    cases = {"ragged M": (planes, lines, xn[:M - 5], "float4"),
+             "xn outside [-1, 1]": (planes, lines, xo, "float4"),
+             "misaligned R=64": (*mis, xn, "scalar"),
+             "R=5": (*r5, xn[:4101], "scalar"),
+             "R=16": (*r16, xn[:4103], "float4")}
+    out = {}
+    for name, (pl, li, x, want) in cases.items():
+        r = pl[0].shape[-1]
+        kind, lanes = k4_variant(r, [t.data_ptr() for t in (*pl, *li)])
+        err = max_abs(vm_sample_fwd(pl, li, x), vm_sample_plain(pl, li, x))
+        out[name] = {"variant": kind, "lanes": lanes, "M": x.shape[0],
+                     "R": r, "err": err}
+        log(f"K4 {name}: {kind} instantiation, {lanes} lanes per sample, M "
+            f"{x.shape[0]}, R {r}: max |kernel - plain| {err:.3g}")
+        if not (err <= TOL_K4 and kind == want):
+            raise RuntimeError(f"K4 ({name}): {kind} instantiation (want "
+                               f"{want}), err {err:.3g}")
+    return out
 
 
 def check_composite_bwd(comp, gen) -> dict:
@@ -1889,7 +1944,51 @@ def k12_k13_case(table, x01, gen) -> dict:
                            lambda: hash_encode_plain(table, x01, gs)),
             "t13": timings(lambda: hash_encode_bwd(x01, g, gs),
                            lambda: hash_encode_bwd_plain(x01, g, gs)),
-            "lib12_ms": cuda_ms(lib12), "lib13_ms": cuda_ms(lib13)}
+            "lib12_ms": cuda_ms(lib12), "lib13_ms": cuda_ms(lib13),
+            # the dense zero fill alone, which both K13's call and the
+            # index_add_ yardstick begin with
+            "zero13_ms": cuda_ms(lambda: torch.zeros(gs.table_size, 2,
+                                                     device=x01.device))}
+
+
+def k13_hard_inputs(n: int = 4096, seed: int = 0) -> dict:
+    """K13's contention and edge inputs, as numpy (x01 [n, 2], g [n, 8]);
+    tests/test_torch_background.py holds the plain version against JAX's
+    VJP on the same ones.  "one_cell": every point inside one level-0 cell
+    (pos = x * 15 + 0.5 in [7, 8)), so every level-0 add lands on 4 rows;
+    "edge": points exactly on 0 and 1, a few outside [0, 1]^2, and every
+    third upstream row zero."""
+    rng = np.random.default_rng(seed)
+    lo, hi = 6.5 / 15.0, 7.5 / 15.0
+    one = rng.uniform(lo + 1e-4, hi - 1e-4, (n, 2)).astype(np.float32)
+    edge = rng.uniform(0.0, 1.0, (n, 2)).astype(np.float32)
+    q = n // 8
+    edge[:q, 0], edge[q:2 * q, 1] = 0.0, 1.0
+    edge[2 * q:3 * q] = rng.choice([0.0, 1.0], (q, 2))
+    edge[3 * q:3 * q + 8] = [[-1e-3, 0.5], [0.5, 1.001], [1.0 + 2 ** -23, 0.5],
+                             [0.5, -2 ** -24], [-0.5, -0.5], [1.5, 1.5],
+                             [0.25, 2.0], [-3.0, 0.75]]
+    g_edge = rng.normal(size=(n, 8)).astype(np.float32)
+    g_edge[::3] = 0.0
+    return {"one_cell": (one, rng.normal(size=(n, 8)).astype(np.float32)),
+            "edge": (edge, g_edge)}
+
+
+def check_k13_hard_cases(dev) -> dict:
+    """K13 on k13_hard_inputs against hash_encode_bwd_plain at
+    TOL_K13_REL."""
+    gs = bg_grid_spec()
+    out = {}
+    for name, (x, g) in k13_hard_inputs().items():
+        x01, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
+        p = hash_encode_bwd_plain(x01, gt, gs)
+        err = max_abs(hash_encode_bwd(x01, gt, gs), p) / float(p.abs().max())
+        out[name] = {"err": err}
+        log(f"K13 {name} ({x.shape[0]} points): rel err {err:.3g}")
+        if not err <= TOL_K13_REL:
+            raise RuntimeError(f"K13 disagrees with its plain version on "
+                               f"the {name} case: {err:.3g}")
+    return out
 
 
 def check_large_scene_kernels(tea, scene, gen) -> tuple:
@@ -1935,7 +2034,11 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
         o_t, d_t, tea.spec.bg_radius).contiguous(), gen),
         "262144": k12_k13_case(table, polar01_from_ray(
             o_b, d_b, tea.spec.bg_radius).contiguous(), gen)}
+    hard13 = check_k13_hard_cases(dev)
     for name, c in cases.items():
+        log(f"K13 at {name} points: {-(-c['points'] // 128)} blocks of "
+            f"128 threads, no shared-memory privatisation; the zero fill "
+            f"alone {c['zero13_ms']:.4f} ms")
         log(f"K12/K13 at {name} polar points ({c['touched_rows']} rows "
             f"touched): K12 rel err {c['err12']:.3g}, {c['t12']['ms']:.4f} "
             f"ms (call {c['t12']['call_ms']:.4f}, plain "
@@ -1976,7 +2079,8 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
              library_call="index_add_ of the precomputed corner "
              "contributions (scatter only)", bound=c["bound13"],
              shape=f"{c['points']} polar points x 4 levels")]
-    extra = {"k14_eval": ev, "k14_train": tr, "k12_k13": cases}
+    extra = {"k14_eval": ev, "k14_train": tr, "k12_k13": cases,
+             "k13_hard": hard13}
     return results, extra
 
 
@@ -2582,7 +2686,8 @@ def main(argv=None) -> int:
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
         "library_ms": r.get("library_ms"),
-        "library_call": r.get("library_call"), "shape": r["shape"]}
+        "library_call": r.get("library_call"), "shape": r["shape"],
+        **{k: r[k] for k in ("variant", "cases") if k in r}}
         for r in results],
         "sweep_ms": sweep_ms, "images": images, "build_s": build_s,
         "e2e_max_abs_diff": e2e_err, "profile": brief(prof),

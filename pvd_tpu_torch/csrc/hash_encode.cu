@@ -1,7 +1,7 @@
 // K1: multi-resolution hash-grid encode (INGP), forward, D = 3, C = 2;
 // K7: its table gradient;
 // K10: the cell-packed levels' encode; K11: the cell table's gradient;
-// K12, K13: K1 and K7 on a 2-D grid (the background model's);
+// K12: K1 on a 2-D grid (the background model's); K13: its table gradient;
 // K15: the baked dense levels' encode; K16: the bake of a frozen table.
 //
 // K1 replaces pvd_tpu/ops/hashgrid.py:533 hash_encode's corner levels: the
@@ -88,13 +88,41 @@
 // written per point; one launch per composited batch, on N rays, not on
 // the samples, so it is small beside K1.
 //
-// K13: its table gradient, K7's body at D = 2: fp32 atomicAdd of w * g into
-// a zeroed dense [697,776, 2] gradient, one per corner and channel (8 per
-// (point, level)); pairs with g = (0, 0) and points outside the square exit
-// first.  Bound: memory, the wrapper's 5.6 MB zero-fill plus 4 scattered
-// read-modify-writes of 8 B per active pair.  The coarse dense levels (17^2
-// vertices at level 0) put many rays' atomics on few rows; the order of the
-// sums varies from run to run, so the card check uses a relative tolerance.
+// K13: its table gradient, g_table[offset_l + row(corner k)] += w_k * g[n, l]
+// into a zeroed dense [697,776, 2] gradient, with K12's corner rows and
+// weights (corner_setup, corner_weight: the x01 * scale + 0.5 FMA) and the
+// products w_k * g rounded as K7 rounds them; pairs with g = (0, 0) and
+// points outside the square add nothing.  Bound on the H100: memory, the
+// wrapper's 5.6 MB zero-fill (inside the timed call, as for the index_add_
+// yardstick) plus 40 B read per point (x01 and its upstream row); every
+// add lands on a table of 5.6 MB that sits in the 50 MB L2, so what limits
+// the kernel is how many atomics the L2 must serialize on one address.
+// The first design was K7's body at D = 2: one thread per (point, level)
+// issuing 8 scalar fp32 atomics.  At a whole view (262,144 rays) level 0's
+// 17^2 rows took ~2.1 M of them, ~3,600
+// read-modify-writes per address in series at the L2, and the kernel ran
+// ~300x its bound and ~1.9x one index_add_ of the same contributions.
+// The design now (hash_encode2_bwd_kernel): one thread per point, a block
+// per 128 consecutive points (neighbouring rays, so neighbouring polar
+// cells), reading x01 once and the point's whole upstream row (two float4s
+// at the 4 levels), both loads in flight together.  At each level the
+// lanes of a warp whose points fall in one lattice cell (the same 4 rows)
+// first sum their 8 contributions in registers (__match_any_sync, then a
+// shuffle tree), and only the lowest of them adds, one float2 atomic per
+// corner where the toolkit has them for sm_90 (else two scalar ones): a
+// global add to one row serializes at the L2, so a warp's 32 rays in one
+// cell cost one add instead of 32, and each add is half the first
+// design's.  A block-private shared-memory copy of level 0 (2.3 KB) was
+// timed too: it paid only when every block walked several tiles of points,
+// at a whole view's 262,144 points (0.035 against 0.044 ms on the H100),
+// which no training path sends (K13 takes one point per ray, 4,096 to
+// 16,384 rays a step), and at the training batch its zero fill, barrier
+// and flush cost more than they saved (PERF.md §6), so it is not built.  Each
+// contribution is K12's product bit for bit; only the order of the sums
+// changes (it varies from run to run), so the card check uses a relative
+// tolerance.  K7 (D = 3) keeps the first design's encode_bwd on purpose:
+// its redesign is later work, and its timed row must stay what it
+// measured.
 //
 // K15: the baked dense levels' encode, replacing the baked branch of
 // pvd_tpu/ops/hashgrid.py:533 hash_encode (:584-590, :635-646) for a frozen
@@ -138,6 +166,8 @@
 
 #define PVD_MAX_LEVELS 32
 #define PVD_MAX_BAKED 8
+#define K13_LEVELS 4  // the background grid's (bg_grid_spec)
+#define K13_THREADS 128
 
 #if defined(__CUDACC_VER_MAJOR__) && \
     (__CUDACC_VER_MAJOR__ > 12 ||      \
@@ -266,7 +296,7 @@ __device__ __forceinline__ void encode_fwd(const float* __restrict__ x01,
   *o = make_float2(a0, a1);
 }
 
-// K7 (D = 3) and K13 (D = 2): 2 * 2^D fp32 atomics per active pair.
+// K7 (D = 3): 2 * 2^D fp32 atomics per active pair.
 template <int D>
 __device__ __forceinline__ void encode_bwd(const float* __restrict__ x01,
                                            const float2* __restrict__ g,
@@ -314,11 +344,88 @@ __global__ void hash_encode2_fwd_kernel(const float* __restrict__ x01,
   encode_fwd<2>(x01, table, out, n_points, lv);
 }
 
-__global__ void hash_encode2_bwd_kernel(const float* __restrict__ x01,
-                                        const float2* __restrict__ g,
-                                        float* __restrict__ grad,
-                                        long long n_points, HashLevels lv) {
-  encode_bwd<2>(x01, g, grad, n_points, lv);
+// K13: float2 atomic add into a global gradient row
+__device__ __forceinline__ void add_row(float2* dst, float a, float b) {
+#if PVD_VECTOR_ATOMICS && defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  atomicAdd(dst, make_float2(a, b));
+#else
+  atomicAdd(&dst->x, a);
+  atomicAdd(&dst->y, b);
+#endif
+}
+
+// K13: per value v[j], the sum over the lanes of `peers` (the lanes whose
+// key matched, __match_any_sync), left in the lowest of them; every lane
+// of the warp takes part.  A tree over each group's lanes in lane order:
+// log2(group size) rounds of J shuffles and one ballot (none when no lane
+// shares its key).
+template <int J>
+__device__ __forceinline__ void peer_sum(unsigned peers, float (&v)[J]) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  peers &= 0xfffffffeu << lane;  // the group's lanes above this one
+  while (__any_sync(0xffffffffu, peers)) {
+    const int next = __ffs(peers);  // 0: none left
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float t = __shfl_sync(0xffffffffu, v[j], (next - 1) & 31);
+      if (next) v[j] += t;
+    }
+    peers &= ~__ballot_sync(0xffffffffu, rank & 1);
+    rank >>= 1;
+  }
+}
+
+// K13: the K13_LEVELS levels in slots 0..3 of each upstream row (the
+// entry checks it), unrolled so every per-level constant is read at a
+// compile-time index of the by-value level list.  One thread per point; a
+// lane past the end, outside the square or with g = (0, 0) at a level adds
+// nothing there, but runs the warp votes.  At each level the lanes in one
+// lattice cell (one key: the cell's base c0 + c1 * side) first sum their 8
+// contributions in registers; the lowest of them adds the sums.
+__global__ void __launch_bounds__(K13_THREADS)
+    hash_encode2_bwd_kernel(const float* __restrict__ x01,
+                            const float4* __restrict__ g,
+                            float2* __restrict__ grad, long long n_points,
+                            HashLevels lv) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  float x[2] = {0.f, 0.f};
+  float2 gv[K13_LEVELS];
+  if (n < n_points) {  // both loads in flight at once
+    const float4 a = __ldg(g + 2 * n), b = __ldg(g + 2 * n + 1);
+    x[0] = __ldg(x01 + 2 * n);
+    x[1] = __ldg(x01 + 2 * n + 1);
+    gv[0] = make_float2(a.x, a.y);
+    gv[1] = make_float2(a.z, a.w);
+    gv[2] = make_float2(b.x, b.y);
+    gv[3] = make_float2(b.z, b.w);
+  } else {
+#pragma unroll
+    for (int l = 0; l < K13_LEVELS; ++l) gv[l] = make_float2(0.f, 0.f);
+  }
+  const bool in = n < n_points && !outside<2>(x);
+#pragma unroll
+  for (int l = 0; l < K13_LEVELS; ++l) {
+    const bool add = in && (gv[l].x != 0.f || gv[l].y != 0.f);
+    const Corners<2> c = corner_setup<2>(x, l, lv);
+    const unsigned peers = __match_any_sync(
+        0xffffffffu, add ? (int)(c.i[0] + c.i[1] * c.side) : -1);
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float w = corner_weight<2>(c, k);
+      v[2 * k] = add ? __fmul_rn(w, gv[l].x) : 0.f;
+      v[2 * k + 1] = add ? __fmul_rn(w, gv[l].y) : 0.f;
+    }
+    peer_sum<8>(peers, v);
+    if (!add || __ffs(peers) - 1 != lane) continue;
+    float2* gl = grad + lv.offset[l];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      add_row(gl + corner_row<2>(c, k, lv.hash_mask), v[2 * k],
+              v[2 * k + 1]);
+  }
 }
 
 // The cell row of one (point, cell level entry): corner 0's hashed row
@@ -516,14 +623,22 @@ extern "C" int pvd_hash_encode2_fwd(const float* x01, const float* table,
   return (int)cudaGetLastError();
 }
 
+// K13: g's rows 16-byte aligned (the wrapper checks it), the grid's
+// K13_LEVELS levels in order; a block per K13_THREADS points
 extern "C" int pvd_hash_encode2_bwd(const float* x01, const float* g,
                                     float* grad_table, long long n_points,
                                     HashLevels lv, void* stream) {
   if (n_points == 0 || lv.n_levels == 0) return 0;
-  const int threads = 256;
-  hash_encode2_bwd_kernel<<<(unsigned)n_blocks(n_points, lv, threads),
-                            threads, 0, (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float2*>(g), grad_table, n_points, lv);
+  bool ok = lv.n_levels == K13_LEVELS && lv.out_levels == K13_LEVELS;
+  // a cell's key c0 + c1 * side must fit an int (the warp pre-sum)
+  for (int l = 0; ok && l < K13_LEVELS; ++l)
+    ok = lv.level[l] == l && (long long)lv.side[l] * lv.side[l] < (1LL << 31);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n_points + K13_THREADS - 1) / K13_THREADS;
+  hash_encode2_bwd_kernel<<<(unsigned)blocks, K13_THREADS, 0,
+                            (cudaStream_t)stream>>>(
+      x01, reinterpret_cast<const float4*>(g),
+      reinterpret_cast<float2*>(grad_table), n_points, lv);
   return (int)cudaGetLastError();
 }
 

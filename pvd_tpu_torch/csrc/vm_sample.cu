@@ -17,25 +17,49 @@
 //
 // The TPU version gathers the four corner rows with shifted index streams
 // and turns the line sample into a one-hot [N, L] matmul for its matrix
-// unit; here one thread computes one (branch, sample, channel): the
-// channels of a sample sit in consecutive lanes, so each corner row is one
-// coalesced 256-B read at R = 64, and the line is a two-row interpolation.
-// One launch per branch (a template on the branch), so every table and
-// axis index is known at compile time.
+// unit; here the line is a two-row interpolation of the same rows.
+//
+// Forward (K4).  Bound on the H100: memory.  It writes 3 * M * R * 4 B
+// (100 MB at M = 131,072, R = 64) and reads the touched plane and line rows
+// once (the 3 x 23 MB plane tables at 300^3 fit the 50 MB L2 only in part);
+// the arithmetic is ~14 flops per output.  The first design ran one thread
+// per (branch, sample, channel), one launch per branch: each thread redid
+// the whole corner setup (3 positions, floors, clamps, tent weights) and a
+// run-time idx / R division for its one channel, then issued six 4-byte
+// loads and one 4-byte store, ~25 M threads of ~80 instructions, so it was
+// bound by issue, not by memory (4.3x its byte bound, and slower than three
+// F.grid_sample calls that do only the plane half); its 100 MB output went
+// through the L2 with the default policy, evicting the plane rows the next
+// samples read.  The design now: one launch for the three branches
+// (blockIdx.y, uniform per block, dispatched to the Axes<BR> instantiations
+// with every table and size at a compile-time index), and a group of G
+// lanes per (sample, branch), G a template constant (a power of two, R/8
+// rounded up: 8 at R = 64), so no division is left.  Each lane does the
+// corner setup once and covers two quads of 4 consecutive channels (q and
+// q + G): per quad it reads the 4 plane corner rows and the 2 line rows as
+// float4 through the read-only path and writes one float4 with a streaming
+// store (st.global.cs, evict-first), so the output streams past the L2 and
+// the table rows stay resident.  Groups of R/4 lanes, one quad a lane,
+// timed slower on the H100 (the corner setup twice as often, half the
+// loads in flight per lane), and so did R/16 lanes (PERF.md §6).  The
+// wrapper takes that instantiation when R % 4 == 0 and every table is
+// 16-byte aligned; otherwise the scalar instantiation of the same kernel,
+// one channel per lane.  The per-channel arithmetic is grid_pos,
+// clamped_base, tent and the __fmul_rn / __fadd_rn order of plane_sample and
+// line_sample, so both give the first design's bits.
 //
 // Backward (K5): with g = dL/dprod, the plane rows receive w_k * vf * g and
 // the line rows (1 - f) * mf * g and f * mf * g, by fp32 atomicAdd into
 // zeroed dense gradients (the sum order varies from run to run).  The
 // plane and line samples are recomputed rather than saved (2 x 100 MB at
 // 131,072 samples).  Positions get no gradient: the JAX package
-// stop-gradients them (vm_field.py:194-202).
-//
-// Bound on the H100: memory.  K4 writes 3 * M * R * 4 B (100 MB at
-// M = 131,072, R = 64) and reads the touched plane rows once; K5 reads g
-// (100 MB) and writes the dense plane gradients (69 MB at 300^3).  The
-// arithmetic is ~12 flops per output.  K5's atomics contend on the lines
-// (300 rows per branch, hit by every sample); a per-block pre-sum is the
-// next step if the profile shows it.
+// stop-gradients them (vm_field.py:194-202).  Bound: memory; it reads g
+// (100 MB) and writes the dense plane gradients (69 MB at 300^3).  K5's
+// atomics contend on the lines (300 rows per branch, hit by every sample);
+// a per-block pre-sum is the next step if the profile shows it.  K5 keeps
+// the first design (one thread per (branch, sample, channel), one launch
+// per branch) on purpose: its redesign is later work, and its timed row
+// must stay what it measured.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -120,20 +144,89 @@ __device__ __forceinline__ float line_sample(const float* __restrict__ l,
                    __fmul_rn(c.lf, l[(c.lb + 1) * R + ch]));
 }
 
-// the wrapper keeps n * R and H * W * R below 2^31, so indices are 32-bit
-template <int BR>
-__global__ void vm_sample_fwd_kernel(const float* __restrict__ plane,
-                                     const float* __restrict__ line, int H,
-                                     int W, int L,
-                                     const float* __restrict__ xn,
-                                     float* __restrict__ out, int n, int R) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n * R) return;
-  const int s = idx / R;
-  const int ch = idx - s * R;
+// K4, one channel: the plane and line samples' product
+__device__ __forceinline__ float vm_prod(const float* __restrict__ p,
+                                         const float* __restrict__ l,
+                                         const Corners& c, int R, int ch) {
+  return __fmul_rn(plane_sample(p, c, R, ch), line_sample(l, c, R, ch));
+}
+
+// K4, four channels ch..ch+3 (ch % 4 == 0, R % 4 == 0, 16-byte aligned
+// tables): per channel the ops of plane_sample and line_sample, in order
+__device__ __forceinline__ float4 vm_prod4(const float* __restrict__ p,
+                                           const float* __restrict__ l,
+                                           const Corners& c, int R, int ch) {
+  const int r = c.row0;
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p + r * R + ch));
+  const float4 b =
+      __ldg(reinterpret_cast<const float4*>(p + (r + 1) * R + ch));
+  const float4 d =
+      __ldg(reinterpret_cast<const float4*>(p + (r + c.W) * R + ch));
+  const float4 e =
+      __ldg(reinterpret_cast<const float4*>(p + (r + c.W + 1) * R + ch));
+  const float4 u = __ldg(reinterpret_cast<const float4*>(l + c.lb * R + ch));
+  const float4 v =
+      __ldg(reinterpret_cast<const float4*>(l + (c.lb + 1) * R + ch));
+  const float g = __fsub_rn(1.f, c.lf);
+  const float pa[4] = {a.x, a.y, a.z, a.w}, pb[4] = {b.x, b.y, b.z, b.w},
+              pd[4] = {d.x, d.y, d.z, d.w}, pe[4] = {e.x, e.y, e.z, e.w},
+              lu[4] = {u.x, u.y, u.z, u.w}, lv[4] = {v.x, v.y, v.z, v.w};
+  float o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float acc = __fmul_rn(c.w[0], pa[j]);
+    acc = __fadd_rn(acc, __fmul_rn(c.w[1], pb[j]));
+    acc = __fadd_rn(acc, __fmul_rn(c.w[2], pd[j]));
+    acc = __fadd_rn(acc, __fmul_rn(c.w[3], pe[j]));
+    o[j] = __fmul_rn(acc, __fadd_rn(__fmul_rn(g, lu[j]),
+                                    __fmul_rn(c.lf, lv[j])));
+  }
+  return make_float4(o[0], o[1], o[2], o[3]);
+}
+
+// K4, branch BR: lane `lane` of sample s's group of G lanes covers the
+// channel quads (V4) or the channels lane, lane + G, ...; out is the
+// branch's [n, R]
+template <int BR, int G, bool V4>
+__device__ __forceinline__ void vm_fwd_branch(
+    const float* __restrict__ plane, const float* __restrict__ line, int H,
+    int W, int L, const float* __restrict__ xn, float* __restrict__ out,
+    int n, int R) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = (int)(gid / G), lane = (int)(gid % G);
+  if (s >= n) return;
   const Corners c = corners<BR>(xn, s, H, W, L);
-  out[idx] = __fmul_rn(plane_sample(plane, c, R, ch),
-                       line_sample(line, c, R, ch));
+  float* o = out + (long long)s * R;
+  if constexpr (V4) {
+    for (int ch = 4 * lane; ch < R; ch += 4 * G)
+      __stcs(reinterpret_cast<float4*>(o + ch),
+             vm_prod4(plane, line, c, R, ch));
+  } else {
+    for (int ch = lane; ch < R; ch += G)
+      __stcs(o + ch, vm_prod(plane, line, c, R, ch));
+  }
+}
+
+// the wrapper keeps n * R and H * W * R below 2^31, so indices within a
+// branch are 32-bit; branch i's output starts at out + i * n * R
+template <int G, bool V4>
+__global__ void __launch_bounds__(256)
+    vm_sample_fwd_kernel(VMTables t, const float* __restrict__ xn,
+                         float* __restrict__ out, int n, int R) {
+  const long long span = (long long)n * R;
+  switch (blockIdx.y) {
+    case 0:
+      vm_fwd_branch<0, G, V4>(t.plane[0], t.line[0], t.H[0], t.W[0], t.L[0],
+                              xn, out, n, R);
+      break;
+    case 1:
+      vm_fwd_branch<1, G, V4>(t.plane[1], t.line[1], t.H[1], t.W[1], t.L[1],
+                              xn, out + span, n, R);
+      break;
+    default:
+      vm_fwd_branch<2, G, V4>(t.plane[2], t.line[2], t.H[2], t.W[2], t.L[2],
+                              xn, out + 2 * span, n, R);
+  }
 }
 
 template <int BR>
@@ -169,20 +262,40 @@ static unsigned blocks_of(long long n, int R, int threads) {
   return (unsigned)((n * R + threads - 1) / threads);
 }
 
-extern "C" int pvd_vm_sample_fwd(VMTables t, const float* xn, float* out,
-                                 long long n, int R, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256, m = (int)n;
-  const unsigned b = blocks_of(n, R, threads);
-  cudaStream_t st = (cudaStream_t)stream;
-  vm_sample_fwd_kernel<0><<<b, threads, 0, st>>>(
-      t.plane[0], t.line[0], t.H[0], t.W[0], t.L[0], xn, out, m, R);
-  vm_sample_fwd_kernel<1><<<b, threads, 0, st>>>(
-      t.plane[1], t.line[1], t.H[1], t.W[1], t.L[1], xn, out + n * R, m, R);
-  vm_sample_fwd_kernel<2><<<b, threads, 0, st>>>(
-      t.plane[2], t.line[2], t.H[2], t.W[2], t.L[2], xn, out + 2 * n * R, m,
-      R);
+template <int G, bool V4>
+static int launch_k4(const VMTables& t, const float* xn, float* out, int n,
+                     int R, cudaStream_t st) {
+  const int threads = 256;
+  const dim3 grid((unsigned)(((long long)n * G + threads - 1) / threads), 3);
+  vm_sample_fwd_kernel<G, V4><<<grid, threads, 0, st>>>(t, xn, out, n, R);
   return (int)cudaGetLastError();
+}
+
+template <bool V4>
+static int launch_k4_group(const VMTables& t, const float* xn, float* out,
+                           int n, int R, int group, cudaStream_t st) {
+  switch (group) {
+    case 1: return launch_k4<1, V4>(t, xn, out, n, R, st);
+    case 2: return launch_k4<2, V4>(t, xn, out, n, R, st);
+    case 4: return launch_k4<4, V4>(t, xn, out, n, R, st);
+    case 8: return launch_k4<8, V4>(t, xn, out, n, R, st);
+    case 16: return launch_k4<16, V4>(t, xn, out, n, R, st);
+    case 32: return launch_k4<32, V4>(t, xn, out, n, R, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4: vec4 = 1 takes the float4 instantiation (the wrapper has checked R % 4
+// and the tables' alignment); `lanes` per (sample, branch), a power of two
+// up to 32, is the wrapper's pick (ops/vm_sample.py k4_variant)
+extern "C" int pvd_vm_sample_fwd(VMTables t, const float* xn, float* out,
+                                 long long n, int R, int vec4, int lanes,
+                                 void* stream) {
+  if (n <= 0) return 0;
+  if (vec4 && R % 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return vec4 ? launch_k4_group<true>(t, xn, out, (int)n, R, lanes, st)
+              : launch_k4_group<false>(t, xn, out, (int)n, R, lanes, st);
 }
 
 extern "C" int pvd_vm_sample_bwd(VMTables t, VMTables grad, const float* xn,

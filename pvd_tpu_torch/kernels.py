@@ -133,9 +133,10 @@ _SIGNATURES = {
     # n_rays, S, g_ws, g_depth, g_image, g_weights, d_sigma, d_rgb, stream
     "pvd_composite_padded_bwd": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
                                  ctypes.c_int, _P, _P, _P, _P, _P, _P, _P),
-    # tables, xn, out [3, n, R], n, R, stream
+    # tables, xn, out [3, n, R], n, R, vec4 (float4 lanes), lanes per
+    # sample, stream
     "pvd_vm_sample_fwd": (VMTables, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                          _P),
+                          ctypes.c_int, ctypes.c_int, _P),
     # tables, grads (zeroed), xn, g [3, n, R], n, R, stream
     "pvd_vm_sample_bwd": (VMTables, VMTables, _P, _P, ctypes.c_longlong,
                           ctypes.c_int, _P),

@@ -617,6 +617,12 @@ def hash_encode_bwd(x01, g, spec: HashGridSpec):
         return hash_encode_bwd_plain(x01, g, spec)
     _check_k1("hash_encode_bwd", spec, x01, dims=(2, 3), g=g)
     _check_g(g, x01, spec)
+    if spec.input_dim == 2:  # K13: the background grid, g rows as float4s
+        if spec.num_levels != 4:
+            raise NotImplementedError("K13 is built for the background "
+                                      "grid's 4 levels (bg_grid_spec)")
+        if g.data_ptr() % 16:
+            g = g.clone()
     grad = torch.zeros(spec.table_size, 2, device=x01.device)
     if spec.corner_levels:
         entry = ("pvd_hash_encode2_bwd" if spec.input_dim == 2

@@ -14,7 +14,9 @@ positions xn [M, 3] in [-1, 1]:
 `vm_sample` runs kernels K4 (forward) and K5 (backward, `csrc/vm_sample.cu`)
 on CUDA tensors through an autograd Function, and `vm_sample_plain` on CPU
 tensors, where autograd differentiates the gathers.  Positions carry no
-gradient (the JAX package stop-gradients them).
+gradient (the JAX package stop-gradients them).  K4 has a float4 and a
+scalar instantiation; `k4_variant` picks one by the rank and the tables'
+alignment.
 """
 
 from __future__ import annotations
@@ -110,18 +112,35 @@ def _tables(planes, lines) -> kernels.VMTables:
     return t
 
 
+def k4_variant(R: int, ptrs) -> tuple:
+    """K4's instantiation for rank R and the tables' addresses `ptrs`:
+    ("float4", lanes) when R % 4 == 0 and every table is 16-byte aligned,
+    else ("scalar", lanes); lanes per (sample, branch) is R / 8 (float4,
+    two channel quads a lane) or R, rounded up to a power of two, at most
+    32 (csrc/vm_sample.cu)."""
+    vec4 = R % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+    per_lane = 8 if vec4 else 1
+    lanes = 1
+    while lanes * per_lane < R and lanes < 32:
+        lanes *= 2
+    return ("float4" if vec4 else "scalar"), lanes
+
+
 def vm_sample_fwd(planes, lines, xn):
-    """prod [3, M, R]: K4 on CUDA tensors, the plain version on CPU
-    tensors.  No autograd (see `vm_sample`)."""
+    """prod [3, M, R]: K4 on CUDA tensors (the instantiation `k4_variant`
+    picks), the plain version on CPU tensors.  No autograd (see
+    `vm_sample`)."""
     if xn.device.type == "cpu":
         with torch.no_grad():
             return vm_sample_plain(planes, lines, xn)
     dev, R = _check("vm_sample_fwd", planes, lines, xn)
     M = xn.shape[0]
     out = torch.empty(3, M, R, device=dev)
+    kind, lanes = k4_variant(R, [t.data_ptr() for t in (*planes, *lines)])
     with torch.cuda.device(dev):
         kernels.launch("pvd_vm_sample_fwd", _tables(planes, lines),
                        xn.data_ptr(), out.data_ptr(), M, R,
+                       int(kind == "float4"), lanes,
                        kernels.stream_ptr(xn))
     vm_sample_fwd.launches += 1
     return out

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pvd_tpu.config import ModelSpec as JModelSpec
 from pvd_tpu.engine import checkpoint as j_ckpt
 from pvd_tpu.models import init_field as j_init_field
@@ -139,9 +140,26 @@ def test_hash_encode_2d_matches_jax():
                         spec).numpy(), got.numpy())
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", [0, 1, "one_cell", "edge"])
 def test_hash_encode_2d_bwd_matches_jax_vjp(seed):
-    spec, table, x, g = _enc_inputs(seed)
+    """The plain table gradient (K13's reference on the card) against JAX's
+    VJP: seeded points (`_enc_inputs`), and K13's contention and edge
+    inputs (chip_smoke.py's `k13_hard_inputs`, the ones the card holds K13
+    to)."""
+    if isinstance(seed, str):
+        spec = bg_grid_spec()
+        x, g = chip_smoke.k13_hard_inputs()[seed]
+        table = np.random.default_rng(2).uniform(
+            -1, 1, (spec.table_size, 2)).astype(np.float32)
+        if seed == "one_cell":  # every point in level 0's cell (7, 7)
+            pos = x * np.float32(15.0) + np.float32(0.5)
+            assert (np.floor(pos) == 7).all()
+        else:
+            assert ((x == 0) | (x == 1)).any(-1).sum() >= 3 * 4096 // 8
+            assert ((x < 0) | (x > 1)).any(-1).sum() == 8
+            assert (np.abs(g).sum(-1) == 0).sum() == -(-4096 // 3)
+    else:
+        spec, table, x, g = _enc_inputs(seed)
     _, vjp = jax.vjp(lambda t: j_hash_encode(t, jnp.asarray(x),
                                              j_bg_grid_spec()),
                      jnp.asarray(table))

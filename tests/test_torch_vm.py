@@ -11,7 +11,7 @@ import torch
 from pvd_tpu.config import ModelSpec as JModelSpec
 from pvd_tpu.models import vm_field as j_vm
 from pvd_tpu_torch.config import ModelSpec
-from pvd_tpu_torch.ops.vm_sample import vm_sample_plain
+from pvd_tpu_torch.ops.vm_sample import k4_variant, vm_sample_plain
 from pvd_tpu_torch.params import vm_field_from_jax, vm_tree_from_field
 
 torch.set_num_threads(1)
@@ -154,3 +154,61 @@ def test_plain_sample_matches_jax(params):
         want = j_vm._plane_packed_mxu(mat, px, py) * j_vm._line_mxu(vec, pz)
         np.testing.assert_allclose(prod[i], np.asarray(want), rtol=FWD_TOL,
                                    atol=FWD_TOL, err_msg=f"branch {i}")
+
+
+def _jax_sample(planes, lines, x):
+    """JAX's plane x line sample ([3, M, R]) of numpy planes [H, W, R] and
+    lines [L, R]."""
+    xn = jnp.asarray(x)
+    out = []
+    for i in range(3):
+        m0, m1 = j_vm.MAT_IDS[i]
+        mat, vec = jnp.asarray(planes[i]), jnp.asarray(lines[i])
+        H, W, _ = mat.shape
+        px = (xn[:, m0] + 1.0) * 0.5 * (W - 1)
+        py = (xn[:, m1] + 1.0) * 0.5 * (H - 1)
+        pz = (xn[:, j_vm.VEC_IDS[i]] + 1.0) * 0.5 * (vec.shape[0] - 1)
+        out.append(j_vm._plane_packed_mxu(mat, px, py)
+                   * j_vm._line_mxu(vec, pz))
+    return np.stack([np.asarray(o) for o in out])
+
+
+@pytest.mark.parametrize("rank", [5, 16])
+def test_plain_sample_matches_jax_on_k4_cases(rank):
+    """The plain sample (K4's reference on the card) against JAX on the
+    inputs chip_smoke.py holds K4 to beyond the path's: a rank that is
+    not a multiple of 4 (K4's scalar instantiation) and one that is, a
+    ragged sample count, and positions outside [-1, 1] on every axis,
+    where the tent weights vanish and the lines extrapolate."""
+    rng = np.random.default_rng(rank)
+    planes = [(0.1 * rng.standard_normal((RES[m1], RES[m0], rank)))
+              .astype(np.float32) for m0, m1 in j_vm.MAT_IDS]
+    lines = [(0.1 * rng.standard_normal((RES[v], rank))).astype(np.float32)
+             for v in j_vm.VEC_IDS]
+    x = rng.uniform(-1.3, 1.3, (301, 3)).astype(np.float32)
+    x[:6] = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0], [-1.3, 0.2, 1.3],
+             [1.3, -1.3, 0.0], [0.0, 1.2, -1.2], [-1.0 - 2 ** -20, 1.0, 0.5]]
+    for d in range(3):  # every axis has points beyond both ends
+        assert (x[:, d] < -1).any() and (x[:, d] > 1).any()
+    got = vm_sample_plain([torch.from_numpy(p) for p in planes],
+                          [torch.from_numpy(v) for v in lines],
+                          torch.from_numpy(x)).numpy()
+    assert got.shape == (3, 301, rank)
+    np.testing.assert_allclose(got, _jax_sample(planes, lines, x),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+
+
+def test_k4_variant_picks_by_rank_and_alignment():
+    """K4's float4 lanes need R % 4 == 0 and 16-byte aligned tables; the
+    lanes per sample are R / 8 (float4, two quads a lane) or R, to a power
+    of two, <= 32."""
+    aligned = [0, 16, 4096]
+    assert k4_variant(64, aligned) == ("float4", 8)
+    assert k4_variant(16, aligned) == ("float4", 2)
+    assert k4_variant(48, aligned) == ("float4", 8)
+    assert k4_variant(4, aligned) == ("float4", 1)
+    assert k4_variant(200, aligned) == ("float4", 32)
+    assert k4_variant(64, aligned + [4]) == ("scalar", 32)
+    assert k4_variant(5, aligned) == ("scalar", 8)
+    assert k4_variant(3, aligned) == ("scalar", 4)
+    assert k4_variant(1, aligned) == ("scalar", 1)
