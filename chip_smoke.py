@@ -24,7 +24,10 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    those paths, and times both (CUDA events, median after warm-up); K4
    also on a ragged sample count, positions outside [-1, 1], tables off
    16-byte alignment and ranks 5 and 16 (logging the float4 or scalar
-   instantiation each ran); holds
+   instantiation each ran); K3 also at the serving ladder's 16x rung (256
+   slots per ray) and on its hard inputs (`k3_hard_inputs`), K1 also on
+   the serving chunk's compacted points (with an F.embedding_bag
+   yardstick), K7 on its hard inputs (`k7_hard_inputs`); holds
    one distill step on the GPU against the same step on the CPU (plain) at
    test sizes; and checks that 10 stage-3 steps on a fixed batch lower the
    loss.
@@ -34,8 +37,9 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    then the compacted path; its checkpoints go to a temporary workspace),
    evaluates the 3 test views with `Trainer.evaluate` and fails below
    25 dB test PSNR.  Then holds K7 (table
-   gradient), K8 and K9 (padded composite) against their plain versions on
-   inputs from that run, profiles one padded and one compacted teacher
+   gradient; also pre-summing at the dense levels only), K8 and K9 (padded
+   composite) against their plain versions on inputs from that run, K1 and
+   K3 at its compacted shape, profiles one padded and one compacted teacher
    step, and holds one small teacher step (padded and compacted) on the
    GPU against the CPU plain step.
 6. Runs the JAX package's quality A/B recipe (tools/quality_ab.py) through
@@ -48,7 +52,8 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    are evaluated on the 10 test views (PSNR, SSIM).  Fails below 28.0 dB
    (teacher), 27.5 dB (student) or more than 1.0 dB under the teacher.
    Then holds K10 and K11 against their plain versions on the cell
-   teacher's padded and compacted batches, profiles one compacted teacher
+   teacher's padded and compacted batches, and K7 and K1 on the compacted
+   batch's corner levels (0-4), profiles one compacted teacher
    step and one stage-3 distill step, and holds one small cell-mode
    teacher step (padded and compacted) on the GPU against the CPU.
 7. Runs the large-scene configuration (bench.py:376-380's cascade config
@@ -142,10 +147,12 @@ from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
                                          composite_rays_compact_fwd,
                                          composite_rays_compact_plain,
                                          composite_rays_fwd,
-                                         composite_rays_plain)
+                                         composite_rays_plain, k3_lanes)
 from pvd_tpu_torch.ops.fma import fma32
+from pvd_tpu_torch.ops import hashgrid
 from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
                                         build_baked_dense_plain, cell_corners,
+                                        corner_level_plain,
                                         hash_encode, hash_encode_baked_fwd,
                                         hash_encode_baked_plain,
                                         hash_encode_bwd,
@@ -1014,9 +1021,55 @@ def teacher_batch(trainer, scene, gen, rspec):
     return o, d, samples
 
 
+def k7_case(x01, g, gs, library: bool = True) -> dict:
+    """K7 against its plain version on points x01 with upstream g,
+    pre-summing at every level (the wrapper's default); times, bound, the
+    time when it pre-sums at the dense levels only, and the index_add_
+    yardstick of the precomputed corner contributions (the scatter
+    alone)."""
+    P, Lk = x01.shape[0], len(gs.corner_levels)
+    p = hash_encode_bwd_plain(x01, g, gs)
+    err_abs = max_abs(hash_encode_bwd(x01, g, gs), p)
+    g_lv = g.reshape(P, gs.num_levels, 2)[:, gs.corner_levels]
+    active = int((g_lv != 0).any(-1).sum())
+    out = {"points": P, "levels": Lk, "active_pairs": active,
+           "abs_err": err_abs, "err": err_abs / float(p.abs().max()),
+           # bytes: x01 and g's corner slots read once, the dense [T, 2]
+           # gradient written once; ops: ~48 per active pair
+           "bound": bound(P * 12 + P * Lk * 8 + gs.table_size * 8,
+                          active * 8 * 6),
+           **timings(lambda: hash_encode_bwd(x01, g, gs),
+                     lambda: hash_encode_bwd_plain(x01, g, gs))}
+    if not out["err"] <= TOL_K7_REL:
+        raise RuntimeError(f"K7 disagrees with its plain version: "
+                           f"{out['err']:.3g}")
+    if library:
+        rows, vals = [], []
+        for level in gs.corner_levels:
+            w, r = level_corners(x01, gs, level)
+            rows.append(r.reshape(-1))
+            vals.append((w[:, :, None] * g[None, :, 2 * level:2 * level + 2])
+                        .reshape(-1, 2))
+        rows, vals = torch.cat(rows), torch.cat(vals)
+        out["library_ms"] = cuda_ms(lambda: torch.zeros(
+            gs.table_size, 2, device=x01.device).index_add_(0, rows, vals))
+    return out
+
+
+def log_k7(label: str, c: dict):
+    log(f"K7 {label}: {c['points']} points x {c['levels']} levels, "
+        f"{c['active_pairs']} active pairs: rel err {c['err']:.3g}, "
+        f"{c['ms']:.4f} ms (call {c['call_ms']:.4f}), plain "
+        f"{c['plain_ms']:.4f}"
+        + (f", index_add_ {c['library_ms']:.4f}" if "library_ms" in c
+           else "")
+        + f", bound {c['bound'][0]:.4f} ms ({c['bound'][1]})")
+
+
 def check_teacher_kernels(trainer, scene, gen) -> tuple:
-    """K7 at the padded and compacted shapes, K8 (with and without early
-    stop) and K9 at the padded shape, on the trained field's samples."""
+    """K7 at the padded and compacted shapes, K1 and K3 (no early stop)
+    at the compacted shape, K8 (with and without early stop) and K9 at the
+    padded shape, on the trained field's samples."""
     field = trainer.state.field
     gs = field.grid
     table = field.encoder.detach()
@@ -1043,56 +1096,37 @@ def check_teacher_kernels(trainer, scene, gen) -> tuple:
     g_c = torch.randn(budget, gs.output_dim, generator=gen, device=dev) \
         * cmp.valid[:, None]
 
-    def k7_case(x01, g):
-        k = hash_encode_bwd(x01, g, gs)
-        p = hash_encode_bwd_plain(x01, g, gs)
-        err_abs = max_abs(k, p)
-        err = err_abs / float(p.abs().max())
-        P = x01.shape[0]
-        active = int((g.reshape(P, gs.num_levels, 2) != 0).any(-1).sum())
-        # bytes: x01 and g read once, the dense [T, 2] gradient written once
-        bnd = bound(P * 12 + P * gs.output_dim * 4 + gs.table_size * 8,
-                    active * 8 * 6)
-        return k, p, err, err_abs, bnd, active
-
     results, extra = [], {}
-    k7p = k7_case(x01_pad, g_pad)
-    t7p = timings(lambda: hash_encode_bwd(x01_pad, g_pad, gs),
-                  lambda: hash_encode_bwd_plain(x01_pad, g_pad, gs))
-    extra["hash_encode_bwd_padded"] = dict(
-        err=k7p[2], abs_err=k7p[3], bound=k7p[4], active_pairs=k7p[5],
-        points=x01_pad.shape[0], **t7p)
-    k7c = k7_case(x01_c, g_c)
-    # library yardstick: one index_add_ of the precomputed corner
-    # contributions (the scatter alone, without the corner math)
-    rows, vals = [], []
-    for level in range(gs.num_levels):
-        w, r = level_corners(x01_c, gs, level)
-        rows.append(r.reshape(-1))
-        vals.append((w[:, :, None] * g_c[None, :, 2 * level:2 * level + 2])
-                    .reshape(-1, 2))
-    rows, vals = torch.cat(rows), torch.cat(vals)
-
-    def lib7():
-        return torch.zeros(gs.table_size, 2, device=dev).index_add_(
-            0, rows, vals)
-
+    k7p = k7_case(x01_pad, g_pad, gs, library=False)
+    extra["hash_encode_bwd_padded"] = k7p
+    log_k7("exact teacher, padded", k7p)
+    k7c = k7_case(x01_c, g_c, gs)
+    log_k7("exact teacher, compacted", k7c)
     results.append(dict(
         name="hash_encode_bwd", source="pvd_tpu_torch/csrc/hash_encode.cu",
-        replaces="pvd_tpu/ops/hashgrid.py:284", err=k7c[2], abs_err=k7c[3],
-        tol=TOL_K7_REL, err_kind="max |kernel - plain| / max |plain|",
-        **timings(lambda: hash_encode_bwd(x01_c, g_c, gs),
-                  lambda: hash_encode_bwd_plain(x01_c, g_c, gs)),
-        library_ms=cuda_ms(lib7),
+        replaces="pvd_tpu/ops/hashgrid.py:284", tol=TOL_K7_REL,
+        err_kind="max |kernel - plain| / max |plain|",
+        **{k: k7c[k] for k in ("err", "abs_err", "ms", "call_ms",
+                               "plain_ms", "library_ms", "bound")},
         library_call="index_add_ of the precomputed corner contributions "
-        "(scatter only)", bound=k7c[4],
+        "(scatter only)",
         shape=f"M={budget} compacted points ({int(cmp.valid.sum())} valid, "
-        f"{k7c[5]} active (point, level) pairs) x {gs.num_levels} levels"))
-    del rows, vals
-    log(f"K7 padded shape: {x01_pad.shape[0]} points, {k7p[5]} active "
-        f"pairs: rel err {k7p[2]:.3g}, kernel {t7p['ms']:.4f} ms (call "
-        f"{t7p['call_ms']:.4f}), plain {t7p['plain_ms']:.4f} ms, bound "
-        f"{k7p[4][0]:.4f} ms ({k7p[4][1]})")
+        f"{k7c['active_pairs']} active (point, level) pairs) x "
+        f"{gs.num_levels} levels"))
+    # K1 at the compacted shape, on the trained table
+    extra["k1_compacted"] = k1_case(table, x01_c, gs)
+    log_k1("exact teacher, compacted", extra["k1_compacted"])
+    # K3 at the compacted shape (training: no early stop), on the trained
+    # field's samples
+    valid = cmp.valid
+    with torch.no_grad():
+        f_c = field(xyz_c, d[rid])
+    dt_c = torch.where(valid, dt_min_of(rs_c), 0.0)
+    t_cum = torch.where(valid, t_c + dt_c - s_c.t0[rid], 0.0)
+    args3 = (f_c.sigma.float().contiguous(), f_c.rgb.float().contiguous(),
+             dt_c, t_cum, rid, valid)
+    extra["k3_compacted"] = k3_case(args3, trainer.cfg.num_rays, False)
+    log_k3("exact teacher, compacted", extra["k3_compacted"])
 
     # K8 / K9 on the trained field's padded samples
     with torch.no_grad():
@@ -1406,7 +1440,8 @@ def cell_case(trainer, x01, valid, gen) -> dict:
 
 def check_cell_kernels(trainer, scene, gen) -> tuple:
     """K10 and K11 on the cell teacher's padded warm-up batch and its
-    compacted batch (the kernels line carries the compacted one)."""
+    compacted batch (the kernels line carries the compacted one); K7 and
+    K1 on the compacted batch's corner levels."""
     b = trainer.rspec.bound
     rs_pad = dataclasses.replace(trainer.rspec,
                                  max_samples=trainer.cfg.max_samples,
@@ -1461,7 +1496,17 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
              library_ms=c["lib11_ms"],
              library_call="index_add_ of the precomputed row contributions "
              "(scatter only)", bound=c["bound11"], shape=shape)]
-    extra = {"padded": cases["padded"],
+    # K7 and K1 on the corner levels (0-4) of the compacted batch
+    gs = trainer.state.field.grid
+    table = trainer.state.field.encoder.detach()
+    g7 = torch.randn(x01_c.shape[0], gs.output_dim, generator=gen,
+                     device=x01_c.device) * cmp.valid[:, None]
+    k7 = k7_case(x01_c, g7, gs)
+    log_k7("cell teacher, compacted", k7)
+    k1 = k1_case(table, x01_c, gs)
+    log_k1("cell teacher, compacted", k1)
+    extra = {"padded": cases["padded"], "k7_compacted": k7,
+             "k1_compacted": k1,
              "vector_atomics": bool(kernels.load()
                                     .pvd_hash_cell_vector_atomics())}
     return results, extra
@@ -1991,6 +2036,295 @@ def check_k13_hard_cases(dev) -> dict:
     return out
 
 
+def march_runs(rng, n: int, lo: int = 8, hi: int = 64) -> np.ndarray:
+    """n points [n, 3] in [0, 1]^3, ray-major as the compacted stream is:
+    runs of lo..hi consecutive samples of random rays at the march's step
+    (2 sqrt(3) / 1024 in [-1, 1]^3, half that in x01)."""
+    step = np.sqrt(3.0) / 1024.0
+    runs, total = [], 0
+    while total < n:
+        k = int(rng.integers(lo, hi + 1))
+        d = rng.normal(size=3)
+        runs.append(rng.uniform(0.25, 0.75, 3)
+                    + np.arange(k)[:, None] * step * d / np.linalg.norm(d))
+        total += k
+    return np.concatenate(runs)[:n].astype(np.float32)
+
+
+def k7_collision(spec, level: int, rng) -> tuple:
+    """Two lattice cells (base coordinates) of a hashed level whose corner-0
+    rows collide: a key on that row would merge their lanes."""
+    side, mask = spec.level_side(level), 2 ** spec.log2_hashmap_size - 1
+    b = rng.integers(0, side - 1, (40_000, 3)).astype(np.uint64)
+    h = (b[:, 0] ^ (b[:, 1] * np.uint64(2654435761))
+         ^ (b[:, 2] * np.uint64(805459861))) % np.uint64(2 ** 32) \
+        & np.uint64(mask)
+    order = np.argsort(h, kind="stable")
+    for i, j in zip(order[:-1], order[1:]):
+        if h[i] == h[j] and (b[i] != b[j]).any():
+            return b[i].astype(np.int64), b[j].astype(np.int64)
+    raise RuntimeError("no colliding cells found")
+
+
+def k7_hard_inputs(n: int = 4096, seed: int = 0) -> dict:
+    """K7's contention and edge inputs on the INGP grid (HashGridSpec():
+    14 levels, 2^19 rows, levels 0-4 dense), as numpy: name -> (x01 [n, 3],
+    g [n, 2 * levels], HashGridSpec arguments).
+    tests/test_torch_hash_grad.py holds the plain version against JAX's VJP
+    on the same ones.
+    "one_cell": every point inside one level-0 cell (pos = x * 15 + 0.5 in
+    [7, 8)), so a warp's 32 points add to 8 rows; "rays": ray-major runs of
+    8-64 samples; "g_levels": those with g zero at levels 2 and 9 for every
+    point and at half the (point, level) pairs; "edge": points on the
+    cube's faces and corners and 8 outside it, every third g row zero;
+    "padded": a padded stream, 32 slots per ray with g zero past the first
+    3 (~90% zero rows); "cell_levels": the cell-mode grid (levels 5-13
+    cell-packed), so K7 covers slots 0-4 of each 14-slot row;
+    "collision": lanes alternating between two cells of level 5 whose
+    corner-0 hashed rows collide; "odd_levels": ray-major runs on a 13-level
+    grid, whose g rows K7 reads as float2s."""
+    rng = np.random.default_rng(seed)
+    spec = HashGridSpec()
+    L2 = spec.output_dim
+
+    def normal():
+        return rng.normal(size=(n, L2)).astype(np.float32)
+
+    lo, hi = 6.5 / 15.0, 7.5 / 15.0
+    one = rng.uniform(lo + 1e-4, hi - 1e-4, (n, 3)).astype(np.float32)
+    g_lv = normal().reshape(n, -1, 2)
+    g_lv[:, [2, 9]] = 0.0
+    g_lv[rng.uniform(size=g_lv.shape[:2]) < 0.5] = 0.0
+    edge = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    q = n // 8
+    edge[:q, 0], edge[q:2 * q, 1], edge[2 * q:3 * q, 2] = 0.0, 1.0, 1.0
+    edge[3 * q:4 * q] = rng.choice([0.0, 1.0], (q, 3))
+    edge[4 * q:4 * q + 8] = [[-1e-3, 0.5, 0.5], [0.5, 1.001, 0.5],
+                             [1.0 + 2 ** -23, 0.5, 0.5], [0.5, 0.5, -2 ** -24],
+                             [-0.5, -0.5, -0.5], [1.5, 1.5, 1.5],
+                             [0.25, 2.0, 0.5], [-3.0, 0.75, 0.5]]
+    g_edge = normal()
+    g_edge[::3] = 0.0
+    g_pad = normal()
+    g_pad[np.arange(n) % 32 >= 3] = 0.0
+    a, b = k7_collision(spec, 5, rng)
+    scale = np.float32(spec.level_scale(5))
+    cells = np.where((np.arange(n) % 2 == 0)[:, None], a, b)
+    coll = ((cells + rng.uniform(0.1, 0.9, (n, 3)) - 0.5) / scale) \
+        .astype(np.float32)
+    g_odd = rng.normal(size=(n, 26)).astype(np.float32)
+    return {"one_cell": (one, normal(), {}),
+            "rays": (march_runs(rng, n), normal(), {}),
+            "g_levels": (march_runs(rng, n), g_lv.reshape(n, L2), {}),
+            "edge": (edge, g_edge, {}),
+            "padded": (march_runs(rng, n, 32, 32), g_pad, {}),
+            "cell_levels": (march_runs(rng, n), normal(),
+                            {"n_cell_levels": 9}),
+            "collision": (coll, normal(), {}),
+            "odd_levels": (march_runs(rng, n), g_odd, {"num_levels": 13})}
+
+
+def k3_stream(rng, alphas: list, n_rays: int = 0, tail: int = 0) -> tuple:
+    """A compacted stream of rays in order, ray r's valid slots with the
+    alphas alphas[r] (sigma = -log(1 - alpha) / dt), then `tail` invalid
+    slots carrying ray 0; n_rays > len(alphas) adds rays with no slot."""
+    dt0 = np.sqrt(3.0) / 512.0
+    lengths = [len(a) for a in alphas]
+    total = sum(lengths)
+    M = total + tail
+    n_rays = max(n_rays, len(alphas))
+    valid = np.arange(M) < total
+    rid = np.zeros(M, np.int64)
+    rid[:total] = np.repeat(np.arange(len(alphas)), lengths)
+    alpha = np.zeros(M)
+    if total:
+        alpha[:total] = np.concatenate([np.asarray(a, float) for a in alphas])
+    sig = np.where(alpha >= 1.0, 1e5,
+                   -np.log1p(-np.minimum(alpha, 0.99999)) / dt0)
+    sig = np.where(valid, sig, rng.uniform(0, 50, M)).astype(np.float32)
+    dt = np.where(valid, dt0, 0.0).astype(np.float32)
+    t_cum = np.zeros(M, np.float32)
+    start = 0
+    for k in lengths:
+        t_cum[start:start + k] = (rng.uniform(0.5, 2.0)
+                                  + dt0 * np.arange(1, k + 1))
+        start += k
+    rgb = rng.uniform(0, 1, (M, 3)).astype(np.float32)
+    return sig, rgb, dt, t_cum, rid, valid, n_rays
+
+
+def k3_hard_inputs(seed: int = 0) -> dict:
+    """K3's edge inputs, as numpy: name -> (sigmas, rgbs, delta_t, t_cum
+    [M], ray_id [M] int64, valid [M] bool, n_rays); tests/
+    test_torch_composite.py holds the plain version against JAX's on the
+    same ones, with early stop on and off.  The mean budget per ray picks
+    K3's lanes per ray (16 up to 16 slots, else 32), so each tile case
+    comes in both widths.  "counts": rays with 0, 1, 15, 16, 17, 31, 32,
+    33, 256 and 1024 valid slots (alpha under 0.008: the long rays stay
+    above T = 1e-4); "counts_16": the same with 90 empty rays after them;
+    "opaque": slots with alpha = 1 (T -> 0), one first in its ray;
+    "stop": rays of 48 slots whose T falls from ~2e-4 to ~2e-5 at slot k,
+    the first stopped slot, for k = 7, 8, 15, 16, 17, 31, 32, 33 (inside a
+    tile and at either width's tile edge); "stop_16": the same with 24
+    empty rays; "eval_tail": 30 rays of 0-20 slots, then 200 invalid slots
+    carrying ray 0; "empty": no slot, 8 rays."""
+    rng = np.random.default_rng(seed)
+
+    def low(k):
+        return rng.uniform(0.0, 0.008, k)
+
+    counts = [low(k) for k in (0, 1, 15, 16, 17, 31, 32, 33, 256, 1024)]
+    stops = []
+    for k in (7, 8, 15, 16, 17, 31, 32, 33):
+        a = np.full(48, 0.1)
+        a[:k - 1] = 1.0 - 2e-4 ** (1.0 / (k - 1))
+        a[k - 1] = 0.9
+        stops.append(a)
+    opaque = [rng.uniform(0.0, 0.2, 40), np.r_[1.0, low(39)],
+              rng.uniform(0.0, 0.2, 5)]
+    opaque[0][10] = 1.0
+    tail = [rng.uniform(0.0, 0.3, int(k)) for k in rng.integers(0, 21, 30)]
+    return {"counts": k3_stream(rng, counts),
+            "counts_16": k3_stream(rng, counts, n_rays=100),
+            "opaque": k3_stream(rng, opaque),
+            "stop": k3_stream(rng, stops),
+            "stop_16": k3_stream(rng, stops, n_rays=32),
+            "eval_tail": k3_stream(rng, tail, tail=200),
+            "empty": k3_stream(rng, [], n_rays=8)}
+
+
+def check_k7_hard_cases(dev) -> dict:
+    """K7 on k7_hard_inputs, with g as given and with g one float into a
+    larger buffer (not 16-byte aligned: the wrapper clones it), against
+    hash_encode_bwd_plain at TOL_K7_REL."""
+    out = {}
+    for name, (x, g, kw) in k7_hard_inputs().items():
+        gs = HashGridSpec(**kw)
+        x01, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
+        shifted = torch.empty(gt.numel() + 1, device=dev)[1:].view(gt.shape)
+        shifted.copy_(gt)
+        p = hash_encode_bwd_plain(x01, gt, gs)
+        err = max(max_abs(hash_encode_bwd(x01, gg, gs), p)
+                  / float(p.abs().max()) for gg in (gt, shifted))
+        out[name] = {"err": err}
+        log(f"K7 {name} ({x.shape[0]} points): rel err {err:.3g}")
+        if not err <= TOL_K7_REL:
+            raise RuntimeError(f"K7 disagrees with its plain version on the "
+                               f"{name} case: {err:.3g}")
+    return out
+
+
+def check_k3_hard_cases(dev) -> dict:
+    """K3 on k3_hard_inputs, early stop off and on, against
+    composite_rays_compact_plain at TOL_K3."""
+    out = {}
+    for name, case in k3_hard_inputs().items():
+        *arrays, n = case
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        err = 0.0
+        for early in (False, True):
+            k = composite_rays_compact_fwd(*args, n, early)[:4]
+            p = composite_rays_compact_plain(*args, n, early)
+            err = max([err] + [max_abs(a, b) for a, b in zip(k, p)])
+        out[name] = {"err": err, "lanes": k3_lanes(len(arrays[0]), n)}
+        log(f"K3 {name} ({len(arrays[0])} slots, {n} rays, "
+            f"{out[name]['lanes']} lanes per ray): max abs err {err:.3g}")
+        if not err <= TOL_K3:
+            raise RuntimeError(f"K3 disagrees with its plain version on the "
+                               f"{name} case: {err:.3g}")
+    return out
+
+
+def k1_case(table, x01, gs) -> dict:
+    """K1 alone on the corner levels of `gs` at points x01: time, call and
+    plain times, bound, and the F.embedding_bag yardstick (sum with
+    per-sample weights) on the precomputed corner rows and weights, as
+    K10's is built.  Without cell levels the wrapper `hash_encode` launches
+    K1 alone, and it is what is checked and timed; with them it would add
+    K10, so the C entry is ("via": "entry")."""
+    import torch.nn.functional as F
+
+    P = x01.shape[0]
+    out = torch.zeros(P, gs.output_dim, device=x01.device)
+    lv = hashgrid._levels(gs, False)
+    via = "entry" if gs.cell_levels else "wrapper"
+
+    def k1():
+        if via == "wrapper":
+            with torch.no_grad():
+                return hash_encode(table, x01, gs)
+        kernels.launch("pvd_hash_encode_fwd", x01.data_ptr(),
+                       table.data_ptr(), out.data_ptr(), P, lv,
+                       kernels.stream_ptr(x01))
+        return out
+
+    def plain():
+        return torch.cat([corner_level_plain(table, x01, gs, level)
+                          for level in gs.corner_levels], -1)
+
+    rows, ws = [], []
+    for level in gs.corner_levels:
+        w, r = level_corners(x01, gs, level)
+        rows.append(r.T)
+        ws.append(w.T)
+    rows, ws = torch.stack(rows, 1), torch.stack(ws, 1)  # [P, Lk, 8]
+    Lk = len(gs.corner_levels)
+    touched = int(rows.unique().numel())
+    cols = [c for lv_ in gs.corner_levels for c in (2 * lv_, 2 * lv_ + 1)]
+    err = max_abs(k1()[:, cols], plain())
+    bag_idx, bag_w = rows.reshape(-1, 8), ws.reshape(-1, 8).contiguous()
+
+    def lib():
+        return F.embedding_bag(bag_idx, table, mode="sum",
+                               per_sample_weights=bag_w)
+
+    # bytes: x01 and the touched rows read once, [P, Lk, 2] written once;
+    # ops: ~50 per (point, level) (lattice, 8 weights, 16 FMAs)
+    return {"points": P, "levels": Lk, "touched_rows": touched, "err": err,
+            "via": via,
+            "bound": bound(P * 12 + touched * 8 + P * Lk * 8, P * Lk * 50),
+            **timings(k1, plain), "library_ms": cuda_ms(lib),
+            "library_abs_err": max_abs(lib().reshape(P, -1), plain())}
+
+
+def log_k1(label: str, c: dict):
+    log(f"K1 {label}: {c['points']} points x {c['levels']} levels, "
+        f"{c['touched_rows']} rows touched: max abs err {c['err']:.3g}, "
+        f"{c['ms']:.4f} ms (call of the {c['via']} {c['call_ms']:.4f}, plain "
+        f"{c['plain_ms']:.4f}, embedding_bag {c['library_ms']:.4f}, bound "
+        f"{c['bound'][0]:.4f} {c['bound'][1]})")
+    if not c["err"] <= TOL_K1:
+        raise RuntimeError(f"K1 disagrees with its plain version ({label})")
+
+
+def k3_case(args, n_rays: int, early_stop: bool) -> dict:
+    """K3 on one stream (sigmas, rgbs, delta_t, t_cum, ray_id, valid)
+    against its plain version (raises above TOL_K3), with times, bound and
+    lanes per ray."""
+    def kernel():
+        return composite_rays_compact_fwd(*args, n_rays, early_stop)
+
+    def plain():
+        return composite_rays_compact_plain(*args, n_rays, early_stop)
+
+    err = max(max_abs(a, b) for a, b in zip(kernel()[:4], plain()))
+    if not err <= TOL_K3:
+        raise RuntimeError(f"K3 disagrees with its plain version: {err:.3g}")
+    M = args[0].shape[0]
+    return {"slots": M, "rays": n_rays, "valid": int(args[5].sum()),
+            "lanes": k3_lanes(M, n_rays), "early_stop": early_stop,
+            "err": err, "bound": bound(M * 33 + M * 4 + n_rays * 20, M * 16),
+            **timings(kernel, plain)}
+
+
+def log_k3(label: str, c: dict):
+    log(f"K3 {label}: {c['slots']} slots ({c['valid']} valid), {c['rays']} "
+        f"rays, {c['lanes']} lanes per ray, early stop {c['early_stop']}: "
+        f"max abs err {c['err']:.3g}, {c['ms']:.4f} ms (call "
+        f"{c['call_ms']:.4f}, plain {c['plain_ms']:.4f}, bound "
+        f"{c['bound'][0]:.5f} {c['bound'][1]})")
+
+
 def check_large_scene_kernels(tea, scene, gen) -> tuple:
     """K14 on a test view's chunk of 4096 rays in eval mode (1024 slots)
     and on a training batch of 4096 rays in train mode (64 slots, perturbed
@@ -2500,7 +2834,29 @@ def main(argv=None) -> int:
         replaces="pvd_tpu/ops/composite.py:28", err=err3, tol=TOL_K3,
         **timings(lambda: composite_rays_compact(*k3args),
                   lambda: composite_rays_compact_plain(*k3args)),
-        bound=b3, shape=f"M={M} slots, N={CHUNK} rays"))
+        bound=b3, lanes=k3_lanes(M, CHUNK),
+        shape=f"M={M} slots, N={CHUNK} rays"))
+    # K1 on that chunk's compacted points
+    k1_serving = k1_case(table, ((xyz + rspec.bound)
+                                 / (2.0 * rspec.bound)).contiguous(), gs)
+    log_k1("serving chunk, 1x budget", k1_serving)
+    # K3 on the same chunk at the ladder's 16x rung (256 slots per ray)
+    rs16 = dataclasses.replace(rs_eval,
+                               samples_per_ray=16.0 * rspec.samples_per_ray)
+    cmp16 = compact_samples(sk.mask, rs16.sample_budget(CHUNK), prefix=False)
+    with torch.no_grad():
+        t16, rid16 = sk.t.reshape(-1)[cmp16.idx], cmp16.ray_id
+        f16 = field((o[rid16] + t16[:, None] * d[rid16])
+                    .clamp(-rspec.bound, rspec.bound), d[rid16])
+    dt16 = torch.where(cmp16.valid, dt_min_of(rspec), 0.0)
+    args16 = (f16.sigma.contiguous(), f16.rgb.contiguous(), dt16,
+              torch.where(cmp16.valid, t16 + dt16 - sk.t0[rid16], 0.0),
+              rid16, cmp16.valid)
+    del f16
+    k3_16x = k3_case(args16, CHUNK, True)
+    log_k3("serving chunk, 16x rung", k3_16x)
+    del args16
+    k3_hard, k7_hard = check_k3_hard_cases(dev), check_k7_hard_cases(dev)
 
     # K4, K5, K6 on one stage-3 batch of the distill path
     xn, compact, comp = path_inputs(cfg, spec_stu, state, pose_t, intr, gen)
@@ -2624,6 +2980,25 @@ def main(argv=None) -> int:
                                             cfg_kw=SMALL_LS),
         "distill_stage3": small_step_gpu_vs_cpu(large=True)}
 
+    shapes = {
+        "hash_encode": {"serving_chunk_1x": k1_serving,
+                        "exact_teacher_compacted": t_extra.pop(
+                            "k1_compacted"),
+                        "cell_teacher_compacted": c_extra.pop(
+                            "k1_compacted")},
+        "hash_encode_bwd": {"exact_teacher_padded": t_extra.pop(
+                                "hash_encode_bwd_padded"),
+                            "cell_teacher_compacted": c_extra.pop(
+                                "k7_compacted"),
+                            "hard_inputs": k7_hard},
+        "composite_rays_compact": {"serving_chunk_16x": k3_16x,
+                                   "exact_teacher_compacted": t_extra.pop(
+                                       "k3_compacted"),
+                                   "hard_inputs": k3_hard}}
+    for r in results:
+        if r["name"] in shapes:
+            r["shapes"] = shapes[r["name"]]
+
     bad = [r["name"] for r in results if not r["err"] <= r["tol"]]
     for r in results:
         lib = r.get("library_ms")
@@ -2687,7 +3062,8 @@ def main(argv=None) -> int:
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
         "library_ms": r.get("library_ms"),
         "library_call": r.get("library_call"), "shape": r["shape"],
-        **{k: r[k] for k in ("variant", "cases") if k in r}}
+        **{k: r[k] for k in ("variant", "cases", "lanes", "shapes")
+           if k in r}}
         for r in results],
         "sweep_ms": sweep_ms, "images": images, "build_s": build_s,
         "e2e_max_abs_diff": e2e_err, "profile": brief(prof),

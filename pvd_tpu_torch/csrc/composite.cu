@@ -1,10 +1,10 @@
 // K3: compositing of a compacted sample stream, forward; K6: its backward;
 // K8, K9: the padded composite, forward and backward (below).
 //
-// Replaces pvd_tpu/ops/composite.py:28 composite_rays_compact.  The TPU
+// K3 replaces pvd_tpu/ops/composite.py:28 composite_rays_compact.  The TPU
 // version takes the segmented exclusive transmittance with a log-depth
 // associative_scan over (value, reset) pairs and sums per ray with one
-// scatter-add; on the GPU each ray walks its own contiguous slot range.
+// scatter-add; on the GPU each ray's slots are one contiguous range.
 //
 //   alpha_i  = 1 - exp(-sigma_i * dt_i)
 //   T_i      = prod_{j < i in the ray} (1 - alpha_j)
@@ -16,15 +16,31 @@
 // each ray's valid slots are contiguous, and invalid slots may carry any ray
 // id (eval's tail carries ray 0, so ray_id is not monotone there).  Pass 1
 // (one thread per slot) finds each ray's [start, end) from the valid slots
-// only and zeroes the weights of invalid slots; pass 2 (one thread per ray)
-// composites its range in order.  A ray with no valid slot keeps the zeroed
-// empty range and writes zeros.  No atomics: every output has one writer.
+// only and zeroes the weights of invalid slots; K6 reads those bounds too.
+// A ray with no valid slot gets an empty range from pass 2 (so the bounds
+// need no zero fill, a launch of its own) and writes zeros.  No atomics:
+// every output has one writer.
 //
 // Bound on the H100: memory, and at these sizes launch latency.  A 4096-ray
-// chunk at budget 65,536 reads 37 B per slot and writes 4 B per slot plus
-// 20 B per ray (2.5 MB, under a microsecond at 3.35 TB/s).  Pass 2 has only
-// one thread per ray and its loads stride across rays; the ranges are short
-// (16 slots per ray at the 1x budget) and the data stays in L2.
+// serving chunk at budget 65,536 reads 37 B per slot and writes 4 B per
+// slot plus 20 B per ray (2.5 MB, under a microsecond at 3.35 TB/s).  The
+// first design's pass 2 ran one thread per ray: 4096 threads, less than one
+// warp per SM, each walking a serial chain of loads strided across rays
+// (16 slots long at the serving ladder's 1x rung, 256 at 16x), 72x its
+// bound.  Pass 2 now gives each ray a group of G lanes (16 or 32, the host's
+// pick from the mean budget per ray, ops/composite.py k3_lanes) that walks
+// the ray in tiles of G slots with coalesced loads of sigma, dt and t_cum
+// and of the tile's 3 G floats of rgb, the next tile's loads in flight
+// while it works on this one (the 1x rung's truncated chunks give a few
+// hundred rays ~100 slots each).  In each tile every lane takes the
+// tile's factors 1 - alpha_k from its group by broadcast shuffles and
+// multiplies them in slot order, keeping the product before its own slot:
+// T is the first design's serial product bit for bit, so the weights are
+// too, and the group carries the tile's product to the next tile.  A tile
+// that begins with T < 1e-4 under early stop ends the walk: the rest of
+// the ray's weights are written as zeros without loading it.  The per-ray
+// sums are reduced across the group by shuffles (another order than the
+// serial one) and one lane writes them.
 
 // K6 (backward, replaces the autodiff of the associative scan in
 // composite_rays_compact; closed form as in the reference's
@@ -36,8 +52,8 @@
 // One thread per ray reuses K3's pass-1 bounds and the saved weights, with
 // two passes over its range (S first, then the running prefix); invalid
 // slots keep the zeros the wrapper allocates.  No gradient to dt, t_cum or
-// positions.  Bound: memory (37 B read and 16 B written per slot); like K3
-// it is a serial chain of L2 loads per ray.
+// positions.  Bound: memory (37 B read and 16 B written per slot); like
+// K3's first design it is a serial chain of L2 loads per ray.
 
 // K8 (forward) and K9 (backward): the padded composite, replacing
 // pvd_tpu/ops/composite.py:97 composite_rays and its autodiff (a cumprod and
@@ -64,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#define K3_THREADS 128
+
 __global__ void segment_bounds_kernel(const long long* __restrict__ ray_id,
                                       const uint8_t* __restrict__ valid,
                                       int n_samples, int n_rays,
@@ -82,37 +100,100 @@ __global__ void segment_bounds_kernel(const long long* __restrict__ ray_id,
     end[r] = i + 1;
 }
 
-__global__ void composite_kernel(const float* __restrict__ sigmas,
-                                 const float* __restrict__ rgbs,
-                                 const float* __restrict__ dts,
-                                 const float* __restrict__ t_cum,
-                                 const int* __restrict__ start,
-                                 const int* __restrict__ end, int n_rays,
-                                 int early_stop, float* __restrict__ weights,
-                                 float* __restrict__ ws_out,
-                                 float* __restrict__ depth_out,
-                                 float* __restrict__ image_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  const int e = end[r];
-  float T = 1.f, ws = 0.f, depth = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
-  for (int i = start[r]; i < e; ++i) {
-    if (early_stop && T < 1e-4f) {
-      // T only falls from here on: every later weight is zero
-      weights[i] = 0.f;
-      continue;
-    }
-    const float alpha =
-        __fsub_rn(1.f, expf(__fmul_rn(-sigmas[i], dts[i])));
-    const float w = __fmul_rn(alpha, T);
-    weights[i] = w;
-    ws = __fadd_rn(ws, w);
-    depth = __fmaf_rn(w, t_cum[i], depth);
-    c0 = __fmaf_rn(w, rgbs[3 * i], c0);
-    c1 = __fmaf_rn(w, rgbs[3 * i + 1], c1);
-    c2 = __fmaf_rn(w, rgbs[3 * i + 2], c2);
-    T = __fmul_rn(T, __fsub_rn(1.f, alpha));
+// K3 pass 2: a group of G lanes per ray, G | 32.  Every lane of a group
+// runs the same shuffles, so T is the same in each.  Pass 1 wrote the
+// bounds of every ray with a valid slot; a ray without one finds whatever
+// the buffer held, so the group checks that start[r] begins a run of ray r
+// and writes an empty range back otherwise (K6 reads the bounds).
+template <int G>
+__global__ void __launch_bounds__(K3_THREADS)
+    composite_kernel(const float* __restrict__ sigmas,
+                     const float* __restrict__ rgbs,
+                     const float* __restrict__ dts,
+                     const float* __restrict__ t_cum,
+                     const long long* __restrict__ ray_id,
+                     const uint8_t* __restrict__ valid, int n_samples,
+                     int* __restrict__ start, int* __restrict__ end,
+                     int n_rays, int early_stop, float* __restrict__ weights,
+                     float* __restrict__ ws_out,
+                     float* __restrict__ depth_out,
+                     float* __restrict__ image_out) {
+  const int r = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) / G);
+  if (r >= n_rays) return;  // the whole group
+  const int j = threadIdx.x & (G - 1);
+  const unsigned group = (unsigned)((1ull << G) - 1ull)
+                         << ((threadIdx.x & 31) & ~(G - 1));
+  int s = start[r], e = end[r];
+  if (!(s >= 0 && s < n_samples && valid[s] && ray_id[s] == r &&
+        (s == 0 || !valid[s - 1] || ray_id[s - 1] != r))) {
+    s = e = 0;
+    if (j == 0) start[r] = end[r] = 0;
   }
+  // a tile's loads: sigma, dt and t_cum of slot i0 + j, and float j + m G
+  // of the tile's rgb (slot (j + m G) / 3, channel (j + m G) % 3); the
+  // next tile's are in flight while the group works on this one
+  float sg = 0.f, dt = 0.f, tc = 0.f, rgb[3] = {0.f, 0.f, 0.f};
+  auto load = [&](int i0) {
+    const int i = i0 + j, nq = 3 * min(G, e - i0);
+    if (i < e) {
+      sg = sigmas[i];
+      dt = dts[i];
+      tc = t_cum[i];
+    }
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+      if (j + m * G < nq) rgb[m] = rgbs[3 * (long long)i0 + j + m * G];
+  };
+  int i0 = s;
+  if (i0 < e) load(i0);
+  float T = 1.f, ws = 0.f, depth = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f;
+  for (; i0 < e; i0 += G) {
+    if (early_stop && T < 1e-4f) break;  // T only falls from here on
+    const int i = i0 + j;
+    const bool in = i < e;
+    const int nq = 3 * min(G, e - i0);
+    const float sg_i = sg, dt_i = dt, tc_i = tc;
+    const float q[3] = {rgb[0], rgb[1], rgb[2]};
+    if (i0 + G < e) load(i0 + G);
+    const float alpha =
+        in ? __fsub_rn(1.f, expf(__fmul_rn(-sg_i, dt_i))) : 0.f;
+    const float f = __fsub_rn(1.f, alpha);
+    float Tj = T;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const float fk = __shfl_sync(group, f, k, G);
+      if (k == j) Tj = T;
+      T = __fmul_rn(T, fk);
+    }
+    float w = 0.f;
+    if (in) {
+      w = (early_stop && Tj < 1e-4f) ? 0.f : __fmul_rn(alpha, Tj);
+      weights[i] = w;
+      ws = __fadd_rn(ws, w);
+      depth = __fmaf_rn(w, tc_i, depth);
+    }
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int qi = j + m * G;
+      const float wq = __shfl_sync(group, w, qi / 3, G);
+      if (qi < nq) {
+        const int ch = qi % 3;
+        if (ch == 0) c0 = __fmaf_rn(wq, q[m], c0);
+        else if (ch == 1) c1 = __fmaf_rn(wq, q[m], c1);
+        else c2 = __fmaf_rn(wq, q[m], c2);
+      }
+    }
+  }
+  for (int i = i0 + j; i < e; i += G) weights[i] = 0.f;  // after an early stop
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    ws += __shfl_xor_sync(group, ws, o, G);
+    depth += __shfl_xor_sync(group, depth, o, G);
+    c0 += __shfl_xor_sync(group, c0, o, G);
+    c1 += __shfl_xor_sync(group, c1, o, G);
+    c2 += __shfl_xor_sync(group, c2, o, G);
+  }
+  if (j) return;
   ws_out[r] = ws;
   depth_out[r] = depth;
   image_out[3 * r] = c0;
@@ -120,11 +201,15 @@ __global__ void composite_kernel(const float* __restrict__ sigmas,
   image_out[3 * r + 2] = c2;
 }
 
+// lanes per ray: 16 or 32 (ops/composite.py k3_lanes); the bounds need no
+// initial value
 extern "C" int pvd_composite_compact_fwd(
     const float* sigmas, const float* rgbs, const float* dt,
     const float* t_cum, const long long* ray_id, const uint8_t* valid,
-    int n_samples, int n_rays, int early_stop, int* bounds, float* weights,
-    float* weights_sum, float* depth, float* image, void* stream) {
+    int n_samples, int n_rays, int early_stop, int lanes, int* bounds,
+    float* weights, float* weights_sum, float* depth, float* image,
+    void* stream) {
+  if (lanes != 16 && lanes != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int threads = 256;
   if (n_samples > 0) {
@@ -135,12 +220,18 @@ extern "C" int pvd_composite_compact_fwd(
     if (rc != 0) return rc;
   }
   if (n_rays > 0) {
-    // small blocks: one thread per ray is few threads, spread them over SMs
-    const int ray_threads = 64;
-    composite_kernel<<<(n_rays + ray_threads - 1) / ray_threads, ray_threads,
-                       0, st>>>(
-        sigmas, rgbs, dt, t_cum, bounds, bounds + n_rays, n_rays, early_stop,
-        weights, weights_sum, depth, image);
+    const long long blocks =
+        ((long long)n_rays * lanes + K3_THREADS - 1) / K3_THREADS;
+    if (lanes == 16)
+      composite_kernel<16><<<(unsigned)blocks, K3_THREADS, 0, st>>>(
+          sigmas, rgbs, dt, t_cum, ray_id, valid, n_samples, bounds,
+          bounds + n_rays, n_rays, early_stop, weights, weights_sum, depth,
+          image);
+    else
+      composite_kernel<32><<<(unsigned)blocks, K3_THREADS, 0, st>>>(
+          sigmas, rgbs, dt, t_cum, ray_id, valid, n_samples, bounds,
+          bounds + n_rays, n_rays, early_stop, weights, weights_sum, depth,
+          image);
   }
   return (int)cudaGetLastError();
 }

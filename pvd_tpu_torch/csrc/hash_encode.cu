@@ -40,16 +40,32 @@
 // over the same 8 corners, rows and weights as K1 (the shared
 // corner_setup below).  No gradient reaches x01: sample positions come from
 // the march, so the JAX package's g_w term has no consumer here.
-// One thread per (point, level) issues 16 fp32 atomicAdds (2 channels x 8
-// corners) into a zeroed [T, 2] gradient.  Pairs whose upstream g is exactly
-// (0, 0) return at once: on the padded [N, S] path most slots are invalid
-// and the composite's backward gives them zero gradient.  Points outside
-// [0, 1]^3 have zero weights and return too.
-// Bound on the H100: memory.  Per (point, level) it reads 8 B of g and does
-// 8 read-modify-writes of 8 B at scattered rows, plus the wrapper's 42 MB
-// memset of the gradient.  The coarse dense levels (16^3 ...) and hash
-// collisions put many atomics on few rows; the sums' order varies from run
-// to run, so the card check uses a relative tolerance.
+// Bound on the H100: memory, the wrapper's zeroed dense gradient (42 MB at
+// the INGP width, 4.7 MB in cell mode, where K7 covers the dense corner
+// levels 0-4 only) plus 12 B of x01 and the point's row of g read once;
+// every add lands on a table that sits in the 50 MB L2.  What limits the
+// kernel is how many atomics the L2 must serialize on one address: the
+// coarse levels have few rows (17^3 at level 0), and a training batch puts
+// ~135 adds on each of them.  The first design ran one thread per (point,
+// level) with 16 scalar atomics each (lanes of a warp on different levels
+// of ~2 points could never pool them): 17x its bound at the exact
+// teacher's 131,072 compacted points.
+// The design now (hash_encode_bwd_kernel, K13's at D = 3): one thread per
+// point, a block per 128 consecutive points of the ray-major stream, so
+// neighbouring lanes hold neighbouring samples of a few rays and share
+// coarse cells.  It reads x01 once and its row of g a level pair at a time
+// (float4s, the next pair in flight while this one adds).  The level loop
+// is unrolled to compile-time indices of the by-value list.  At each level
+// the lanes whose points fall in one lattice cell (one 64-bit key of the
+// base coordinates: corner 0's hashed row is no key, two cells can share
+// it and differ at other corners) sum their 16 contributions in registers
+// (peer_sum), and the lowest of them adds, one float2 atomic per corner.
+// A warp with nothing to add at a level (the padded stream's zero rows, a
+// g of (0, 0) there) skips it.  The pre-sum runs at the hashed levels too:
+// there peers are rarer, but a dense-only pre-sum measured 20% slower at
+// the exact teacher's shape (PERF.md).  Each product w_k * g is rounded
+// as before; only the order of the sums changes (it varies from run to
+// run), so the card check uses a relative tolerance.
 //
 // K10: the cell-packed levels, replacing pvd_tpu/ops/hashgrid.py:332
 // _cell_gather_sum with the rows of hash_encode's cell branch (:603-613).
@@ -120,9 +136,7 @@
 // and flush cost more than they saved (PERF.md §6), so it is not built.  Each
 // contribution is K12's product bit for bit; only the order of the sums
 // changes (it varies from run to run), so the card check uses a relative
-// tolerance.  K7 (D = 3) keeps the first design's encode_bwd on purpose:
-// its redesign is later work, and its timed row must stay what it
-// measured.
+// tolerance.
 //
 // K15: the baked dense levels' encode, replacing the baked branch of
 // pvd_tpu/ops/hashgrid.py:533 hash_encode (:584-590, :635-646) for a frozen
@@ -168,6 +182,7 @@
 #define PVD_MAX_BAKED 8
 #define K13_LEVELS 4  // the background grid's (bg_grid_spec)
 #define K13_THREADS 128
+#define K7_THREADS 128
 
 #if defined(__CUDACC_VER_MAJOR__) && \
     (__CUDACC_VER_MAJOR__ > 12 ||      \
@@ -296,45 +311,11 @@ __device__ __forceinline__ void encode_fwd(const float* __restrict__ x01,
   *o = make_float2(a0, a1);
 }
 
-// K7 (D = 3): 2 * 2^D fp32 atomics per active pair.
-template <int D>
-__device__ __forceinline__ void encode_bwd(const float* __restrict__ x01,
-                                           const float2* __restrict__ g,
-                                           float* __restrict__ grad,
-                                           long long n_points,
-                                           const HashLevels& lv) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_points * lv.n_levels) return;
-  const long long n = gid / lv.n_levels;
-  const int l = (int)(gid - n * lv.n_levels);
-  const float2 gv = g[n * lv.out_levels + lv.level[l]];
-  if (gv.x == 0.f && gv.y == 0.f) return;
-  float x[D];
-  load_point<D>(x01, n, x);
-  if (outside<D>(x)) return;
-  const Corners<D> c = corner_setup<D>(x, l, lv);
-  float* gl = grad + 2 * (long long)lv.offset[l];
-#pragma unroll
-  for (int k = 0; k < (1 << D); ++k) {
-    const float w = corner_weight<D>(c, k);
-    float* dst = gl + 2 * (long long)corner_row<D>(c, k, lv.hash_mask);
-    atomicAdd(dst, __fmul_rn(w, gv.x));
-    atomicAdd(dst + 1, __fmul_rn(w, gv.y));
-  }
-}
-
 __global__ void hash_encode_fwd_kernel(const float* __restrict__ x01,
                                        const float2* __restrict__ table,
                                        float2* __restrict__ out,
                                        long long n_points, HashLevels lv) {
   encode_fwd<3>(x01, table, out, n_points, lv);
-}
-
-__global__ void hash_encode_bwd_kernel(const float* __restrict__ x01,
-                                       const float2* __restrict__ g,
-                                       float* __restrict__ grad,
-                                       long long n_points, HashLevels lv) {
-  encode_bwd<3>(x01, g, grad, n_points, lv);
 }
 
 __global__ void hash_encode2_fwd_kernel(const float* __restrict__ x01,
@@ -344,7 +325,7 @@ __global__ void hash_encode2_fwd_kernel(const float* __restrict__ x01,
   encode_fwd<2>(x01, table, out, n_points, lv);
 }
 
-// K13: float2 atomic add into a global gradient row
+// K7, K13: float2 atomic add into a global gradient row
 __device__ __forceinline__ void add_row(float2* dst, float a, float b) {
 #if PVD_VECTOR_ATOMICS && defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
   atomicAdd(dst, make_float2(a, b));
@@ -354,7 +335,7 @@ __device__ __forceinline__ void add_row(float2* dst, float a, float b) {
 #endif
 }
 
-// K13: per value v[j], the sum over the lanes of `peers` (the lanes whose
+// K7, K13: per value v[j], the sum over the lanes of `peers` (the lanes whose
 // key matched, __match_any_sync), left in the lowest of them; every lane
 // of the warp takes part.  A tree over each group's lanes in lane order:
 // log2(group size) rounds of J shuffles and one ballot (none when no lane
@@ -425,6 +406,79 @@ __global__ void __launch_bounds__(K13_THREADS)
     for (int k = 0; k < 4; ++k)
       add_row(gl + corner_row<2>(c, k, lv.hash_mask), v[2 * k],
               v[2 * k + 1]);
+  }
+}
+
+// K7: level entry l (a compile-time index once the caller's loop is
+// unrolled) of one point with upstream (gx, gy).  The key of a lattice cell
+// is its base coordinates, 21 bits each (the entry checks side < 2^21); a
+// lane that adds nothing takes a key of its own (bit 63 and its lane), so it
+// joins no group and adds no round to peer_sum.
+__device__ __forceinline__ void k7_level(const float (&x)[3], bool in,
+                                         float gx, float gy, int l,
+                                         const HashLevels& lv,
+                                         float2* __restrict__ grad) {
+  const int lane = threadIdx.x & 31;
+  const bool add = in && (gx != 0.f || gy != 0.f);
+  if (!__any_sync(0xffffffffu, add)) return;
+  const Corners<3> c = corner_setup<3>(x, l, lv);
+  float v[16];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float w = corner_weight<3>(c, k);
+    v[2 * k] = add ? __fmul_rn(w, gx) : 0.f;
+    v[2 * k + 1] = add ? __fmul_rn(w, gy) : 0.f;
+  }
+  const unsigned long long key =
+      add ? ((unsigned long long)c.i[0] | ((unsigned long long)c.i[1] << 21) |
+             ((unsigned long long)c.i[2] << 42))
+          : ((1ull << 63) | (unsigned long long)lane);
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  peer_sum<16>(peers, v);
+  if (!add || __ffs(peers) - 1 != lane) return;
+  float2* gl = grad + lv.offset[l];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    add_row(gl + corner_row<3>(c, k, lv.hash_mask), v[2 * k], v[2 * k + 1]);
+}
+
+// K7: one thread per point; the launch's entries are level slots 0..n-1 of
+// each upstream row (the corner levels are a prefix of the levels; the
+// entry checks it).  Rows are read a level pair at a time, as float4s when
+// the row has an even number of slots (16-byte aligned: the wrapper checks
+// g) and as float2s when it has not.  A lane past the end or outside the
+// cube adds nothing but runs the warp votes.
+__global__ void __launch_bounds__(K7_THREADS)
+    hash_encode_bwd_kernel(const float* __restrict__ x01,
+                           const float* __restrict__ g,
+                           float2* __restrict__ grad, long long n_points,
+                           HashLevels lv) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = n < n_points;
+  const int nl = lv.n_levels;
+  const bool vec = (lv.out_levels & 1) == 0;
+  const float* row = g + 2 * (long long)lv.out_levels * (live ? n : 0);
+  auto pair = [&](int l) {  // slots l and l + 1 (zeros past the entries)
+    if (!live) return make_float4(0.f, 0.f, 0.f, 0.f);
+    if (vec) return __ldg(reinterpret_cast<const float4*>(row + 2 * l));
+    const float2 a = __ldg(reinterpret_cast<const float2*>(row + 2 * l));
+    const float2 b =
+        l + 1 < nl ? __ldg(reinterpret_cast<const float2*>(row + 2 * l + 2))
+                   : make_float2(0.f, 0.f);
+    return make_float4(a.x, a.y, b.x, b.y);
+  };
+  float4 cur = pair(0);
+  float x[3] = {0.f, 0.f, 0.f};
+  if (live) load_point<3>(x01, n, x);
+  const bool in = live && !outside<3>(x);
+#pragma unroll
+  for (int l = 0; l < PVD_MAX_LEVELS; l += 2) {
+    if (l >= nl) break;
+    const float4 next =
+        l + 2 < nl ? pair(l + 2) : make_float4(0.f, 0.f, 0.f, 0.f);
+    k7_level(x, in, cur.x, cur.y, l, lv, grad);
+    if (l + 1 < nl) k7_level(x, in, cur.z, cur.w, l + 1, lv, grad);
+    cur = next;
   }
 }
 
@@ -600,14 +654,22 @@ extern "C" int pvd_hash_encode_fwd(const float* x01, const float* table,
   return (int)cudaGetLastError();
 }
 
+// K7: the entries are level slots 0..n-1 (the corner levels), each lattice
+// side under 2^21 (the cell key); g's rows 16-byte aligned when they have an
+// even number of slots (the wrapper checks it); a block per K7_THREADS points
 extern "C" int pvd_hash_encode_bwd(const float* x01, const float* g,
                                    float* grad_table, long long n_points,
                                    HashLevels lv, void* stream) {
   if (n_points == 0 || lv.n_levels == 0) return 0;
-  const int threads = 256;
-  hash_encode_bwd_kernel<<<(unsigned)n_blocks(n_points, lv, threads), threads,
-                           0, (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float2*>(g), grad_table, n_points, lv);
+  bool ok = lv.n_levels <= lv.out_levels && lv.n_levels <= PVD_MAX_LEVELS &&
+            (lv.out_levels % 2 || (uintptr_t)g % 16 == 0);
+  for (int l = 0; ok && l < lv.n_levels; ++l)
+    ok = lv.level[l] == l && lv.side[l] < (1 << 21);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n_points + K7_THREADS - 1) / K7_THREADS;
+  hash_encode_bwd_kernel<<<(unsigned)blocks, K7_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      x01, g, reinterpret_cast<float2*>(grad_table), n_points, lv);
   return (int)cudaGetLastError();
 }
 

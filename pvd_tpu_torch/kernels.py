@@ -114,11 +114,11 @@ _SIGNATURES = {
     "pvd_march_rays_geom": (_P, _P, _P, _P, _P, _P, MarchParams,
                             _P, _P, _P, _P, _P, _P),
     # sigmas, rgbs, dt, t_cum, ray_id, valid, n_samples, n_rays,
-    # early_stop, bounds (scratch [2, N] int32, zeroed), weights,
-    # weights_sum, depth, image, stream
+    # early_stop, lanes per ray, bounds (out [2, N] int32, for K6),
+    # weights, weights_sum, depth, image, stream
     "pvd_composite_compact_fwd": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                                  _P, _P, _P),
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  _P, _P, _P, _P, _P, _P),
     # sigmas, rgbs, dt, t_cum, weights, bounds (from the forward), n_rays,
     # g_ws, g_depth, g_image, g_weights, d_sigma (zeroed), d_rgb (zeroed),
     # stream

@@ -77,6 +77,13 @@ def _check_stream(name, sigmas, rgbs, delta_t, t_cum, ray_id, valid):
     return dev
 
 
+def k3_lanes(n_samples: int, n_rays: int) -> int:
+    """Lanes per ray of K3's pass 2, from the mean budget per ray: 16 up to
+    16 slots per ray (the serving ladder's 1x rung, the training budgets),
+    32 above (its 4x and 16x rungs), where a ray's range spans tiles."""
+    return 16 if n_samples <= 16 * n_rays else 32
+
+
 def composite_rays_compact_fwd(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
                                n_rays: int, early_stop: bool = False):
     """Kernel K3 on CUDA tensors, no autograd.  Returns weights_sum [N],
@@ -85,7 +92,7 @@ def composite_rays_compact_fwd(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
     dev = _check_stream("composite_rays_compact", sigmas, rgbs, delta_t,
                         t_cum, ray_id, valid)
     M = sigmas.shape[0]
-    bounds = torch.zeros(2, n_rays, dtype=torch.int32, device=dev)
+    bounds = torch.empty(2, n_rays, dtype=torch.int32, device=dev)
     weights = torch.empty(M, device=dev)
     ws = torch.empty(n_rays, device=dev)
     depth = torch.empty(n_rays, device=dev)
@@ -94,7 +101,8 @@ def composite_rays_compact_fwd(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
         kernels.launch("pvd_composite_compact_fwd", sigmas.data_ptr(),
                        rgbs.data_ptr(), delta_t.data_ptr(), t_cum.data_ptr(),
                        ray_id.data_ptr(), valid.data_ptr(), M, n_rays,
-                       int(early_stop), bounds.data_ptr(), weights.data_ptr(),
+                       int(early_stop), k3_lanes(M, n_rays),
+                       bounds.data_ptr(), weights.data_ptr(),
                        ws.data_ptr(), depth.data_ptr(), image.data_ptr(),
                        kernels.stream_ptr(sigmas))
     composite_rays_compact.launches += 1

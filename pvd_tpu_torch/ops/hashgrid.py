@@ -253,13 +253,25 @@ def hash_encode_baked_plain(baked, x01, spec: HashGridSpec):
     return acc
 
 
+def corner_level_plain(table, x01, spec: HashGridSpec, level: int):
+    """One corner level's encode [N, C]: the weighted sum of its 2^D corner
+    rows, in corner order."""
+    w, rows = level_corners(x01, spec, level)
+    N, C = x01.shape[0], spec.level_dim
+    vals = table.index_select(0, rows.reshape(-1)).reshape(-1, N, C)
+    acc = torch.zeros(N, C, device=x01.device)
+    for k in range(w.shape[0]):
+        acc = acc + w[k, :, None] * vals[k]
+    return acc
+
+
 def hash_encode_plain(table, x01, spec: HashGridSpec, cell_table=None,
                       baked=None):
     """[N, D] positions in [0, 1] -> [N, L * C]; zero rows for inputs
     outside [0, 1]^D (hashgrid.py:533-688, corner and cell levels; with
     `baked`, the dense levels from the baked vertex table)."""
     x01 = x01.float()
-    N, C = x01.shape[0], spec.level_dim
+    C = spec.level_dim
     outs = [None] * spec.num_levels
     if baked is not None:
         dense = hash_encode_baked_plain(baked, x01, spec)
@@ -267,12 +279,7 @@ def hash_encode_plain(table, x01, spec: HashGridSpec, cell_table=None,
             outs[level] = dense[:, j * C:(j + 1) * C]
     for level in (spec.corner_levels if baked is None
                   else spec.unbaked_levels):
-        w, rows = level_corners(x01, spec, level)
-        vals = table.index_select(0, rows.reshape(-1)).reshape(-1, N, C)
-        acc = torch.zeros(N, C, device=x01.device)
-        for k in range(w.shape[0]):
-            acc = acc + w[k, :, None] * vals[k]
-        outs[level] = acc
+        outs[level] = corner_level_plain(table, x01, spec, level)
     if spec.cell_levels:
         cells = hash_encode_cell_plain(cell_table, x01, spec)
         for i, level in enumerate(spec.cell_levels):
@@ -612,17 +619,17 @@ build_baked_dense.launches = 0
 def hash_encode_bwd(x01, g, spec: HashGridSpec):
     """Corner-table gradient [T, 2] for the upstream gradient g [N, L * 2]:
     K7 (K13 for a 2-D grid) on CUDA tensors, the plain version on CPU
-    tensors."""
+    tensors.  Both sum the contributions of a warp's points in one lattice
+    cell before they add them."""
     if x01.device.type == "cpu" and g.device.type == "cpu":
         return hash_encode_bwd_plain(x01, g, spec)
     _check_k1("hash_encode_bwd", spec, x01, dims=(2, 3), g=g)
     _check_g(g, x01, spec)
-    if spec.input_dim == 2:  # K13: the background grid, g rows as float4s
-        if spec.num_levels != 4:
-            raise NotImplementedError("K13 is built for the background "
-                                      "grid's 4 levels (bg_grid_spec)")
-        if g.data_ptr() % 16:
-            g = g.clone()
+    if spec.input_dim == 2 and spec.num_levels != 4:
+        raise NotImplementedError("K13 is built for the background grid's 4 "
+                                  "levels (bg_grid_spec)")
+    if g.data_ptr() % 16:  # K7 and K13 read g's rows as float4s
+        g = g.clone()
     grad = torch.zeros(spec.table_size, 2, device=x01.device)
     if spec.corner_levels:
         entry = ("pvd_hash_encode2_bwd" if spec.input_dim == 2

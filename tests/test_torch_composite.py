@@ -190,3 +190,71 @@ def test_composite_padded_grad_matches_jax(seed):
     # masked-out slots get nothing
     assert not s_t.grad.numpy()[~mask].any()
     assert not r_t.grad.numpy()[~mask].any()
+
+
+# K3's hard inputs (chip_smoke.py's `k3_hard_inputs`, the ones the card
+# holds K3 to against the plain version)
+K3_CASES = ["counts", "counts_16", "opaque", "stop", "stop_16", "eval_tail",
+            "empty"]
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("name", K3_CASES)
+def test_composite_compact_hard_inputs_match_jax(name, early_stop):
+    import chip_smoke
+
+    sig, rgb, dt, t_cum, rid, valid, n = chip_smoke.k3_hard_inputs()[name]
+    got = composite_rays_compact(_t(sig), _t(rgb), _t(dt), _t(t_cum),
+                                 _t(rid), _t(valid), n, early_stop=early_stop)
+    if name == "empty":  # no slot: every ray composites nothing
+        assert sig.shape == (0,) and got[3].shape == (0,)
+        assert all(not o.any() for o in got[:3])
+    want = j_compact_comp(jnp.asarray(sig), jnp.asarray(rgb), jnp.asarray(dt),
+                          jnp.asarray(t_cum), jnp.asarray(rid),
+                          jnp.asarray(valid), n, early_stop=early_stop)
+    for g, w, out in zip(got, want, ("weights_sum", "depth", "image",
+                                     "weights")):
+        assert np.isfinite(g.numpy()).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=COMP_TOL,
+                                   atol=COMP_TOL, err_msg=out)
+    w = got[3].numpy()
+    counts = np.bincount(rid[valid], minlength=n)
+    if name.startswith("counts"):
+        assert sorted(counts[counts > 0]) == [1, 15, 16, 17, 31, 32, 33, 256,
+                                              1024]
+        # the long rays stay above T = 1e-4: early stop changes nothing
+        assert (w[rid == 9] > 0).all()
+    if name.startswith("stop"):
+        # ray r's first stopped slot is k: its weight and all later ones
+        # are zero under early stop and not without it
+        for r, k in enumerate((7, 8, 15, 16, 17, 31, 32, 33)):
+            wr = w[valid & (rid == r)]
+            assert (wr[:k] > 0).all()
+            assert (wr[k:] == 0).all() == early_stop and wr[k:].any() != \
+                early_stop
+    if name == "opaque":  # alpha = 1: T is 0 after it
+        assert (w[10] > 0) and not w[11:40].any()
+        assert w[40] > 0 and not w[41:80].any()
+    if name == "eval_tail":
+        assert not valid[-200:].any() and not rid[-200:].any()
+        assert not w[~valid].any()
+
+
+def test_k3_lanes_plan():
+    """K3's lanes per ray from the mean budget per ray: 16 up to 16 slots
+    per ray, 32 above (k3_hard_inputs has cases of both)."""
+    import chip_smoke
+    from pvd_tpu_torch.ops.composite import k3_lanes
+
+    assert k3_lanes(65_536, 4096) == 16  # serving, 1x rung
+    assert k3_lanes(65_537, 4096) == 32
+    assert k3_lanes(262_144, 4096) == 32  # 4x
+    assert k3_lanes(1_048_576, 4096) == 32  # 16x
+    assert k3_lanes(131_072, 8192) == 16  # the exact teacher's budget
+    assert k3_lanes(24_576, 4096) == 16  # 6 samples per ray
+    assert k3_lanes(0, 8) == 16
+    lanes = {name: k3_lanes(len(case[0]), case[-1])
+             for name, case in chip_smoke.k3_hard_inputs().items()}
+    assert lanes == {"counts": 32, "counts_16": 16, "opaque": 32,
+                     "stop": 32, "stop_16": 16, "eval_tail": 32,
+                     "empty": 16}
