@@ -24,7 +24,12 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    those paths, and times both (CUDA events, median after warm-up); K4
    also on a ragged sample count, positions outside [-1, 1], tables off
    16-byte alignment and ranks 5 and 16 (logging the float4 or scalar
-   instantiation each ran); K3 also at the serving ladder's 16x rung (256
+   instantiation each ran); K5 also on its hard inputs (`k5_hard_inputs`:
+   every sample in one plane cell and line row, a third of the upstream
+   rows zero, positions outside [-1, 1], ranks 5, 16 and 64, a line of 640
+   rows, tables off 16-byte alignment; logging the
+   instantiation `k5_variant` picks) and its zero fill alone; K3 also at the
+   serving ladder's 16x rung (256
    slots per ray) and on its hard inputs (`k3_hard_inputs`), K1 also on
    the serving chunk's compacted points (with an F.embedding_bag
    yardstick), K7 on its hard inputs (`k7_hard_inputs`); holds
@@ -36,8 +41,7 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    defaults except grid_size 64, 3000 steps: 256 padded warm-up steps,
    then the compacted path; its checkpoints go to a temporary workspace),
    evaluates the 3 test views with `Trainer.evaluate` and fails below
-   25 dB test PSNR.  Then holds K7 (table
-   gradient; also pre-summing at the dense levels only), K8 and K9 (padded
+   25 dB test PSNR.  Then holds K7 (table gradient), K8 and K9 (padded
    composite) against their plain versions on inputs from that run, K1 and
    K3 at its compacted shape, profiles one padded and one compacted teacher
    step, and holds one small teacher step (padded and compacted) on the
@@ -52,8 +56,9 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    are evaluated on the 10 test views (PSNR, SSIM).  Fails below 28.0 dB
    (teacher), 27.5 dB (student) or more than 1.0 dB under the teacher.
    Then holds K10 and K11 against their plain versions on the cell
-   teacher's padded and compacted batches, and K7 and K1 on the compacted
-   batch's corner levels (0-4), profiles one compacted teacher
+   teacher's padded and compacted batches, K7 and K1 on the compacted
+   batch's corner levels (0-4) and K5 on a stage-3 batch of the student
+   (4096 rays, 24,576 slots), profiles one compacted teacher
    step and one stage-3 distill step, and holds one small cell-mode
    teacher step (padded and compacted) on the GPU against the CPU.
 7. Runs the large-scene configuration (bench.py:376-380's cascade config
@@ -71,7 +76,8 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    the field's background through K12 (and K13 in training).  Then holds
    K12, K13 and K14 against their plain versions at this phase's shapes
    (K13 also on 4096 points inside one level-0 cell and on points on and
-   outside the square's edges with a third of the upstream rows zero),
+   outside the square's edges with a third of the upstream rows zero; K14
+   also on its hard lattices, `k14_hard_inputs`),
    renders one 800x800 view of the teacher through make_eval_renderer
    (and times `read_png` on it written with each scanline filter),
    profiles a teacher and a stage-3 distill step, and holds one small
@@ -122,7 +128,7 @@ import torch
 
 from pvd_tpu_torch import kernels
 from pvd_tpu_torch.cli import distill as distill_cli
-from pvd_tpu_torch.config import ModelSpec, PVDConfig
+from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
 from pvd_tpu_torch.data.png import read_png, write_png
 from pvd_tpu_torch.data.poses import get_rand_poses, pose_spherical
 from pvd_tpu_torch.data.synth import (make_synthetic_scene,
@@ -164,9 +170,9 @@ from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
                                         hash_encode_fwd, hash_encode_plain,
                                         level_corners)
 from pvd_tpu_torch.ops.rays import get_rays, nerf_matrix_to_ngp
-from pvd_tpu_torch.ops.vm_sample import (k4_variant, vm_sample_bwd,
-                                         vm_sample_bwd_plain, vm_sample_fwd,
-                                         vm_sample_plain)
+from pvd_tpu_torch.ops.vm_sample import (grad_buffers, k4_variant, k5_variant,
+                                         vm_sample_bwd, vm_sample_bwd_plain,
+                                         vm_sample_fwd, vm_sample_plain)
 from pvd_tpu_torch.params import (field_from_tree, hash_field_from_jax,
                                   hash_tree_from_field, tree_from_field,
                                   vm_field_from_jax, vm_tree_from_field)
@@ -613,21 +619,18 @@ def path_inputs(cfg, spec_stu, state, pose, intr, gen):
     o = rays["rays_o"][0].contiguous()
     d = rays["rays_d"][0].contiguous()
     u = torch.rand(cfg.num_rays, generator=gen, device=dev)
-    aabb = state.occ.aabb_train
+    xn, out, xyz = student_samples(state.field, spec_stu, rspec, state.occ,
+                                   o, d, u)
+    c = out["compact"]
+    rid = c.ray_id
     with torch.no_grad():
-        out = render_rays(state.field, spec_stu, rspec, state.occ, o, d,
-                          training=True, u=u, composite=False)
-        c = out["compact"]
-        rid = c.ray_id
-        xyz = fma32(out["compact_t"][:, None], d[rid], o[rid]).clamp(
-            -rspec.bound, rspec.bound)
-        f = state.field(xyz, d[rid], aabb)
+        f = state.field(xyz, d[rid], state.occ.aabb_train)
     dt_c = torch.where(c.valid, dt_min_of(rspec), 0.0)
     t_cum = torch.where(c.valid, out["compact_t"] + dt_c
                         - out["samples"].t0[rid], 0.0)
     comp = (f.sigma.contiguous(), f.rgb.contiguous(), dt_c, t_cum, rid,
             c.valid, cfg.num_rays)
-    return normalize(xyz, aabb).contiguous(), c, comp
+    return xn, c, comp
 
 
 def check_vm_kernels(state, xn, compact, gen) -> list:
@@ -644,28 +647,9 @@ def check_vm_kernels(state, xn, compact, gen) -> list:
     log(f"K4 on the path: {kind} instantiation, {lanes} lanes per sample, "
         f"M {M}, R {R}, one launch for the three branches")
     cases4 = k4_cases(planes, lines, xn, gen)
-    # the path's upstream gradient is zero on the invalid tail
-    g = torch.randn(3, M, R, generator=gen, device=xn.device) \
-        * compact.valid[None, :, None]
-    k5 = vm_sample_bwd(planes, lines, xn, g)
-    p5 = vm_sample_bwd_plain(planes, lines, xn, g)
-    err5 = max(max_abs(a, b) / float(b.abs().max())
-               for a, b in zip(k5[0] + k5[1], p5[0] + p5[1]))
-    abs5 = max(max_abs(a, b) for a, b in zip(k5[0] + k5[1], p5[0] + p5[1]))
-    # bytes: xn once, each touched plane row and line row once, outputs once
-    touched = 0
-    for i, (m0, m1) in enumerate(((0, 1), (0, 2), (1, 2))):
-        Hp, Wp = planes[i].shape[:2]
-        px = ((xn[:, m0] + 1) * 0.5 * (Wp - 1)).floor().clamp(0, Wp - 2)
-        py = ((xn[:, m1] + 1) * 0.5 * (Hp - 1)).floor().clamp(0, Hp - 2)
-        row = (py * Wp + px).long()
-        rows = torch.cat([row, row + 1, row + Wp, row + Wp + 1]).unique()
-        touched += rows.numel() + lines[i].shape[0]
-    n_valid = int(compact.valid.sum())
-    b4 = bound(M * 12 + touched * R * 4 + 3 * M * R * 4, 3 * M * R * 14)
-    plane_bytes = sum(p.numel() + v.numel() for p, v in zip(planes, lines)) * 4
-    b5 = bound(M * 12 + 3 * M * R * 4 + touched * R * 4 + plane_bytes,
-               3 * n_valid * R * 26)
+    k5 = k5_case(planes, lines, xn, compact.valid, gen)
+    b4 = bound(M * 12 + k5["touched_rows"] * R * 4 + 3 * M * R * 4,
+               3 * M * R * 14)
     # library yardstick: F.grid_sample (align_corners, zeros) computes the
     # plane half of K4; its backward the plane half of K5
     ims = [p.permute(2, 0, 1)[None].contiguous() for p in planes]
@@ -698,17 +682,103 @@ def check_vm_kernels(state, xn, compact, gen) -> list:
              bound=b4, shape=f"M={M} samples x 3 branches x R={R}",
              variant=kind, cases=cases4),
         dict(name="vm_sample_bwd", source="pvd_tpu_torch/csrc/vm_sample.cu",
-             replaces="pvd_tpu/models/vm_field.py:173", err=err5,
-             abs_err=abs5,
+             replaces="pvd_tpu/models/vm_field.py:173", err=k5["err"],
+             abs_err=k5["abs_err"],
              tol=TOL_K5_REL, err_kind="max |kernel - plain| / max |plain| "
-             "per gradient leaf",
-             **timings(lambda: vm_sample_bwd(planes, lines, xn, g),
-                       lambda: vm_sample_bwd_plain(planes, lines, xn, g)),
-             library_ms=cuda_ms(lib_bwd),
+             "per gradient leaf", ms=k5["ms"], call_ms=k5["call_ms"],
+             plain_ms=k5["plain_ms"], library_ms=cuda_ms(lib_bwd),
              library_call="F.grid_sample fwd+bwd x3 planes (the plane half "
-             "of K5)",
-             bound=b5, shape=f"M={M} samples ({n_valid} valid) x 3 branches "
-             f"x R={R}")]
+             "of K5)", variant=k5["variant"], lanes=k5["lanes"],
+             bound=k5["bound"], shape=f"M={M} samples ({k5['valid']} valid) "
+             f"x 3 branches x R={R}",
+             shapes={"distill_step": k5,
+                     "hard_inputs": check_k5_hard_cases(xn.device)})]
+
+
+def vm_touched_rows(planes, lines, xn) -> int:
+    """Plane rows the samples xn touch (4 corners each) plus every line
+    row, over the three branches."""
+    touched = 0
+    for i, (m0, m1) in enumerate(((0, 1), (0, 2), (1, 2))):
+        Hp, Wp = planes[i].shape[:2]
+        px = ((xn[:, m0] + 1) * 0.5 * (Wp - 1)).floor().clamp(0, Wp - 2)
+        py = ((xn[:, m1] + 1) * 0.5 * (Hp - 1)).floor().clamp(0, Hp - 2)
+        row = (py * Wp + px).long()
+        rows = torch.cat([row, row + 1, row + Wp, row + Wp + 1]).unique()
+        touched += rows.numel() + lines[i].shape[0]
+    return touched
+
+
+def k5_case(planes, lines, xn, valid, gen) -> dict:
+    """K5 against vm_sample_bwd_plain on samples xn [M, 3] whose upstream
+    gradient is random on the `valid` rows and zero on the others (the
+    compacted stream's invalid tail); times, the zero fill of the six
+    gradients alone, the bound and the instantiation."""
+    M, R = xn.shape[0], planes[0].shape[-1]
+    g = torch.randn(3, M, R, generator=gen, device=xn.device) \
+        * valid[None, :, None]
+    err, abs_err = k5_rel_err(vm_sample_bwd(planes, lines, xn, g),
+                              vm_sample_bwd_plain(planes, lines, xn, g))
+    touched = vm_touched_rows(planes, lines, xn)
+    n_valid = int(valid.sum())
+    dense = sum(p.numel() + v.numel() for p, v in zip(planes, lines)) * 4
+    kind, lanes = k5_variant(R, [t.data_ptr() for t in (*planes, *lines,
+                                                        g)])
+    out = {"M": M, "valid": n_valid, "touched_rows": touched, "err": err,
+           "abs_err": abs_err, "variant": kind, "lanes": lanes,
+           # bytes: xn, g, the touched table rows read once, the dense
+           # gradients written once; ops: ~26 per valid (sample, channel)
+           "bound": bound(M * 12 + 3 * M * R * 4 + touched * R * 4 + dense,
+                          3 * n_valid * R * 26),
+           "zero_ms": cuda_ms(lambda: grad_buffers(planes, lines)),
+           **timings(lambda: vm_sample_bwd(planes, lines, xn, g),
+                     lambda: vm_sample_bwd_plain(planes, lines, xn, g))}
+    log(f"K5 at M {M} ({n_valid} valid), R {R}: {kind} instantiation, "
+        f"{lanes} lanes per sample: rel err {err:.3g}, {out['ms']:.4f} ms "
+        f"(call {out['call_ms']:.4f}, the zero fill alone "
+        f"{out['zero_ms']:.4f}, plain {out['plain_ms']:.4f}), bound "
+        f"{out['bound'][0]:.4f} ms ({out['bound'][1]})")
+    if not err <= TOL_K5_REL:
+        raise RuntimeError(f"K5 disagrees with its plain version at M {M}: "
+                           f"{err:.3g}")
+    return out
+
+
+def student_samples(field, spec, rspec, occ, o, d, u):
+    """A distill batch's compacted samples, marched (perturbed by u) on
+    occ: (normalized positions xn [M, 3], render_rays' output, world
+    positions [M, 3])."""
+    with torch.no_grad():
+        out = render_rays(field, spec, rspec, occ, o, d, training=True, u=u,
+                          composite=False)
+        rid = out["compact"].ray_id
+        xyz = fma32(out["compact_t"][:, None], d[rid], o[rid]).clamp(
+            -rspec.bound, rspec.bound)
+    return normalize(xyz, occ.aabb_train).contiguous(), out, xyz
+
+
+def k5_ab_case(stu, scene, gen) -> dict:
+    """K5 at the A/B recipe's stage-3 batch: 4096 rays of one random pose,
+    marched on the teacher's grid and compacted to the student's budget
+    (6 samples a ray: 24,576 slots), with the trained student's tables."""
+    train = scene["train"]
+    dev = stu.device
+    intr = tuple(float(v) for v in train.intrinsics)
+    pose = torch.as_tensor(get_rand_poses(np.random.default_rng(1))[0],
+                           device=dev)
+    n = stu.cfg.num_rays
+    inds = torch.randint(0, train.H * train.W, (n,), generator=gen,
+                         device=dev)
+    rays = get_rays(pose[None], intr, train.H, train.W, inds)
+    o = rays["rays_o"][0].contiguous()
+    d = rays["rays_d"][0].contiguous()
+    u = torch.rand(n, generator=gen, device=dev)
+    xn, out, _ = student_samples(stu.state.field, stu.spec_stu, stu.rspec,
+                                 stu.occ_tea, o, d, u)
+    field = stu.state.field
+    return k5_case([p.detach() for p in field.planes],
+                   [v.detach() for v in field.lines], xn,
+                   out["compact"].valid, gen)
 
 
 def k4_cases(planes, lines, xn, gen) -> dict:
@@ -1022,11 +1092,9 @@ def teacher_batch(trainer, scene, gen, rspec):
 
 
 def k7_case(x01, g, gs, library: bool = True) -> dict:
-    """K7 against its plain version on points x01 with upstream g,
-    pre-summing at every level (the wrapper's default); times, bound, the
-    time when it pre-sums at the dense levels only, and the index_add_
-    yardstick of the precomputed corner contributions (the scatter
-    alone)."""
+    """K7 against its plain version on points x01 with upstream g; times,
+    bound and the index_add_ yardstick of the precomputed corner
+    contributions (the scatter alone)."""
     P, Lk = x01.shape[0], len(gs.corner_levels)
     p = hash_encode_bwd_plain(x01, g, gs)
     err_abs = max_abs(hash_encode_bwd(x01, g, gs), p)
@@ -2036,6 +2104,160 @@ def check_k13_hard_cases(dev) -> dict:
     return out
 
 
+def k14_hard_inputs(n: int = 45, seed: int = 0) -> dict:
+    """K14's hard lattices, as numpy: name -> (RenderSpec fields, min_near,
+    bitfield [C*H^3], rays_o [n, 3], rays_d [n, 3], u [n] or None);
+    tests/test_torch_march.py holds the plain march against JAX's on the
+    same ones.  Half the rays start inside the box (near = min_near 0.01),
+    half outside it.  At dt_gamma 1/16 the lattice crosses all three
+    regimes of clip(t * dt_gamma, dt_min, dt_max) on one ray: dt_min below
+    t = 16 dt_min (0.055 at L = 1000), geometric steps up to 16 dt_max (3.46
+    at bound 2, H 32) and dt_max past it.  Eval (S = L) and train (S = 64,
+    perturbed) at L = 1000; L = 100 (not a multiple of 32) with S = 1 and 2
+    (a ray fills its slots inside its first window) and S = 128 (eval,
+    slots past L); one cascade (bound 1).  n is not a multiple of the 8
+    rays of a block."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    specs = {"three_regimes_eval": (2.0, 1000, 1000, False),
+             "three_regimes_train": (2.0, 1000, 64, True),
+             "L100_S1": (2.0, 100, 1, True),
+             "L100_S2": (2.0, 100, 2, False),
+             "L100_eval_S128": (2.0, 100, 128, False),
+             "one_cascade": (1.0, 1000, 32, True)}
+    for name, (bnd, L, S, perturb) in specs.items():
+        spec = dict(bound=bnd, grid_size=32, max_steps=L, max_samples=S,
+                    dt_gamma=1.0 / 16.0)
+        C = 1 if bnd <= 1.0 else 2
+        bits = rng.uniform(size=C * 32 ** 3) < 0.3
+        h = n // 2
+        dirs = rng.normal(size=(n, 3))
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        o = np.concatenate([rng.uniform(-0.75 * bnd, 0.75 * bnd, (h, 3)),
+                            -2.6 * bnd * dirs[h:]])
+        d = dirs + rng.normal(scale=0.15, size=(n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        u = rng.uniform(size=n).astype(np.float32) if perturb else None
+        cases[name] = (spec, 0.01, bits, o.astype(np.float32),
+                       d.astype(np.float32), u)
+    return cases
+
+
+def check_k14_hard_cases(dev) -> dict:
+    """K14 on k14_hard_inputs (4099 rays) against march_rays_plain: t, dt,
+    mask and t0 bit-exact, delta_depth within TOL_K14_DD."""
+    out = {}
+    cases = k14_hard_inputs(4099)
+    for name, (spec, min_near, bits, o, d, u) in cases.items():
+        rs = RenderSpec(**spec)
+        bound_ = spec["bound"]
+        aabb = torch.tensor([-bound_] * 3 + [bound_] * 3, device=dev)
+        ot, dt_ = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+        nears, fars = near_far_from_aabb(ot, dt_, aabb, min_near)
+        bt = torch.from_numpy(bits).to(dev)
+        ut = None if u is None else torch.from_numpy(u).to(dev)
+        k = march_rays(bt, ot, dt_, nears, fars, rs, ut)
+        p = march_rays_plain(bt, ot, dt_, nears, fars, rs, ut)
+        exact = all(torch.equal(getattr(k, f), getattr(p, f))
+                    for f in ("t", "dt", "mask", "t0"))
+        err = max_abs(k.delta_depth, p.delta_depth)
+        out[name] = {"exact": exact, "dd_err": err,
+                     "samples": int(k.mask.sum())}
+        log(f"K14 {name} (L {rs.max_steps}, S {rs.max_samples}, {o.shape[0]}"
+            f" rays, {int(k.mask.sum())} samples): t/dt/mask/t0 exact "
+            f"{exact}, delta_depth err {err:.3g}")
+        if not (exact and err <= TOL_K14_DD):
+            raise RuntimeError(f"K14 differs from the plain march on the "
+                               f"{name} case")
+    return out
+
+
+def k5_hard_inputs(n: int = 4101, res=(20, 24, 28), seed: int = 0) -> dict:
+    """K5's hard inputs, as numpy: name -> (planes 3 x [H_i, W_i, R], lines
+    3 x [L_i, R], x [n, 3], g [3, n, R]); tests/test_torch_vm.py holds the
+    plain backward against JAX's VJP on the same ones.  The resolutions
+    are not cubic (a swapped axis shows) and n is ragged.  "one_cell":
+    every sample in one plane cell and one line row of every branch (the
+    worst contention); "zero_rows": every third upstream row zero (K5 skips
+    them); "outside": positions beyond [-1, 1] on every axis (vanishing
+    tent weights, extrapolating lines); "rank5": R = 5 (the scalar
+    instantiation); "long_line": one line of 640 rows at R = 64.  The
+    others have R = 16."""
+    rng = np.random.default_rng(seed)
+    mats, vecs = ((0, 1), (0, 2), (1, 2)), (2, 1, 0)
+
+    def tables(rs, r):
+        planes = [(0.1 * rng.standard_normal((rs[m1], rs[m0], r)))
+                  .astype(np.float32) for m0, m1 in mats]
+        lines = [(0.1 * rng.standard_normal((rs[v], r))).astype(np.float32)
+                 for v in vecs]
+        return planes, lines
+
+    def grad(r):
+        return rng.standard_normal((3, n, r)).astype(np.float32)
+
+    # mid-cell on every axis, for the axis's resolution
+    mid = np.array([2.0 * (r // 3 + 0.5) / (r - 1) - 1.0 for r in res])
+    one = (mid + rng.uniform(-1e-4, 1e-4, (n, 3))).astype(np.float32)
+    uni = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    out_x = rng.uniform(-1.3, 1.3, (n, 3)).astype(np.float32)
+    out_x[:6] = [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0], [-1.3, 0.2, 1.3],
+                 [1.3, -1.3, 0.0], [0.0, 1.2, -1.2], [-1.0 - 2 ** -20, 1.0,
+                                                      0.5]]
+    g_zero = grad(16)
+    g_zero[:, ::3] = 0.0
+    long_res = (res[0], res[1], 640)
+    return {"one_cell": (*tables(res, 16), one, grad(16)),
+            "zero_rows": (*tables(res, 16), uni, g_zero),
+            "outside": (*tables(res, 16), out_x, grad(16)),
+            "rank5": (*tables(res, 5), uni, grad(5)),
+            "long_line": (*tables(long_res, 64), uni, grad(64))}
+
+
+def k5_rel_err(k, p) -> tuple:
+    """(max over the six gradient leaves of max |kernel - plain| / max
+    |plain|, the largest absolute difference)."""
+    pairs = list(zip(k[0] + k[1], p[0] + p[1]))
+    return (max(max_abs(a, b) / float(b.abs().max()) for a, b in pairs),
+            max(max_abs(a, b) for a, b in pairs))
+
+
+def check_k5_hard_cases(dev) -> dict:
+    """K5 on k5_hard_inputs against vm_sample_bwd_plain at TOL_K5_REL, and
+    the "zero_rows" tables one float off 16-byte alignment (the scalar
+    instantiation at R = 16); each case logs the instantiation
+    `k5_variant` picks and must pick the one it was made for."""
+    cases = k5_hard_inputs()
+    want = {"one_cell": "float4", "zero_rows": "float4", "outside": "float4",
+            "rank5": "scalar", "long_line": "float4", "misaligned": "scalar"}
+
+    def shifted(a):
+        buf = torch.zeros(a.size + 1, device=dev)
+        buf[1:] = torch.from_numpy(a).to(dev).reshape(-1)
+        return buf[1:].view(a.shape)
+
+    out = {}
+    for name in want:
+        planes, lines, x, g = cases["zero_rows" if name == "misaligned"
+                                    else name]
+        make = shifted if name == "misaligned" else \
+            (lambda a: torch.from_numpy(a).to(dev))
+        pl, li = [make(a) for a in planes], [make(a) for a in lines]
+        xt, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
+        R = gt.shape[-1]
+        kind, lanes = k5_variant(R, [t.data_ptr() for t in (*pl, *li, gt)])
+        err, abs_err = k5_rel_err(vm_sample_bwd(pl, li, xt, gt),
+                                  vm_sample_bwd_plain(pl, li, xt, gt))
+        out[name] = {"variant": kind, "lanes": lanes, "M": x.shape[0],
+                     "R": R, "err": err, "abs_err": abs_err}
+        log(f"K5 {name}: {kind} instantiation, {lanes} lanes per sample, M "
+            f"{x.shape[0]}, R {R}: rel err {err:.3g}")
+        if not (err <= TOL_K5_REL and kind == want[name]):
+            raise RuntimeError(f"K5 ({name}): {kind} instantiation (want "
+                               f"{want[name]}), rel err {err:.3g}")
+    return out
+
+
 def march_runs(rng, n: int, lo: int = 8, hi: int = 64) -> np.ndarray:
     """n points [n, 3] in [0, 1]^3, ray-major as the compacted stream is:
     runs of lo..hi consecutive samples of random rays at the march's step
@@ -2413,8 +2635,9 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
              library_call="index_add_ of the precomputed corner "
              "contributions (scatter only)", bound=c["bound13"],
              shape=f"{c['points']} polar points x 4 levels")]
-    extra = {"k14_eval": ev, "k14_train": tr, "k12_k13": cases,
-             "k13_hard": hard13}
+    results[0]["shapes"] = {"eval_chunk": ev, "train_batch": tr,
+                            "hard_inputs": check_k14_hard_cases(dev)}
+    extra = {"k12_k13": cases, "k13_hard": hard13}
     return results, extra
 
 
@@ -2946,6 +3169,8 @@ def main(argv=None) -> int:
     results += c_results
     ab_flavors = teacher_step_flavors(tea_ab, scene_ab, "cell teacher")
     ab_distill = distill_step_profile(stu_ab, scene_ab, gen)
+    next(r for r in results if r["name"] == "vm_sample_bwd")["shapes"][
+        "ab_stage3"] = k5_ab_case(stu_ab, scene_ab, gen)
     cell_check = small_teacher_gpu_vs_cpu(spec_kw=SMALL_CELL_TEA)
     b_results, b_extra = check_bake_kernels(tea_ab, gen)
     results += b_results

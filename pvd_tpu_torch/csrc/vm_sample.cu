@@ -48,22 +48,59 @@
 // clamped_base, tent and the __fmul_rn / __fadd_rn order of plane_sample and
 // line_sample, so both give the first design's bits.
 //
-// Backward (K5): with g = dL/dprod, the plane rows receive w_k * vf * g and
-// the line rows (1 - f) * mf * g and f * mf * g, by fp32 atomicAdd into
-// zeroed dense gradients (the sum order varies from run to run).  The
-// plane and line samples are recomputed rather than saved (2 x 100 MB at
-// 131,072 samples).  Positions get no gradient: the JAX package
-// stop-gradients them (vm_field.py:194-202).  Bound: memory; it reads g
-// (100 MB) and writes the dense plane gradients (69 MB at 300^3).  K5's
-// atomics contend on the lines (300 rows per branch, hit by every sample);
-// a per-block pre-sum is the next step if the profile shows it.  K5 keeps
-// the first design (one thread per (branch, sample, channel), one launch
-// per branch) on purpose: its redesign is later work, and its timed row
-// must stay what it measured.
+// Backward (K5), replacing vm_field.py:173 _plane_sample4_bwd and the
+// autodiff of _line_mxu and of mf * vf: with g = dL/dprod, the plane rows
+// receive w_k * vf * g and the line rows (1 - f) * mf * g and f * mf * g,
+// by fp32 atomics into zeroed dense gradients (the sum order varies from
+// run to run).  The plane and line samples are recomputed rather than
+// saved (2 x 100 MB at 131,072 samples).  Positions get no gradient: the
+// JAX package stop-gradients them (vm_field.py:194-202).  Bound on the
+// H100: memory; it reads g (100 MB at 131,072 samples, R = 64) and writes
+// the dense gradients (69 MB at 300^3, zeroed by one fill of one buffer
+// that the six gradients are views of), but what it pays for beyond that
+// is atomics.  The first design had K4's first shape: a thread per
+// (branch, sample, channel), one launch per branch, the corner setup and a
+// run-time idx / R division in every thread, scalar loads, and up to six
+// scalar atomicAdds a thread, ~76 M at 131,072 samples, every valid
+// sample's two line rows landing on one 300 x 64 table per branch; 3.9x
+// its bound.  The design now: one launch for the three branches
+// (blockIdx.y into the Axes<BR> instantiations, as K4) and a group of G
+// lanes per sample, one channel quad a lane (G = R/4 rounded up to a power
+// of two: 16 at R = 64), g read as float4 with a streaming load one sample
+// ahead, a sample whose quad of g is zero skipped (the compacted stream's
+// invalid tail is all zero).  Each group walks a run of K5_RUN consecutive
+// samples: along a ray they share plane cells and line rows, so each lane
+// sums the run's contributions at the current cell's corner vertices in
+// registers, and a vertex's sum is added only when the run leaves it
+// (move_run: moving one cell over keeps the two shared vertices), with one
+// float4 atomicAdd (sm_90's vector atomics, one REDG) per vertex row.  The
+// lanes of one warp hold other samples, so a cross-lane pre-sum (K7's
+// peer_sum) would find few peers.  Without float4 lanes (R % 4 != 0 or an
+// unaligned pointer) the scalar instantiation runs one channel a lane
+// (ops/vm_sample.py k5_variant).  Each contribution is the first design's
+// __fmul_rn product of the same operands; only the order of the sums
+// differs.  Measured and dropped (PERF.md §6): a copy of each
+// branch's line table in shared memory (76.8 KB at L = 300, R = 64, two
+// blocks an SM), flushed once per block with float4 atomics, was slower
+// than the direct float4 atomics at both timed shapes (its shared-memory
+// adds are compare-and-swap loops and every block flushes the whole
+// table); runs of 32 samples in blocks that stride over the stream, and
+// runs of 4 or 16, timed slower than runs of 8.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#define K5_THREADS 256
+#define K5_RUN 8  // consecutive samples one K5 lane group walks
+
+#if defined(__CUDACC_VER_MAJOR__) && \
+    (__CUDACC_VER_MAJOR__ > 12 ||      \
+     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 2))
+#define PVD_VECTOR_ATOMICS 1
+#else
+#define PVD_VECTOR_ATOMICS 0
+#endif
 
 // mirrors pvd_tpu_torch/kernels.py VMTables
 struct VMTables {
@@ -229,37 +266,185 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int BR>
-__global__ void vm_sample_bwd_kernel(const float* __restrict__ plane,
-                                     const float* __restrict__ line, int H,
-                                     int W, int L, float* __restrict__ gpl,
-                                     float* __restrict__ gli,
-                                     const float* __restrict__ xn,
-                                     const float* __restrict__ g, int n,
-                                     int R) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n * R) return;
-  const float gv = g[idx];
-  if (gv == 0.f) return;  // masked-out slots: nothing to add
-  const int s = idx / R;
-  const int ch = idx - s * R;
-  const Corners c = corners<BR>(xn, s, H, W, L);
-  const float gp = __fmul_rn(gv, line_sample(line, c, R, ch));
-  const int r = c.row0;
-  if (c.w[0] != 0.f) atomicAdd(&gpl[r * R + ch], __fmul_rn(c.w[0], gp));
-  if (c.w[1] != 0.f) atomicAdd(&gpl[(r + 1) * R + ch], __fmul_rn(c.w[1], gp));
-  if (c.w[2] != 0.f)
-    atomicAdd(&gpl[(r + c.W) * R + ch], __fmul_rn(c.w[2], gp));
-  if (c.w[3] != 0.f)
-    atomicAdd(&gpl[(r + c.W + 1) * R + ch], __fmul_rn(c.w[3], gp));
-  const float gl = __fmul_rn(gv, plane_sample(plane, c, R, ch));
-  const float w0 = __fsub_rn(1.f, c.lf);
-  if (w0 != 0.f) atomicAdd(&gli[c.lb * R + ch], __fmul_rn(w0, gl));
-  if (c.lf != 0.f) atomicAdd(&gli[(c.lb + 1) * R + ch], __fmul_rn(c.lf, gl));
+// K5: add V floats (a float4 or one float) to a global gradient row; the
+// result is unused, so a float4 add is one fire-and-forget REDG on sm_90
+template <bool V4>
+__device__ __forceinline__ void add_global(float* dst, const float* v) {
+  if constexpr (V4) {
+#if PVD_VECTOR_ATOMICS && defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(v[0], v[1], v[2], v[3]));
+#else
+    for (int j = 0; j < 4; ++j) atomicAdd(dst + j, v[j]);
+#endif
+  } else {
+    atomicAdd(dst, v[0]);
+  }
 }
 
-static unsigned blocks_of(long long n, int R, int threads) {
-  return (unsigned)((n * R + threads - 1) / threads);
+template <int V>
+__device__ __forceinline__ bool any_nonzero(const float (&v)[V]) {
+  bool nz = false;
+#pragma unroll
+  for (int j = 0; j < V; ++j) nz |= v[j] != 0.f;
+  return nz;
+}
+
+// K5: V consecutive floats of a table row through the read-only path, or
+// of g with a streaming load (read once)
+template <bool V4>
+__device__ __forceinline__ void load_row(const float* __restrict__ src,
+                                         float* v) {
+  if constexpr (V4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(src));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = __ldg(src);
+  }
+}
+
+template <bool V4>
+__device__ __forceinline__ void load_stream(const float* __restrict__ src,
+                                            float* v) {
+  if constexpr (V4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(src));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = __ldcs(src);
+  }
+}
+
+// K5: a run's sums at the K corner vertices of a cell.  acc[k] belongs to
+// vertex row row0 + (k & 1) + (k >> 1) * W (a plane cell's 4 corners; a
+// line's rows b, b + 1 with K = 2, W = 1).  Moving to cell nrow, a vertex
+// that is also a corner of nrow keeps its sum, in its new slot; the others
+// are added to dst and leave.  nrow = -1 adds them all.
+template <bool V4, int K, int V>
+__device__ __forceinline__ void move_run(float* __restrict__ dst, int row0,
+                                         int nrow, int W, int R, int ch,
+                                         float (&acc)[K][V]) {
+  if (row0 == nrow) return;
+  float nacc[K][V];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) nacc[k][j] = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int vr = row0 + (k & 1) + (k >> 1) * W;
+    bool kept = false;
+#pragma unroll
+    for (int k2 = 0; k2 < K; ++k2) {
+      if (nrow >= 0 && vr == nrow + (k2 & 1) + (k2 >> 1) * W) {
+        kept = true;
+#pragma unroll
+        for (int j = 0; j < V; ++j) nacc[k2][j] = acc[k][j];
+      }
+    }
+    if (!kept && row0 >= 0 && any_nonzero(acc[k]))
+      add_global<V4>(dst + vr * R + ch, acc[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[k][j] = nacc[k][j];
+}
+
+// K5, branch BR: block b's group `grp` of G lanes walks the K5_RUN
+// consecutive samples from (b * K5_THREADS / G + grp) * K5_RUN; lane `lane`
+// keeps channel unit u = lane, lane + G, ... (a quad with V4, a channel
+// without) and sums the run's contributions at the current plane cell's 4
+// corners and line rows lb, lb + 1 in registers (move_run).
+template <int BR, int G, bool V4>
+__device__ __forceinline__ void vm_bwd_branch(
+    const float* __restrict__ plane, const float* __restrict__ line, int H,
+    int W, int L, float* __restrict__ gpl, float* __restrict__ gli,
+    const float* __restrict__ xn, const float* __restrict__ g, int n,
+    int R) {
+  constexpr int V = V4 ? 4 : 1;
+  const int lane = threadIdx.x % G;
+  const int units = R / V;
+  const int s0 = (blockIdx.x * (K5_THREADS / G) + threadIdx.x / G) * K5_RUN;
+  const int s1 = min(s0 + K5_RUN, n);
+  for (int u = lane; u < units; u += G) {
+    const int ch = u * V;
+    float pacc[4][V], lacc[2][V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      pacc[0][j] = pacc[1][j] = pacc[2][j] = pacc[3][j] = 0.f;
+      lacc[0][j] = lacc[1][j] = 0.f;
+    }
+    int prow = -1, lrow = -1;
+    float gnext[V];
+    if (s0 < s1) load_stream<V4>(g + (long long)s0 * R + ch, gnext);
+    for (int s = s0; s < s1; ++s) {
+      float gv[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) gv[j] = gnext[j];
+      if (s + 1 < s1) load_stream<V4>(g + (long long)(s + 1) * R + ch, gnext);
+      if (!any_nonzero(gv)) continue;  // masked-out slots add nothing
+      const Corners c = corners<BR>(xn, s, H, W, L);
+      move_run<V4>(gpl, prow, c.row0, W, R, ch, pacc);
+      move_run<V4>(gli, lrow, c.lb, 1, R, ch, lacc);
+      prow = c.row0;
+      lrow = c.lb;
+      const int r = c.row0;
+      float pa[V], pb[V], pd[V], pe[V], lu[V], lv[V];
+      load_row<V4>(plane + r * R + ch, pa);
+      load_row<V4>(plane + (r + 1) * R + ch, pb);
+      load_row<V4>(plane + (r + W) * R + ch, pd);
+      load_row<V4>(plane + (r + W + 1) * R + ch, pe);
+      load_row<V4>(line + c.lb * R + ch, lu);
+      load_row<V4>(line + (c.lb + 1) * R + ch, lv);
+      const float w0 = __fsub_rn(1.f, c.lf);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        // the first design's products (line_sample, plane_sample, then
+        // the weights), so each contribution keeps its bits
+        const float ls =
+            __fadd_rn(__fmul_rn(w0, lu[j]), __fmul_rn(c.lf, lv[j]));
+        const float gp = __fmul_rn(gv[j], ls);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (c.w[k] != 0.f)
+            pacc[k][j] = __fadd_rn(pacc[k][j], __fmul_rn(c.w[k], gp));
+        float ps = __fmul_rn(c.w[0], pa[j]);
+        ps = __fadd_rn(ps, __fmul_rn(c.w[1], pb[j]));
+        ps = __fadd_rn(ps, __fmul_rn(c.w[2], pd[j]));
+        ps = __fadd_rn(ps, __fmul_rn(c.w[3], pe[j]));
+        const float gl = __fmul_rn(gv[j], ps);
+        if (w0 != 0.f) lacc[0][j] = __fadd_rn(lacc[0][j], __fmul_rn(w0, gl));
+        if (c.lf != 0.f)
+          lacc[1][j] = __fadd_rn(lacc[1][j], __fmul_rn(c.lf, gl));
+      }
+    }
+    move_run<V4>(gpl, prow, -1, W, R, ch, pacc);
+    move_run<V4>(gli, lrow, -1, 1, R, ch, lacc);
+  }
+}
+
+// K5: one launch for the three branches (blockIdx.y), each instantiation at
+// compile-time table indices; g's branch i starts at g + i * n * R.  Three
+// blocks an SM (at most 85 registers a thread)
+template <int G, bool V4>
+__global__ void __launch_bounds__(K5_THREADS, 3)
+    vm_sample_bwd_kernel(VMTables t, VMTables gr, const float* __restrict__ xn,
+                         const float* __restrict__ g, int n, int R) {
+  const long long span = (long long)n * R;
+  switch (blockIdx.y) {
+    case 0:
+      vm_bwd_branch<0, G, V4>(t.plane[0], t.line[0], t.H[0], t.W[0], t.L[0],
+                              gr.plane[0], gr.line[0], xn, g, n, R);
+      break;
+    case 1:
+      vm_bwd_branch<1, G, V4>(t.plane[1], t.line[1], t.H[1], t.W[1], t.L[1],
+                              gr.plane[1], gr.line[1], xn, g + span, n, R);
+      break;
+    default:
+      vm_bwd_branch<2, G, V4>(t.plane[2], t.line[2], t.H[2], t.W[2], t.L[2],
+                              gr.plane[2], gr.line[2], xn, g + 2 * span, n,
+                              R);
+  }
 }
 
 template <int G, bool V4>
@@ -298,21 +483,41 @@ extern "C" int pvd_vm_sample_fwd(VMTables t, const float* xn, float* out,
               : launch_k4_group<false>(t, xn, out, (int)n, R, lanes, st);
 }
 
+template <int G, bool V4>
+static int launch_k5(const VMTables& t, const VMTables& gr, const float* xn,
+                     const float* g, int n, int R, cudaStream_t st) {
+  const long long per_block = (long long)(K5_THREADS / G) * K5_RUN;
+  const dim3 grid((unsigned)((n + per_block - 1) / per_block), 3);
+  vm_sample_bwd_kernel<G, V4><<<grid, K5_THREADS, 0, st>>>(t, gr, xn, g, n,
+                                                          R);
+  return (int)cudaGetLastError();
+}
+
+template <bool V4>
+static int launch_k5_group(const VMTables& t, const VMTables& gr,
+                           const float* xn, const float* g, int n, int R,
+                           int group, cudaStream_t st) {
+  switch (group) {
+    case 1: return launch_k5<1, V4>(t, gr, xn, g, n, R, st);
+    case 2: return launch_k5<2, V4>(t, gr, xn, g, n, R, st);
+    case 4: return launch_k5<4, V4>(t, gr, xn, g, n, R, st);
+    case 8: return launch_k5<8, V4>(t, gr, xn, g, n, R, st);
+    case 16: return launch_k5<16, V4>(t, gr, xn, g, n, R, st);
+    case 32: return launch_k5<32, V4>(t, gr, xn, g, n, R, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K5: grad's tables zeroed; vec4 = 1 takes the float4 instantiation (the
+// wrapper has checked R % 4 and every pointer's alignment); `lanes` per
+// (sample, branch), a power of two up to 32, is the wrapper's pick
+// (ops/vm_sample.py k5_variant)
 extern "C" int pvd_vm_sample_bwd(VMTables t, VMTables grad, const float* xn,
                                  const float* g, long long n, int R,
-                                 void* stream) {
+                                 int vec4, int lanes, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256, m = (int)n;
-  const unsigned b = blocks_of(n, R, threads);
+  if (vec4 && R % 4) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  vm_sample_bwd_kernel<0><<<b, threads, 0, st>>>(
-      t.plane[0], t.line[0], t.H[0], t.W[0], t.L[0], grad.plane[0],
-      grad.line[0], xn, g, m, R);
-  vm_sample_bwd_kernel<1><<<b, threads, 0, st>>>(
-      t.plane[1], t.line[1], t.H[1], t.W[1], t.L[1], grad.plane[1],
-      grad.line[1], xn, g + n * R, m, R);
-  vm_sample_bwd_kernel<2><<<b, threads, 0, st>>>(
-      t.plane[2], t.line[2], t.H[2], t.W[2], t.L[2], grad.plane[2],
-      grad.line[2], xn, g + 2 * n * R, m, R);
-  return (int)cudaGetLastError();
+  return vec4 ? launch_k5_group<true>(t, grad, xn, g, (int)n, R, lanes, st)
+              : launch_k5_group<false>(t, grad, xn, g, (int)n, R, lanes, st);
 }

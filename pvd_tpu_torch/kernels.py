@@ -137,9 +137,10 @@ _SIGNATURES = {
     # sample, stream
     "pvd_vm_sample_fwd": (VMTables, _P, _P, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, _P),
-    # tables, grads (zeroed), xn, g [3, n, R], n, R, stream
+    # tables, grads (zeroed), xn, g [3, n, R], n, R, vec4 (float4 lanes),
+    # lanes per sample, stream
     "pvd_vm_sample_bwd": (VMTables, VMTables, _P, _P, ctypes.c_longlong,
-                          ctypes.c_int, _P),
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
 }
 
 

@@ -14,9 +14,9 @@ positions xn [M, 3] in [-1, 1]:
 `vm_sample` runs kernels K4 (forward) and K5 (backward, `csrc/vm_sample.cu`)
 on CUDA tensors through an autograd Function, and `vm_sample_plain` on CPU
 tensors, where autograd differentiates the gathers.  Positions carry no
-gradient (the JAX package stop-gradients them).  K4 has a float4 and a
-scalar instantiation; `k4_variant` picks one by the rank and the tables'
-alignment.
+gradient (the JAX package stop-gradients them).  K4 and K5 have a float4
+and a scalar instantiation; `k4_variant` and `k5_variant` pick one by the
+rank and the pointers' alignment.
 """
 
 from __future__ import annotations
@@ -112,18 +112,45 @@ def _tables(planes, lines) -> kernels.VMTables:
     return t
 
 
-def k4_variant(R: int, ptrs) -> tuple:
-    """K4's instantiation for rank R and the tables' addresses `ptrs`:
-    ("float4", lanes) when R % 4 == 0 and every table is 16-byte aligned,
-    else ("scalar", lanes); lanes per (sample, branch) is R / 8 (float4,
-    two channel quads a lane) or R, rounded up to a power of two, at most
-    32 (csrc/vm_sample.cu)."""
+def _variant(R: int, ptrs, per_lane: int) -> tuple:
+    """("float4", lanes) when R % 4 == 0 and every address in `ptrs` is
+    16-byte aligned, else ("scalar", lanes); lanes per (sample, branch) is
+    R / per_lane channels (float4) or R (scalar), rounded up to a power of
+    two, at most 32."""
     vec4 = R % 4 == 0 and all(p % 16 == 0 for p in ptrs)
-    per_lane = 8 if vec4 else 1
+    per_lane = per_lane if vec4 else 1
     lanes = 1
     while lanes * per_lane < R and lanes < 32:
         lanes *= 2
     return ("float4" if vec4 else "scalar"), lanes
+
+
+def k4_variant(R: int, ptrs) -> tuple:
+    """K4's instantiation for rank R and the tables' addresses `ptrs`:
+    float4 lanes cover two channel quads each (R / 8 lanes), scalar lanes
+    one channel (`_variant`, csrc/vm_sample.cu)."""
+    return _variant(R, ptrs, 8)
+
+
+def k5_variant(R: int, ptrs) -> tuple:
+    """K5's instantiation for rank R and the addresses `ptrs` of every
+    table, gradient and g: float4 lanes cover one channel quad each (R / 4
+    lanes), scalar lanes one channel (`_variant`, csrc/vm_sample.cu)."""
+    return _variant(R, ptrs, 4)
+
+
+def grad_buffers(planes, lines):
+    """Zeroed gradients shaped as planes and lines: views of one buffer,
+    one fill for the six, each starting on a 16-byte boundary."""
+    tables = (*planes, *lines)
+    offsets, total = [], 0
+    for t in tables:
+        offsets.append(total)
+        total += -(-t.numel() // 4) * 4
+    buf = torch.zeros(total, dtype=planes[0].dtype, device=planes[0].device)
+    views = [buf[o:o + t.numel()].view(t.shape)
+             for o, t in zip(offsets, tables)]
+    return views[:3], views[3:]
 
 
 def vm_sample_fwd(planes, lines, xn):
@@ -151,7 +178,9 @@ vm_sample_fwd.launches = 0
 
 def vm_sample_bwd(planes, lines, xn, g):
     """(plane grads, line grads) for the upstream gradient g [3, M, R]: K5
-    on CUDA tensors (fp32 atomics), the plain version on CPU tensors."""
+    on CUDA tensors (fp32 atomics; the instantiation `k5_variant` picks;
+    the six gradients are views of one buffer, `grad_buffers`), the plain
+    version on CPU tensors."""
     if xn.device.type == "cpu":
         return vm_sample_bwd_plain(planes, lines, xn, g)
     dev, R = _check("vm_sample_bwd", planes, lines, xn)
@@ -159,12 +188,14 @@ def vm_sample_bwd(planes, lines, xn, g):
     if g.dtype != torch.float32 or tuple(g.shape) != (3, M, R):
         raise ValueError(f"vm_sample_bwd: g must be float32 [3, {M}, {R}]")
     g = g.contiguous()
-    g_planes = [torch.zeros_like(p) for p in planes]
-    g_lines = [torch.zeros_like(v) for v in lines]
+    g_planes, g_lines = grad_buffers(planes, lines)
+    kind, lanes = k5_variant(
+        R, [t.data_ptr() for t in (*planes, *lines, *g_planes, *g_lines, g)])
     with torch.cuda.device(dev):
         kernels.launch("pvd_vm_sample_bwd", _tables(planes, lines),
                        _tables(g_planes, g_lines), xn.data_ptr(),
-                       g.data_ptr(), M, R, kernels.stream_ptr(xn))
+                       g.data_ptr(), M, R, int(kind == "float4"), lanes,
+                       kernels.stream_ptr(xn))
     vm_sample_bwd.launches += 1
     return g_planes, g_lines
 

@@ -8,7 +8,9 @@ whose serial recurrence t += clip(t * dt_gamma, dt_min, dt_max) the port
 runs in the same f32 ops).  The geometric march also matches the
 reference-DDA oracles of tests/test_renderer.py (t within 1e-5, the sample
 counts exactly), and `render_rays` with a background model matches JAX's
-on the padded and the compacted paths.
+on the padded and the compacted paths.  K14's hard lattices
+(`chip_smoke.k14_hard_inputs`, which the card holds K14 to) go through
+both packages' plain marches too.
 """
 
 import dataclasses
@@ -30,8 +32,10 @@ from pvd_tpu.render.renderer import march_rays as j_march
 from pvd_tpu.render.renderer import render_rays as j_render_rays
 from pvd_tpu_torch.config import ModelSpec, RenderSpec
 from pvd_tpu_torch.params import hash_field_from_jax, occupancy_from_jax
-from pvd_tpu_torch.render.renderer import (compact_samples, march_rays,
+from pvd_tpu_torch.render.renderer import (compact_samples, dt_max_of,
+                                           dt_min_of, march_rays,
                                            render_rays)
+from chip_smoke import k14_hard_inputs
 from test_renderer import oracle_march_dda_gamma, oracle_march_dda_mip
 from test_torch_background import bg_grad_atol
 
@@ -168,6 +172,42 @@ def test_march_geometric_matches_reference_dda(bound, mode):
                                        atol=ORACLE_TOL)
             checked += 1
     assert checked >= 24
+
+
+K14_CASES = k14_hard_inputs()
+
+
+@pytest.mark.parametrize("name", sorted(K14_CASES))
+def test_march_plain_matches_jax_on_k14_hard_inputs(name):
+    """The plain march against JAX's plain-lattice march_rays on K14's hard
+    lattices: dt_gamma 1/16 with rays that start inside the box, so one
+    ray crosses the dt_min clamp, the geometric steps and the dt_max clamp
+    (each regime is asserted where the case is made for it); L = 100 (not
+    a multiple of 32) with S = 1, 2 and 128 > L; one cascade; 45 rays (not
+    a multiple of a block's 8).  t, dt, mask, t0 exact, delta_depth within
+    DD_TOL.  A perturbed case draws u from a JAX key, as JAX's march
+    does."""
+    spec, min_near, bitfield, o, d, u = K14_CASES[name]
+    rspec_j, rspec_t = JRenderSpec(**spec), RenderSpec(**spec)
+    bound = spec["bound"]
+    aabb = jnp.array([-bound] * 3 + [bound] * 3, jnp.float32)
+    nears, fars = (np.asarray(a) for a in j_near_far(o, d, aabb, min_near))
+    key = None if u is None else jax.random.PRNGKey(17)
+    u = None if key is None else np.asarray(
+        jax.random.uniform(key, (o.shape[0],)))
+    sj = jax.jit(lambda *a: j_march(*a, rspec_j, key))(
+        jnp.asarray(bitfield), o, d, nears, fars)
+    st = _torch_march(rspec_t, bitfield, o, d, nears, fars, u)
+    _assert_same(sj, st)
+    assert st.mask.sum() >= min(rspec_t.max_samples, 8) * 8
+    if name.startswith("three_regimes") or name == "one_cascade":
+        dts = st.dt.numpy()[st.mask.numpy()]
+        lo, hi = dt_min_of(rspec_t), dt_max_of(rspec_t)
+        assert (dts == np.float32(lo)).any() and (dts == np.float32(hi)).any()
+        assert ((dts > lo) & (dts < hi)).any()
+    if spec["max_samples"] < spec["max_steps"]:  # train: prefixes
+        m = st.mask.numpy()
+        assert (m[:, :-1] | ~m[:, 1:]).all()
 
 
 @pytest.mark.parametrize("prefix", [True, False])

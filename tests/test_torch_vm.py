@@ -1,6 +1,8 @@
 """pvd_tpu_torch's VM field against the JAX package (CPU): forward,
 density, the L1 regularizer, parameter gradients and the plain plane x line
-sample, at a non-cubic resolution so that a swapped axis fails."""
+sample and its backward (on K5's hard inputs, `chip_smoke.k5_hard_inputs`,
+which the card holds K5 to), at non-cubic resolutions so that a swapped
+axis fails."""
 
 import jax
 import jax.numpy as jnp
@@ -11,8 +13,11 @@ import torch
 from pvd_tpu.config import ModelSpec as JModelSpec
 from pvd_tpu.models import vm_field as j_vm
 from pvd_tpu_torch.config import ModelSpec
-from pvd_tpu_torch.ops.vm_sample import k4_variant, vm_sample_plain
+from pvd_tpu_torch.ops.vm_sample import (grad_buffers, k4_variant,
+                                         k5_variant, vm_sample_bwd_plain,
+                                         vm_sample_plain)
 from pvd_tpu_torch.params import vm_field_from_jax, vm_tree_from_field
+from chip_smoke import k5_hard_inputs
 
 torch.set_num_threads(1)
 
@@ -20,6 +25,13 @@ torch.set_num_threads(1)
 FWD_TOL = 1e-5
 # gradients: scatter-adds of the same terms in another order
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+# K5's reference: the plain backward's scatter-adds and JAX's VJP (the
+# custom _plane_sample4_bwd scatter and the one-hot matmul's transpose)
+# sum the same f32 products in other orders; 1e-6 of each leaf's max |g|,
+# and 1e-5 where every sample lands on the same rows ("one_cell": 4101
+# random-sign terms a row, whose sums in two orders drift apart by ~sqrt(n)
+# roundings of 2^-24, ~4e-6 of the sum)
+K5_GRAD_REL, K5_ONE_CELL_REL = 1e-6, 1e-5
 
 RES = (20, 24, 28)
 SPEC_KW = dict(model_type="vm", vm_sigma_rank=4, vm_color_rank=12,
@@ -212,3 +224,100 @@ def test_k4_variant_picks_by_rank_and_alignment():
     assert k4_variant(5, aligned) == ("scalar", 8)
     assert k4_variant(3, aligned) == ("scalar", 4)
     assert k4_variant(1, aligned) == ("scalar", 1)
+
+
+
+def test_k5_variant_picks_by_rank_and_alignment():
+    """K5's float4 lanes need R % 4 == 0 and 16-byte aligned tables,
+    gradients and g; the lanes per sample are R / 4 (float4, one quad a
+    lane) or R, to a power of two, <= 32."""
+    aligned = [0, 16, 4096]
+    assert k5_variant(64, aligned) == ("float4", 16)
+    assert k5_variant(16, aligned) == ("float4", 4)
+    assert k5_variant(48, aligned) == ("float4", 16)
+    assert k5_variant(4, aligned) == ("float4", 1)
+    assert k5_variant(200, aligned) == ("float4", 32)
+    assert k5_variant(64, aligned + [4]) == ("scalar", 32)
+    assert k5_variant(5, aligned) == ("scalar", 8)
+    assert k5_variant(1, aligned) == ("scalar", 1)
+
+
+def test_grad_buffers_are_zeroed_aligned_views_of_one_buffer():
+    """K5's six gradients: zero, shaped as the tables, disjoint views of
+    one buffer, each starting on a 16-byte boundary (K5's float4 atomics),
+    at ranks whose tables are not whole quads."""
+    for rank in (5, 16):
+        planes = [torch.ones(h, w, rank) for h, w in ((3, 5), (7, 2), (4, 4))]
+        lines = [torch.ones(n, rank) for n in (3, 9, 2)]
+        g_planes, g_lines = grad_buffers(planes, lines)
+        views = g_planes + g_lines
+        base = views[0].untyped_storage().data_ptr()
+        ends = []
+        for v, t in zip(views, planes + lines):
+            assert v.shape == t.shape and v.is_contiguous()
+            assert not v.any() and v.untyped_storage().data_ptr() == base
+            assert v.storage_offset() % 4 == 0
+            ends.append((v.storage_offset(), v.storage_offset() + v.numel()))
+        for (_, end), (start, _) in zip(ends, ends[1:]):
+            assert end <= start
+
+K5_CASES = k5_hard_inputs()
+
+
+def _cells(x, res):
+    """Per branch, the plane cells and line rows of positions x (numpy, the
+    plain version's floor / clip)."""
+    out = []
+    for i in range(3):
+        m0, m1 = j_vm.MAT_IDS[i]
+        v = j_vm.VEC_IDS[i]
+        bx, by, bz = (np.clip(np.floor((x[:, a] + 1.0) * 0.5 * (res[a] - 1)),
+                              0, res[a] - 2) for a in (m0, m1, v))
+        out.append((by * res[m0] + bx, bz))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(K5_CASES))
+def test_plain_backward_matches_jax_vjp_on_k5_hard_inputs(name):
+    """vm_sample_bwd_plain (K5's reference on the card) against jax.vjp of
+    _plane_packed_mxu * _line_mxu per branch, on K5's hard inputs: every
+    sample in one plane cell and line row, every third upstream row zero,
+    positions beyond [-1, 1] on every axis, rank 5 (and 16 and 64
+    elsewhere), a 640-row line; 4101 samples, non-cubic resolutions."""
+    planes, lines, x, g = K5_CASES[name]
+    res = (planes[0].shape[1], planes[0].shape[0], lines[0].shape[0])
+    if name == "one_cell":
+        for cell, row in _cells(x, res):
+            assert len(np.unique(cell)) == 1 and len(np.unique(row)) == 1
+    if name == "outside":
+        for a in range(3):
+            assert (x[:, a] < -1).any() and (x[:, a] > 1).any()
+    if name == "zero_rows":
+        assert not g[:, ::3].any() and np.abs(g[:, 1::3]).min(1).all()
+    got_p, got_l = vm_sample_bwd_plain(
+        [torch.from_numpy(a) for a in planes],
+        [torch.from_numpy(a) for a in lines], torch.from_numpy(x),
+        torch.from_numpy(g))
+    xn = jnp.asarray(x)
+    for i in range(3):
+        m0, m1 = j_vm.MAT_IDS[i]
+        v = j_vm.VEC_IDS[i]
+
+        def sample(mat, vec):
+            H, W, _ = mat.shape
+            px = (xn[:, m0] + 1.0) * 0.5 * (W - 1)
+            py = (xn[:, m1] + 1.0) * 0.5 * (H - 1)
+            pz = (xn[:, v] + 1.0) * 0.5 * (vec.shape[0] - 1)
+            return j_vm._plane_packed_mxu(mat, px, py) * j_vm._line_mxu(vec,
+                                                                        pz)
+
+        _, vjp = jax.vjp(sample, jnp.asarray(planes[i]),
+                         jnp.asarray(lines[i]))
+        want_p, want_l = (np.asarray(w) for w in vjp(jnp.asarray(g[i])))
+        for got, want, leaf in ((got_p[i], want_p, "plane"),
+                                (got_l[i], want_l, "line")):
+            scale = np.abs(want).max()
+            assert scale > 0, (name, i, leaf)
+            err = np.abs(got.numpy() - want).max() / scale
+            tol = K5_ONE_CELL_REL if name == "one_cell" else K5_GRAD_REL
+            assert err <= tol, (name, i, leaf, err)
