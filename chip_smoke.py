@@ -30,9 +30,11 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    rows, tables off 16-byte alignment; logging the
    instantiation `k5_variant` picks) and its zero fill alone; K3 also at the
    serving ladder's 16x rung (256
-   slots per ray) and on its hard inputs (`k3_hard_inputs`), K1 also on
-   the serving chunk's compacted points (with an F.embedding_bag
-   yardstick), K7 on its hard inputs (`k7_hard_inputs`); holds
+   slots per ray) and on its hard inputs (`k3_hard_inputs`), K1 at the
+   sweep's points and on the serving chunk's compacted points (each with
+   an F.embedding_bag yardstick) and on its hard inputs
+   (`k1_hard_inputs`), K2 on its hard lattices (`k2_hard_inputs`), K7 on
+   its hard inputs (`k7_hard_inputs`); holds
    one distill step on the GPU against the same step on the CPU (plain) at
    test sizes; and checks that 10 stage-3 steps on a fixed batch lower the
    loss.
@@ -42,8 +44,10 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    then the compacted path; its checkpoints go to a temporary workspace),
    evaluates the 3 test views with `Trainer.evaluate` and fails below
    25 dB test PSNR.  Then holds K7 (table gradient), K8 and K9 (padded
-   composite) against their plain versions on inputs from that run, K1 and
-   K3 at its compacted shape, profiles one padded and one compacted teacher
+   composite) against their plain versions on inputs from that run, K1 at
+   its padded and compacted shapes, K2 at its training batch (8192 rays
+   into 96 slots, perturbed), K3 at its compacted shape, profiles one
+   padded and one compacted teacher
    step, and holds one small teacher step (padded and compacted) on the
    GPU against the CPU plain step.
 6. Runs the JAX package's quality A/B recipe (tools/quality_ab.py) through
@@ -57,8 +61,10 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    (teacher), 27.5 dB (student) or more than 1.0 dB under the teacher.
    Then holds K10 and K11 against their plain versions on the cell
    teacher's padded and compacted batches, K7 and K1 on the compacted
-   batch's corner levels (0-4) and K5 on a stage-3 batch of the student
-   (4096 rays, 24,576 slots), profiles one compacted teacher
+   batch's corner levels (0-4); on a stage-3 batch of the student (4096
+   rays marched into 64 slots, 24,576 compacted) K2, K5 (with its
+   F.grid_sample yardstick) and K15 on the baked teacher's points;
+   profiles one compacted teacher
    step and one stage-3 distill step, and holds one small cell-mode
    teacher step (padded and compacted) on the GPU against the CPU.
 7. Runs the large-scene configuration (bench.py:376-380's cascade config
@@ -633,25 +639,14 @@ def path_inputs(cfg, spec_stu, state, pose, intr, gen):
     return xn, c, comp
 
 
-def check_vm_kernels(state, xn, compact, gen) -> list:
-    """K4 and K5 against their plain versions on the path's samples."""
+def vm_library(planes, xn, gen) -> tuple:
+    """K4's and K5's library yardsticks on samples xn: F.grid_sample
+    (align_corners, zeros) of the three planes computes the plane half of
+    K4, and its backward (with random upstream gradients) the plane half
+    of K5.  Returns the two calls."""
     import torch.nn.functional as F
 
-    planes = [p.detach() for p in state.field.planes]
-    lines = [v.detach() for v in state.field.lines]
     M, R = xn.shape[0], planes[0].shape[-1]
-    kind, lanes = k4_variant(R, [t.data_ptr() for t in (*planes, *lines)])
-    k4 = vm_sample_fwd(planes, lines, xn)
-    p4 = vm_sample_plain(planes, lines, xn)
-    err4 = max_abs(k4, p4)
-    log(f"K4 on the path: {kind} instantiation, {lanes} lanes per sample, "
-        f"M {M}, R {R}, one launch for the three branches")
-    cases4 = k4_cases(planes, lines, xn, gen)
-    k5 = k5_case(planes, lines, xn, compact.valid, gen)
-    b4 = bound(M * 12 + k5["touched_rows"] * R * 4 + 3 * M * R * 4,
-               3 * M * R * 14)
-    # library yardstick: F.grid_sample (align_corners, zeros) computes the
-    # plane half of K4; its backward the plane half of K5
     ims = [p.permute(2, 0, 1)[None].contiguous() for p in planes]
     grids = [xn[:, [m0, m1]][None, None].contiguous()
              for m0, m1 in ((0, 1), (0, 2), (1, 2))]
@@ -671,6 +666,25 @@ def check_vm_kernels(state, xn, compact, gen) -> list:
                 for im, gr in zip(ims_g, grids)]
         return torch.autograd.grad(outs, ims_g, g_lib)
 
+    return lib_fwd, lib_bwd
+
+
+def check_vm_kernels(state, xn, compact, gen) -> list:
+    """K4 and K5 against their plain versions on the path's samples."""
+    planes = [p.detach() for p in state.field.planes]
+    lines = [v.detach() for v in state.field.lines]
+    M, R = xn.shape[0], planes[0].shape[-1]
+    kind, lanes = k4_variant(R, [t.data_ptr() for t in (*planes, *lines)])
+    k4 = vm_sample_fwd(planes, lines, xn)
+    p4 = vm_sample_plain(planes, lines, xn)
+    err4 = max_abs(k4, p4)
+    log(f"K4 on the path: {kind} instantiation, {lanes} lanes per sample, "
+        f"M {M}, R {R}, one launch for the three branches")
+    cases4 = k4_cases(planes, lines, xn, gen)
+    k5 = k5_case(planes, lines, xn, compact.valid, gen)
+    b4 = bound(M * 12 + k5["touched_rows"] * R * 4 + 3 * M * R * 4,
+               3 * M * R * 14)
+    lib_fwd, lib_bwd = vm_library(planes, xn, gen)
     return [
         dict(name="vm_sample_fwd", source="pvd_tpu_torch/csrc/vm_sample.cu",
              replaces="pvd_tpu/models/vm_field.py:160", err=err4,
@@ -757,10 +771,14 @@ def student_samples(field, spec, rspec, occ, o, d, u):
     return normalize(xyz, occ.aabb_train).contiguous(), out, xyz
 
 
-def k5_ab_case(stu, scene, gen) -> dict:
-    """K5 at the A/B recipe's stage-3 batch: 4096 rays of one random pose,
-    marched on the teacher's grid and compacted to the student's budget
-    (6 samples a ray: 24,576 slots), with the trained student's tables."""
+def ab_batch_cases(stu, scene, gen) -> dict:
+    """Kernels at the A/B recipe's stage-3 batch: 4096 rays of one random
+    pose, marched (train mode, 64 slots, perturbed) on the teacher's grid
+    and compacted to the student's budget (6 samples a ray: 24,576 slots).
+    K2 on that march ("k2"); K5 with the trained student's tables and its
+    F.grid_sample yardstick ("k5"); K15 on the teacher's points of those
+    slots, with the A/B teacher baked, as a baked distill step replays
+    them ("k15")."""
     train = scene["train"]
     dev = stu.device
     intr = tuple(float(v) for v in train.intrinsics)
@@ -773,12 +791,25 @@ def k5_ab_case(stu, scene, gen) -> dict:
     o = rays["rays_o"][0].contiguous()
     d = rays["rays_d"][0].contiguous()
     u = torch.rand(n, generator=gen, device=dev)
-    xn, out, _ = student_samples(stu.state.field, stu.spec_stu, stu.rspec,
-                                 stu.occ_tea, o, d, u)
+    rs, occ = stu.rspec, stu.occ_tea
+    nears, fars = near_far_from_aabb(o, d, occ.aabb_train, rs.min_near)
+    k2 = march_case(occ.bitfield, o, d, nears, fars, rs, u)
+    log_march("K2", "A/B distill batch", k2)
+    xn, out, xyz = student_samples(stu.state.field, stu.spec_stu, rs, occ,
+                                   o, d, u)
     field = stu.state.field
-    return k5_case([p.detach() for p in field.planes],
-                   [v.detach() for v in field.lines], xn,
-                   out["compact"].valid, gen)
+    planes = [p.detach() for p in field.planes]
+    k5 = k5_case(planes, [v.detach() for v in field.lines], xn,
+                 out["compact"].valid, gen)
+    k5["library_ms"] = cuda_ms(vm_library(planes, xn, gen)[1])
+    log(f"K5 A/B batch: F.grid_sample fwd+bwd x3 {k5['library_ms']:.4f} ms")
+    tea = stu.teacher
+    b = rs.bound
+    x01 = ((xyz + b) / (2.0 * b)).contiguous()
+    k15 = bake_case(tea.encoder.detach(), tea.grid, gen, x01.shape[0],
+                    tea.encoder_cell.detach(), x01=x01)
+    log_k15("A/B distill batch", k15)
+    return {"k2": k2, "k5": k5, "k15": k15}
 
 
 def k4_cases(planes, lines, xn, gen) -> dict:
@@ -1071,9 +1102,10 @@ def drive_teacher(seed: int, workspace: str) -> tuple:
     return trainer, scene, info
 
 
-def teacher_batch(trainer, scene, gen, rspec):
-    """One batch of the teacher path on the trained grid: 8192 pixels of
-    training view 0, marched (perturbed) with `rspec`."""
+def teacher_rays(trainer, scene, gen, rspec):
+    """One batch of the teacher path's rays: 8192 pixels of training view
+    0, their near/far on the training box and the march's perturbation u
+    (rays_o, rays_d, nears, fars, u)."""
     train = scene["train"]
     dev = trainer.device
     cfg = trainer.cfg
@@ -1084,10 +1116,18 @@ def teacher_batch(trainer, scene, gen, rspec):
     rays = get_rays(pose[None], intr, train.H, train.W, inds)
     o = rays["rays_o"][0].contiguous()
     d = rays["rays_d"][0].contiguous()
-    occ = trainer.state.occ
-    nears, fars = near_far_from_aabb(o, d, occ.aabb_train, rspec.min_near)
+    nears, fars = near_far_from_aabb(o, d, trainer.state.occ.aabb_train,
+                                     rspec.min_near)
     u = torch.rand(cfg.num_rays, generator=gen, device=dev)
-    samples = march_rays(occ.bitfield, o, d, nears, fars, rspec, u)
+    return o, d, nears, fars, u
+
+
+def teacher_batch(trainer, scene, gen, rspec):
+    """One batch of the teacher path on the trained grid: `teacher_rays`,
+    marched (perturbed) with `rspec`."""
+    o, d, nears, fars, u = teacher_rays(trainer, scene, gen, rspec)
+    samples = march_rays(trainer.state.occ.bitfield, o, d, nears, fars,
+                         rspec, u)
     return o, d, samples
 
 
@@ -1135,24 +1175,34 @@ def log_k7(label: str, c: dict):
 
 
 def check_teacher_kernels(trainer, scene, gen) -> tuple:
-    """K7 at the padded and compacted shapes, K1 and K3 (no early stop)
-    at the compacted shape, K8 (with and without early stop) and K9 at the
-    padded shape, on the trained field's samples."""
+    """K7 at the padded and compacted shapes, K1 at both, K2 in train mode
+    at the batch, K3 (no early stop) at the compacted shape, K8 (with and
+    without early stop) and K9 at the padded shape, on the trained field's
+    samples."""
     field = trainer.state.field
     gs = field.grid
     table = field.encoder.detach()
     b = trainer.rspec.bound
     dev = trainer.device
+    extra = {}
     # the warm-up's padded shape, and the compacted path's after autotune
     rs_pad = dataclasses.replace(trainer.rspec,
                                  max_samples=trainer.cfg.max_samples,
                                  samples_per_ray=0.0)
-    o, d, s = teacher_batch(trainer, scene, gen, rs_pad)
+    o, d, nears, fars, u = teacher_rays(trainer, scene, gen, rs_pad)
+    bits = trainer.state.occ.bitfield
+    s = march_rays(bits, o, d, nears, fars, rs_pad, u)
     N, S = s.mask.shape
     xyz = fma32(s.t[..., None], d[:, None, :], o[:, None, :]).clamp(-b, b)
     x01_pad = ((xyz.reshape(-1, 3) + b) / (2.0 * b)).contiguous()
     g_pad = torch.randn(N * S, gs.output_dim, generator=gen, device=dev) \
         * s.mask.reshape(-1, 1)
+    # K2 in train mode at this batch (every teacher step's march), and K1
+    # on the padded warm-up's points (all N * S slots are encoded)
+    extra["k2_train"] = march_case(bits, o, d, nears, fars, rs_pad, u)
+    log_march("K2", "exact teacher, train batch", extra["k2_train"])
+    extra["k1_padded"] = k1_case(table, x01_pad, gs)
+    log_k1("exact teacher, padded", extra["k1_padded"])
     rs_c = trainer.rspec
     _, _, s_c = teacher_batch(trainer, scene, gen, rs_c)
     budget = rs_c.sample_budget(trainer.cfg.num_rays)
@@ -1164,7 +1214,7 @@ def check_teacher_kernels(trainer, scene, gen) -> tuple:
     g_c = torch.randn(budget, gs.output_dim, generator=gen, device=dev) \
         * cmp.valid[:, None]
 
-    results, extra = [], {}
+    results = []
     k7p = k7_case(x01_pad, g_pad, gs, library=False)
     extra["hash_encode_bwd_padded"] = k7p
     log_k7("exact teacher, padded", k7p)
@@ -1709,18 +1759,20 @@ def drive_distill_cli(seed: int, workspace: str, best: str,
     return info
 
 
-def bake_case(table, gs, gen, n: int, cell=None) -> dict:
+def bake_case(table, gs, gen, n: int, cell=None, x01=None) -> dict:
     """K15 against its plain version on n points of [0, 1]^3 (corners,
-    faces, next to the far faces and outside included) from `table`'s bake,
-    and the whole baked encode (K15 + K10) against the plain one."""
+    faces, next to the far faces and outside included; or the n points
+    x01) from `table`'s bake, and the whole baked encode (K15 + K10)
+    against the plain one."""
     dev = table.device
     baked = build_baked_dense(table, gs)
-    x01 = torch.rand(n, 3, generator=gen, device=dev)
-    e = 1.0 - 2.0 ** -24
-    x01[:12] = torch.tensor(
-        [[0, 0, 0], [1, 1, 1], [0, 1, .5], [1, 0, 1], [1, 1, .3], [e, e, e],
-         [1, e, 0], [.55, 1, e], [-1e-3, .5, .5], [.5, 1.001, .5],
-         [.6, .55, -1], [1, 1, 1 + 1e-6]], device=dev)
+    if x01 is None:
+        x01 = torch.rand(n, 3, generator=gen, device=dev)
+        e = 1.0 - 2.0 ** -24
+        x01[:12] = torch.tensor(
+            [[0, 0, 0], [1, 1, 1], [0, 1, .5], [1, 0, 1], [1, 1, .3],
+             [e, e, e], [1, e, 0], [.55, 1, e], [-1e-3, .5, .5],
+             [.5, 1.001, .5], [.6, .55, -1], [1, 1, 1 + 1e-6]], device=dev)
     Ld = len(gs.dense_levels)
     cols = [2 * lv + c for lv in gs.dense_levels for c in (0, 1)]
     out = torch.zeros(n, gs.output_dim, device=dev)
@@ -1763,6 +1815,20 @@ def bake_case(table, gs, gen, n: int, cell=None) -> dict:
                                                          out),
                            lambda: hash_encode_baked_plain(baked, x01, gs)),
             "lib15_ms": cuda_ms(lib), "lib15_abs_err": lib_err}
+
+
+def log_k15(label: str, c: dict):
+    """Log one bake_case's K15; raise above TOL_K15_REL."""
+    log(f"K15 {label} (side {c['side']}, {c['dense_levels']} dense levels, "
+        f"{c['touched_rows']} vertex rows touched): rel err "
+        f"{c['err15']:.3g}, {c['t15']['ms']:.4f} ms (call "
+        f"{c['t15']['call_ms']:.4f}, plain {c['t15']['plain_ms']:.4f}, "
+        f"F.grid_sample {c['lib15_ms']:.4f} [max diff "
+        f"{c['lib15_abs_err']:.3g}], bound {c['bound15'][0]:.4f} "
+        f"{c['bound15'][1]})")
+    if not c["err15"] <= TOL_K15_REL:
+        raise RuntimeError(f"K15 disagrees with its plain version "
+                           f"({label})")
 
 
 def check_bake_kernels(tea, gen) -> tuple:
@@ -1811,16 +1877,7 @@ def check_bake_kernels(tea, gen) -> tuple:
         for n in BAKE_POINTS:
             c = bake_case(table, gs, gen, n, cell)
             cases[f"{name}_{n}"] = c
-            log(f"K15 {name} at {n} points (side {c['side']}, "
-                f"{c['dense_levels']} dense levels, {c['touched_rows']} "
-                f"vertex rows touched): rel err {c['err15']:.3g}, "
-                f"{c['t15']['ms']:.4f} ms (call {c['t15']['call_ms']:.4f}, "
-                f"plain {c['t15']['plain_ms']:.4f}, F.grid_sample "
-                f"{c['lib15_ms']:.4f} [max diff {c['lib15_abs_err']:.3g}], "
-                f"bound {c['bound15'][0]:.4f} {c['bound15'][1]})")
-            if not c["err15"] <= TOL_K15_REL:
-                raise RuntimeError(f"K15 disagrees with its plain version "
-                                   f"({name}, {n} points)")
+            log_k15(f"{name} at {n} points", c)
     c, b = cases[f"bound1_{BAKE_POINTS[0]}"], k16["bound1"]
     results = [
         dict(name="hash_encode_baked_fwd",
@@ -1969,12 +2026,14 @@ def drive_large_scene(seed: int, workspace: str) -> tuple:
     return tea, stu, scene, info
 
 
-def k14_case(bits, o, d, nears, fars, rs, u=None) -> dict:
-    """K14 against its plain version on one batch: t, dt, mask and t0
-    bit-exact, delta_depth within TOL_K14_DD; times and the bound.  Ops:
-    ~24 per lattice point the function needs (the recurrence's 4, the
-    cascade pick and lookup's ~20): every point in eval mode; in train mode
-    each ray's points up to its S-th occupied one or to far."""
+def march_case(bits, o, d, nears, fars, rs, u=None) -> dict:
+    """K2 (dt_gamma = 0) or K14 against its plain version on one batch:
+    t, dt, mask and t0 bit-exact, delta_depth within TOL_K2_DD (K14's
+    TOL_K14_DD is the same); times and the bound.  Ops per lattice point
+    the function needs: K2 ~20 (the closed-form t's FMA, the position, the
+    cell and lookup), K14 ~24 (the recurrence's 4 and the cascade pick's
+    extra); every point in eval mode, in train mode each ray's points up
+    to its S-th occupied one or to far."""
     k = march_rays(bits, o, d, nears, fars, rs, u)
     p = march_rays_plain(bits, o, d, nears, fars, rs, u)
     exact = all(torch.equal(getattr(k, f), getattr(p, f))
@@ -1987,17 +2046,37 @@ def k14_case(bits, o, d, nears, fars, rs, u=None) -> dict:
         # the lattice the rays need: up to the S-th occupied point or far
         rs_e = dataclasses.replace(rs, max_samples=L)
         occ = march_rays_plain(bits, o, d, nears, fars, rs_e, u).mask
-        live = (_t_lattice_geom(p.t0, rs) < fars[:, None]).sum(1)
+        if rs.dt_gamma > 0:
+            lattice = _t_lattice_geom(p.t0, rs)
+        else:
+            lattice = fma32(torch.arange(L, dtype=torch.float32,
+                                         device=o.device)[None, :],
+                            dt_min_of(rs), p.t0[:, None])
+        live = (lattice < fars[:, None]).sum(1)
         rank = torch.cumsum(occ.long(), 1)
         stop = torch.where(rank[:, -1] >= S,
                            (rank < S).sum(1) + 1, torch.full_like(live, L))
         points = int(torch.minimum(live, stop).sum())
-    bnd = bound(N * 32 + bits.numel() + N * S * 13 + N * 4, points * 24)
-    return {"exact": exact, "dd_err": err, "samples": int(k.mask.sum()),
-            "points": points, "bound": bnd,
+    ops = 24 if rs.dt_gamma > 0 else 20
+    bnd = bound(N * 32 + bits.numel() + N * S * 13 + N * 4, points * ops)
+    return {"rays": N, "L": L, "S": S, "exact": exact, "dd_err": err,
+            "samples": int(k.mask.sum()), "points": points, "bound": bnd,
             **timings(lambda: march_rays(bits, o, d, nears, fars, rs, u),
                       lambda: march_rays_plain(bits, o, d, nears, fars, rs,
                                                u))}
+
+
+def log_march(kernel: str, label: str, c: dict):
+    """Log one march_case; raise if it is not exact."""
+    log(f"{kernel} {label} ({c['rays']} rays, L {c['L']}, S {c['S']}): "
+        f"{c['samples']} samples, {c['points']} lattice points needed; "
+        f"t/dt/mask/t0 exact {c['exact']}, delta_depth err "
+        f"{c['dd_err']:.3g}; kernel {c['ms']:.4f} ms (call "
+        f"{c['call_ms']:.4f}), plain {c['plain_ms']:.4f} ms, bound "
+        f"{c['bound'][0]:.4f} ms ({c['bound'][1]})")
+    if not (c["exact"] and c["dd_err"] <= TOL_K2_DD):
+        raise RuntimeError(f"{kernel} differs from the plain march "
+                           f"({label})")
 
 
 def k12_k13_case(table, x01, gen) -> dict:
@@ -2143,11 +2222,76 @@ def k14_hard_inputs(n: int = 45, seed: int = 0) -> dict:
     return cases
 
 
-def check_k14_hard_cases(dev) -> dict:
-    """K14 on k14_hard_inputs (4099 rays) against march_rays_plain: t, dt,
-    mask and t0 bit-exact, delta_depth within TOL_K14_DD."""
+def march_rays_from(rng, n: int, bnd: float):
+    """n rays (rays_o, rays_d as float32): half start inside the box (near
+    = min_near), half on a sphere outside it aimed near the center, of
+    which every eighth points away from the box (far < near) and every
+    eighth passes beside it (near = far = FLT_MAX)."""
+    h = n // 2
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    o = np.concatenate([rng.uniform(-0.75 * bnd, 0.75 * bnd, (h, 3)),
+                        -2.6 * bnd * dirs[h:]])
+    d = dirs + rng.normal(scale=0.15, size=(n, 3))
+    d[h::8] *= -1.0
+    side = np.cross(dirs, [0.0, 0.0, 1.0])
+    side /= np.linalg.norm(side, axis=-1, keepdims=True)
+    o[h + 4::8] += 2.5 * bnd * side[h + 4::8]
+    d[h + 4::8] = dirs[h + 4::8]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def k2_hard_inputs(n: int = 45, seed: int = 0) -> dict:
+    """K2's hard lattices (dt_gamma 0), as numpy, in k14_hard_inputs'
+    layout: name -> (RenderSpec fields, min_near, bitfield [C*H^3], rays_o
+    [n, 3], rays_d [n, 3], u [n] or None); tests/test_torch_march.py holds
+    the plain march against JAX's on the same ones.  H 32; half the rays
+    start inside the box, and a quarter of the others miss it
+    (`march_rays_from`).  L = 100 (not a multiple of 32) with S = 1 and 2 (a ray
+    fills its slots inside its first window) and S = 128 > L (eval, slots
+    past L); L = 1000 in eval (S = L) and train (S = 64, perturbed); an
+    all-occupied grid where every ray's point k is occupied from its near
+    to its far, so the S-th sample of an unperturbed ray is point S - 1:
+    S = 32 ends on the last lane of a 32-point window, S = 128 on the last
+    lane of four; an empty grid (no sample, eval and train); two cascades
+    (bound 2) in eval and train; L = 101 (not a multiple of a lane's 4
+    points) in eval with S = 101 and 102 (no 4-slot stores) and S = 104
+    (4-slot stores but the last lane's point past L), and in train with
+    S = 3.  n is not a multiple of a block's 8 rays."""
+    rng = np.random.default_rng(seed)
+    # name: (bound, L, S, perturbed, occupancy)
+    specs = {"L100_S1": (1.0, 100, 1, True, 0.3),
+             "L100_S2": (1.0, 100, 2, False, 0.3),
+             "L100_eval_S128": (1.0, 100, 128, False, 0.3),
+             "L1000_eval": (1.0, 1000, 1000, False, 0.3),
+             "L1000_train": (1.0, 1000, 64, True, 0.3),
+             "full_S32": (1.0, 1000, 32, False, 1.0),
+             "full_S128": (1.0, 1000, 128, False, 1.0),
+             "empty_eval": (1.0, 1000, 1000, False, 0.0),
+             "empty_train": (1.0, 1000, 64, True, 0.0),
+             "two_cascades_eval": (2.0, 1000, 1000, False, 0.3),
+             "two_cascades_train": (2.0, 1000, 64, True, 0.3),
+             "L101_eval_S101": (1.0, 101, 101, False, 0.3),
+             "L101_eval_S102": (1.0, 101, 102, True, 0.3),
+             "L101_eval_S104": (1.0, 101, 104, False, 0.3),
+             "L101_S3": (1.0, 101, 3, True, 0.3)}
+    cases = {}
+    for name, (bnd, L, S, perturb, occ) in specs.items():
+        spec = dict(bound=bnd, grid_size=32, max_steps=L, max_samples=S)
+        C = 1 if bnd <= 1.0 else 2
+        bits = rng.uniform(size=C * 32 ** 3) < occ
+        o, d = march_rays_from(rng, n, bnd)
+        u = rng.uniform(size=n).astype(np.float32) if perturb else None
+        cases[name] = (spec, 0.01, bits, o, d, u)
+    return cases
+
+
+def check_march_hard_cases(kernel: str, cases: dict, dev) -> dict:
+    """K2 or K14 on its hard lattices (`k2_hard_inputs`,
+    `k14_hard_inputs`) against march_rays_plain: t, dt, mask and t0
+    bit-exact, delta_depth within TOL_K2_DD."""
     out = {}
-    cases = k14_hard_inputs(4099)
     for name, (spec, min_near, bits, o, d, u) in cases.items():
         rs = RenderSpec(**spec)
         bound_ = spec["bound"]
@@ -2163,13 +2307,21 @@ def check_k14_hard_cases(dev) -> dict:
         err = max_abs(k.delta_depth, p.delta_depth)
         out[name] = {"exact": exact, "dd_err": err,
                      "samples": int(k.mask.sum())}
-        log(f"K14 {name} (L {rs.max_steps}, S {rs.max_samples}, {o.shape[0]}"
-            f" rays, {int(k.mask.sum())} samples): t/dt/mask/t0 exact "
-            f"{exact}, delta_depth err {err:.3g}")
-        if not (exact and err <= TOL_K14_DD):
-            raise RuntimeError(f"K14 differs from the plain march on the "
-                               f"{name} case")
+        log(f"{kernel} {name} (L {rs.max_steps}, S {rs.max_samples}, "
+            f"{o.shape[0]} rays, {int(k.mask.sum())} samples): t/dt/mask/t0 "
+            f"exact {exact}, delta_depth err {err:.3g}")
+        if not (exact and err <= TOL_K2_DD):
+            raise RuntimeError(f"{kernel} differs from the plain march on "
+                               f"the {name} case")
     return out
+
+
+def check_k2_hard_cases(dev) -> dict:
+    return check_march_hard_cases("K2", k2_hard_inputs(4099), dev)
+
+
+def check_k14_hard_cases(dev) -> dict:
+    return check_march_hard_cases("K14", k14_hard_inputs(4099), dev)
 
 
 def k5_hard_inputs(n: int = 4101, res=(20, 24, 28), seed: int = 0) -> dict:
@@ -2457,6 +2609,29 @@ def check_k3_hard_cases(dev) -> dict:
     return out
 
 
+def k1_entry(table, x01, gs, baked: bool = False):
+    """K1 alone through its C entry on the corner levels of `gs` (with
+    `baked`, those a baked encode leaves to K1): the [P, L * 2] output with
+    those levels' slots filled and the others zero, and the level list.
+    The wrapper would add K10 (cell levels) or K15 (baked), and it counts
+    the launch; this does neither."""
+    out = torch.zeros(x01.shape[0], gs.output_dim, device=x01.device)
+    lv = hashgrid._levels(gs, False, baked)
+    if lv.n_levels:
+        kernels.launch("pvd_hash_encode_fwd", x01.data_ptr(),
+                       table.data_ptr(), out.data_ptr(), x01.shape[0], lv,
+                       kernels.stream_ptr(x01))
+    return out, list(lv.level)[:lv.n_levels]
+
+
+def nan_abs(a, b) -> float:
+    """max |a - b| where both are finite; inf where only one is NaN."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return math.inf
+    return max_abs(torch.where(na, 0.0, a), torch.where(nb, 0.0, b))
+
+
 def k1_case(table, x01, gs) -> dict:
     """K1 alone on the corner levels of `gs` at points x01: time, call and
     plain times, bound, and the F.embedding_bag yardstick (sum with
@@ -2467,18 +2642,13 @@ def k1_case(table, x01, gs) -> dict:
     import torch.nn.functional as F
 
     P = x01.shape[0]
-    out = torch.zeros(P, gs.output_dim, device=x01.device)
-    lv = hashgrid._levels(gs, False)
     via = "entry" if gs.cell_levels else "wrapper"
 
     def k1():
         if via == "wrapper":
             with torch.no_grad():
                 return hash_encode(table, x01, gs)
-        kernels.launch("pvd_hash_encode_fwd", x01.data_ptr(),
-                       table.data_ptr(), out.data_ptr(), P, lv,
-                       kernels.stream_ptr(x01))
-        return out
+        return k1_entry(table, x01, gs)[0]
 
     def plain():
         return torch.cat([corner_level_plain(table, x01, gs, level)
@@ -2495,6 +2665,7 @@ def k1_case(table, x01, gs) -> dict:
     cols = [c for lv_ in gs.corner_levels for c in (2 * lv_, 2 * lv_ + 1)]
     err = max_abs(k1()[:, cols], plain())
     bag_idx, bag_w = rows.reshape(-1, 8), ws.reshape(-1, 8).contiguous()
+    del rows, ws
 
     def lib():
         return F.embedding_bag(bag_idx, table, mode="sum",
@@ -2507,6 +2678,115 @@ def k1_case(table, x01, gs) -> dict:
             "bound": bound(P * 12 + touched * 8 + P * Lk * 8, P * Lk * 50),
             **timings(k1, plain), "library_ms": cuda_ms(lib),
             "library_abs_err": max_abs(lib().reshape(P, -1), plain())}
+
+
+def k1_hard_inputs(n: int = 4099, seed: int = 0) -> dict:
+    """K1's edge inputs, as numpy: name -> (x01 [n, 3], HashGridSpec
+    arguments, baked); tests/test_torch_hashgrid.py holds the plain encode
+    against JAX's on the same ones.  n is not a multiple of any block or
+    tile.  "edges": points on the cube's faces and corners, on lattice
+    planes of every level (pos an integer: fractions 0 and 1), at 1 -
+    2^-24, just outside [0, 1] (-2^-24, 1 + 2^-23 and farther) and NaN
+    (which passes the outside test, as in JAX, and makes its row NaN);
+    "rays": ray-major runs of 8-64 samples; "one_cell": a ray-ordered
+    stream of slow rays whose points all fall in one level-0 cell; "cell":
+    the cell teacher's list (levels 5-13 cell-packed: K1 on slots 0-4);
+    "baked": the list a baked encode leaves to K1 (slots 5-13);
+    "baked_cell": the baked cell teacher's, which is empty (K1 does not
+    run); "odd_levels": a 13-level grid; "levels20": a 20-level grid (more
+    levels than a K1 block holds: a second block takes the rest);
+    "small": the test grid (4 levels, 2^14 rows, level 0 dense) and
+    "one_level" a 1-level grid, both on K1's thread per (point, level), as
+    is "edges_cell": the edge points on the cell teacher's 5 levels."""
+    rng = np.random.default_rng(seed)
+    spec = HashGridSpec()
+    edges = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    q = n // 8
+    edges[:q, 0], edges[q:2 * q, 1], edges[2 * q:3 * q, 2] = 0.0, 1.0, 1.0
+    edges[3 * q:4 * q] = rng.choice([0.0, 1.0], (q, 3))
+    # on a lattice plane of a random level along a random axis
+    for i in range(4 * q, 6 * q):
+        lv = int(rng.integers(0, spec.num_levels))
+        s = spec.level_scale(lv)
+        j = int(rng.integers(1, int(s)))
+        edges[i, int(rng.integers(0, 3))] = np.float32((j - 0.5) / s)
+    e = np.float32(1.0 - 2.0 ** -24)
+    edges[6 * q:6 * q + 16] = [
+        [e, e, e], [e, 0.5, 0.0], [0.0, e, 1.0], [1.0, 1.0, e],
+        [-2.0 ** -24, 0.5, 0.5], [0.5, 1.0 + 2.0 ** -23, 0.5],
+        [0.5, 0.5, -1e-3], [1.5, 0.25, 0.75], [-3.0, -3.0, -3.0],
+        [0.25, 2.0, 0.5], [np.nan, 0.5, 0.5], [0.5, np.nan, np.nan],
+        [np.nan, np.nan, np.nan], [np.nan, -1.0, 0.5], [0.0, 0.0, 0.0],
+        [1.0, 1.0, 1.0]]
+    # slow rays: consecutive points 1/64 of a march step apart, every one
+    # inside level 0's cell [7, 8)^3 (pos = x * 15 + 0.5)
+    slow = np.empty((n, 3))
+    start = 0
+    while start < n:
+        k = min(n - start, int(rng.integers(48, 65)))
+        d = rng.normal(size=3)
+        p0 = rng.uniform(6.75 / 15.0, 6.85 / 15.0, 3)
+        slow[start:start + k] = p0 + np.arange(k)[:, None] \
+            * (np.sqrt(3.0) / 1024.0 / 64.0) * d / np.linalg.norm(d)
+        start += k
+    return {"edges": (edges, {}, False),
+            "rays": (march_runs(rng, n), {}, False),
+            "one_cell": (slow.astype(np.float32), {}, False),
+            "cell": (march_runs(rng, n), {"n_cell_levels": 9}, False),
+            "baked": (march_runs(rng, n), {}, True),
+            "baked_cell": (march_runs(rng, n), {"n_cell_levels": 9}, True),
+            "odd_levels": (march_runs(rng, n), {"num_levels": 13}, False),
+            "levels20": (march_runs(rng, n), {"num_levels": 20}, False),
+            "small": (march_runs(rng, n), {"num_levels": 4,
+                                           "log2_hashmap_size": 14,
+                                           "desired_resolution": 128},
+                      False),
+            "one_level": (march_runs(rng, n), {"num_levels": 1}, False),
+            "edges_cell": (edges, {"n_cell_levels": 9}, False)}
+
+
+def check_k1_hard_cases(dev) -> dict:
+    """K1 (its C entry, so the cell and baked level lists run alone) on
+    k1_hard_inputs with a random O(1) table, against the plain corner
+    levels; a NaN point must give NaN where the plain version does.  The
+    baked lists also go through the whole wrapper (K15 + K1, or K15 + K10
+    with no K1) against hash_encode_plain.  Each case's max abs error;
+    the caller holds them to TOL_K1 with K1's row, at the end, so a
+    failing case does not cut the run's other measurements."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name, (x, kw, baked) in k1_hard_inputs().items():
+        gs = HashGridSpec(**kw)
+        x01 = torch.from_numpy(x).to(dev)
+        table = torch.rand(gs.table_size, 2, generator=gen,
+                           device=dev) * 2 - 1
+        k, levels = k1_entry(table, x01, gs, baked)
+        want = (gs.unbaked_levels if baked else gs.corner_levels)
+        if levels != want:
+            raise RuntimeError(f"K1 {name}: level list {levels} != {want}")
+        err = 0.0
+        for level in levels:
+            err = max(err, nan_abs(k[:, 2 * level:2 * level + 2],
+                                   corner_level_plain(table, x01, gs,
+                                                      level)))
+        if baked:
+            cell = (torch.rand(gs.cell_table_size, 16, generator=gen,
+                               device=dev) * 2 - 1
+                    if gs.cell_levels else None)
+            bk = build_baked_dense(table, gs)
+            before = hash_encode.launches
+            with torch.no_grad():
+                full = hash_encode(table, x01, gs, cell, bk)
+            if x01.is_cuda and (hash_encode.launches > before) != bool(
+                    levels):
+                raise RuntimeError(f"K1 {name}: launched with levels "
+                                   f"{levels}")
+            full_p = hash_encode_plain(table, x01, gs, cell, bk)
+            err = max(err, nan_abs(full, full_p))
+        out[name] = {"points": x.shape[0], "levels": levels, "err": err}
+        log(f"K1 {name} ({x.shape[0]} points, levels {levels}): max abs "
+            f"err {err:.3g}" + ("" if err <= TOL_K1 else " FAILS"))
+    return out
 
 
 def log_k1(label: str, c: dict):
@@ -2566,22 +2846,14 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
     o, d = o.contiguous(), d.contiguous()
     nears, fars = near_far_from_aabb(o, d, occ.aabb_infer,
                                      rs_eval.min_near)
-    ev = k14_case(bits, o, d, nears, fars, rs_eval)
+    ev = march_case(bits, o, d, nears, fars, rs_eval)
     rs_train = dataclasses.replace(tea.rspec,
                                    max_samples=tea.cfg.max_samples,
                                    samples_per_ray=0.0)
-    o_t, d_t, _ = teacher_batch(tea, scene, gen, rs_train)
-    n_t, f_t = near_far_from_aabb(o_t, d_t, occ.aabb_train, rs_train.min_near)
-    u = torch.rand(o_t.shape[0], generator=gen, device=dev)
-    tr = k14_case(bits, o_t, d_t, n_t, f_t, rs_train, u)
+    o_t, d_t, n_t, f_t, u = teacher_rays(tea, scene, gen, rs_train)
+    tr = march_case(bits, o_t, d_t, n_t, f_t, rs_train, u)
     for name, c in (("eval", ev), ("train", tr)):
-        log(f"K14 {name}: {c['samples']} samples, {c['points']} lattice "
-            f"points needed; t/dt/mask/t0 exact {c['exact']}, delta_depth "
-            f"err {c['dd_err']:.3g}; kernel {c['ms']:.4f} ms (call "
-            f"{c['call_ms']:.4f}), plain {c['plain_ms']:.4f} ms, bound "
-            f"{c['bound'][0]:.4f} ms ({c['bound'][1]})")
-        if not (c["exact"] and c["dd_err"] <= TOL_K14_DD):
-            raise RuntimeError(f"K14 differs from the plain march ({name})")
+        log_march("K14", name, c)
     table = tea.state.field.bg.encoder.detach()
     side = 512
     big_intr = tuple(v * side / test.H for v in intr)
@@ -2966,19 +3238,20 @@ def main(argv=None) -> int:
     pts = query_points(grid_coords(H, dev), 0, jitter[0], rspec)
     x01 = ((pts + rspec.bound) / (2.0 * rspec.bound)).contiguous()
     table, gs = field.encoder.detach(), field.grid
-    k1 = hash_encode(table, x01, gs)
-    p1 = hash_encode_plain(table, x01, gs)
-    err1 = max_abs(k1, p1)
-    n1 = x01.shape[0]
-    b1 = bound(n1 * 12 + n1 * gs.output_dim * 4
-               + min(gs.table_size, n1 * gs.num_levels * 8) * 8,
-               n1 * gs.num_levels * 50)
+    k1_sweep = k1_case(table, x01, gs)
+    log_k1("occupancy sweep", k1_sweep)
+    k1_hard = check_k1_hard_cases(dev)
     results.append(dict(
         name="hash_encode", source="pvd_tpu_torch/csrc/hash_encode.cu",
-        replaces="pvd_tpu/ops/hashgrid.py:533", err=err1, tol=TOL_K1,
-        **timings(lambda: hash_encode(table, x01, gs),
-                  lambda: hash_encode_plain(table, x01, gs)),
-        bound=b1, shape=f"N={n1} points x {gs.num_levels} levels"))
+        replaces="pvd_tpu/ops/hashgrid.py:533", tol=TOL_K1,
+        err=max([k1_sweep["err"]] + [c["err"] for c in k1_hard.values()]),
+        **{k: k1_sweep[k] for k in ("ms", "call_ms", "plain_ms",
+                                    "library_ms", "bound")},
+        library_call="F.embedding_bag(mode='sum', per_sample_weights) on "
+        "the precomputed corner rows and weights",
+        shape=f"N={x01.shape[0]} points x {gs.num_levels} levels (err: "
+        "also on k1_hard_inputs)"))
+    del pts, x01
 
     # K2 on one chunk of render 0's rays (through the image center)
     rs_eval = dataclasses.replace(rspec, max_samples=rspec.max_steps)
@@ -3028,6 +3301,7 @@ def main(argv=None) -> int:
         **timings(k2, lambda: march_rays_plain(bf, o, d, nears, fars,
                                                rs_eval)),
         bound=b2, shape=f"N={CHUNK} rays x L={L} eval slots"))
+    k2_hard = check_k2_hard_cases(dev)
 
     # K3 on that chunk's compacted stream at the 1x budget
     rs_c = dataclasses.replace(rs_eval, samples_per_ray=rspec.samples_per_ray)
@@ -3169,8 +3443,9 @@ def main(argv=None) -> int:
     results += c_results
     ab_flavors = teacher_step_flavors(tea_ab, scene_ab, "cell teacher")
     ab_distill = distill_step_profile(stu_ab, scene_ab, gen)
+    ab_batch = ab_batch_cases(stu_ab, scene_ab, gen)
     next(r for r in results if r["name"] == "vm_sample_bwd")["shapes"][
-        "ab_stage3"] = k5_ab_case(stu_ab, scene_ab, gen)
+        "ab_stage3"] = ab_batch["k5"]
     cell_check = small_teacher_gpu_vs_cpu(spec_kw=SMALL_CELL_TEA)
     b_results, b_extra = check_bake_kernels(tea_ab, gen)
     results += b_results
@@ -3206,11 +3481,18 @@ def main(argv=None) -> int:
         "distill_stage3": small_step_gpu_vs_cpu(large=True)}
 
     shapes = {
-        "hash_encode": {"serving_chunk_1x": k1_serving,
+        "hash_encode": {"occupancy_sweep": k1_sweep,
+                        "serving_chunk_1x": k1_serving,
                         "exact_teacher_compacted": t_extra.pop(
                             "k1_compacted"),
+                        "exact_teacher_padded": t_extra.pop("k1_padded"),
                         "cell_teacher_compacted": c_extra.pop(
-                            "k1_compacted")},
+                            "k1_compacted"),
+                        "hard_inputs": k1_hard},
+        "march_rays": {"exact_teacher_train": t_extra.pop("k2_train"),
+                       "ab_distill_train": ab_batch["k2"],
+                       "hard_inputs": k2_hard},
+        "hash_encode_baked_fwd": {"ab_distill_batch": ab_batch["k15"]},
         "hash_encode_bwd": {"exact_teacher_padded": t_extra.pop(
                                 "hash_encode_bwd_padded"),
                             "cell_teacher_compacted": c_extra.pop(

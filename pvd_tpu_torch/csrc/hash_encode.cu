@@ -15,23 +15,48 @@
 // (bit d of the corner id selects +1 along dim d) have d-linear weights and
 // rows  dense:  c0 + c1*side + c2*side^2
 //       hashed: (c0*1 ^ c1*2654435761 ^ c2*805459861) mod 2^32, & (2^19-1)
-// plus the level's offset.  A coordinate outside [0, 1] zeroes all levels.
+// plus the level's offset.  A coordinate outside [0, 1] zeroes all levels;
+// a NaN coordinate makes the point's row NaN (its weights are NaN), also
+// beside a coordinate outside [0, 1], as the plain version and JAX weight
+// by w * okf (the first design wrote zeros there).
 // The corner sum accumulates in f32 in corner order, not XLA's order: the
 // plain version and the JAX package agree with it to ~1e-7 relative.
 //
 // A launch covers a list of levels (HashLevels.n_levels entries); entry i
 // writes level slot level[i] of a row of out_levels slots, so the corner
-// levels (K1) and the cell levels (K10) fill one [N, L * 2] output.
+// levels (K1) and the cell levels (K10) fill one [N, L * 2] output.  K1's
+// entries are a run of consecutive slots (the entry checks it).
 //
-// Bound on the H100: memory.  Each (point, level) reads 8 rows of 8 B at
-// scattered addresses (32-byte sectors, so ~4x the useful bytes) and writes
-// 8 B.  At the full INGP config the whole table is 5.3M rows x 8 B = 42 MB,
-// which fits the 50 MB L2, so the scattered reads are mostly L2 hits after
-// the first touch.  Design: one thread per (point, level), level fastest,
-// so a warp covers ~2 points across all levels: the point's 12 bytes are
-// read once per warp through L1, the output row of the point is written as
-// contiguous float2s, and 32 independent gathers per warp keep enough loads
-// in flight to cover L2 latency.  Per-level constants come by value.
+// Bound on the H100: memory by the byte count (the touched rows once, the
+// output once), but what holds the kernel is the cost of each (point,
+// level): a lattice, 8 scattered 8-byte rows (each its own 32-byte sector)
+// and 16 FMAs.  The first design ran one thread per (point, level), level
+// fastest: a 64-bit division a thread, the level constants read with a
+// per-lane index, both row formulas for every lane; without its table
+// loads it kept most of its time at the exact teacher's 131,072 points, so
+// instructions, not rows, held it.  The design now, above 8 levels
+// (hash_encode_fwd_kernel): a block of K1_POINTS consecutive points of the
+// ray-major stream times level groups of K1_PER levels (a thread a point
+// and a group; a warp holds one group, so the level constants and the
+// hashed-or-dense choice are uniform across it; past K1_SPAN levels a
+// second block takes the rest); k1_level forms a level's lattice with no
+// floorf or float-to-int conversion and its rows from 6 per-axis terms; a
+// thread issues all its levels' loads before any corner sum; the block
+// stages its rows in shared memory and writes them as consecutive
+// float2s.  On the H100 (PERF.md §6) against the first design: 0.55x at
+// the padded warm-up's 786,432 points (a ray's empty slots repeat one
+// point, so a warp's loads coalesce), 0.86x at the teacher's 131,072,
+// 0.82x at the serving chunk, 0.91x at the sweep, still ~3.6x the byte
+// bound at the batches.  Up to 8 levels (the cell teacher's 5) the first
+// design runs (hash_encode_fwd_per_level_kernel): there it beat this body
+// at 1 level a thread by ~0.7% in ten rotated rounds, and at 2 by more.
+// Measured and dropped: a thread walking all of a point's levels (few
+// loads in flight), a level-major grid (blockIdx.y the level, to keep one
+// level's rows hot in the L2; its strided stores lost more), 16-byte
+// loads of x-neighbour row pairs and the first design with the lean
+// lattice (no gain), rows written from registers as float4 level pairs,
+// 4 levels a thread, a thread looping over level groups (more registers:
+// half the blocks an SM, 1.35-1.67x slower).
 //
 // K7: the table gradient, replacing pvd_tpu/ops/hashgrid.py:284
 // _corner_gather_sum_bwd (hashed levels) and the autodiff of the packed
@@ -97,8 +122,8 @@
 // on bg_grid_spec's 4 levels x 2 channels (resolutions 16/81/407/2048:
 // levels 0-2 dense and row-major, c0 + c1 * side; level 3 hashed,
 // (c0 * 1 ^ c1 * 2654435761) & (2^19 - 1)), a 697,776 x 2 table (5.6 MB).
-// It is K1's body instantiated at D = 2: the same x01 * scale + 0.5 FMA,
-// bilinear weights over 4 corners and the same per-(point, level) thread;
+// It is K1's first design's body at D = 2: the same x01 * scale + 0.5 FMA,
+// bilinear weights over 4 corners and one thread per (point, level);
 // inputs outside [0, 1]^2 give 0.  Bound on the H100: memory, 4 rows of
 // 8 B per (point, level) from a table that fits the L2, 8 B read and 32 B
 // written per point; one launch per composited batch, on N rays, not on
@@ -176,6 +201,7 @@
 // once and the vertex table written once.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #define PVD_MAX_LEVELS 32
@@ -183,6 +209,10 @@
 #define K13_LEVELS 4  // the background grid's (bg_grid_spec)
 #define K13_THREADS 128
 #define K7_THREADS 128
+#define K1_POINTS 64  // points a K1 block
+#define K1_PER 2  // levels a K1 thread
+#define K1_MAX_THREADS 512  // 8 level groups of K1_POINTS threads
+#define K1_SPAN (K1_MAX_THREADS / K1_POINTS * K1_PER)  // levels a K1 block
 
 #if defined(__CUDACC_VER_MAJOR__) && \
     (__CUDACC_VER_MAJOR__ > 12 ||      \
@@ -270,6 +300,14 @@ __device__ __forceinline__ uint32_t corner_row(const Corners<D>& c, int k,
   return c.hashed ? (h & hash_mask) : r;
 }
 
+template <int D>
+__device__ __forceinline__ bool has_nan(const float (&x)[D]) {
+  bool n = false;
+#pragma unroll
+  for (int d = 0; d < D; ++d) n = n || isnan(x[d]);
+  return n;
+}
+
 // (x < 0) | (x > 1) in any dimension, as in hashgrid.py:571 (a NaN passes,
 // like JAX's)
 template <int D>
@@ -280,7 +318,8 @@ __device__ __forceinline__ bool outside(const float (&x)[D]) {
   return o;
 }
 
-// K1 (D = 3) and K12 (D = 2): one thread per (point, level entry).
+// K12, and K1 on at most 8 levels: one thread per (point, level entry),
+// level fastest (K1's first design).
 template <int D>
 __device__ __forceinline__ void encode_fwd(const float* __restrict__ x01,
                                            const float2* __restrict__ table,
@@ -294,6 +333,10 @@ __device__ __forceinline__ void encode_fwd(const float* __restrict__ x01,
   float2* o = out + n * lv.out_levels + lv.level[l];
   float x[D];
   load_point<D>(x01, n, x);
+  if (D == 3 && has_nan<D>(x)) {  // K1's NaN rule (hash_encode_fwd_kernel)
+    *o = make_float2(CUDART_NAN_F, CUDART_NAN_F);
+    return;
+  }
   if (outside<D>(x)) {
     *o = make_float2(0.f, 0.f);
     return;
@@ -311,10 +354,141 @@ __device__ __forceinline__ void encode_fwd(const float* __restrict__ x01,
   *o = make_float2(a0, a1);
 }
 
-__global__ void hash_encode_fwd_kernel(const float* __restrict__ x01,
-                                       const float2* __restrict__ table,
-                                       float2* __restrict__ out,
-                                       long long n_points, HashLevels lv) {
+// K1: the lattice of one level of the point at x (inside [0, 1]^3): the
+// same base, fractions, rows and weights as corner_setup / corner_row /
+// corner_weight, in fewer integer and conversion instructions.  pos = x * s
+// + 0.5 lies in [0.5, 2^23), so pos + 2^23 rounded down is exactly
+// floor(pos) + 2^23: its mantissa bits are the base coordinate (no floorf,
+// no float-to-int conversion), and subtracting 2^23 again gives floor(pos)
+// exactly.  The 8 rows come from 6 per-axis terms (corner k adds 1 along x,
+// side or the y prime along y, side^2 or the z prime along z: (c + 1) * P
+// = c * P + P mod 2^32, and the hash mask distributes over the xor).  The
+// weight of corner k is (wx * wy) * wz, corner_weight's products.
+struct K1Level {
+  uint32_t row[8];
+  float w[8];
+};
+
+__device__ __forceinline__ void k1_level(const float (&x)[3], int i,
+                                         const HashLevels& lv, K1Level& e) {
+  const float s = lv.scale[i];
+  float f[3], g[3];
+  uint32_t c[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float pos = __fmaf_rn(x[d], s, 0.5f);
+    const float r = __fadd_rd(pos, 8388608.f);
+    f[d] = __fsub_rn(pos, __fsub_rn(r, 8388608.f));
+    g[d] = __fsub_rn(1.f, f[d]);
+    c[d] = __float_as_uint(r) & 0x7fffffu;
+  }
+  uint32_t ax[2], ay[2], az[2];
+  if (lv.hashed[i]) {
+    const uint32_t m = lv.hash_mask;
+    const uint32_t hy = c[1] * 2654435761u, hz = c[2] * 805459861u;
+    ax[0] = c[0] & m;
+    ax[1] = (c[0] + 1u) & m;
+    ay[0] = hy & m;
+    ay[1] = (hy + 2654435761u) & m;
+    az[0] = hz & m;
+    az[1] = (hz + 805459861u) & m;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      e.row[k] = ax[k & 1] ^ ay[(k >> 1) & 1] ^ az[k >> 2];
+  } else {
+    const uint32_t side = (uint32_t)lv.side[i], side2 = side * side;
+    ax[0] = c[0];
+    ax[1] = c[0] + 1u;
+    ay[0] = c[1] * side;
+    ay[1] = ay[0] + side;
+    az[0] = c[2] * side2;
+    az[1] = az[0] + side2;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      e.row[k] = ax[k & 1] + ay[(k >> 1) & 1] + az[k >> 2];
+  }
+  const float wxy[4] = {__fmul_rn(g[0], g[1]), __fmul_rn(f[0], g[1]),
+                        __fmul_rn(g[0], f[1]), __fmul_rn(f[0], f[1])};
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    e.w[k] = __fmul_rn(wxy[k & 3], (k & 4) ? f[2] : g[2]);
+}
+
+// K1: a block of K1_POINTS consecutive points of the ray-major stream
+// (lane p) times level groups (g = threadIdx.x / K1_POINTS, warp-uniform)
+// of K1_PER consecutive entries, so every level constant and the
+// hashed-or-dense choice are uniform across a warp.  A block holds up to
+// K1_SPAN levels; blockIdx.y picks its run of them (more than one only
+// past K1_SPAN levels).  A thread forms the rows of its group's levels,
+// issues all their 8 * K1_PER loads, then sums each level's corners in
+// corner order with FMAs into the block's shared tile (rows of m | 1
+// float2s for the block's m levels: odd, so a half-warp's 16 rows fall in
+// 16 bank pairs); then the block writes its rows' slots (the entries are
+// consecutive slots: the entry checks it) as consecutive float2s.
+__global__ void __launch_bounds__(K1_MAX_THREADS)
+    hash_encode_fwd_kernel(const float* __restrict__ x01,
+                           const float2* __restrict__ table,
+                           float2* __restrict__ out, long long n_points,
+                           HashLevels lv) {
+  extern __shared__ float2 k1_tile[];
+  const int lo = blockIdx.y * K1_SPAN;
+  const int m = min(lv.n_levels - lo, K1_SPAN), st = m | 1;
+  const int p = threadIdx.x % K1_POINTS;
+  const int c = threadIdx.x / K1_POINTS * K1_PER, i0 = lo + c;  // entries
+  float2* tile = k1_tile + p * st + c;  // the thread's slots of its row
+  const long long n0 = (long long)blockIdx.x * K1_POINTS;
+  if (n0 + p < n_points) {
+    float x[3];
+    load_point<3>(x01, n0 + p, x);
+    // a NaN coordinate makes every weight NaN, even where another is
+    // outside the cube (the plain version and JAX weight by w * okf)
+    const bool nan = has_nan<3>(x);
+    if (nan || outside<3>(x)) {
+      const float z = nan ? CUDART_NAN_F : 0.f;
+#pragma unroll
+      for (int j = 0; j < K1_PER; ++j)
+        if (c + j < m) tile[j] = make_float2(z, z);
+    } else {
+      K1Level e[K1_PER];
+      float2 v[K1_PER][8];
+#pragma unroll
+      for (int j = 0; j < K1_PER; ++j)
+        if (c + j < m) k1_level(x, i0 + j, lv, e[j]);
+#pragma unroll
+      for (int j = 0; j < K1_PER; ++j)
+        if (c + j < m) {
+          const float2* tl = table + lv.offset[i0 + j];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v[j][k] = __ldg(tl + e[j].row[k]);
+        }
+#pragma unroll
+      for (int j = 0; j < K1_PER; ++j)
+        if (c + j < m) {
+          float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            a0 = __fmaf_rn(e[j].w[k], v[j][k].x, a0);
+            a1 = __fmaf_rn(e[j].w[k], v[j][k].y, a1);
+          }
+          tile[j] = make_float2(a0, a1);
+        }
+    }
+  }
+  __syncthreads();
+  // element e of the block's rows x m slots: row e / m, as the high word
+  // of e * ceil(2^32 / m) (exact for e < 2^16, 1 < m <= 32)
+  const int rows = (int)min((long long)K1_POINTS, n_points - n0);
+  const uint32_t inv = m > 1 ? 0xffffffffu / (uint32_t)m + 1u : 0u;
+  float2* o = out + n0 * lv.out_levels + lv.level[0] + lo;
+  for (uint32_t e = threadIdx.x; e < (uint32_t)(rows * m); e += blockDim.x) {
+    const uint32_t r = m > 1 ? __umulhi(e, inv) : e, i = e - r * m;
+    o[(long long)r * lv.out_levels + i] = k1_tile[r * st + i];
+  }
+}
+
+__global__ void hash_encode_fwd_per_level_kernel(
+    const float* __restrict__ x01, const float2* __restrict__ table,
+    float2* __restrict__ out, long long n_points, HashLevels lv) {
   encode_fwd<3>(x01, table, out, n_points, lv);
 }
 
@@ -642,15 +816,33 @@ static long long n_blocks(long long n_points, const HashLevels& lv,
   return (n_points * lv.n_levels + threads - 1) / threads;
 }
 
+// K1: the entries are consecutive level slots (the corner levels, or the
+// hashed ones a baked encode leaves).
 extern "C" int pvd_hash_encode_fwd(const float* x01, const float* table,
                                    float* out, long long n_points,
                                    HashLevels lv, void* stream) {
   if (n_points == 0 || lv.n_levels == 0) return 0;
-  const int threads = 256;
-  hash_encode_fwd_kernel<<<(unsigned)n_blocks(n_points, lv, threads), threads,
-                           0, (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float2*>(table),
-      reinterpret_cast<float2*>(out), n_points, lv);
+  const int nl = lv.n_levels;
+  bool ok = nl <= PVD_MAX_LEVELS && lv.level[0] + nl <= lv.out_levels;
+  // k1_level's floor needs pos = x * scale + 0.5 under 2^23
+  for (int l = 0; ok && l < nl; ++l)
+    ok = lv.level[l] == lv.level[0] + l && lv.scale[l] < 4194304.f;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float2* t = reinterpret_cast<const float2*>(table);
+  float2* o = reinterpret_cast<float2*>(out);
+  if (nl <= 8) {  // the first design: faster at the cell teacher's 5 levels
+    hash_encode_fwd_per_level_kernel<<<(unsigned)n_blocks(n_points, lv, 256),
+                                       256, 0, s>>>(x01, t, o, n_points, lv);
+    return (int)cudaGetLastError();
+  }
+  const int m = nl < K1_SPAN ? nl : K1_SPAN;  // a block's levels
+  const int threads = K1_POINTS * ((m + K1_PER - 1) / K1_PER);
+  const size_t smem = (size_t)K1_POINTS * (m | 1) * sizeof(float2);
+  const dim3 blocks((unsigned)((n_points + K1_POINTS - 1) / K1_POINTS),
+                    (unsigned)((nl + K1_SPAN - 1) / K1_SPAN));
+  hash_encode_fwd_kernel<<<blocks, threads, smem, s>>>(x01, t, o, n_points,
+                                                       lv);
   return (int)cudaGetLastError();
 }
 

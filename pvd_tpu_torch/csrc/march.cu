@@ -33,11 +33,32 @@
 // before its one-byte lookup; the cascade pick reads frexpf's exponent
 // from the bits and divides by a power-of-two mip bound as a product with
 // its exact reciprocal (the same IEEE results; a bound that is no power of
-// two still divides).  Design (lookup, place): one WARP per ray, lanes
-// over 32 consecutive lattice points, so stores are coalesced 128-byte rows
-// and a 4096-ray chunk puts 131k threads on the card (one thread per ray
-// would leave it 98% idle).  Slot ranks and the previous valid u come from
-// warp ballots and shuffles; a running carry links the 32-point windows.
+// two still divides).  K14 (lookup, place): one WARP per ray, lanes over
+// 32 consecutive lattice points, so stores are coalesced 128-byte rows and
+// a 4096-ray chunk puts 131k threads on the card (one thread per ray would
+// leave it 98% idle).  Slot ranks and the previous valid u come from warp
+// ballots and shuffles; a running carry links the 32-point windows.
+//
+// K2's first design was that warp walking its ray one 32-point window at
+// a time, each window's lookups waiting on the last one's ranking, and all
+// 32 windows to L however early the ray passed far: ~12x its byte bound at
+// the exact teacher's training batch (8192 rays into 96 slots) and 2x at
+// the eval chunk.  Its work is per lattice point, so the design now cuts
+// that work: a lane holds 4 consecutive lattice points of a 128-point
+// round, issues their 4 lookups together, and ranks them with 4 ballots
+// and one shuffle a round (march_rays_kernel); the ray stops at the first
+// round that starts past far; lookup (K14's too) takes each cell without
+// a float-to-int conversion (cell_of) and the index in 32 bits; eval mode
+// writes a lane's 4 slots as float4s (a uchar4 for the mask); train mode
+// stages a round's samples in shared memory and writes them to
+// consecutive slots with consecutive lanes.  t, dt, mask and t0 stay
+// bit-exact (the same ops on the same values).  On the H100 (PERF.md §6):
+// 0.58x the first design at the training batch (7x its bound), 0.64x at
+// the A/B batch, 0.74x at the eval chunk (1.5x its bound).  Measured and
+// dropped: rounds of 1, 2, 4 and 8 windows of one point a lane (each
+// gained less than the 4-point lanes), K2 at 32 registers (spills), and
+// 4-point lanes each storing its own train samples (slower on a dense
+// grid: strided stores).
 //
 // K14's lattice is a serial recurrence: t_k needs t_{k-1}.  Its first
 // design kept the warp layout by having all 32 lanes step the recurrence
@@ -72,6 +93,8 @@
 
 #define K14_RAYS 8  // marching warps (rays) per K14 block
 #define K14_WIN 4  // windows of 32 lattice points a K14 round
+#define K2_THREADS 256  // K2: 8 rays (warps) a block
+#define K2_ROUND 128  // lattice points a K2 round: 4 a lane
 
 struct MarchParams {
   int n_rays;
@@ -106,33 +129,22 @@ __device__ __forceinline__ float div_mip(float p, float mb) {
   return __fdiv_rn(p, mb);
 }
 
-__device__ __forceinline__ int cell_of(float p, float mb, float H, int Hi) {
-  const float c =
-      __fmul_rn(__fmul_rn(0.5f, __fadd_rn(div_mip(p, mb), 1.f)), H);
-  return clampi((int)c, 0, Hi - 1);
-}
-
-__device__ __forceinline__ bool occupied(const uint8_t* __restrict__ bits,
-                                         float px, float py, float pz,
-                                         float dt, const MarchParams& p) {
-  int level = 0;
-  float mb = p.mip_bound0;
-  if (p.cascades > 1) {
-    const float mx = fmaxf(fmaxf(fabsf(px), fabsf(py)), fabsf(pz));
-    const int lp = clampi(frexp_exponent(mx), 0, p.cascades - 1);
-    const int ld = clampi(
-        frexp_exponent(__fmul_rn(__fmul_rn(dt, (float)p.grid), 0.5f)), 0,
-        p.cascades - 1);
-    level = lp > ld ? lp : ld;
-    mb = fminf(__uint_as_float((127u + level) << 23), p.bound);
-  }
-  const float H = (float)p.grid;
-  const int nx = cell_of(px, mb, H, p.grid);
-  const int ny = cell_of(py, mb, H, p.grid);
-  const int nz = cell_of(pz, mb, H, p.grid);
-  const long long g = p.grid;
-  const long long flat = ((long long)nx * g + ny) * g + nz + level * g * g * g;
-  return bits[flat] != 0;
+// the cascade of a point and its mip bound min(2^level, bound): the larger
+// frexp exponent of max|pos| and of the point's own dt*H/2, each clamped
+// to [0, C-1]
+__device__ __forceinline__ int cascade_of(float px, float py, float pz,
+                                          float dt, const MarchParams& p,
+                                          float& mb) {
+  mb = p.mip_bound0;
+  if (p.cascades == 1) return 0;
+  const float mx = fmaxf(fmaxf(fabsf(px), fabsf(py)), fabsf(pz));
+  const int lp = clampi(frexp_exponent(mx), 0, p.cascades - 1);
+  const int ld = clampi(
+      frexp_exponent(__fmul_rn(__fmul_rn(dt, (float)p.grid), 0.5f)), 0,
+      p.cascades - 1);
+  const int level = lp > ld ? lp : ld;
+  mb = fminf(__uint_as_float((127u + level) << 23), p.bound);
+  return level;
 }
 
 // K14: the step the geometric lattice takes from t (the chain's op, and
@@ -184,9 +196,22 @@ __device__ __forceinline__ RayMarch ray_of(const float* __restrict__ rays_o,
   return r;
 }
 
+// the cell int(0.5 * (q / mb + 1) * H) clamped to [0, H-1] with no
+// float-to-int conversion: trunc(c) clamped to [0, H-1] is trunc of c
+// clamped to [0, H-1] first, and for v in [0, H-1] (H - 1 < 2^23) the
+// mantissa of v + 2^23 rounded down is trunc(v)
+__device__ __forceinline__ int cell_of(float q, float mb, float H,
+                                       float h_max) {
+  const float c =
+      __fmul_rn(__fmul_rn(0.5f, __fadd_rn(div_mip(q, mb), 1.f)), H);
+  const float v = fminf(fmaxf(c, 0.f), h_max);
+  return (int)(__float_as_uint(__fadd_rd(v, 8388608.f)) & 0x7fffffu);
+}
+
 // lattice point k of ray r at t with step dt: occupied?  The lookup
 // address is valid for any t (the position is clipped, the cell clamped),
-// so the load needs no branch and several windows' loads can be in flight
+// so the load needs no branch and several points' loads can be in flight;
+// the index is 32-bit (the entries check that C * H^3 fits)
 __device__ __forceinline__ bool lookup(const uint8_t* __restrict__ bits,
                                        const MarchParams& p,
                                        const RayMarch& r, int k, float t,
@@ -194,7 +219,13 @@ __device__ __forceinline__ bool lookup(const uint8_t* __restrict__ bits,
   const float px = fminf(fmaxf(__fmaf_rn(t, r.dx, r.ox), -p.bound), p.bound);
   const float py = fminf(fmaxf(__fmaf_rn(t, r.dy, r.oy), -p.bound), p.bound);
   const float pz = fminf(fmaxf(__fmaf_rn(t, r.dz, r.oz), -p.bound), p.bound);
-  const bool bit = occupied(bits, px, py, pz, dt, p);
+  float mb;
+  const int level = cascade_of(px, py, pz, dt, p, mb);
+  const int g = p.grid;
+  const float H = (float)g, h_max = (float)(g - 1);
+  const int nx = cell_of(px, mb, H, h_max), ny = cell_of(py, mb, H, h_max),
+            nz = cell_of(pz, mb, H, h_max);
+  const bool bit = bits[(nx * g + ny) * g + nz + level * g * g * g] != 0;
   return k < p.n_steps && t < r.far && bit;
 }
 
@@ -256,13 +287,15 @@ __device__ __forceinline__ void march_windows(const uint8_t* __restrict__ bits,
     place(p, r, base + 32 * j, t[j], dt[j], occ[j], o);
 }
 
-// the slots no point filled, the whole warp: eval's padding past L, train's
-// tail
+// the slots no point filled, the whole warp: in eval mode those of the
+// lattice points from `placed` on (past far) and the padding past L, in
+// train mode the tail past the ray's samples
 __device__ __forceinline__ void fill_tail(const MarchParams& p,
-                                          const RayMarch& r,
+                                          const RayMarch& r, int placed,
                                           const MarchOut& o) {
   const int L = p.n_steps, S = p.max_samples;
-  const int filled = S >= L ? L : (r.count < S ? r.count : S);
+  const int filled =
+      S >= L ? (placed < L ? placed : L) : (r.count < S ? r.count : S);
   for (int s = filled + (threadIdx.x & 31); s < S; s += 32) {
     o.t[r.row + s] = 0.f;
     o.dt[r.row + s] = 0.f;
@@ -271,29 +304,116 @@ __device__ __forceinline__ void fill_tail(const MarchParams& p,
   }
 }
 
-__global__ void march_rays_kernel(const float* __restrict__ rays_o,
-                                  const float* __restrict__ rays_d,
-                                  const float* __restrict__ nears,
-                                  const float* __restrict__ fars,
-                                  const float* __restrict__ u,
-                                  const uint8_t* __restrict__ bits,
-                                  MarchParams p, MarchOut o,
-                                  float* __restrict__ t0_out) {
+// K2: a warp per ray, lane i holding lattice points base + 4i .. base + 4i
+// + 3 of a round of 128 (all their lookups issued before any is ranked);
+// the ray stops at the first round that starts past far (t is monotone in
+// k) or, in train mode, once it has S samples.  Within a round a point's
+// slot rank is the ray's count, the occupied points of the lanes below (4
+// ballots) and its lane's earlier ones; the u = t + dt before it is its
+// lane's previous occupied point's, else the last of the lanes below
+// (one shuffle), else the carry.  Eval mode writes a lane's 4 slots as one
+// float4 (uchar4 for the mask) where vec (S % 4 == 0, aligned outputs);
+// train mode stages the round's samples in shared memory and writes them
+// to consecutive slots with consecutive lanes.
+__global__ void __launch_bounds__(K2_THREADS)
+    march_rays_kernel(const float* __restrict__ rays_o,
+                      const float* __restrict__ rays_d,
+                      const float* __restrict__ nears,
+                      const float* __restrict__ fars,
+                      const float* __restrict__ u,
+                      const uint8_t* __restrict__ bits, MarchParams p,
+                      MarchOut o, float* __restrict__ t0_out, bool vec) {
+  const unsigned FULL = 0xffffffffu;
+  __shared__ float stage[K2_THREADS / 32][2][K2_ROUND];
   const long long ray = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   if (ray >= p.n_rays) return;  // whole warps leave together
   const float t0 = march_start(nears, u, ray, p);
   if (lane == 0) t0_out[ray] = t0;
   RayMarch r = ray_of(rays_o, rays_d, fars, t0, ray, p);
-  for (int base = 0; base < p.n_steps; base += 32) {
-    const int k = base + lane;
-    const float t = __fmaf_rn((float)k, p.dt_min, t0);
-    bool occ = false;
-    if (k < p.n_steps && t < r.far) occ = lookup(bits, p, r, k, t, p.dt_min);
-    place(p, r, base, t, p.dt_min, occ, o);
-    if (p.max_samples < p.n_steps && r.count >= p.max_samples) break;
+  const int L = p.n_steps, S = p.max_samples;
+  const float dtm = p.dt_min;
+  const unsigned below_me = (1u << lane) - 1u;
+  int base = 0;
+  for (; base < L; base += K2_ROUND) {
+    if (!(__fmaf_rn((float)base, dtm, t0) < r.far)) break;
+    const int k0 = base + 4 * lane;
+    float t[4], uu[4], dd[4];
+    bool occ[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      t[j] = __fmaf_rn((float)(k0 + j), dtm, t0);
+      occ[j] = lookup(bits, p, r, k0 + j, t[j], dtm);
+      uu[j] = __fadd_rn(t[j], dtm);
+    }
+    const unsigned any =
+        __ballot_sync(FULL, occ[0] || occ[1] || occ[2] || occ[3]);
+    const float last =
+        occ[3] ? uu[3] : (occ[2] ? uu[2] : (occ[1] ? uu[1] : uu[0]));
+    const unsigned lower = any & below_me;
+    const float u_lower = __shfl_sync(FULL, last, lower ? 31 - __clz(lower) : 0);
+    float prev = lower ? u_lower : r.carry;
+    int rank = 0, total = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned b = __ballot_sync(FULL, occ[j]);
+      rank += __popc(b & below_me);
+      total += __popc(b);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dd[j] = __fsub_rn(uu[j], fmaxf(prev, r.t0));
+      if (occ[j]) prev = uu[j];
+    }
+    if (S >= L) {  // eval: lattice point k keeps slot k
+      if (vec && k0 + 3 < L) {
+        const long long at = r.row + k0;
+        *reinterpret_cast<float4*>(o.t + at) =
+            make_float4(occ[0] ? t[0] : 0.f, occ[1] ? t[1] : 0.f,
+                        occ[2] ? t[2] : 0.f, occ[3] ? t[3] : 0.f);
+        *reinterpret_cast<float4*>(o.dt + at) =
+            make_float4(occ[0] ? dtm : 0.f, occ[1] ? dtm : 0.f,
+                        occ[2] ? dtm : 0.f, occ[3] ? dtm : 0.f);
+        *reinterpret_cast<uchar4*>(o.mask + at) =
+            make_uchar4(occ[0], occ[1], occ[2], occ[3]);
+        *reinterpret_cast<float4*>(o.dd + at) =
+            make_float4(occ[0] ? dd[0] : 0.f, occ[1] ? dd[1] : 0.f,
+                        occ[2] ? dd[2] : 0.f, occ[3] ? dd[3] : 0.f);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k0 + j < L) {
+            const long long at = r.row + k0 + j;
+            o.t[at] = occ[j] ? t[j] : 0.f;
+            o.dt[at] = occ[j] ? dtm : 0.f;
+            o.mask[at] = occ[j];
+            o.dd[at] = occ[j] ? dd[j] : 0.f;
+          }
+      }
+    } else {  // train: the first S occupied points fill slots 0..S-1
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (occ[j]) {
+          stage[w][0][rank] = t[j];
+          stage[w][1][rank] = dd[j];
+          ++rank;
+        }
+      __syncwarp();
+      const int n = min(total, S - r.count);
+      for (int q = lane; q < n; q += 32) {
+        const long long at = r.row + r.count + q;
+        o.t[at] = stage[w][0][q];
+        o.dt[at] = dtm;
+        o.mask[at] = 1;
+        o.dd[at] = stage[w][1][q];
+      }
+      __syncwarp();
+    }
+    r.count += total;
+    if (any) r.carry = fmaxf(r.carry, __shfl_sync(FULL, last, 31 - __clz(any)));
+    if (S < L && r.count >= S) break;
   }
-  fill_tail(p, r, o);
+  fill_tail(p, r, base, o);
 }
 
 // K14's chain lane: the next n lattice points of its ray from tc into
@@ -348,7 +468,12 @@ __global__ void __launch_bounds__(32 * (K14_RAYS + 1))
     }
     if (!__syncthreads_or(live)) break;
   }
-  if (marcher) fill_tail(p, r, o);
+  if (marcher) fill_tail(p, r, L, o);
+}
+
+// C * H^3 cells must fit a 32-bit index (lookup)
+static bool index_fits(const MarchParams& p) {
+  return (long long)p.cascades * p.grid * p.grid * p.grid < (1LL << 31);
 }
 
 extern "C" int pvd_march_rays(const float* rays_o, const float* rays_d,
@@ -358,11 +483,16 @@ extern "C" int pvd_march_rays(const float* rays_o, const float* rays_d,
                               uint8_t* mask, float* delta_depth, float* t0,
                               void* stream) {
   if (p.n_rays == 0) return 0;
-  const int threads = 256;  // 8 rays per block
-  const long long blocks = ((long long)p.n_rays * 32 + threads - 1) / threads;
+  if (!index_fits(p)) return (int)cudaErrorInvalidValue;
+  const long long blocks =
+      ((long long)p.n_rays * 32 + K2_THREADS - 1) / K2_THREADS;
   const MarchOut o = {t, dt, mask, delta_depth};
-  march_rays_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      rays_o, rays_d, nears, fars, u, bitfield, p, o, t0);
+  const bool vec = p.max_samples % 4 == 0 &&
+                   ((uintptr_t)t | (uintptr_t)dt | (uintptr_t)mask |
+                    (uintptr_t)delta_depth) % 16 == 0;
+  march_rays_kernel<<<(unsigned)blocks, K2_THREADS, 0,
+                      (cudaStream_t)stream>>>(rays_o, rays_d, nears, fars, u,
+                                              bitfield, p, o, t0, vec);
   return (int)cudaGetLastError();
 }
 
@@ -373,6 +503,7 @@ extern "C" int pvd_march_rays_geom(const float* rays_o, const float* rays_d,
                                    uint8_t* mask, float* delta_depth,
                                    float* t0, void* stream) {
   if (p.n_rays == 0) return 0;
+  if (!index_fits(p)) return (int)cudaErrorInvalidValue;
   const long long blocks = ((long long)p.n_rays + K14_RAYS - 1) / K14_RAYS;
   const MarchOut o = {t, dt, mask, delta_depth};
   march_rays_geom_kernel<<<(unsigned)blocks, 32 * (K14_RAYS + 1), 0,

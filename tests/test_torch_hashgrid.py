@@ -1,10 +1,13 @@
 """pvd_tpu_torch hash grid against the JAX package (CPU)."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pvd_tpu.models import hash_field as j_hash_field
 from pvd_tpu.config import ModelSpec as JModelSpec
 from pvd_tpu.ops.hashgrid import HashGridSpec as JHashGridSpec
@@ -12,6 +15,7 @@ from pvd_tpu.ops.hashgrid import _level_corner_plan
 from pvd_tpu.ops.hashgrid import hash_encode as j_hash_encode
 from pvd_tpu_torch.config import ModelSpec
 from pvd_tpu_torch.models.hash_field import grid_spec
+from pvd_tpu_torch.ops import hashgrid
 from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, hash_encode,
                                         hash_encode_bwd_plain,
                                         hash_encode_cell_bwd_plain,
@@ -248,3 +252,86 @@ def test_cell_encode_autograd_reaches_both_tables():
     c.grad = None
     hash_encode(t.detach(), xt, spec, c).backward(gt)
     assert torch.equal(c.grad, hash_encode_cell_bwd_plain(xt, gt, spec))
+
+
+# ---- K1's hard inputs (chip_smoke.k1_hard_inputs, which the card holds
+# K1 to against the plain version) --------------------------------------
+K1_N = 1031  # not a multiple of any block or tile
+
+
+@functools.cache
+def _k1_cases():
+    return chip_smoke.k1_hard_inputs(K1_N)
+
+
+def _check_k1_case(name, x, spec, levels):
+    """What each case claims of its inputs and of K1's level list."""
+    want = {"cell": [0, 1, 2, 3, 4], "baked": list(range(5, 14)),
+            "baked_cell": [], "odd_levels": list(range(13)),
+            "levels20": list(range(20)),
+            "small": [0, 1, 2, 3], "one_level": [0],
+            "edges_cell": [0, 1, 2, 3, 4]}.get(name, list(range(14)))
+    assert levels == want
+    if name in ("edges", "edges_cell"):
+        nan = np.isnan(x).any(-1)
+        assert nan.sum() == 4
+        # a NaN beside a coordinate outside [0, 1]
+        assert (nan & ((x < 0) | (x > 1)).any(-1)).sum() == 1
+        assert ((x < 0) | (x > 1)).any(-1).sum() == 7
+        assert ((x == 0) | (x == 1)).any(-1).sum() >= K1_N // 2
+        assert (x == np.float32(1 - 2 ** -24)).sum() >= 6
+        # points on a lattice plane: pos within an ulp of an integer
+        on = 0
+        for lv in range(spec.num_levels):
+            pos = x * np.float32(spec.level_scale(lv)) + np.float32(0.5)
+            on += (np.abs(pos - np.round(pos)) < 1e-4).any(-1).sum()
+        assert on >= K1_N // 4
+    elif name == "one_cell":  # level 0: pos = x * 15 + 0.5 in [7, 8)
+        assert (np.floor(x * np.float32(15.0) + np.float32(0.5)) == 7).all()
+    if name not in ("edges", "edges_cell", "one_cell"):
+        steps = np.linalg.norm(np.diff(x, axis=0), axis=-1)
+        assert np.median(steps) == pytest.approx(np.sqrt(3) / 1024, 1e-3)
+
+
+@pytest.mark.parametrize("name", ["edges", "rays", "one_cell", "cell",
+                                  "baked", "baked_cell", "odd_levels",
+                                  "levels20", "small", "one_level",
+                                  "edges_cell"])
+def test_hash_encode_plain_matches_jax_on_k1_hard_inputs(name):
+    """The plain encode (K1's plain version, with the cell levels' where
+    the spec has them) against JAX's jitted `hash_encode` on its plain
+    path (packed_dense off) on K1's hard inputs, to ENC_TOL; NaN where
+    JAX gives NaN, including a point with a NaN coordinate and another
+    outside [0, 1] (JAX and the plain version weight by w * okf); zeros
+    outside the cube.  The level list K1 takes (`_levels`, with `baked`
+    the corner levels a baked encode leaves) is the expected run of
+    slots, and empty for the baked cell teacher."""
+    import jax
+
+    x, kw, baked = _k1_cases()[name]
+    spec, jspec = HashGridSpec(**kw), JHashGridSpec(**kw)
+    lv = hashgrid._levels(spec, False, baked)
+    levels = list(lv.level)[:lv.n_levels]
+    assert x.shape == (K1_N, 3)
+    _check_k1_case(name, x, spec, levels)
+    rng = np.random.default_rng(5)
+    table = rng.uniform(-1, 1, (spec.table_size, 2)).astype(np.float32)
+    cell = (rng.uniform(-1, 1, (spec.cell_table_size, 16)).astype(np.float32)
+            if spec.cell_levels else None)
+    # jitted: XLA:CPU forms pos = x01 * scale + 0.5 with one FMA, as the
+    # port does
+    want = np.asarray(jax.jit(lambda t, xx, c: j_hash_encode(
+        t, xx, jspec, packed_dense=False, cell_table=c))(
+        jnp.asarray(table), jnp.asarray(x),
+        None if cell is None else jnp.asarray(cell)))
+    got = hash_encode_plain(torch.from_numpy(table), torch.from_numpy(x),
+                            spec, None if cell is None
+                            else torch.from_numpy(cell)).numpy()
+    assert got.shape == want.shape == (K1_N, spec.output_dim)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                               rtol=0, atol=ENC_TOL)
+    nan = np.isnan(x).any(-1)
+    out = ((x < 0) | (x > 1)).any(-1) & ~nan
+    assert np.isnan(got[nan]).all() and (got[out] == 0).all()
+    assert (np.abs(got[~nan & ~out]).sum(-1) > 0).all()

@@ -31,11 +31,12 @@ from pvd_tpu.render.renderer import compact_samples as j_compact
 from pvd_tpu.render.renderer import march_rays as j_march
 from pvd_tpu.render.renderer import render_rays as j_render_rays
 from pvd_tpu_torch.config import ModelSpec, RenderSpec
+from pvd_tpu_torch.ops.fma import fma32
 from pvd_tpu_torch.params import hash_field_from_jax, occupancy_from_jax
 from pvd_tpu_torch.render.renderer import (compact_samples, dt_max_of,
                                            dt_min_of, march_rays,
                                            render_rays)
-from chip_smoke import k14_hard_inputs
+from chip_smoke import k2_hard_inputs, k14_hard_inputs
 from test_renderer import oracle_march_dda_gamma, oracle_march_dda_mip
 from test_torch_background import bg_grad_atol
 
@@ -208,6 +209,58 @@ def test_march_plain_matches_jax_on_k14_hard_inputs(name):
     if spec["max_samples"] < spec["max_steps"]:  # train: prefixes
         m = st.mask.numpy()
         assert (m[:, :-1] | ~m[:, 1:]).all()
+
+
+K2_CASES = k2_hard_inputs()
+
+
+@pytest.mark.parametrize("name", sorted(K2_CASES))
+def test_march_plain_matches_jax_on_k2_hard_inputs(name):
+    """The plain march against JAX's plain-lattice march_rays (dt_gamma 0)
+    on K2's hard lattices: L = 100 (not a multiple of 32) with S = 1, 2
+    and 128 > L; L = 1000 in eval and train; an all-occupied grid with S =
+    32 and 128, whose unperturbed rays put their S-th sample on the last
+    lane of a window (of four windows at S = 128); an empty grid; two
+    cascades; L = 101 (not a multiple of a lane's 4 points) in eval with
+    S = 101, 102 and 104 and in train with S = 3; 45 rays (not a multiple
+    of a block's 8), some missing the
+    box.  t, dt, mask, t0 exact, delta_depth within DD_TOL.  A perturbed
+    case draws u from a JAX key, as JAX's march does."""
+    spec, min_near, bitfield, o, d, u = K2_CASES[name]
+    assert "dt_gamma" not in spec and o.shape[0] % 8
+    rspec_j, rspec_t = JRenderSpec(**spec), RenderSpec(**spec)
+    bound = spec["bound"]
+    aabb = jnp.array([-bound] * 3 + [bound] * 3, jnp.float32)
+    nears, fars = (np.asarray(a) for a in j_near_far(o, d, aabb, min_near))
+    miss = (nears >= 3e38) | (fars < nears)
+    assert (nears >= 3e38).sum() >= 2 and (fars < nears).sum() >= 2
+    key = None if u is None else jax.random.PRNGKey(19)
+    u = None if key is None else np.asarray(
+        jax.random.uniform(key, (o.shape[0],)))
+    sj = jax.jit(lambda *a: j_march(*a, rspec_j, key))(
+        jnp.asarray(bitfield), o, d, nears, fars)
+    st = _torch_march(rspec_t, bitfield, o, d, nears, fars, u)
+    _assert_same(sj, st)
+    m = st.mask.numpy()
+    assert not m[miss].any()
+    S, L = spec["max_samples"], spec["max_steps"]
+    if name.startswith("empty"):
+        assert not m.any()
+    else:
+        assert m.sum() >= min(S, 8) * 8
+    if S < L:  # train: prefixes
+        assert (m[:, :-1] | ~m[:, 1:]).all()
+    if name.startswith("full"):
+        # every lattice point from near to far is occupied, so a ray with
+        # S samples has its S-th on lattice point S - 1: the last lane of
+        # a window (S = 32) or of four (S = 128)
+        full = m.all(-1)
+        assert full.sum() >= 8
+        t0 = st.t0[torch.from_numpy(full)]
+        np.testing.assert_array_equal(
+            st.t.numpy()[full, S - 1],
+            fma32(torch.full_like(t0, S - 1), dt_min_of(rspec_t), t0)
+            .numpy())
 
 
 @pytest.mark.parametrize("prefix", [True, False])
