@@ -34,7 +34,9 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    sweep's points and on the serving chunk's compacted points (each with
    an F.embedding_bag yardstick) and on its hard inputs
    (`k1_hard_inputs`), K2 on its hard lattices (`k2_hard_inputs`), K7 on
-   its hard inputs (`k7_hard_inputs`); holds
+   its hard inputs (`k7_hard_inputs`); K6 with the kernel alone and the
+   first design's output fills timed apart, and the VM projection's
+   backward (a cuBLAS bmm the port keeps) at the batch; holds
    one distill step on the GPU against the same step on the CPU (plain) at
    test sizes; and checks that 10 stage-3 steps on a fixed batch lower the
    loss.
@@ -60,10 +62,13 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    are evaluated on the 10 test views (PSNR, SSIM).  Fails below 28.0 dB
    (teacher), 27.5 dB (student) or more than 1.0 dB under the teacher.
    Then holds K10 and K11 against their plain versions on the cell
-   teacher's padded and compacted batches, K7 and K1 on the compacted
-   batch's corner levels (0-4); on a stage-3 batch of the student (4096
-   rays marched into 64 slots, 24,576 compacted) K2, K5 (with its
-   F.grid_sample yardstick) and K15 on the baked teacher's points;
+   teacher's padded and compacted batches (K11's kernel and its zero fill
+   also timed apart), K7 and K1 on the compacted batch's corner levels
+   (0-4), K6 on the compacted batch's composite; on a stage-3 batch of the
+   student (4096 rays marched into 64 slots, 24,576 compacted) K2, K5
+   (with its F.grid_sample yardstick), K15 on the baked teacher's points,
+   K10 on the exact teacher's, K6 on the student's composite and the VM
+   projection's backward;
    profiles one compacted teacher
    step and one stage-3 distill step, and holds one small cell-mode
    teacher step (padded and compacted) on the GPU against the CPU.
@@ -107,7 +112,15 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    131,072 and 2,097,152 points (points on the faces and outside
    included), times them beside F.grid_sample, and profiles one stage-3
    distill step with the baked teacher beside the exact one.
-9. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+9. After every timing, holds K11 and K10 on their hard inputs
+   (`k11_hard_inputs`: ray runs, one cell, colliding cell rows, zero
+   levels, a padded stream, edge and NaN points, a 20-level grid with 18
+   cell levels; g also off 8-byte alignment), K6 on its hard inputs
+   (`k6_hard_inputs`, through its C entry into outputs filled with NaN)
+   and the NaN rule (`check_nan_rule`: K12 and K15 give NaN exactly where
+   their plain versions do; K7 and K13 add nothing for a NaN point); each
+   check raises on a case over its kernel's tolerance.
+10. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails, no GPU is present
@@ -442,9 +455,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3,
             queue_ahead: bool = True) -> float:
     """Median time of fn() in ms between CUDA events (one pair per call).
 
-    queue_ahead=True first queues a ~0.5 ms spin kernel, so the host has
-    enqueued all of fn's launches before the start event runs: the result
-    is device time only.  queue_ahead=False times the call as a caller
+    queue_ahead=True first queues a ~2 ms spin kernel, so the host has
+    enqueued all of fn's launches before the start event runs (an autograd
+    backward's host work can take ~0.7 ms): the result is device time
+    only.  queue_ahead=False times the call as a caller
     sees it on an idle card, the wrapper's host work included.
     """
     for _ in range(warmup):
@@ -455,7 +469,7 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3,
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         if queue_ahead:
-            torch.cuda._sleep(1_000_000)
+            torch.cuda._sleep(4_000_000)
         a.record()
         fn()
         b.record()
@@ -479,7 +493,11 @@ def bound(bytes_moved: float, ops: float):
 
 
 def max_abs(a, b) -> float:
-    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+    """max |a - b|, inf where either holds a NaN (so a fold with max() or a
+    test against a tolerance cannot pass it by)."""
+    if not a.numel():
+        return 0.0
+    return float((a.float() - b.float()).abs().nan_to_num(math.inf).max())
 
 
 # each kernel's launch counter: (wrapper, attribute); K12, K13 and K14
@@ -625,18 +643,63 @@ def path_inputs(cfg, spec_stu, state, pose, intr, gen):
     o = rays["rays_o"][0].contiguous()
     d = rays["rays_d"][0].contiguous()
     u = torch.rand(cfg.num_rays, generator=gen, device=dev)
-    xn, out, xyz = student_samples(state.field, spec_stu, rspec, state.occ,
+    xn, c, comp, _ = student_batch(state.field, spec_stu, rspec, state.occ,
                                    o, d, u)
+    return xn, c, comp
+
+
+def student_batch(field, spec, rspec, occ, o, d, u):
+    """A distill batch marched on occ and compacted (`student_samples`),
+    with the student's composite inputs on it: (xn, the compact stream,
+    (sigmas, rgbs, dt, t_cum, ray_id, valid, n_rays), world positions)."""
+    xn, out, xyz = student_samples(field, spec, rspec, occ, o, d, u)
     c = out["compact"]
     rid = c.ray_id
     with torch.no_grad():
-        f = state.field(xyz, d[rid], state.occ.aabb_train)
+        f = field(xyz, d[rid], occ.aabb_train)
     dt_c = torch.where(c.valid, dt_min_of(rspec), 0.0)
     t_cum = torch.where(c.valid, out["compact_t"] + dt_c
                         - out["samples"].t0[rid], 0.0)
     comp = (f.sigma.contiguous(), f.rgb.contiguous(), dt_c, t_cum, rid,
-            c.valid, cfg.num_rays)
-    return xn, c, comp
+            c.valid, o.shape[0])
+    return xn, c, comp, xyz
+
+
+def vm_projection_case(field, xn, gen) -> dict:
+    """The VM projection's backward (models/vm_field.py `features`:
+    torch.bmm(prod [3, M, R], proj [3, R, 1 + geo]) in f32) at M samples:
+    autograd's two bmms together, and each alone (the gradient of prod,
+    g @ proj^T, and of the projection, prod^T @ g, which reduces over the
+    M samples).  Bound: prod and g read once, the gradient of prod written
+    once (the projection's is a few KB); ops 2 x 2 M R (1 + geo) x 3.  A
+    library call the port keeps (the JAX package leaves the same product
+    to XLA outside every custom-VJP op), timed for a later change."""
+    planes = [p.detach() for p in field.planes]
+    lines = [v.detach() for v in field.lines]
+    with torch.no_grad():
+        prod = vm_sample_fwd(planes, lines, xn)
+        proj = field._projection().detach()
+    prod.requires_grad_()
+    proj.requires_grad_()
+    with torch.enable_grad():
+        out = torch.bmm(prod, proj)
+    g = torch.randn(out.shape, generator=gen, device=xn.device)
+    B, M, R = prod.shape
+    K = proj.shape[-1]
+    pt, gt = prod.detach(), proj.detach().transpose(1, 2)
+    return {"samples": M, "shape": [B, M, R, K],
+            "ms": cuda_ms(lambda: torch.autograd.grad(
+                out, (prod, proj), g, retain_graph=True)),
+            "d_prod_ms": cuda_ms(lambda: torch.bmm(g, gt)),
+            "d_proj_ms": cuda_ms(lambda: torch.bmm(pt.transpose(1, 2), g)),
+            "bound": bound(B * M * (2 * R + K) * 4, 2 * 2 * B * M * R * K)}
+
+
+def log_vm_projection(label: str, c: dict):
+    log(f"VM projection backward, {label} ({c['samples']} samples, bmm "
+        f"{c['shape']}): {c['ms']:.4f} ms (grad of prod {c['d_prod_ms']:.4f}"
+        f", grad of the projection {c['d_proj_ms']:.4f}), bound "
+        f"{c['bound'][0]:.4f} ({c['bound'][1]})")
 
 
 def vm_library(planes, xn, gen) -> tuple:
@@ -778,7 +841,9 @@ def ab_batch_cases(stu, scene, gen) -> dict:
     K2 on that march ("k2"); K5 with the trained student's tables and its
     F.grid_sample yardstick ("k5"); K15 on the teacher's points of those
     slots, with the A/B teacher baked, as a baked distill step replays
-    them ("k15")."""
+    them ("k15"), and K10 on those points as the exact teacher's replay
+    sends them ("k10"); K6 on the student's composite of the batch ("k6");
+    the VM projection's backward on it ("vm_projection")."""
     train = scene["train"]
     dev = stu.device
     intr = tuple(float(v) for v in train.intrinsics)
@@ -795,12 +860,12 @@ def ab_batch_cases(stu, scene, gen) -> dict:
     nears, fars = near_far_from_aabb(o, d, occ.aabb_train, rs.min_near)
     k2 = march_case(occ.bitfield, o, d, nears, fars, rs, u)
     log_march("K2", "A/B distill batch", k2)
-    xn, out, xyz = student_samples(stu.state.field, stu.spec_stu, rs, occ,
-                                   o, d, u)
+    xn, compact, comp, xyz = student_batch(stu.state.field, stu.spec_stu,
+                                           rs, occ, o, d, u)
     field = stu.state.field
     planes = [p.detach() for p in field.planes]
     k5 = k5_case(planes, [v.detach() for v in field.lines], xn,
-                 out["compact"].valid, gen)
+                 compact.valid, gen)
     k5["library_ms"] = cuda_ms(vm_library(planes, xn, gen)[1])
     log(f"K5 A/B batch: F.grid_sample fwd+bwd x3 {k5['library_ms']:.4f} ms")
     tea = stu.teacher
@@ -809,7 +874,21 @@ def ab_batch_cases(stu, scene, gen) -> dict:
     k15 = bake_case(tea.encoder.detach(), tea.grid, gen, x01.shape[0],
                     tea.encoder_cell.detach(), x01=x01)
     log_k15("A/B distill batch", k15)
-    return {"k2": k2, "k5": k5, "k15": k15}
+    k10 = k10_case(tea.encoder_cell.detach(), x01, tea.grid)
+    log(f"K10 A/B distill replay ({k10['points']} points x {k10['levels']} "
+        f"cell levels, {k10['touched_rows']} rows touched): rel err "
+        f"{k10['err']:.3g}, {k10['ms']:.4f} ms (call {k10['call_ms']:.4f}, "
+        f"plain {k10['plain_ms']:.4f}, bound {k10['bound'][0]:.5f} "
+        f"{k10['bound'][1]})")
+    if not k10["err"] <= TOL_K10_REL:
+        raise RuntimeError("K10 disagrees with its plain version on the A/B "
+                           "distill batch")
+    k6 = k6_case(comp, gen)
+    log_k6("A/B stage-3 batch", k6)
+    vm = vm_projection_case(field, xn, gen)
+    log_vm_projection("A/B stage-3 batch", vm)
+    return {"k2": k2, "k5": k5, "k15": k15, "k10": k10, "k6": k6,
+            "vm_projection": vm}
 
 
 def k4_cases(planes, lines, xn, gen) -> dict:
@@ -856,9 +935,28 @@ def k4_cases(planes, lines, xn, gen) -> dict:
     return out
 
 
-def check_composite_bwd(comp, gen) -> dict:
-    """K6 against autograd through the plain composite, on the path's
-    stream, with random upstream gradients of all four outputs."""
+def kernel_ms(fn, name: str, reps: int = 20) -> float:
+    """Device time per call of fn of the csrc kernel `name` alone (its
+    templated instances summed), from torch.profiler over reps calls after
+    a warm-up: a wrapper's own fills and copies are left out."""
+    for _ in range(3):
+        fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    row = profile(run)["ours"].get(name)
+    return row["ms"] / reps if row else math.nan
+
+
+def k6_case(comp, gen) -> dict:
+    """K6 against autograd through the plain composite on one stream
+    (sigmas, rgbs, dt, t_cum, ray_id, valid, n_rays), with random upstream
+    gradients of all four outputs: the error, the wrapper's times, the
+    kernel alone (`kernel_ms`) and the two zero fills of d_sigma [M] and
+    d_rgb [M, 3] alone (what the first design's wrapper launched before
+    the kernel), and the bound."""
     sig, rgb, dt_c, t_cum, rid, valid, N = comp
     M = sig.shape[0]
     dev = sig.device
@@ -876,25 +974,60 @@ def check_composite_bwd(comp, gen) -> dict:
     k6 = grads_of(composite_rays_compact)
     p6 = grads_of(composite_rays_compact_plain)
     err6 = max(max_abs(a, b) for a, b in zip(k6, p6))
-    _, _, _, weights, bounds = composite_rays_compact_fwd(
-        sig, rgb, dt_c, t_cum, rid, valid, N)
     s_p = sig.detach().clone().requires_grad_()
     r_p = rgb.detach().clone().requires_grad_()
     outs_p = composite_rays_compact_plain(s_p, r_p, dt_c, t_cum, rid, valid,
                                           N)
+    _, _, _, weights, bounds = composite_rays_compact_fwd(
+        sig, rgb, dt_c, t_cum, rid, valid, N)
+    args = dict(sigmas=sig, rgbs=rgb, delta_t=dt_c, t_cum=t_cum, ray_id=rid,
+                valid=valid, weights=weights, bounds=bounds, g_ws=gs[0],
+                g_depth=gs[1], g_image=gs[2], g_weights=gs[3])
+    # the wrapper is called directly (an autograd backward's host work can
+    # outlast the queued spin)
+
+    def kernel():
+        return composite_rays_compact_bwd(**args)
+
     n_valid = int(valid.sum())
-    b6 = bound(n_valid * (4 + 12 + 4 + 4 + 4) + N * (8 + 4 + 4 + 12)
-               + n_valid * 4 + M * 16, n_valid * 30)
+    return {"slots": M, "valid": n_valid, "rays": N, "err": err6,
+            "lanes": k3_lanes(M, N),
+            "bound": bound(n_valid * (4 + 12 + 4 + 4 + 4) + N * (8 + 4 + 4
+                                                                 + 12)
+                           + n_valid * 4 + M * 16, n_valid * 30),
+            **timings(kernel, lambda: torch.autograd.grad(
+                outs_p, (s_p, r_p), gs, retain_graph=True)),
+            "kernel_ms": kernel_ms(kernel, "composite_bwd_kernel"),
+            "fill_ms": cuda_ms(lambda: (torch.zeros(M, device=dev),
+                                        torch.zeros(M, 3, device=dev)))}
+
+
+def log_k6(label: str, c: dict):
+    """Log one k6_case; raise above TOL_K6."""
+    log(f"K6 {label}: {c['slots']} slots ({c['valid']} valid), {c['rays']} "
+        f"rays, {c['lanes']} lanes per ray: max abs err {c['err']:.3g}, "
+        f"{c['ms']:.4f} ms (the kernel alone {c['kernel_ms']:.4f}; two zero "
+        f"fills of the outputs alone {c['fill_ms']:.4f}; call "
+        f"{c['call_ms']:.4f}, plain {c['plain_ms']:.4f}, bound "
+        f"{c['bound'][0]:.5f} {c['bound'][1]})")
+    if not c["err"] <= TOL_K6:
+        raise RuntimeError(f"K6 disagrees with its plain version ({label})")
+
+
+def check_composite_bwd(comp, gen) -> dict:
+    """K6's row of the kernels line: k6_case on the distill step's
+    stream."""
+    c = k6_case(comp, gen)
+    log_k6("distill step batch", c)
     return dict(
         name="composite_rays_compact_bwd",
         source="pvd_tpu_torch/csrc/composite.cu",
-        replaces="pvd_tpu/ops/composite.py:28", err=err6, tol=TOL_K6,
-        **timings(lambda: composite_rays_compact_bwd(
-            sig, rgb, dt_c, t_cum, weights, bounds, *gs),
-            lambda: torch.autograd.grad(outs_p, (s_p, r_p), gs,
-                                        retain_graph=True)),
-        library_ms=None, bound=b6,
-        shape=f"M={M} slots ({n_valid} valid), N={N} rays")
+        replaces="pvd_tpu/ops/composite.py:28", err=c["err"], tol=TOL_K6,
+        **{k: c[k] for k in ("ms", "call_ms", "plain_ms", "bound",
+                             "lanes")},
+        library_ms=None, shapes={"distill_step": c},
+        shape=f"M={c['slots']} slots ({c['valid']} valid), N={c['rays']} "
+        "rays")
 
 
 def named_leaves(tree, prefix: str = "") -> list:
@@ -1477,6 +1610,31 @@ def drive_ab_recipe(seed: int, workspace: str) -> tuple:
     return tea, stu, scene, info
 
 
+def k10_case(cell, x01, gs) -> dict:
+    """K10 alone (its wrapper writes the cell levels' slots of a [P, L * 2]
+    output) against hash_encode_cell_plain on points x01, NaN where the
+    plain version gives NaN: the error relative to max |plain| (finite
+    entries), times and the bound."""
+    P, Lc = x01.shape[0], len(gs.cell_levels)
+    out = torch.zeros(P, gs.output_dim, device=x01.device)
+    cols = [c for lv in gs.cell_levels for c in (2 * lv, 2 * lv + 1)]
+    k = hash_encode_cell_fwd(cell, x01, gs, out)[:, cols]
+    p = hash_encode_cell_plain(cell, x01, gs)
+    abs10 = nan_abs(k, p)
+    inside = ((x01 >= 0) & (x01 <= 1)).all(-1)
+    rows = torch.stack([cell_corners(x01, gs, lv)[1] for lv in
+                        gs.cell_levels], 1)
+    touched = int(rows[inside].unique().numel())
+    # bytes: x01 and the touched 64-byte rows read once, [P, Lc, 2] out
+    # written once; ops: ~50 per pair (lattice, 8 weights, 16 FMAs)
+    return {"points": P, "levels": Lc, "abs_err": abs10,
+            "err": abs10 / float(torch.nan_to_num(p).abs().max()),
+            "touched_rows": touched,
+            "bound": bound(P * 12 + touched * 64 + P * Lc * 8, P * Lc * 50),
+            **timings(lambda: hash_encode_cell_fwd(cell, x01, gs, out),
+                      lambda: hash_encode_cell_plain(cell, x01, gs))}
+
+
 def cell_case(trainer, x01, valid, gen) -> dict:
     """K10 and K11 against their plain versions on one batch of the cell
     teacher's points, with times, bounds and library yardsticks."""
@@ -1489,14 +1647,11 @@ def cell_case(trainer, x01, valid, gen) -> dict:
     with torch.no_grad():
         full_k = hash_encode(table, x01, gs, cell)
     full_p = hash_encode_plain(table, x01, gs, cell)
-    # K10 alone fills the cell levels' slots of the shared [P, 28] output
-    out10 = torch.zeros(P, gs.output_dim, device=dev)
-    cols = [c for lv in gs.cell_levels for c in (2 * lv, 2 * lv + 1)]
-    k10 = hash_encode_cell_fwd(cell, x01, gs, out10)[:, cols]
+    c10 = k10_case(cell, x01, gs)
     p10 = hash_encode_cell_plain(cell, x01, gs)
     err10 = max(max_abs(full_k, full_p) / float(full_p.abs().max()),
-                max_abs(k10, p10) / float(p10.abs().max()))
-    abs10 = max(max_abs(full_k, full_p), max_abs(k10, p10))
+                c10["err"])
+    abs10 = max(max_abs(full_k, full_p), c10["abs_err"])
     g = torch.randn(P, gs.output_dim, generator=gen, device=dev) \
         * valid.reshape(-1, 1)
     k11 = hash_encode_cell_bwd(x01, g, gs)
@@ -1514,10 +1669,6 @@ def cell_case(trainer, x01, valid, gen) -> dict:
     g_cell = g.reshape(P, gs.num_levels, 2)[:, gs.cell_levels]  # [P, Lc, 2]
     active = (g_cell != 0).any(-1) & inside[:, None]
     n_active = int(active.sum())
-    touched = int(rows[inside].unique().numel())
-    # bytes: x01 and the touched 64-byte rows read once, [P, Lc, 2] out
-    # written once; ops: ~50 per pair (lattice, 8 weights, 16 FMAs)
-    b10 = bound(P * 12 + touched * 64 + P * Lc * 8, P * Lc * 50)
     # bytes: x01 and g's cell slots read once, the dense [Tc, 16] gradient
     # written once; ops: ~66 per active pair (the weights, 16 products)
     b11 = bound(P * 12 + P * Lc * 8 + gs.cell_table_size * 64,
@@ -1546,12 +1697,17 @@ def cell_case(trainer, x01, valid, gen) -> dict:
 
     return {"err10": err10, "abs10": abs10, "err11": err11, "abs11": abs11,
             "points": P, "pairs": P * Lc, "active_pairs": n_active,
-            "touched_rows": touched, "bound10": b10, "bound11": b11,
-            "t10": timings(lambda: hash_encode_cell_fwd(cell, x01, gs,
-                                                        out10),
-                           lambda: hash_encode_cell_plain(cell, x01, gs)),
+            "touched_rows": c10["touched_rows"], "bound10": c10["bound"],
+            "bound11": b11,
+            "t10": {k: c10[k] for k in ("ms", "call_ms", "plain_ms")},
             "t11": timings(lambda: hash_encode_cell_bwd(x01, g, gs),
                            lambda: hash_encode_cell_bwd_plain(x01, g, gs)),
+            # the call split: the kernel alone, and the wrapper's zero fill
+            # of the dense [Tc, 16] gradient alone
+            "k11_kernel_ms": kernel_ms(lambda: hash_encode_cell_bwd(
+                x01, g, gs), "hash_cell_bwd_kernel"),
+            "k11_fill_ms": cuda_ms(lambda: torch.zeros(
+                gs.cell_table_size, gs.cell_row_width, device=dev)),
             "lib10_ms": cuda_ms(lib10), "lib10_abs_err": lib10_err,
             "lib11_ms": cuda_ms(lib11)}
 
@@ -1568,7 +1724,7 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
     xyz = fma32(s.t[..., None], d[:, None, :], o[:, None, :]).clamp(-b, b)
     x01_pad = ((xyz.reshape(-1, 3) + b) / (2.0 * b)).contiguous()
     rs_c = trainer.rspec
-    _, _, s_c = teacher_batch(trainer, scene, gen, rs_c)
+    o, d, s_c = teacher_batch(trainer, scene, gen, rs_c)
     budget = rs_c.sample_budget(trainer.cfg.num_rays)
     cmp = compact_samples(s_c.mask, budget, prefix=True)
     rid = cmp.ray_id
@@ -1588,7 +1744,8 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
             f"{c['err11']:.3g}, {c['t11']['ms']:.4f} ms (call "
             f"{c['t11']['call_ms']:.4f}, plain {c['t11']['plain_ms']:.4f}, "
             f"index_add_ {c['lib11_ms']:.4f}, bound {c['bound11'][0]:.4f} "
-            f"{c['bound11'][1]})")
+            f"{c['bound11'][1]}; the kernel alone {c['k11_kernel_ms']:.4f}, "
+            f"the zero fill alone {c['k11_fill_ms']:.4f})")
         if not (c["err10"] <= TOL_K10_REL and c["err11"] <= TOL_K11_REL):
             raise RuntimeError(f"K10/K11 disagree with their plain versions "
                                f"on the {name} batch")
@@ -1613,7 +1770,10 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
              err_kind="max |kernel - plain| / max |plain|", **c["t11"],
              library_ms=c["lib11_ms"],
              library_call="index_add_ of the precomputed row contributions "
-             "(scatter only)", bound=c["bound11"], shape=shape)]
+             "(scatter only)", bound=c["bound11"], shape=shape,
+             shapes={"cell_teacher_compacted": {
+                 k: c[k] for k in ("points", "active_pairs", "k11_kernel_ms",
+                                   "k11_fill_ms")}})]
     # K7 and K1 on the corner levels (0-4) of the compacted batch
     gs = trainer.state.field.grid
     table = trainer.state.field.encoder.detach()
@@ -1623,8 +1783,17 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
     log_k7("cell teacher, compacted", k7)
     k1 = k1_case(table, x01_c, gs)
     log_k1("cell teacher, compacted", k1)
+    # K6 on the compacted stream (the cell teacher's own fields)
+    with torch.no_grad():
+        f_c = trainer.state.field(xyz_c, d[rid])
+    dt_c = torch.where(cmp.valid, dt_min_of(rs_c), 0.0)
+    t_cum = torch.where(cmp.valid, t_c + dt_c - s_c.t0[rid], 0.0)
+    k6 = k6_case((f_c.sigma.float().contiguous(), f_c.rgb.float()
+                  .contiguous(), dt_c, t_cum, rid, cmp.valid,
+                  trainer.cfg.num_rays), gen)
+    log_k6("cell teacher, compacted", k6)
     extra = {"padded": cases["padded"], "k7_compacted": k7,
-             "k1_compacted": k1,
+             "k1_compacted": k1, "k6_compacted": k6,
              "vector_atomics": bool(kernels.load()
                                     .pvd_hash_cell_vector_atomics())}
     return results, extra
@@ -2425,10 +2594,13 @@ def march_runs(rng, n: int, lo: int = 8, hi: int = 64) -> np.ndarray:
     return np.concatenate(runs)[:n].astype(np.float32)
 
 
-def k7_collision(spec, level: int, rng) -> tuple:
+def k7_collision(spec, level: int, rng, mask: int = 0) -> tuple:
     """Two lattice cells (base coordinates) of a hashed level whose corner-0
-    rows collide: a key on that row would merge their lanes."""
-    side, mask = spec.level_side(level), 2 ** spec.log2_hashmap_size - 1
+    rows collide (under `mask`, by default the corner table's hash mask;
+    a cell level's rows use the cell mask): a key on that row would merge
+    their lanes."""
+    side = spec.level_side(level)
+    mask = mask or 2 ** spec.log2_hashmap_size - 1
     b = rng.integers(0, side - 1, (40_000, 3)).astype(np.uint64)
     h = (b[:, 0] ^ (b[:, 1] * np.uint64(2654435761))
          ^ (b[:, 2] * np.uint64(805459861))) % np.uint64(2 ** 32) \
@@ -2565,6 +2737,245 @@ def k3_hard_inputs(seed: int = 0) -> dict:
             "stop_16": k3_stream(rng, stops, n_rays=32),
             "eval_tail": k3_stream(rng, tail, tail=200),
             "empty": k3_stream(rng, [], n_rays=8)}
+
+
+# a NaN coordinate alone, every coordinate NaN, and NaN beside a coordinate
+# outside [0, 1] (cut to the grid's D coordinates)
+NAN_POINTS = ((math.nan, 0.5, 0.5), (0.5, math.nan, math.nan),
+              (math.nan, math.nan, math.nan), (math.nan, -1.0, 0.5),
+              (1.5, math.nan, 0.25))
+
+
+def with_nan_points(x: np.ndarray, every: int = 97) -> np.ndarray:
+    """A copy of x [n, D] whose points every `every`-th (from 5) are
+    NAN_POINTS in turn."""
+    x = x.copy()
+    for j, i in enumerate(range(5, x.shape[0], every)):
+        x[i] = NAN_POINTS[j % len(NAN_POINTS)][:x.shape[1]]
+    return x
+
+
+K11_SPEC = dict(n_cell_levels=9)  # the A/B teacher's grid: levels 5-13
+# 20 levels, 18 of them cell-packed (2-19): more than a K11 block's
+# K11_SPAN = 16, so a second block (blockIdx.y) takes levels 18 and 19
+K11_SPEC20 = dict(num_levels=20, n_cell_levels=18, base_resolution=32,
+                  log2_hashmap_size=16)
+
+
+def k11_hard_inputs(n: int = 4099, seed: int = 0) -> dict:
+    """K11's contention and edge inputs, as numpy: name -> (x01 [n, 3], g
+    [n, L * 2], HashGridSpec kwargs); n is a multiple of no block.  All but
+    "levels20" are on the A/B teacher's grid (K11_SPEC: 14 levels, the 9
+    finest cell-packed).  tests/test_torch_hashgrid.py holds the plain cell
+    encode and cell-table gradient against JAX's on the same ones (the
+    gradient where JAX defines it: without the NaN points).  "rays":
+    ray-major runs of 8-64
+    samples; "one_cell": every point in one cell of the coarsest cell
+    level (level 5), so every lane of a warp adds to one row there;
+    "collision": lanes alternating between two cells of level 5 whose
+    cell rows collide (a key on the row would merge them); "g_levels": ray
+    runs with g zero at cell levels 6 and 11 for every point and at half
+    the (point, level) pairs; "padded": a padded stream, 32 slots a ray
+    with g zero past the first 3; "edge": points on the cube's faces and
+    corners, 8 just or far outside it and NaN points (`with_nan_points`:
+    NaN alone and beside a coordinate outside [0, 1]), every third g row
+    zero; "levels20": ray runs on K11_SPEC20's grid (18 cell levels, two
+    K11 blocks a point), g whole in the first half of the stream (dense
+    blocks) and on every fourth point after it (sparse blocks)."""
+    rng = np.random.default_rng(seed)
+    spec = HashGridSpec(**K11_SPEC)
+    L2 = spec.output_dim
+    lv0 = spec.cell_levels[0]
+    s0 = np.float32(spec.level_scale(lv0))
+
+    def normal():
+        return rng.normal(size=(n, L2)).astype(np.float32)
+
+    k = float(int(s0) // 2)  # the cell [k, k + 1) of pos = x * s0 + 0.5
+    one = rng.uniform((k - 0.5) / s0 + 1e-4, (k + 0.5) / s0 - 1e-4,
+                      (n, 3)).astype(np.float32)
+    a, b = k7_collision(spec, lv0, rng, spec.cell_rows_per_level - 1)
+    cells = np.where((np.arange(n) % 2 == 0)[:, None], a, b)
+    coll = ((cells + rng.uniform(0.1, 0.9, (n, 3)) - 0.5) / s0) \
+        .astype(np.float32)
+    g_lv = normal().reshape(n, -1, 2)
+    g_lv[:, [6, 11]] = 0.0
+    g_lv[rng.uniform(size=g_lv.shape[:2]) < 0.5] = 0.0
+    edge = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    q = n // 8
+    edge[:q, 0], edge[q:2 * q, 1], edge[2 * q:3 * q, 2] = 0.0, 1.0, 1.0
+    edge[3 * q:4 * q] = rng.choice([0.0, 1.0], (q, 3))
+    edge[4 * q:4 * q + 8] = [[-1e-3, 0.5, 0.5], [0.5, 1.001, 0.5],
+                             [1.0 + 2 ** -23, 0.5, 0.5], [0.5, 0.5, -2 ** -24],
+                             [-0.5, -0.5, -0.5], [1.5, 1.5, 1.5],
+                             [0.25, 2.0, 0.5], [-3.0, 0.75, 0.5]]
+    g_edge = normal()
+    g_edge[::3] = 0.0
+    g_pad = normal()
+    g_pad[np.arange(n) % 32 >= 3] = 0.0
+    g20 = rng.normal(size=(n, HashGridSpec(**K11_SPEC20).output_dim)) \
+        .astype(np.float32)
+    g20[(np.arange(n) >= n // 2) & (np.arange(n) % 4 != 0)] = 0.0
+    cases = {"rays": (march_runs(rng, n), normal()),
+             "one_cell": (one, normal()),
+             "collision": (coll, normal()),
+             "g_levels": (march_runs(rng, n), g_lv.reshape(n, L2)),
+             "padded": (march_runs(rng, n, 32, 32), g_pad),
+             "edge": (with_nan_points(edge), g_edge)}
+    return {**{k: (*v, K11_SPEC) for k, v in cases.items()},
+            "levels20": (march_runs(rng, n), g20, K11_SPEC20)}
+
+
+def check_k11_hard_cases(dev) -> dict:
+    """K11 on k11_hard_inputs, with g as given and one float into a larger
+    buffer (the wrapper realigns it), against the plain gradient of the
+    points without a NaN coordinate (a NaN point adds nothing; the plain
+    version, as JAX, adds NaN at a row its NaN lattice casts to), relative
+    to max |plain|; and K10 on the same points against
+    hash_encode_cell_plain, NaN where it gives NaN.  Raises on a case over
+    TOL_K11_REL or TOL_K10_REL (a NaN in K11's gradient counts as inf);
+    else each case's errors, which the caller folds into K11's and K10's
+    rows."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+    for name, (x, g, kw) in k11_hard_inputs().items():
+        gs = HashGridSpec(**kw)
+        cell = torch.rand(gs.cell_table_size, gs.cell_row_width,
+                          generator=gen, device=dev) * 2 - 1
+        keep = torch.from_numpy(~np.isnan(x).any(-1)).to(dev)
+        x01, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
+        shifted = torch.empty(gt.numel() + 1, device=dev)[1:].view(gt.shape)
+        shifted.copy_(gt)
+        p = hash_encode_cell_bwd_plain(x01[keep], gt[keep], gs)
+        err11 = max(max_abs(hash_encode_cell_bwd(x01, gg, gs), p)
+                    / float(p.abs().max()) for gg in (gt, shifted))
+        c10 = k10_case(cell, x01, gs)
+        out[name] = {"err11": err11, "err10": c10["err"],
+                     "cell_levels": len(gs.cell_levels),
+                     "nan_points": int((~keep).sum())}
+        log(f"K11/K10 {name} ({x.shape[0]} points, {len(gs.cell_levels)} "
+            f"cell levels, {out[name]['nan_points']} with a NaN coordinate): "
+            f"K11 rel err {err11:.3g}, K10 rel err {c10['err']:.3g}")
+        if not (err11 <= TOL_K11_REL and c10["err"] <= TOL_K10_REL):
+            raise RuntimeError(f"K11 or K10 disagrees with its plain version "
+                               f"on the {name} case: {err11:.3g}, "
+                               f"{c10['err']:.3g}")
+    return out
+
+
+def k6_hard_inputs(seed: int = 0) -> dict:
+    """K6's inputs, as numpy: k3_hard_inputs' streams (rays of 0, 1, 15-17,
+    31-33, 256 and 1024 slots, with and without empty rays after them, an
+    opaque slot first in its ray, the eval tail of invalid slots carrying
+    ray 0, no slot at all) with random upstream gradients of weights_sum
+    [N], depth [N], image [N, 3] and weights [M]: name -> (sigmas, rgbs,
+    delta_t, t_cum, ray_id, valid, n_rays, (g_ws, g_depth, g_image,
+    g_weights)).  tests/test_torch_composite.py holds the plain
+    composite's gradients against JAX's autodiff on the same ones."""
+    rng = np.random.default_rng(seed + 1)
+    out = {}
+    for name, case in k3_hard_inputs(seed).items():
+        n, M = case[-1], case[0].shape[0]
+        gs = tuple(rng.normal(size=shape).astype(np.float32)
+                   for shape in ((n,), (n,), (n, 3), (M,)))
+        out[name] = (*case, gs)
+    return out
+
+
+def k6_entry(sig, rgb, dt, t_cum, rid, valid, n, g) -> tuple:
+    """K6 through its C entry, as the wrapper launches it, into outputs
+    filled with NaN first (the wrapper's are torch.empty), so a slot that
+    no ray owns and the kernel leaves unwritten shows; no launch counted.
+    (d_sigma [M], d_rgb [M, 3])."""
+    _, _, _, weights, bounds = composite_rays_compact_fwd(
+        sig, rgb, dt, t_cum, rid, valid, n)
+    d_sigma = torch.full_like(sig, math.nan)
+    d_rgb = torch.full_like(rgb, math.nan)
+    kernels.launch("pvd_composite_compact_bwd", sig.data_ptr(),
+                   rgb.data_ptr(), dt.data_ptr(), t_cum.data_ptr(),
+                   weights.data_ptr(), bounds.data_ptr(), rid.data_ptr(),
+                   valid.data_ptr(), sig.shape[0], n,
+                   k3_lanes(sig.shape[0], n), *(t.data_ptr() for t in g),
+                   d_sigma.data_ptr(), d_rgb.data_ptr(),
+                   kernels.stream_ptr(sig))
+    return d_sigma, d_rgb
+
+
+def check_k6_hard_cases(dev) -> dict:
+    """K6 on k6_hard_inputs (k6_entry: outputs filled with NaN first)
+    against autograd through the plain composite.  Raises on a case over
+    TOL_K6 (a NaN counts as inf); else each case's max abs error, which the
+    caller folds into K6's row."""
+    out = {}
+    for name, (*arrays, n, gs) in k6_hard_inputs().items():
+        sig, rgb, dt, t_cum, rid, valid = (torch.from_numpy(a).to(dev)
+                                           for a in arrays)
+        g = [torch.from_numpy(a).to(dev) for a in gs]
+        s = sig.clone().requires_grad_()
+        r = rgb.clone().requires_grad_()
+        plain = torch.autograd.grad(composite_rays_compact_plain(
+            s, r, dt, t_cum, rid, valid, n), (s, r), g)
+        err = max(max_abs(a, b) for a, b in zip(
+            k6_entry(sig, rgb, dt, t_cum, rid, valid, n, g), plain))
+        out[name] = {"err": err, "slots": sig.shape[0], "rays": n,
+                     "lanes": k3_lanes(sig.shape[0], n)}
+        log(f"K6 {name} ({sig.shape[0]} slots, {n} rays, "
+            f"{out[name]['lanes']} lanes per ray): max abs err {err:.3g}")
+        if not err <= TOL_K6:
+            raise RuntimeError(f"K6 disagrees with its plain version on the "
+                               f"{name} case: {err:.3g}")
+    return out
+
+
+def check_nan_rule(dev) -> dict:
+    """The NaN rule on the card: K12 and K15 (the forward encodes) give NaN
+    exactly where their plain versions do on edge points with NaN points
+    among them (`with_nan_points`), and K7 and K13 (the table gradients)
+    add nothing for a NaN point: their gradient equals the plain one of
+    the other points.  Errors relative to max |plain| (finite entries).
+    Raises on one over its kernel's tolerance; else the errors, which the
+    caller folds into each kernel's row.  (K1's NaN cases are
+    k1_hard_inputs', K10's and K11's k11_hard_inputs'.)"""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+
+    def rel(k, p):
+        return nan_abs(k, p) / float(torch.nan_to_num(p).abs().max())
+
+    # K7 on k7_hard_inputs' edge case, K13 and K12 on k13_hard_inputs'
+    x, g, kw = k7_hard_inputs()["edge"]
+    for key, gs, (x, g) in (
+            ("k7", HashGridSpec(**kw), (x, g)),
+            ("k13", bg_grid_spec(), k13_hard_inputs()["edge"])):
+        x = with_nan_points(x)
+        keep = torch.from_numpy(~np.isnan(x).any(-1)).to(dev)
+        x01, gt = torch.from_numpy(x).to(dev), torch.from_numpy(g).to(dev)
+        out[key] = rel(hash_encode_bwd(x01, gt, gs),
+                       hash_encode_bwd_plain(x01[keep], gt[keep], gs))
+        if key == "k13":
+            table = torch.rand(gs.table_size, 2, generator=gen,
+                               device=dev) * 2 - 1
+            out["k12"] = rel(hash_encode_fwd(table, x01, gs),
+                             hash_encode_plain(table, x01, gs))
+    # K15 on the A/B teacher's grid, baked from a random table
+    gs = HashGridSpec(**K11_SPEC)
+    table = torch.rand(gs.table_size, 2, generator=gen, device=dev) * 2 - 1
+    baked = build_baked_dense(table, gs)
+    x01 = torch.from_numpy(with_nan_points(k7_hard_inputs()["edge"][0])) \
+        .to(dev)
+    o15 = torch.zeros(x01.shape[0], gs.output_dim, device=dev)
+    cols = [2 * lv + c for lv in gs.dense_levels for c in (0, 1)]
+    out["k15"] = rel(hash_encode_baked_fwd(baked, x01, gs, o15)[:, cols],
+                     hash_encode_baked_plain(baked, x01, gs))
+    log("NaN rule (rel err against the plain versions; K7, K13 against the "
+        "points without a NaN coordinate): " + ", ".join(
+            f"{k.upper()} {v:.3g}" for k, v in out.items()))
+    tols = {"k7": TOL_K7_REL, "k13": TOL_K13_REL, "k12": TOL_K12_REL,
+            "k15": TOL_K15_REL}
+    over = [k for k, v in out.items() if not v <= tols[k]]
+    if over:
+        raise RuntimeError(f"the NaN rule fails in {over}")
+    return out
 
 
 def check_k7_hard_cases(dev) -> dict:
@@ -3361,6 +3772,8 @@ def main(argv=None) -> int:
         f"{xn.shape[0]}")
     results += check_vm_kernels(state, xn, compact, gen)
     results.append(check_composite_bwd(comp, gen))
+    vm_proj = vm_projection_case(state.field, xn, gen)
+    log_vm_projection("distill step batch", vm_proj)
 
     # ---- end to end: the kernel path on the GPU against the plain path on
     # the CPU (the path the tests hold against the JAX package), f32 heads
@@ -3493,6 +3906,7 @@ def main(argv=None) -> int:
                        "ab_distill_train": ab_batch["k2"],
                        "hard_inputs": k2_hard},
         "hash_encode_baked_fwd": {"ab_distill_batch": ab_batch["k15"]},
+        "hash_encode_cell_fwd": {"ab_distill_replay": ab_batch["k10"]},
         "hash_encode_bwd": {"exact_teacher_padded": t_extra.pop(
                                 "hash_encode_bwd_padded"),
                             "cell_teacher_compacted": c_extra.pop(
@@ -3502,9 +3916,34 @@ def main(argv=None) -> int:
                                    "exact_teacher_compacted": t_extra.pop(
                                        "k3_compacted"),
                                    "hard_inputs": k3_hard}}
+    k6_row = next(r for r in results
+                  if r["name"] == "composite_rays_compact_bwd")
+    k6_row["shapes"].update(cell_teacher_compacted=c_extra.pop(
+        "k6_compacted"), ab_stage3=ab_batch["k6"])
     for r in results:
         if r["name"] in shapes:
             r["shapes"] = shapes[r["name"]]
+
+    # hard inputs of K11/K10 and K6, and the NaN rule of K7, K12, K13 and
+    # K15: checked after every timing, each raising on a case over its
+    # tolerance, and folded into its kernel's row
+    k11_hard = check_k11_hard_cases(dev)
+    k6_hard = check_k6_hard_cases(dev)
+    nan_rule = check_nan_rule(dev)
+    held = {"hash_encode_cell_bwd": [c["err11"] for c in k11_hard.values()],
+            "hash_encode_cell_fwd": [c["err10"] for c in k11_hard.values()],
+            "composite_rays_compact_bwd": [c["err"] for c in
+                                           k6_hard.values()],
+            "hash_encode_bwd": [nan_rule["k7"]],
+            "hash_encode_2d_bwd": [nan_rule["k13"]],
+            "hash_encode_2d_fwd": [nan_rule["k12"]],
+            "hash_encode_baked_fwd": [nan_rule["k15"]]}
+    for r in results:
+        if r["name"] in held:  # NaN-free: each check raised on a NaN
+            r["err"] = max([r["err"]] + held[r["name"]])
+    k6_row["shapes"]["hard_inputs"] = k6_hard
+    next(r for r in results if r["name"] == "hash_encode_cell_bwd")[
+        "shapes"]["hard_inputs"] = k11_hard
 
     bad = [r["name"] for r in results if not r["err"] <= r["tol"]]
     for r in results:
@@ -3572,6 +4011,8 @@ def main(argv=None) -> int:
         **{k: r[k] for k in ("variant", "cases", "lanes", "shapes")
            if k in r}}
         for r in results],
+        "vm_projection_bwd": {"distill_step": vm_proj,
+                              "ab_stage3": ab_batch["vm_projection"]},
         "sweep_ms": sweep_ms, "images": images, "build_s": build_s,
         "e2e_max_abs_diff": e2e_err, "profile": brief(prof),
         "distill": {"stages": stages, "profile_stage3": brief(prof_d),
@@ -3602,6 +4043,7 @@ def main(argv=None) -> int:
                         "distill_stage3_profile": brief(
                             ls_distill["profile"]),
                         "gpu_vs_cpu_steps": ls_checks},
+        "nan_rule": nan_rule,
         "card": card, "wall_s": time.perf_counter() - t_script}
     log(f"chip_smoke wall {line['wall_s']:.1f} s (kernel build included)")
     print(json.dumps(line), flush=True)

@@ -49,11 +49,25 @@
 // + g_w_i, S = sum_j w_j G_j over the ray, and T_{i+1} = T_i (1 - alpha_i):
 //   dsigma_i = dt_i * (T_{i+1} G_i - (S - sum_{j<=i} w_j G_j))
 //   drgb_i   = w_i * g_img
-// One thread per ray reuses K3's pass-1 bounds and the saved weights, with
-// two passes over its range (S first, then the running prefix); invalid
-// slots keep the zeros the wrapper allocates.  No gradient to dt, t_cum or
-// positions.  Bound: memory (37 B read and 16 B written per slot); like
-// K3's first design it is a serial chain of L2 loads per ray.
+// It reuses K3's bounds and the saved weights.  No gradient to dt, t_cum or
+// positions.  Bound: memory (37 B read and 16 B written per slot).  The
+// first design ran one thread per ray in blocks of 64, walking its range
+// twice (S, then the running prefix) with loads strided across the warp's
+// rays: a serial chain of L2 round trips, as K3's first design was, and at
+// the A/B recipe's 4096 rays 64 blocks on 132 SMs; its wrapper zero-filled
+// both outputs first (two more launches).  On the H100 that was 0.012-0.019
+// ms of kernel and 0.007 of fills, 15-54x the bound (PERF.md §6).
+// The design now (composite_bwd_kernel): K3's pass-2 groups, G = 16 or 32
+// lanes a ray (k3_lanes) walking it in tiles of G slots with coalesced
+// loads; the first K6_CACHED tiles' inputs stay in registers for the
+// second walk (the training paths cap a ray at 96 or 64 slots: 4-6 tiles
+// of 16); S by a group reduction; T by K3's broadcast product in slot
+// order (T_i bit for bit the forward's); sum_{j<=i} w_j G_j by a group
+// scan with a carry across tiles; d_sigma and the tile's 3 G floats of
+// d_rgb stored by consecutive lanes.  The blocks after the rays' write the
+// zeros of the slots no ray owns (invalid, or a ray id out of range, as
+// pass 1 drops them), so the wrapper allocates the outputs without a fill.
+// Only the order of the sums differs from the first design.
 
 // K8 (forward) and K9 (backward): the padded composite, replacing
 // pvd_tpu/ops/composite.py:97 composite_rays and its autodiff (a cumprod and
@@ -81,6 +95,8 @@
 #include <stdint.h>
 
 #define K3_THREADS 128
+#define K6_THREADS 128
+#define K6_CACHED 4  // tiles a K6 group keeps in registers between its walks
 
 __global__ void segment_bounds_kernel(const long long* __restrict__ ray_id,
                                       const uint8_t* __restrict__ valid,
@@ -236,56 +252,155 @@ extern "C" int pvd_composite_compact_fwd(
   return (int)cudaGetLastError();
 }
 
-__global__ void composite_bwd_kernel(
+// K6's G_i = g_img . rgb_i + g_ws + g_depth * t_cum_i + g_w_i of slot i
+__device__ __forceinline__ float k6_term(const float* __restrict__ rgbs,
+                                         const float* __restrict__ t_cum,
+                                         const float* __restrict__ g_weights,
+                                         int i, float gi0, float gi1,
+                                         float gi2, float gws, float gd) {
+  return gi0 * rgbs[3 * (long long)i] + gi1 * rgbs[3 * (long long)i + 1] +
+         gi2 * rgbs[3 * (long long)i + 2] + gws + gd * t_cum[i] +
+         g_weights[i];
+}
+
+// K6: blocks below ray_blocks give each ray a group of G lanes (G | 32, as
+// K3's pass 2); the blocks after them take one slot a thread and write the
+// zeros of the slots no ray owns (invalid, or a ray id out of range, as
+// pass 1 drops them).  A group walks its ray twice in tiles of G slots:
+// first S = sum w_j G_j (lane partial sums, then a group reduction),
+// keeping its first K6_CACHED tiles' sigma, dt, w and G in registers; then
+// each tile's T by K3's broadcast product in slot order (T_i bit for bit
+// the forward's), sum_{j<=i} w_j G_j by a group scan with a carry across
+// tiles, d_sigma at slot i and the tile's 3 G floats of d_rgb by
+// consecutive lanes.
+template <int G>
+__global__ void __launch_bounds__(K6_THREADS) composite_bwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const float* __restrict__ dts, const float* __restrict__ t_cum,
     const float* __restrict__ weights, const int* __restrict__ start,
-    const int* __restrict__ end, const float* __restrict__ g_ws,
+    const int* __restrict__ end, const long long* __restrict__ ray_id,
+    const uint8_t* __restrict__ valid, int n_samples, int n_rays,
+    int ray_blocks, const float* __restrict__ g_ws,
     const float* __restrict__ g_depth, const float* __restrict__ g_image,
-    const float* __restrict__ g_weights, int n_rays,
-    float* __restrict__ d_sigma, float* __restrict__ d_rgb) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+    const float* __restrict__ g_weights, float* __restrict__ d_sigma,
+    float* __restrict__ d_rgb) {
+  if ((int)blockIdx.x >= ray_blocks) {
+    const long long i =
+        (long long)(blockIdx.x - ray_blocks) * blockDim.x + threadIdx.x;
+    if (i >= n_samples) return;
+    const long long r = valid[i] ? ray_id[i] : -1;
+    if (r >= 0 && r < n_rays) return;
+    d_sigma[i] = 0.f;
+    d_rgb[3 * i] = d_rgb[3 * i + 1] = d_rgb[3 * i + 2] = 0.f;
+    return;
+  }
+  const int r = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) / G);
+  if (r >= n_rays) return;  // the whole group
+  const int j = threadIdx.x & (G - 1);
+  const unsigned group = (unsigned)((1ull << G) - 1ull)
+                         << ((threadIdx.x & 31) & ~(G - 1));
   const int s = start[r], e = end[r];
   const float gi0 = g_image[3 * r], gi1 = g_image[3 * r + 1],
               gi2 = g_image[3 * r + 2], gws = g_ws[r], gd = g_depth[r];
+  // walk 1: S; the first tiles' inputs stay in registers
+  float c_sg[K6_CACHED], c_dt[K6_CACHED], c_w[K6_CACHED], c_g[K6_CACHED];
   float S = 0.f;
-  for (int i = s; i < e; ++i) {
-    const float G = gi0 * rgbs[3 * i] + gi1 * rgbs[3 * i + 1] +
-                    gi2 * rgbs[3 * i + 2] + gws + gd * t_cum[i] +
-                    g_weights[i];
-    S = fmaf(weights[i], G, S);
+#pragma unroll
+  for (int t = 0; t < K6_CACHED; ++t) {
+    const int i = s + t * G + j;
+    c_sg[t] = c_dt[t] = c_w[t] = c_g[t] = 0.f;
+    if (i < e) {
+      c_sg[t] = sigmas[i];
+      c_dt[t] = dts[i];
+      c_w[t] = weights[i];
+      c_g[t] = k6_term(rgbs, t_cum, g_weights, i, gi0, gi1, gi2, gws, gd);
+    }
+    S = fmaf(c_w[t], c_g[t], S);
   }
-  float T = 1.f, prefix = 0.f;
-  for (int i = s; i < e; ++i) {
-    const float w = weights[i];
-    const float G = gi0 * rgbs[3 * i] + gi1 * rgbs[3 * i + 1] +
-                    gi2 * rgbs[3 * i + 2] + gws + gd * t_cum[i] +
-                    g_weights[i];
-    prefix = fmaf(w, G, prefix);
-    // the forward's alpha, rounded the same way
-    const float alpha =
-        __fsub_rn(1.f, expf(__fmul_rn(-sigmas[i], dts[i])));
-    const float T_next = __fmul_rn(T, __fsub_rn(1.f, alpha));
-    d_sigma[i] = dts[i] * (T_next * G - (S - prefix));
-    d_rgb[3 * i] = w * gi0;
-    d_rgb[3 * i + 1] = w * gi1;
-    d_rgb[3 * i + 2] = w * gi2;
-    T = T_next;
+  for (int i = s + K6_CACHED * G + j; i < e; i += G)
+    S = fmaf(weights[i],
+             k6_term(rgbs, t_cum, g_weights, i, gi0, gi1, gi2, gws, gd), S);
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) S += __shfl_xor_sync(group, S, o, G);
+  // walk 2
+  float T = 1.f, carry = 0.f;
+  auto tile = [&](int i0, float sg, float dt, float w, float gv) {
+    const int i = i0 + j;
+    const bool in = i < e;
+    const float alpha = in ? __fsub_rn(1.f, expf(__fmul_rn(-sg, dt))) : 0.f;
+    const float f = __fsub_rn(1.f, alpha);
+    float Tj = T;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const float fk = __shfl_sync(group, f, k, G);
+      if (k == j) Tj = T;
+      T = __fmul_rn(T, fk);
+    }
+    float pre = in ? w * gv : 0.f;  // inclusive scan of w G in the tile
+#pragma unroll
+    for (int o = 1; o < G; o <<= 1) {
+      const float y = __shfl_up_sync(group, pre, o, G);
+      if (j >= o) pre += y;
+    }
+    pre += carry;
+    carry = __shfl_sync(group, pre, G - 1, G);
+    if (in) d_sigma[i] = dt * (__fmul_rn(Tj, f) * gv - (S - pre));
+    // d_rgb: float j + m G of the tile's 3 G, slot (j + m G) / 3
+    const int nq = 3 * min(G, e - i0);
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int qi = j + m * G;
+      const float wq = __shfl_sync(group, w, qi / 3, G);
+      if (qi < nq) {
+        const int ch = qi % 3;
+        d_rgb[3 * (long long)i0 + qi] =
+            wq * (ch == 0 ? gi0 : (ch == 1 ? gi1 : gi2));
+      }
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < K6_CACHED; ++t) {
+    if (s + t * G >= e) break;
+    tile(s + t * G, c_sg[t], c_dt[t], c_w[t], c_g[t]);
+  }
+  for (int i0 = s + K6_CACHED * G; i0 < e; i0 += G) {
+    const int i = i0 + j;
+    float sg = 0.f, dt = 0.f, w = 0.f, gv = 0.f;
+    if (i < e) {
+      sg = sigmas[i];
+      dt = dts[i];
+      w = weights[i];
+      gv = k6_term(rgbs, t_cum, g_weights, i, gi0, gi1, gi2, gws, gd);
+    }
+    tile(i0, sg, dt, w, gv);
   }
 }
 
+// lanes per ray: 16 or 32 (ops/composite.py k3_lanes); the bounds from the
+// forward; d_sigma and d_rgb need no initial value
 extern "C" int pvd_composite_compact_bwd(
     const float* sigmas, const float* rgbs, const float* dt,
-    const float* t_cum, const float* weights, const int* bounds, int n_rays,
-    const float* g_ws, const float* g_depth, const float* g_image,
-    const float* g_weights, float* d_sigma, float* d_rgb, void* stream) {
-  if (n_rays <= 0) return 0;
-  const int ray_threads = 64;
-  composite_bwd_kernel<<<(n_rays + ray_threads - 1) / ray_threads,
-                         ray_threads, 0, (cudaStream_t)stream>>>(
-      sigmas, rgbs, dt, t_cum, weights, bounds, bounds + n_rays, g_ws,
-      g_depth, g_image, g_weights, n_rays, d_sigma, d_rgb);
+    const float* t_cum, const float* weights, const int* bounds,
+    const long long* ray_id, const uint8_t* valid, int n_samples,
+    int n_rays, int lanes, const float* g_ws, const float* g_depth,
+    const float* g_image, const float* g_weights, float* d_sigma,
+    float* d_rgb, void* stream) {
+  if (lanes != 16 && lanes != 32) return (int)cudaErrorInvalidValue;
+  const int ray_blocks =
+      (int)(((long long)n_rays * lanes + K6_THREADS - 1) / K6_THREADS);
+  const int blocks = ray_blocks + (n_samples + K6_THREADS - 1) / K6_THREADS;
+  if (blocks == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lanes == 16)
+    composite_bwd_kernel<16><<<blocks, K6_THREADS, 0, st>>>(
+        sigmas, rgbs, dt, t_cum, weights, bounds, bounds + n_rays, ray_id,
+        valid, n_samples, n_rays, ray_blocks, g_ws, g_depth, g_image,
+        g_weights, d_sigma, d_rgb);
+  else
+    composite_bwd_kernel<32><<<blocks, K6_THREADS, 0, st>>>(
+        sigmas, rgbs, dt, t_cum, weights, bounds, bounds + n_rays, ray_id,
+        valid, n_samples, n_rays, ray_blocks, g_ws, g_depth, g_image,
+        g_weights, d_sigma, d_rgb);
   return (int)cudaGetLastError();
 }
 

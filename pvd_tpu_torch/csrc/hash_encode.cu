@@ -84,7 +84,8 @@
 // the lanes whose points fall in one lattice cell (one 64-bit key of the
 // base coordinates: corner 0's hashed row is no key, two cells can share
 // it and differ at other corners) sum their 16 contributions in registers
-// (peer_sum), and the lowest of them adds, one float2 atomic per corner.
+// (peer_sum), and the lowest of them adds, one float2 atomic per corner;
+// points outside the cube or with a NaN coordinate add nothing.
 // A warp with nothing to add at a level (the padded stream's zero rows, a
 // g of (0, 0) there) skips it.  The pre-sum runs at the hashed levels too:
 // there peers are rarer, but a dense-only pre-sum measured 20% slower at
@@ -102,19 +103,44 @@
 //   out = sum_k w_k * row[2k : 2k+2]
 // with K1's corner_setup and corner_weight, so the weights are K1's bit for
 // bit.  One thread per (point, cell level) reads its row as four float4
-// loads and writes one float2.  Bound: memory, one 64-byte row per pair
-// (two 32-byte sectors, all useful) against K1's eight scattered 8-byte rows;
+// loads and writes one float2; a NaN coordinate gives NaN there, also
+// beside one outside [0, 1] (K1's rule: JAX weights by w * okf), and a
+// point outside gives 0.  Bound: memory, one 64-byte row per pair (two
+// 32-byte sectors, all useful) against K1's eight scattered 8-byte rows;
 // the 37.7 MB cell table fits the L2.
 //
 // K11: the cell table's gradient, replacing _cell_gather_sum_bwd (:362),
 // the table part (no g_w, as in K7): row[2k : 2k+2] += w_k * g[n, l].
-// One thread per (point, cell level) adds its 16 floats as four float4
-// atomics where the toolkit has them for sm_90 (else 16 scalar atomics).
-// Pairs with g = (0, 0) and points outside [0, 1]^3 return first, as in
-// K7.  Bound: memory, the wrapper's dense 37.7 MB zeroed gradient (AdamW
+// Bound: memory, the wrapper's dense 37.7 MB zeroed gradient (AdamW
 // updates every row, as optax does) plus one 64-byte read-modify-write per
-// active pair; order varies from run to run (atomics), so the card check
-// uses a relative tolerance.
+// active pair.  On the H100 the fill alone takes 0.016 ms (2.3 TB/s), more
+// than the first design's kernel at the A/B teacher's batch (0.014 ms,
+// PERF.md §6).  That design ran one thread per (point, cell level), level
+// fastest, adding four float4 atomics per active pair: a warp held ~3.5
+// points at 9 levels, so no two lanes could pool an add, though a ray's
+// consecutive samples share the coarse cells (level 5 is ~100 cells a
+// side, about six march steps per cell).
+// The design now (hash_cell_bwd_kernel): a block per 32 consecutive points
+// of the ray-major stream and a warp per cell level, so the level
+// constants are warp-uniform and a warp's lanes are consecutive samples at
+// one level.  The block first counts its live (point, level) pairs.  A
+// sparse block (at most half its lanes live: the padded warm-up, a ray's
+// few samples among 96 slots) packs them into its first warps, a thread per
+// pair adding its row as four float4s, as the first design did.  A dense
+// block (the compacted stream) pre-sums at every level: the lanes of a
+// lattice cell sum their 16 products in registers (K7's peer_sum and
+// 64-bit cell key), and the leaders' rows are staged in shared memory and
+// added four lanes a row, one warp instruction adding 8 whole rows.
+// Measured on the H100 and dropped (PERF.md §6): a thread per point
+// walking all 9 levels (65,536 threads underfill the card), the leader
+// adding its row alone (slower than four lanes at the compacted stream),
+// staging only above 8 leaders (no gain), the block's g rows and x01 read
+// into shared memory first (slower padded), and no sparse path (slower
+// than the first design padded).  Each product
+// w_k * g is rounded as before; only the order of the sums changes (it
+// varies from run to run), so the card check uses a relative tolerance.  A
+// point with a NaN coordinate adds nothing: in JAX and the plain version
+// its row comes from an undefined float-to-int cast (ROADMAP C).
 
 // K12: the D = 2 encode, replacing pvd_tpu/ops/hashgrid.py:533 hash_encode
 // at input_dim 2 as pvd_tpu/models/api.py:127 background_rgb calls it: the
@@ -124,7 +150,7 @@
 // (c0 * 1 ^ c1 * 2654435761) & (2^19 - 1)), a 697,776 x 2 table (5.6 MB).
 // It is K1's first design's body at D = 2: the same x01 * scale + 0.5 FMA,
 // bilinear weights over 4 corners and one thread per (point, level);
-// inputs outside [0, 1]^2 give 0.  Bound on the H100: memory, 4 rows of
+// inputs outside [0, 1]^2 give 0, a NaN coordinate NaN (K1's rule).  Bound on the H100: memory, 4 rows of
 // 8 B per (point, level) from a table that fits the L2, 8 B read and 32 B
 // written per point; one launch per composited batch, on N rays, not on
 // the samples, so it is small beside K1.
@@ -132,8 +158,8 @@
 // K13: its table gradient, g_table[offset_l + row(corner k)] += w_k * g[n, l]
 // into a zeroed dense [697,776, 2] gradient, with K12's corner rows and
 // weights (corner_setup, corner_weight: the x01 * scale + 0.5 FMA) and the
-// products w_k * g rounded as K7 rounds them; pairs with g = (0, 0) and
-// points outside the square add nothing.  Bound on the H100: memory, the
+// products w_k * g rounded as K7 rounds them; pairs with g = (0, 0),
+// points outside the square and NaN points add nothing.  Bound on the H100: memory, the
 // wrapper's 5.6 MB zero-fill (inside the timed call, as for the index_add_
 // yardstick) plus 40 B read per point (x01 and its upstream row); every
 // add lands on a table of 5.6 MB that sits in the 50 MB L2, so what limits
@@ -169,7 +195,8 @@
 // lattice (side_f per axis) the features of all Ld dense levels, one row of
 // Ld * 2 floats.  Per point: the finest dense level's base cell and 8
 // trilinear weights exactly as K1 forms them (corner_setup, corner_weight:
-// the x01 * scale + 0.5 FMA, zeros outside [0, 1]^3), then the 8 corner
+// the x01 * scale + 0.5 FMA, zeros outside [0, 1]^3, NaN for a NaN
+// coordinate as in K1), then the 8 corner
 // rows c0 + c1 * side_f + c2 * side_f^2 of the vertex table, and for each
 // dense level j the weighted corner sum of its 2 floats into level slot
 // level[j] of the [N, L * 2] output that K1 (the other corner levels) and
@@ -209,6 +236,7 @@
 #define K13_LEVELS 4  // the background grid's (bg_grid_spec)
 #define K13_THREADS 128
 #define K7_THREADS 128
+#define K11_SPAN 16  // cell levels a K11 block (a warp each)
 #define K1_POINTS 64  // points a K1 block
 #define K1_PER 2  // levels a K1 thread
 #define K1_MAX_THREADS 512  // 8 level groups of K1_POINTS threads
@@ -308,14 +336,27 @@ __device__ __forceinline__ bool has_nan(const float (&x)[D]) {
   return n;
 }
 
-// (x < 0) | (x > 1) in any dimension, as in hashgrid.py:571 (a NaN passes,
-// like JAX's)
+// Not inside [0, 1] in some dimension: hashgrid.py:571's (x < 0) | (x > 1),
+// or a NaN coordinate.  The encodes test has_nan first (a NaN point's row
+// is NaN, as in JAX); the table gradients drop a NaN point with the points
+// outside: its lattice comes from an undefined float-to-int cast, in JAX as
+// in the plain version, so no row of its gradient is defined.
 template <int D>
 __device__ __forceinline__ bool outside(const float (&x)[D]) {
   bool o = false;
 #pragma unroll
-  for (int d = 0; d < D; ++d) o = o || x[d] < 0.f || x[d] > 1.f;
+  for (int d = 0; d < D; ++d) o = o || !(x[d] >= 0.f && x[d] <= 1.f);
   return o;
+}
+
+// The encodes' rule for a point that is NaN or outside: true when it gives
+// *o, NaN for a NaN coordinate (also beside one outside [0, 1]: the plain
+// version and JAX weight by w * okf) and 0 outside.
+template <int D>
+__device__ __forceinline__ bool nan_or_outside(const float (&x)[D],
+                                               float& z) {
+  z = has_nan<D>(x) ? CUDART_NAN_F : 0.f;
+  return outside<D>(x);
 }
 
 // K12, and K1 on at most 8 levels: one thread per (point, level entry),
@@ -333,12 +374,9 @@ __device__ __forceinline__ void encode_fwd(const float* __restrict__ x01,
   float2* o = out + n * lv.out_levels + lv.level[l];
   float x[D];
   load_point<D>(x01, n, x);
-  if (D == 3 && has_nan<D>(x)) {  // K1's NaN rule (hash_encode_fwd_kernel)
-    *o = make_float2(CUDART_NAN_F, CUDART_NAN_F);
-    return;
-  }
-  if (outside<D>(x)) {
-    *o = make_float2(0.f, 0.f);
+  float z;
+  if (nan_or_outside<D>(x, z)) {
+    *o = make_float2(z, z);
     return;
   }
   const Corners<D> c = corner_setup<D>(x, l, lv);
@@ -440,11 +478,8 @@ __global__ void __launch_bounds__(K1_MAX_THREADS)
   if (n0 + p < n_points) {
     float x[3];
     load_point<3>(x01, n0 + p, x);
-    // a NaN coordinate makes every weight NaN, even where another is
-    // outside the cube (the plain version and JAX weight by w * okf)
-    const bool nan = has_nan<3>(x);
-    if (nan || outside<3>(x)) {
-      const float z = nan ? CUDART_NAN_F : 0.f;
+    float z;
+    if (nan_or_outside<3>(x, z)) {
 #pragma unroll
       for (int j = 0; j < K1_PER; ++j)
         if (c + j < m) tile[j] = make_float2(z, z);
@@ -509,7 +544,20 @@ __device__ __forceinline__ void add_row(float2* dst, float a, float b) {
 #endif
 }
 
-// K7, K13: per value v[j], the sum over the lanes of `peers` (the lanes whose
+// K11: float4 atomic add into a global gradient row quarter
+__device__ __forceinline__ void add_quad(float4* dst, float4 v) {
+#if PVD_VECTOR_ATOMICS && defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
+  atomicAdd(dst, v);
+#else
+  float* d = reinterpret_cast<float*>(dst);
+  atomicAdd(d, v.x);
+  atomicAdd(d + 1, v.y);
+  atomicAdd(d + 2, v.z);
+  atomicAdd(d + 3, v.w);
+#endif
+}
+
+// K7, K11, K13: per value v[j], the sum over the lanes of `peers` (the lanes whose
 // key matched, __match_any_sync), left in the lowest of them; every lane
 // of the warp takes part.  A tree over each group's lanes in lane order:
 // log2(group size) rounds of J shuffles and one ballot (none when no lane
@@ -672,10 +720,10 @@ __global__ void hash_cell_fwd_kernel(const float* __restrict__ x01,
   const long long n = gid / lv.n_levels;
   const int l = (int)(gid - n * lv.n_levels);
   float2* o = out + n * lv.out_levels + lv.level[l];
-  float x[3];
+  float x[3], z;
   load_point<3>(x01, n, x);
-  if (outside<3>(x)) {
-    *o = make_float2(0.f, 0.f);
+  if (nan_or_outside<3>(x, z)) {
+    *o = make_float2(z, z);
     return;
   }
   const Corners<3> c = corner_setup<3>(x, l, lv);
@@ -694,37 +742,132 @@ __global__ void hash_cell_fwd_kernel(const float* __restrict__ x01,
   *o = make_float2(a0, a1);
 }
 
-__global__ void hash_cell_bwd_kernel(const float* __restrict__ x01,
-                                     const float2* __restrict__ g,
-                                     float4* __restrict__ grad,
-                                     long long n_points, HashLevels lv) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_points * lv.n_levels) return;
-  const long long n = gid / lv.n_levels;
-  const int l = (int)(gid - n * lv.n_levels);
-  const float2 gv = g[n * lv.out_levels + lv.level[l]];
-  if (gv.x == 0.f && gv.y == 0.f) return;
-  float x[3];
-  load_point<3>(x01, n, x);
-  if (outside<3>(x)) return;
+// K11, a dense block: cell level entry l (warp-uniform) of the warp's
+// points, `add` where a point is inside the cube and its upstream (gx, gy)
+// is not zero.  The lanes in one lattice cell (K7's 64-bit key of the base
+// coordinates: the hashed row is no key, two cells can share it) sum their
+// 16 products in registers (peer_sum); each group's lowest lane, a leader,
+// stages its row in the warp's slice of shared memory, in ballot order,
+// and lane i adds quarter i % 4 of staged row i / 4, so one warp
+// instruction adds 8 whole 64-byte rows.
+__device__ __forceinline__ void k11_level(const float (&x)[3], bool add,
+                                          float2 gv, int l,
+                                          const HashLevels& lv,
+                                          float4* __restrict__ grad,
+                                          float4 (*stage)[4],
+                                          long long* stage_row) {
+  const int lane = threadIdx.x & 31;
+  if (!__any_sync(0xffffffffu, add)) return;
   const Corners<3> c = corner_setup<3>(x, l, lv);
-  float4* dst = grad + 4 * cell_row(c, l, lv);
+  float v[16];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float w0 = corner_weight<3>(c, 2 * q);
-    const float w1 = corner_weight<3>(c, 2 * q + 1);
-    const float4 add = make_float4(__fmul_rn(w0, gv.x), __fmul_rn(w0, gv.y),
-                                   __fmul_rn(w1, gv.x), __fmul_rn(w1, gv.y));
-#if PVD_VECTOR_ATOMICS && defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-    atomicAdd(dst + q, add);
-#else
-    float* d = reinterpret_cast<float*>(dst + q);
-    atomicAdd(d, add.x);
-    atomicAdd(d + 1, add.y);
-    atomicAdd(d + 2, add.z);
-    atomicAdd(d + 3, add.w);
-#endif
+  for (int k = 0; k < 8; ++k) {
+    const float w = corner_weight<3>(c, k);
+    v[2 * k] = add ? __fmul_rn(w, gv.x) : 0.f;
+    v[2 * k + 1] = add ? __fmul_rn(w, gv.y) : 0.f;
   }
+  const unsigned long long key =
+      add ? ((unsigned long long)c.i[0] | ((unsigned long long)c.i[1] << 21) |
+             ((unsigned long long)c.i[2] << 42))
+          : ((1ull << 63) | (unsigned long long)lane);
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  peer_sum<16>(peers, v);
+  const bool lead = add && __ffs(peers) - 1 == lane;
+  const unsigned leads = __ballot_sync(0xffffffffu, lead);
+  if (lead) {
+    const int slot = __popc(leads & ((1u << lane) - 1u));
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      stage[slot][q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                                   v[4 * q + 3]);
+    stage_row[slot] = cell_row(c, l, lv);
+  }
+  __syncwarp();
+  for (int i = lane; i < 4 * __popc(leads); i += 32)
+    add_quad(grad + 4 * stage_row[i >> 2] + (i & 3), stage[i >> 2][i & 3]);
+}
+
+// Position of the k-th set bit (from 0) of mask, which has more than k.
+__device__ __forceinline__ int nth_bit(unsigned mask, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int half = 16; half > 0; half >>= 1) {
+    const int low = __popc(mask & ((1u << half) - 1u));
+    if (k >= low) {
+      k -= low;
+      mask >>= half;
+      pos += half;
+    }
+  }
+  return pos;
+}
+
+// K11: a block per 32 consecutive points of the ray-major stream and up to
+// K11_SPAN cell level entries (blockIdx.y takes the rest), a warp per
+// entry: the level constants are warp-uniform.  A lane outside the cube,
+// with a NaN coordinate or with g = (0, 0) adds nothing.  The block counts
+// its live (point, level) pairs first: at most half of its level entries'
+// lanes (the padded warm-up's stream, a ray's few samples in 96 slots) and
+// a thread per live pair, packed into the block's first warps, adds its
+// row as four float4s; more (the compacted stream) and each warp pre-sums
+// its lanes by lattice cell (k11_level).
+__global__ void __launch_bounds__(32 * K11_SPAN)
+    hash_cell_bwd_kernel(const float* __restrict__ x01,
+                         const float2* __restrict__ g,
+                         float4* __restrict__ grad, long long n_points,
+                         HashLevels lv) {
+  // each warp's live lanes and upstream values; then its staged rows
+  // ([warps][32][4] float4s, then [warps][32] row indices)
+  __shared__ unsigned live_s[K11_SPAN];
+  __shared__ float2 g_s[K11_SPAN][32];
+  extern __shared__ float4 k11_stage[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int e0 = blockIdx.y * K11_SPAN, l = e0 + warp;
+  const long long n0 = (long long)blockIdx.x * 32, n = n0 + lane;
+  const bool live = n < n_points && l < lv.n_levels;
+  const float2 gv = live ? __ldg(g + (long long)lv.out_levels * n +
+                                  lv.level[l])
+                         : make_float2(0.f, 0.f);
+  float x[3] = {0.f, 0.f, 0.f};
+  bool add = gv.x != 0.f || gv.y != 0.f;
+  if (add) {
+    load_point<3>(x01, n, x);
+    add = !outside<3>(x);
+  }
+  const unsigned mask = __ballot_sync(0xffffffffu, add);
+  if (lane == 0) live_s[warp] = mask;
+  g_s[warp][lane] = gv;
+  __syncthreads();
+  // the block's level entries (fewer than its warps in a last blockIdx.y)
+  const int m = min(lv.n_levels - e0, warps);
+  int total = 0;
+  for (int w = 0; w < m; ++w) total += __popc(live_s[w]);
+  if (2 * total <= 32 * m) {
+    int t = threadIdx.x, w = 0;
+    if (t >= total) return;
+    while (t >= __popc(live_s[w])) t -= __popc(live_s[w++]);
+    const int p = nth_bit(live_s[w], t), le = e0 + w;
+    float xp[3];
+    load_point<3>(x01, n0 + p, xp);
+    const float2 gp = g_s[w][p];
+    const Corners<3> c = corner_setup<3>(xp, le, lv);
+    float4* dst = grad + 4 * cell_row(c, le, lv);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float w0 = corner_weight<3>(c, 2 * q);
+      const float w1 = corner_weight<3>(c, 2 * q + 1);
+      add_quad(dst + q, make_float4(__fmul_rn(w0, gp.x), __fmul_rn(w0, gp.y),
+                                    __fmul_rn(w1, gp.x),
+                                    __fmul_rn(w1, gp.y)));
+    }
+    return;
+  }
+  if (l >= lv.n_levels) return;  // the whole warp
+  k11_level(x, add, gv, l, lv, grad,
+            reinterpret_cast<float4(*)[4]>(k11_stage) + 32 * warp,
+            reinterpret_cast<long long*>(k11_stage + 128 * warps) +
+                32 * warp);
 }
 
 // K15: one thread per point; entry j of lv is dense level j (slot
@@ -737,12 +880,12 @@ __global__ void hash_baked_fwd_kernel(const float* __restrict__ x01,
   if (n >= n_points) return;
   float2* o = out + n * lv.out_levels;
   const int ld = lv.n_levels;
-  float x[3];
+  float x[3], z;
   load_point<3>(x01, n, x);
-  if (outside<3>(x)) {
+  if (nan_or_outside<3>(x, z)) {
 #pragma unroll
     for (int j = 0; j < PVD_MAX_BAKED; ++j)
-      if (j < ld) o[lv.level[j]] = make_float2(0.f, 0.f);
+      if (j < ld) o[lv.level[j]] = make_float2(z, z);
     return;
   }
   const Corners<3> c = corner_setup<3>(x, 0, lv);
@@ -908,12 +1051,22 @@ extern "C" int pvd_hash_cell_fwd(const float* x01, const float* cell_table,
   return (int)cudaGetLastError();
 }
 
+// K11: the entries in increasing slots of a row, each lattice side under
+// 2^21 (the cell key); g 8-byte aligned (the wrapper checks it)
 extern "C" int pvd_hash_cell_bwd(const float* x01, const float* g,
                                  float* grad_cell, long long n_points,
                                  HashLevels lv, void* stream) {
   if (n_points == 0 || lv.n_levels == 0) return 0;
-  const int threads = 256;
-  hash_cell_bwd_kernel<<<(unsigned)n_blocks(n_points, lv, threads), threads, 0,
+  bool ok = lv.n_levels <= PVD_MAX_LEVELS && (uintptr_t)g % 8 == 0;
+  for (int l = 0; ok && l < lv.n_levels; ++l)
+    ok = lv.level[l] >= (l ? lv.level[l - 1] + 1 : 0) &&
+         lv.level[l] < lv.out_levels && lv.side[l] < (1 << 21);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int span = lv.n_levels < K11_SPAN ? lv.n_levels : K11_SPAN;
+  const dim3 blocks((unsigned)((n_points + 31) / 32),
+                    (unsigned)((lv.n_levels + K11_SPAN - 1) / K11_SPAN));
+  hash_cell_bwd_kernel<<<blocks, 32 * span,
+                         span * 32 * (4 * sizeof(float4) + sizeof(long long)),
                          (cudaStream_t)stream>>>(
       x01, reinterpret_cast<const float2*>(g),
       reinterpret_cast<float4*>(grad_cell), n_points, lv);

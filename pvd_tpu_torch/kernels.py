@@ -94,7 +94,8 @@ _SIGNATURES = {
     "pvd_hash_encode_bwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
     # x01, cell_table [Tc, 16], out, n_points, cell levels, stream
     "pvd_hash_cell_fwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
-    # x01, g [n, L*2], grad_cell (zeroed), n_points, cell levels, stream
+    # x01, g [n, L*2] (8-byte aligned), grad_cell (zeroed), n_points, cell
+    # levels, stream
     "pvd_hash_cell_bwd": (_P, _P, _P, ctypes.c_longlong, HashLevels, _P),
     "pvd_hash_cell_vector_atomics": (),
     # K12 / K13: as pvd_hash_encode_fwd / _bwd, x01 [n, 2]
@@ -119,10 +120,11 @@ _SIGNATURES = {
     "pvd_composite_compact_fwd": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                   _P, _P, _P, _P, _P, _P),
-    # sigmas, rgbs, dt, t_cum, weights, bounds (from the forward), n_rays,
-    # g_ws, g_depth, g_image, g_weights, d_sigma (zeroed), d_rgb (zeroed),
-    # stream
-    "pvd_composite_compact_bwd": (_P, _P, _P, _P, _P, _P, ctypes.c_int,
+    # sigmas, rgbs, dt, t_cum, weights, bounds (from the forward), ray_id,
+    # valid, n_samples, n_rays, lanes per ray, g_ws, g_depth, g_image,
+    # g_weights, d_sigma, d_rgb, stream
+    "pvd_composite_compact_bwd": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                   _P, _P, _P, _P, _P, _P, _P),
     # sigmas, rgbs, dt, delta_depth, mask [N, S], n_rays, S, early_stop,
     # weights, weights_sum, depth, image, stream

@@ -109,13 +109,16 @@ def composite_rays_compact_fwd(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
     return ws, depth, image, weights, bounds
 
 
-def composite_rays_compact_bwd(sigmas, rgbs, delta_t, t_cum, weights,
-                               bounds, g_ws, g_depth, g_image, g_weights):
+def composite_rays_compact_bwd(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
+                               weights, bounds, g_ws, g_depth, g_image,
+                               g_weights):
     """Kernel K6: gradients (d sigmas [M], d rgbs [M, 3]) of a compacted
     composite from the upstream gradients of weights_sum [N], depth [N],
     image [N, 3] and weights [M]; `weights` and `bounds` come from
-    `composite_rays_compact_fwd` (no early stop).  CUDA tensors only: on
-    the CPU autograd differentiates the plain version."""
+    `composite_rays_compact_fwd` (no early stop) on the stream `ray_id`,
+    `valid`.  The kernel writes every slot, the zeros of those no ray owns
+    too.  CUDA tensors only: on the CPU autograd differentiates the plain
+    version."""
     n_rays = bounds.shape[1]
     M = sigmas.shape[0]
     grads = {"g_ws": (g_ws, (n_rays,)), "g_depth": (g_depth, (n_rays,)),
@@ -126,21 +129,22 @@ def composite_rays_compact_bwd(sigmas, rgbs, delta_t, t_cum, weights,
                              f"float32 {shape}")
     g_ws, g_depth, g_image, g_weights = (
         t.contiguous() for t in (g_ws, g_depth, g_image, g_weights))
-    dev = kernels.check_cuda("composite_rays_compact_bwd", sigmas=sigmas,
-                             rgbs=rgbs, delta_t=delta_t, t_cum=t_cum,
-                             weights=weights, bounds=bounds, g_ws=g_ws,
-                             g_depth=g_depth, g_image=g_image,
-                             g_weights=g_weights)
-    d_sigma = torch.zeros(M, device=dev)
-    d_rgb = torch.zeros(M, 3, device=dev)
+    dev = _check_stream("composite_rays_compact_bwd", sigmas, rgbs, delta_t,
+                        t_cum, ray_id, valid)
+    kernels.check_cuda("composite_rays_compact_bwd", sigmas=sigmas,
+                       weights=weights, bounds=bounds, g_ws=g_ws,
+                       g_depth=g_depth, g_image=g_image, g_weights=g_weights)
+    d_sigma = torch.empty(M, device=dev)
+    d_rgb = torch.empty(M, 3, device=dev)
     with torch.cuda.device(dev):
         kernels.launch("pvd_composite_compact_bwd", sigmas.data_ptr(),
                        rgbs.data_ptr(), delta_t.data_ptr(), t_cum.data_ptr(),
-                       weights.data_ptr(), bounds.data_ptr(), n_rays,
-                       g_ws.data_ptr(), g_depth.data_ptr(),
-                       g_image.data_ptr(), g_weights.data_ptr(),
-                       d_sigma.data_ptr(), d_rgb.data_ptr(),
-                       kernels.stream_ptr(sigmas))
+                       weights.data_ptr(), bounds.data_ptr(),
+                       ray_id.data_ptr(), valid.data_ptr(), M, n_rays,
+                       k3_lanes(M, n_rays), g_ws.data_ptr(),
+                       g_depth.data_ptr(), g_image.data_ptr(),
+                       g_weights.data_ptr(), d_sigma.data_ptr(),
+                       d_rgb.data_ptr(), kernels.stream_ptr(sigmas))
     composite_rays_compact_bwd.launches += 1
     return d_sigma, d_rgb
 
@@ -154,7 +158,8 @@ class _CompositeCompact(torch.autograd.Function):
                 early_stop):
         ws, depth, image, weights, bounds = composite_rays_compact_fwd(
             sigmas, rgbs, delta_t, t_cum, ray_id, valid, n_rays, early_stop)
-        ctx.save_for_backward(sigmas, rgbs, delta_t, t_cum, weights, bounds)
+        ctx.save_for_backward(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
+                              weights, bounds)
         ctx.early_stop = early_stop
         return ws, depth, image, weights
 
@@ -164,10 +169,8 @@ class _CompositeCompact(torch.autograd.Function):
             raise NotImplementedError(
                 "composite_rays_compact: no backward with early_stop=True "
                 "(an inference-only setting)")
-        sigmas, rgbs, delta_t, t_cum, weights, bounds = ctx.saved_tensors
         d_sigma, d_rgb = composite_rays_compact_bwd(
-            sigmas, rgbs, delta_t, t_cum, weights, bounds, g_ws, g_depth,
-            g_image, g_weights)
+            *ctx.saved_tensors, g_ws, g_depth, g_image, g_weights)
         return d_sigma, d_rgb, None, None, None, None, None, None
 
 

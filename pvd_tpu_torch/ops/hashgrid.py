@@ -653,6 +653,8 @@ def hash_encode_cell_bwd(x01, g, spec: HashGridSpec):
         return hash_encode_cell_bwd_plain(x01, g, spec)
     _check_k1("hash_encode_cell_bwd", spec, x01, g=g)
     _check_g(g, x01, spec)
+    if g.data_ptr() % 8:  # K11 reads g's level slots as float2s
+        g = g.clone()
     grad = torch.zeros(spec.cell_table_size, spec.cell_row_width,
                        device=x01.device)
     with torch.cuda.device(x01.device):

@@ -258,3 +258,54 @@ def test_k3_lanes_plan():
     assert lanes == {"counts": 32, "counts_16": 16, "opaque": 32,
                      "stop": 32, "stop_16": 16, "eval_tail": 32,
                      "empty": 16}
+
+
+@pytest.mark.parametrize("name", K3_CASES)
+def test_composite_compact_grad_matches_jax_on_k6_hard_inputs(name):
+    """d(sigma), d(rgb) of the compacted composite (autograd through the
+    plain version, what the card holds K6 to) against JAX's autodiff on
+    K6's hard inputs (`chip_smoke.k6_hard_inputs`: K3's streams with random
+    upstream gradients of all four outputs), to GRAD_TOL; slots no ray
+    owns get nothing."""
+    import jax
+
+    import chip_smoke
+
+    sig, rgb, dt, t_cum, rid, valid, n, gs = chip_smoke.k6_hard_inputs()[name]
+    assert [g.shape for g in gs] == [(n,), (n,), (n, 3), (sig.shape[0],)]
+
+    def j_loss(s, r):
+        outs = j_compact_comp(s, r, jnp.asarray(dt), jnp.asarray(t_cum),
+                              jnp.asarray(rid), jnp.asarray(valid), n)
+        return sum(jnp.sum(o * g) for o, g in zip(outs, gs))
+
+    want = [np.asarray(w) for w in jax.grad(j_loss, argnums=(0, 1))(
+        jnp.asarray(sig), jnp.asarray(rgb))]
+    s_t = _t(sig).requires_grad_()
+    r_t = _t(rgb).requires_grad_()
+    outs = composite_rays_compact(s_t, r_t, _t(dt), _t(t_cum), _t(rid),
+                                  _t(valid), n)
+    sum((o * _t(g)).sum() for o, g in zip(outs, gs)).backward()
+    for got, w, out in ((s_t.grad, want[0], "sigma"),
+                        (r_t.grad, want[1], "rgb")):
+        assert np.isfinite(got.numpy()).all()
+        np.testing.assert_allclose(got.numpy(), w, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=out)
+    assert not s_t.grad.numpy()[~valid].any()
+    assert not r_t.grad.numpy()[~valid].any()
+    if name != "empty":
+        assert np.abs(want[0]).max() > 0
+
+
+def test_k6_lanes_plan():
+    """K6 walks each ray with K3's lane groups (`k3_lanes`): 16 lanes at
+    every training shape, and both widths among its hard inputs."""
+    import chip_smoke
+    from pvd_tpu_torch.ops.composite import k3_lanes
+
+    assert k3_lanes(131_072, 8192) == 16  # the distill / exact teacher
+    assert k3_lanes(65_536, 4096) == 16  # the A/B teacher's budget
+    assert k3_lanes(24_576, 4096) == 16  # A/B stage 3
+    lanes = {k3_lanes(len(case[0]), case[6])
+             for case in chip_smoke.k6_hard_inputs().values()}
+    assert lanes == {16, 32}

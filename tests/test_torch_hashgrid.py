@@ -335,3 +335,134 @@ def test_hash_encode_plain_matches_jax_on_k1_hard_inputs(name):
     out = ((x < 0) | (x > 1)).any(-1) & ~nan
     assert np.isnan(got[nan]).all() and (got[out] == 0).all()
     assert (np.abs(got[~nan & ~out]).sum(-1) > 0).all()
+
+
+# ---- K11's hard inputs (chip_smoke.k11_hard_inputs, which the card holds
+# K11 and K10 to against the plain versions) ----------------------------
+K11_N = 1031  # not a multiple of any block
+K11_CASES = ["rays", "one_cell", "collision", "g_levels", "padded", "edge",
+             "levels20"]
+
+
+@functools.cache
+def _k11_cases():
+    return chip_smoke.k11_hard_inputs(K11_N)
+
+
+@functools.cache
+def _k11_tables(kw_items):
+    spec = HashGridSpec(**dict(kw_items))
+    rng = np.random.default_rng(6)
+    return (spec,
+            rng.uniform(-1, 1, (spec.table_size, 2)).astype(np.float32),
+            rng.uniform(-1, 1, (spec.cell_table_size, 16)).astype(np.float32))
+
+
+def _check_k11_case(name, x, g, spec):
+    """What each case claims of its inputs."""
+    assert x.shape == (K11_N, 3) and g.shape == (K11_N, spec.output_dim)
+    if name == "levels20":
+        # more cell levels than a K11 block takes (K11_SPAN = 16); dense
+        # blocks (g whole) in the first half, sparse ones (every fourth
+        # point) after it
+        assert spec.cell_levels == list(range(2, 20))
+        half = np.arange(K11_N) >= K11_N // 2
+        assert (g[~half] != 0).all()
+        assert not g[half & (np.arange(K11_N) % 4 != 0)].any()
+        assert (g[half & (np.arange(K11_N) % 4 == 0)] != 0).all()
+    else:
+        assert spec.cell_levels == list(range(5, 14))
+    nan = np.isnan(x).any(-1)
+    assert nan.any() == (name == "edge")
+    lv0 = spec.cell_levels[0]
+    pos = x[~nan] * np.float32(spec.level_scale(lv0)) + np.float32(0.5)
+    base = np.floor(pos).astype(np.int64)
+    if name == "one_cell":
+        assert (base == base[0]).all()
+    if name == "collision":
+        cells = np.unique(base, axis=0)
+        assert len(cells) == 2
+        h = [(int(c[0]) ^ int(c[1]) * 2654435761 ^ int(c[2]) * 805459861)
+             % 2 ** 32 & (spec.cell_rows_per_level - 1) for c in cells]
+        assert h[0] == h[1]
+    if name == "g_levels":
+        g3 = g.reshape(K11_N, -1, 2)
+        assert not g3[:, [6, 11]].any() and (g3[:, 5] == 0).all(-1).mean() \
+            > 0.3
+    if name == "padded":
+        assert not g[np.arange(K11_N) % 32 >= 3].any()
+    if name == "edge":
+        # NaN alone and beside a coordinate outside [0, 1]
+        assert (nan & ((x < 0) | (x > 1)).any(-1)).sum() >= 2
+        assert (((x < 0) | (x > 1)).any(-1) & ~nan).sum() == 8
+        assert ((x == 0) | (x == 1)).any(-1).sum() >= K11_N // 3
+        assert not g[::3].any()
+
+
+@pytest.mark.parametrize("name", K11_CASES)
+def test_cell_encode_plain_matches_jax_on_k11_hard_inputs(name):
+    """The plain encode with the cell table (K10's plain version on the
+    cell levels) against JAX's jitted `hash_encode` on K11's hard inputs,
+    to ENC_TOL, NaN exactly where JAX gives NaN (a NaN coordinate, also
+    beside one outside [0, 1]), zeros outside the cube."""
+    import jax
+
+    x, g, kw = _k11_cases()[name]
+    spec, table, cell = _k11_tables(tuple(sorted(kw.items())))
+    _check_k11_case(name, x, g, spec)
+    want = np.asarray(jax.jit(lambda t, xx, c: j_hash_encode(
+        t, xx, JHashGridSpec(**kw), packed_dense=False,
+        cell_table=c))(jnp.asarray(table), jnp.asarray(x),
+                       jnp.asarray(cell)))
+    got = hash_encode_plain(torch.from_numpy(table), torch.from_numpy(x),
+                            spec, torch.from_numpy(cell)).numpy()
+    assert got.shape == want.shape == (K11_N, spec.output_dim)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                               rtol=0, atol=ENC_TOL)
+    nan = np.isnan(x).any(-1)
+    out = ((x < 0) | (x > 1)).any(-1) & ~nan
+    assert np.isnan(got[nan]).all() and (got[out] == 0).all()
+
+
+@pytest.mark.parametrize("name", K11_CASES)
+def test_cell_table_gradient_matches_jax_vjp_on_k11_hard_inputs(name):
+    """The plain cell-table gradient (K11's plain version) against JAX's
+    jitted VJP of `hash_encode` in the cell table (`_cell_gather_sum_bwd`)
+    on K11's hard inputs, to BWD_REL_TOL of its max, where JAX defines it:
+    on the points without a NaN coordinate (for those JAX's and the plain
+    version's rows come from a NaN cast to an integer; the kernel adds
+    nothing for them)."""
+    import jax
+
+    x, g, kw = _k11_cases()[name]
+    spec, table, _ = _k11_tables(tuple(sorted(kw.items())))
+    _check_k11_case(name, x, g, spec)
+    keep = ~np.isnan(x).any(-1)
+    x, g = x[keep], g[keep]
+    jspec = JHashGridSpec(**kw)
+
+    def cell_grad(c, xx, gg):
+        _, vjp = jax.vjp(lambda cc: j_hash_encode(
+            jnp.asarray(table), xx, jspec, packed_dense=False,
+            cell_table=cc), c)
+        return vjp(gg)[0]
+
+    want = np.asarray(jax.jit(cell_grad)(
+        jnp.zeros((spec.cell_table_size, 16), jnp.float32), jnp.asarray(x),
+        jnp.asarray(g)))
+    got = hash_encode_cell_bwd_plain(torch.from_numpy(x), torch.from_numpy(g),
+                                     spec).numpy()
+    assert got.shape == want.shape == (spec.cell_table_size, 16)
+    assert np.isfinite(got).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=BWD_REL_TOL * np.abs(want).max())
+    rows = spec.cell_rows_per_level
+    touched = [bool(np.abs(got[i * rows:(i + 1) * rows]).sum() > 0)
+               for i in range(len(spec.cell_levels))]
+    if name == "g_levels":  # slots 6 and 11 carry no gradient
+        assert touched == [i not in (1, 6) for i in range(9)]
+    else:
+        assert all(touched)
+    if name == "one_cell":  # one row of the coarsest cell level
+        assert (np.abs(got[:rows]).sum(-1) > 0).sum() == 1

@@ -131,3 +131,17 @@ def test_parser_reads_pointer_and_scalar_arguments():
         "VMTables", "const float*", "float*", "long long", "int", "int",
         "int", "void*"]
     assert _entry_points()["pvd_hash_cell_vector_atomics"] == []
+
+
+def test_k6_and_k11_entries():
+    """K6's entry takes the stream's ray ids and valid flags (it writes
+    the zeros of the slots no ray owns) and its lanes per ray; K11's takes
+    no layout switch."""
+    assert _entry_points()["pvd_composite_compact_bwd"] == [
+        "const float*", "const float*", "const float*", "const float*",
+        "const float*", "const int*", "const long long*", "const uint8_t*",
+        "int", "int", "int", "const float*", "const float*", "const float*",
+        "const float*", "float*", "float*", "void*"]
+    assert _entry_points()["pvd_hash_cell_bwd"] == [
+        "const float*", "const float*", "float*", "long long", "HashLevels",
+        "void*"]
