@@ -21,7 +21,9 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    Each path's launch counters are zeroed just before it and read just
    after; every kernel of the path must have launched.
 4. Holds each kernel against its plain PyTorch version on inputs taken from
-   those paths, and times both (CUDA events, median after warm-up); K4
+   those paths, and times both (CUDA events, median after warm-up; the
+   kernel also alone, `kernel_ms`: the profiler's device time of the
+   csrc kernels a call launches); K4
    also on a ragged sample count, positions outside [-1, 1], tables off
    16-byte alignment and ranks 5 and 16 (logging the float4 or scalar
    instantiation each ran); K5 also on its hard inputs (`k5_hard_inputs`:
@@ -48,7 +50,8 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    25 dB test PSNR.  Then holds K7 (table gradient), K8 and K9 (padded
    composite) against their plain versions on inputs from that run, K1 at
    its padded and compacted shapes, K2 at its training batch (8192 rays
-   into 96 slots, perturbed), K3 at its compacted shape, profiles one
+   into 96 slots, perturbed), K3 at its compacted shape (K8 and K9 at the
+   padded warm-up's [8192, 96]), profiles one
    padded and one compacted teacher
    step, and holds one small teacher step (padded and compacted) on the
    GPU against the CPU plain step.
@@ -63,7 +66,8 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    (teacher), 27.5 dB (student) or more than 1.0 dB under the teacher.
    Then holds K10 and K11 against their plain versions on the cell
    teacher's padded and compacted batches (K11's kernel and its zero fill
-   also timed apart), K7 and K1 on the compacted batch's corner levels
+   also timed apart), K8 and K9 on its padded warm-up batch ([4096, 96]),
+   K7 and K1 on the compacted batch's corner levels
    (0-4), K6 on the compacted batch's composite; on a stage-3 batch of the
    student (4096 rays marched into 64 slots, 24,576 compacted) K2, K5
    (with its F.grid_sample yardstick), K15 on the baked teacher's points,
@@ -85,10 +89,12 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    24 dB (student) or more than 1.5 dB under the teacher.  Every march of
    this path is K14 (the geometric lattice) and every composite blends in
    the field's background through K12 (and K13 in training).  Then holds
-   K12, K13 and K14 against their plain versions at this phase's shapes
-   (K13 also on 4096 points inside one level-0 cell and on points on and
-   outside the square's edges with a third of the upstream rows zero; K14
-   also on its hard lattices, `k14_hard_inputs`),
+   K12, K13 and K14 against their plain versions at this phase's shapes,
+   K8 and K9 on the teacher's padded warm-up batch ([4096, 64]), K10
+   and K11 on its compacted batch (K13 also on 4096 points inside one level-0
+   cell and on points on and outside the square's edges with a third of
+   the upstream rows zero; K14 also on its hard lattices,
+   `k14_hard_inputs`),
    renders one 800x800 view of the teacher through make_eval_renderer
    (and times `read_png` on it written with each scanline filter),
    profiles a teacher and a stage-3 distill step, and holds one small
@@ -112,14 +118,18 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    131,072 and 2,097,152 points (points on the faces and outside
    included), times them beside F.grid_sample, and profiles one stage-3
    distill step with the baked teacher beside the exact one.
-9. After every timing, holds K11 and K10 on their hard inputs
+9. After every timing, holds K6 on its hard inputs (`k6_hard_inputs`)
+   and K9 on its own (`k9_hard_inputs`: rows of 1 to 130 slots, 4099
+   rays, masks all off, last slot only or scattered, an opaque first
+   slot, dt = 0, each kind of upstream gradient zero), each through its C
+   entry into outputs filled with NaN; the NaN rule (`check_nan_rule`:
+   K12 and K15 give NaN exactly where their plain versions do; K7 and K13
+   add nothing for a NaN point); then K11 and K10 on their hard inputs
    (`k11_hard_inputs`: ray runs, one cell, colliding cell rows, zero
    levels, a padded stream, edge and NaN points, a 20-level grid with 18
-   cell levels; g also off 8-byte alignment), K6 on its hard inputs
-   (`k6_hard_inputs`, through its C entry into outputs filled with NaN)
-   and the NaN rule (`check_nan_rule`: K12 and K15 give NaN exactly where
-   their plain versions do; K7 and K13 add nothing for a NaN point); each
-   check raises on a case over its kernel's tolerance.
+   cell levels; g also off 8-byte alignment; K10 last also on an x01 and
+   an out one float into larger buffers, out's other slots untouched);
+   each check raises on a case over its kernel's tolerance.
 10. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
@@ -207,7 +217,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 RES, CHUNK = 800, 4096
-OUR_KERNELS = ("hash_encode_fwd_kernel", "march_rays_kernel",
+OUR_KERNELS = ("hash_encode_fwd_kernel", "hash_encode_fwd_per_level_kernel",
+               "march_rays_kernel",
                "segment_bounds_kernel", "composite_kernel",
                "vm_sample_fwd_kernel", "vm_sample_bwd_kernel",
                "composite_bwd_kernel", "hash_encode_bwd_kernel",
@@ -216,6 +227,8 @@ OUR_KERNELS = ("hash_encode_fwd_kernel", "march_rays_kernel",
                "hash_encode2_fwd_kernel", "hash_encode2_bwd_kernel",
                "march_rays_geom_kernel", "hash_baked_fwd_kernel",
                "hash_bake_kernel")
+# launch records of each kernel_ms session's fullest trace
+RECORDS: list = []
 TOL_K1, TOL_K2_DD, TOL_K3 = 1e-5, 1e-6, 1e-5
 # K4: the same f32 ops; K5: fp32 atomics add in a varying order, so each
 # gradient leaf is held to 1e-4 of its max |g|; K6: the closed form against
@@ -479,11 +492,19 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3,
 
 
 def timings(kernel_fn, plain_fn) -> dict:
-    """Kernel device time, the wrapper call as a caller sees it, and the
-    plain version's time."""
-    return {"ms": cuda_ms(kernel_fn),
+    """Kernel device time, the kernels alone (`kernel_ms`: the profiler's
+    time of the csrc kernels the call launches, without its fills and
+    copies or the events' own cost), the wrapper call as a caller sees it,
+    and the plain version's time."""
+    return {"ms": cuda_ms(kernel_fn), "kernel_ms": kernel_ms(kernel_fn),
             "call_ms": cuda_ms(kernel_fn, queue_ahead=False),
             "plain_ms": cuda_ms(plain_fn, reps=10)}
+
+
+def alone(c: dict) -> str:
+    """The kernel-alone time of a timed case, for its log line."""
+    return f", the kernel alone {c['kernel_ms']:.4f}" if "kernel_ms" in c \
+        else ""
 
 
 def bound(bytes_moved: float, ops: float):
@@ -534,16 +555,17 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def profile(fn, top: int = 12) -> dict:
-    """Device time by kernel over one call of fn (torch.profiler), and the
-    device's busy share of the call's wall time."""
+def profile(fn, top: int = 12, cpu: bool = True) -> dict:
+    """Device time by kernel over one call of fn (torch.profiler; the host
+    traced too unless cpu is false), and the device's busy share of the
+    call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with torch_profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -762,7 +784,8 @@ def check_vm_kernels(state, xn, compact, gen) -> list:
              replaces="pvd_tpu/models/vm_field.py:173", err=k5["err"],
              abs_err=k5["abs_err"],
              tol=TOL_K5_REL, err_kind="max |kernel - plain| / max |plain| "
-             "per gradient leaf", ms=k5["ms"], call_ms=k5["call_ms"],
+             "per gradient leaf", ms=k5["ms"], kernel_ms=k5["kernel_ms"],
+             call_ms=k5["call_ms"],
              plain_ms=k5["plain_ms"], library_ms=cuda_ms(lib_bwd),
              library_call="F.grid_sample fwd+bwd x3 planes (the plane half "
              "of K5)", variant=k5["variant"], lanes=k5["lanes"],
@@ -811,8 +834,8 @@ def k5_case(planes, lines, xn, valid, gen) -> dict:
            **timings(lambda: vm_sample_bwd(planes, lines, xn, g),
                      lambda: vm_sample_bwd_plain(planes, lines, xn, g))}
     log(f"K5 at M {M} ({n_valid} valid), R {R}: {kind} instantiation, "
-        f"{lanes} lanes per sample: rel err {err:.3g}, {out['ms']:.4f} ms "
-        f"(call {out['call_ms']:.4f}, the zero fill alone "
+        f"{lanes} lanes per sample: rel err {err:.3g}, {out['ms']:.4f} ms"
+        f"{alone(out)} (call {out['call_ms']:.4f}, the zero fill alone "
         f"{out['zero_ms']:.4f}, plain {out['plain_ms']:.4f}), bound "
         f"{out['bound'][0]:.4f} ms ({out['bound'][1]})")
     if not err <= TOL_K5_REL:
@@ -877,7 +900,8 @@ def ab_batch_cases(stu, scene, gen) -> dict:
     k10 = k10_case(tea.encoder_cell.detach(), x01, tea.grid)
     log(f"K10 A/B distill replay ({k10['points']} points x {k10['levels']} "
         f"cell levels, {k10['touched_rows']} rows touched): rel err "
-        f"{k10['err']:.3g}, {k10['ms']:.4f} ms (call {k10['call_ms']:.4f}, "
+        f"{k10['err']:.3g}, {k10['ms']:.4f} ms{alone(k10)} (call "
+        f"{k10['call_ms']:.4f}, "
         f"plain {k10['plain_ms']:.4f}, bound {k10['bound'][0]:.5f} "
         f"{k10['bound'][1]})")
     if not k10["err"] <= TOL_K10_REL:
@@ -935,10 +959,17 @@ def k4_cases(planes, lines, xn, gen) -> dict:
     return out
 
 
-def kernel_ms(fn, name: str, reps: int = 20) -> float:
+def kernel_ms(fn, name: str | None = None, reps: int = 20) -> float:
     """Device time per call of fn of the csrc kernel `name` alone (its
-    templated instances summed), from torch.profiler over reps calls after
-    a warm-up: a wrapper's own fills and copies are left out."""
+    templated instances summed; all of OUR_KERNELS that fn launches when
+    name is None, each once a call), from torch.profiler over reps calls
+    after a warm-up, the inputs in the L2 as a step leaves them: a
+    wrapper's own fills and copies are left out, and so is the ~5-7 us
+    that CUDA events add.  The profiler traces the device only.  Each
+    kernel's time is the mean over the launches the trace holds: the
+    profiler can keep only some of a session's kernel records, so a short
+    session is run again, up to 3 times; the fullest counts, and a count
+    short of reps is logged (RECORDS keeps every session's count)."""
     for _ in range(3):
         fn()
 
@@ -946,8 +977,22 @@ def kernel_ms(fn, name: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
 
-    row = profile(run)["ours"].get(name)
-    return row["ms"] / reps if row else math.nan
+    rows, kept = {}, -1
+    for _ in range(4):
+        ours = profile(run, cpu=False)["ours"]
+        got = ours if name is None else {k: v for k, v in ours.items()
+                                         if k == name}
+        if got and min(r["calls"] for r in got.values()) > kept:
+            rows, kept = got, min(r["calls"] for r in got.values())
+        if kept >= reps:
+            break
+    RECORDS.append(max(kept, 0))
+    for k, r in rows.items():
+        if r["calls"] != reps:
+            log(f"  (the profiler kept {r['calls']} of {reps} launches of "
+                f"{k})")
+    return sum(r["ms"] / r["calls"] for r in rows.values()) if rows \
+        else math.nan
 
 
 def k6_case(comp, gen) -> dict:
@@ -997,7 +1042,6 @@ def k6_case(comp, gen) -> dict:
                            + n_valid * 4 + M * 16, n_valid * 30),
             **timings(kernel, lambda: torch.autograd.grad(
                 outs_p, (s_p, r_p), gs, retain_graph=True)),
-            "kernel_ms": kernel_ms(kernel, "composite_bwd_kernel"),
             "fill_ms": cuda_ms(lambda: (torch.zeros(M, device=dev),
                                         torch.zeros(M, 3, device=dev)))}
 
@@ -1023,8 +1067,8 @@ def check_composite_bwd(comp, gen) -> dict:
         name="composite_rays_compact_bwd",
         source="pvd_tpu_torch/csrc/composite.cu",
         replaces="pvd_tpu/ops/composite.py:28", err=c["err"], tol=TOL_K6,
-        **{k: c[k] for k in ("ms", "call_ms", "plain_ms", "bound",
-                             "lanes")},
+        **{k: c[k] for k in ("ms", "kernel_ms", "call_ms", "plain_ms",
+                             "bound", "lanes")},
         library_ms=None, shapes={"distill_step": c},
         shape=f"M={c['slots']} slots ({c['valid']} valid), N={c['rays']} "
         "rays")
@@ -1300,7 +1344,7 @@ def k7_case(x01, g, gs, library: bool = True) -> dict:
 def log_k7(label: str, c: dict):
     log(f"K7 {label}: {c['points']} points x {c['levels']} levels, "
         f"{c['active_pairs']} active pairs: rel err {c['err']:.3g}, "
-        f"{c['ms']:.4f} ms (call {c['call_ms']:.4f}), plain "
+        f"{c['ms']:.4f} ms{alone(c)} (call {c['call_ms']:.4f}), plain "
         f"{c['plain_ms']:.4f}"
         + (f", index_add_ {c['library_ms']:.4f}" if "library_ms" in c
            else "")
@@ -1357,8 +1401,9 @@ def check_teacher_kernels(trainer, scene, gen) -> tuple:
         name="hash_encode_bwd", source="pvd_tpu_torch/csrc/hash_encode.cu",
         replaces="pvd_tpu/ops/hashgrid.py:284", tol=TOL_K7_REL,
         err_kind="max |kernel - plain| / max |plain|",
-        **{k: k7c[k] for k in ("err", "abs_err", "ms", "call_ms",
-                               "plain_ms", "library_ms", "bound")},
+        **{k: k7c[k] for k in ("err", "abs_err", "ms", "kernel_ms",
+                               "call_ms", "plain_ms", "library_ms",
+                               "bound")},
         library_call="index_add_ of the precomputed corner contributions "
         "(scatter only)",
         shape=f"M={budget} compacted points ({int(cmp.valid.sum())} valid, "
@@ -1380,47 +1425,124 @@ def check_teacher_kernels(trainer, scene, gen) -> tuple:
     log_k3("exact teacher, compacted", extra["k3_compacted"])
 
     # K8 / K9 on the trained field's padded samples
+    k8, k9 = k8_k9_case(field, xyz, d, s, rs_pad.density_scale, gen)
+    log_k8_k9("exact teacher, padded", k8, k9)
+    results += [padded_row("composite_rays", TOL_K8, k8,
+                           ", early_stop off and on"),
+                padded_row("composite_rays_bwd", TOL_K9, k9)]
+    return results, extra
+
+
+def k8_k9_case(field, xyz, d, s, density_scale: float, gen) -> tuple:
+    """K8 (early stop off and on) and K9 against their plain versions on a
+    trained field's padded samples (march output `s` [N, S] at positions
+    xyz [N, S, 3] along d [N, 3]), with times and bounds: (k8, k9).  K9
+    also alone on the same batch with its mask replaced by prefixes of
+    0-20 slots drawn uniformly, and the rows of both masks (`k9_rows`)."""
+    N, S = s.mask.shape
+    dev = xyz.device
     with torch.no_grad():
         f = field(xyz.reshape(-1, 3), d[:, None, :].expand(N, S, 3)
                   .reshape(-1, 3))
-    sig = (f.sigma.reshape(N, S) * rs_pad.density_scale).contiguous()
-    rgb = f.rgb.reshape(N, S, 3).contiguous()
+    sig = (f.sigma.reshape(N, S) * density_scale).float().contiguous()
+    rgb = f.rgb.reshape(N, S, 3).float().contiguous()
     args8 = (sig, rgb, s.dt, s.delta_depth, s.mask)
     err8 = 0.0
     for early in (False, True):
-        k8 = composite_rays_fwd(*args8, early_stop=early)
-        p8 = composite_rays_plain(*args8, early_stop=early)
-        err8 = max(err8, max(max_abs(a, c) for a, c in zip(k8, p8)))
+        k = composite_rays_fwd(*args8, early_stop=early)
+        p = composite_rays_plain(*args8, early_stop=early)
+        err8 = max(err8, max(max_abs(a, c) for a, c in zip(k, p)))
     n_valid = int(s.mask.sum())
-    ws = k8[0]
-    log(f"K8/K9 block: [{N}, {S}], {n_valid} valid slots (mask_frac "
-        f"{n_valid / (N * S):.4f}), weights_sum mean {float(ws.mean()):.4f}")
-    b8 = bound(N * S * 25 + N * S * 4 + N * 20, N * S * 16)
-    results.append(dict(
-        name="composite_rays", source="pvd_tpu_torch/csrc/composite.cu",
-        replaces="pvd_tpu/ops/composite.py:97", err=err8, tol=TOL_K8,
-        **timings(lambda: composite_rays_fwd(*args8),
-                  lambda: composite_rays_plain(*args8)),
-        library_ms=None, bound=b8,
-        shape=f"[{N}, {S}] padded slots ({n_valid} valid), early_stop "
-        "off and on"))
     gs9 = (torch.randn(N, generator=gen, device=dev),
            torch.randn(N, generator=gen, device=dev),
            torch.randn(N, 3, generator=gen, device=dev),
            torch.randn(N, S, generator=gen, device=dev))
-    weights = composite_rays_fwd(*args8)[3]
+    ws, _, _, weights = composite_rays_fwd(*args8)
     k9 = composite_rays_bwd(*args8, weights, *gs9)
     p9 = composite_rays_bwd_plain(*args8, *gs9)
     err9 = max(max_abs(a, c) for a, c in zip(k9, p9))
-    b9 = bound(N * S * 29 + N * 20 + N * S * 4 + N * S * 16, N * S * 30)
-    results.append(dict(
-        name="composite_rays_bwd", source="pvd_tpu_torch/csrc/composite.cu",
-        replaces="pvd_tpu/ops/composite.py:97", err=err9, tol=TOL_K9,
-        **timings(lambda: composite_rays_bwd(*args8, weights, *gs9),
-                  lambda: composite_rays_bwd_plain(*args8, *gs9)),
-        library_ms=None, bound=b9,
-        shape=f"[{N}, {S}] padded slots ({n_valid} valid)"))
-    return results, extra
+    shape = {"rays": N, "S": S, "valid": n_valid,
+             "ws_mean": float(ws.mean())}
+    k8 = {**shape, "err": err8,
+          "bound": bound(N * S * 25 + N * S * 4 + N * 20, N * S * 16),
+          **timings(lambda: composite_rays_fwd(*args8),
+                    lambda: composite_rays_plain(*args8))}
+    k9 = {**shape, "err": err9, "rows": k9_rows(s.mask),
+          "bound": k9_bound(N, S, n_valid),
+          **timings(lambda: composite_rays_bwd(*args8, weights, *gs9),
+                    lambda: composite_rays_bwd_plain(*args8, *gs9))}
+    lens = torch.randint(0, 21, (N, 1), generator=gen, device=dev)
+    mask_u = (torch.arange(S, device=dev) < lens).to(s.mask.dtype)
+    args_u = (sig, rgb, s.dt, s.delta_depth, mask_u)
+    w_u = composite_rays_fwd(*args_u)[3]
+    k9["uniform_prefix"] = {
+        "rows": k9_rows(mask_u), "kernel_ms": kernel_ms(
+            lambda: composite_rays_bwd(*args_u, w_u, *gs9),
+            "composite_padded_bwd_kernel"),
+        "err": max(max_abs(a, c) for a, c in zip(
+            composite_rays_bwd(*args_u, w_u, *gs9),
+            composite_rays_bwd_plain(*args_u, *gs9)))}
+    k9["err"] = max(err9, k9["uniform_prefix"]["err"])
+    return k8, k9
+
+
+def k9_rows(mask) -> dict:
+    """The rows of a padded mask [N, S] as K9 walks them (a warp a ray, in
+    tiles of 32 slots, each tile's sums carried into the next): rows with
+    a valid slot, their mean and largest valid count, tiles holding a
+    valid slot, and whether every row's valid slots are a prefix."""
+    valid = mask.bool()
+    n = valid.sum(1)
+    N, S = valid.shape
+    t = -(-S // 32)
+    m = torch.zeros(N, t * 32, dtype=torch.bool, device=mask.device)
+    m[:, :S] = valid
+    rows = int((n > 0).sum())
+    return {"rows": rows, "mean": float(n.sum()) / max(rows, 1),
+            "longest": int(n.max()) if N else 0,
+            "tiles": int(m.view(N, t, 32).any(-1).sum()),
+            "prefix": bool((valid[:, 1:] <= valid[:, :-1]).all())}
+
+
+def k9_bound(N: int, S: int, n_valid: int) -> tuple:
+    """K9's bound: bytes the mask [N, S], the valid slots' inputs
+    (sigma, dt, delta_depth, weights, g_weights, rgb: 32 B), the per-ray
+    upstream gradients (20 B) read once and both outputs (16 B a slot)
+    written once; ops ~30 a valid slot."""
+    return bound(N * S + n_valid * 32 + N * 20 + N * S * 16, n_valid * 30)
+
+
+def log_k8_k9(label: str, k8: dict, k9: dict):
+    """Log one k8_k9_case; raise above TOL_K8 or TOL_K9."""
+    log(f"K8/K9 {label}: [{k8['rays']}, {k8['S']}], {k8['valid']} valid "
+        f"slots (mask_frac {k8['valid'] / (k8['rays'] * k8['S']):.4f}), "
+        f"weights_sum mean {k8['ws_mean']:.4f}")
+    for name, c in (("K8", k8), ("K9", k9)):
+        log(f"{name} {label}: max abs err {c['err']:.3g}, "
+            f"{c['ms']:.4f} ms{alone(c)} (call {c['call_ms']:.4f}, plain "
+            f"{c['plain_ms']:.4f}, bound {c['bound'][0]:.5f} "
+            f"{c['bound'][1]})")
+    u = k9["uniform_prefix"]
+    log(f"K9 {label}, rows {json.dumps(k9['rows'])}; on prefixes of 0-20 "
+        f"slots (rows {json.dumps(u['rows'])}) the kernel alone "
+        f"{u['kernel_ms']:.4f} ms, max abs err {u['err']:.3g}")
+    if not (k8["err"] <= TOL_K8 and k9["err"] <= TOL_K9):
+        raise RuntimeError(f"K8/K9 disagree with their plain versions "
+                           f"({label})")
+
+
+def padded_row(name: str, tol: float, c: dict, note: str = "") -> dict:
+    """The kernels line's row of K8 ("composite_rays") or K9
+    ("composite_rays_bwd") from a k8_k9_case at the exact teacher's
+    padded batch."""
+    return dict(
+        name=name, source="pvd_tpu_torch/csrc/composite.cu",
+        replaces="pvd_tpu/ops/composite.py:97", tol=tol,
+        **{k: c[k] for k in ("err", "ms", "kernel_ms", "call_ms",
+                             "plain_ms", "bound")},
+        library_ms=None, shapes={"exact_teacher_padded": c},
+        shape=f"[{c['rays']}, {c['S']}] padded slots ({c['valid']} valid)"
+        + note)
 
 
 def teacher_step_flavors(trainer, scene, label: str = "teacher") -> dict:
@@ -1695,21 +1817,40 @@ def cell_case(trainer, x01, valid, gen) -> dict:
         return torch.zeros(gs.cell_table_size, 16, device=dev).index_add_(
             0, add_rows, add_vals)
 
+    t11 = timings(lambda: hash_encode_cell_bwd(x01, g, gs),
+                  lambda: hash_encode_cell_bwd_plain(x01, g, gs))
     return {"err10": err10, "abs10": abs10, "err11": err11, "abs11": abs11,
             "points": P, "pairs": P * Lc, "active_pairs": n_active,
             "touched_rows": c10["touched_rows"], "bound10": c10["bound"],
             "bound11": b11,
-            "t10": {k: c10[k] for k in ("ms", "call_ms", "plain_ms")},
-            "t11": timings(lambda: hash_encode_cell_bwd(x01, g, gs),
-                           lambda: hash_encode_cell_bwd_plain(x01, g, gs)),
+            "t10": {k: c10[k] for k in ("ms", "kernel_ms", "call_ms",
+                                        "plain_ms")},
+            "t11": t11,
             # the call split: the kernel alone, and the wrapper's zero fill
             # of the dense [Tc, 16] gradient alone
-            "k11_kernel_ms": kernel_ms(lambda: hash_encode_cell_bwd(
-                x01, g, gs), "hash_cell_bwd_kernel"),
+            "k11_kernel_ms": t11["kernel_ms"],
             "k11_fill_ms": cuda_ms(lambda: torch.zeros(
                 gs.cell_table_size, gs.cell_row_width, device=dev)),
             "lib10_ms": cuda_ms(lib10), "lib10_abs_err": lib10_err,
             "lib11_ms": cuda_ms(lib11)}
+
+
+def log_cell_case(label: str, c: dict):
+    """Log one cell_case; raise above TOL_K10_REL or TOL_K11_REL."""
+    log(f"K10/K11 {label} batch: {c['points']} points, {c['pairs']} "
+        f"(point, cell level) pairs ({c['active_pairs']} active), "
+        f"{c['touched_rows']} cell rows touched; K10 rel err "
+        f"{c['err10']:.3g}, {c['t10']['ms']:.4f} ms{alone(c['t10'])} (call "
+        f"{c['t10']['call_ms']:.4f}, plain {c['t10']['plain_ms']:.4f}, "
+        f"embedding_bag {c['lib10_ms']:.4f}, bound "
+        f"{c['bound10'][0]:.4f} {c['bound10'][1]}); K11 rel err "
+        f"{c['err11']:.3g}, {c['t11']['ms']:.4f} ms{alone(c['t11'])} (call "
+        f"{c['t11']['call_ms']:.4f}, plain {c['t11']['plain_ms']:.4f}, "
+        f"index_add_ {c['lib11_ms']:.4f}, bound {c['bound11'][0]:.4f} "
+        f"{c['bound11'][1]}; the zero fill alone {c['k11_fill_ms']:.4f})")
+    if not (c["err10"] <= TOL_K10_REL and c["err11"] <= TOL_K11_REL):
+        raise RuntimeError(f"K10/K11 disagree with their plain versions "
+                           f"on the {label} batch")
 
 
 def check_cell_kernels(trainer, scene, gen) -> tuple:
@@ -1723,6 +1864,9 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
     o, d, s = teacher_batch(trainer, scene, gen, rs_pad)
     xyz = fma32(s.t[..., None], d[:, None, :], o[:, None, :]).clamp(-b, b)
     x01_pad = ((xyz.reshape(-1, 3) + b) / (2.0 * b)).contiguous()
+    k8, k9 = k8_k9_case(trainer.state.field, xyz, d, s,
+                        rs_pad.density_scale, gen)
+    log_k8_k9("cell teacher, padded", k8, k9)
     rs_c = trainer.rspec
     o, d, s_c = teacher_batch(trainer, scene, gen, rs_c)
     budget = rs_c.sample_budget(trainer.cfg.num_rays)
@@ -1734,21 +1878,7 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
     cases = {"padded": cell_case(trainer, x01_pad, s.mask.reshape(-1), gen),
              "compacted": cell_case(trainer, x01_c, cmp.valid, gen)}
     for name, c in cases.items():
-        log(f"K10/K11 {name} batch: {c['points']} points, {c['pairs']} "
-            f"(point, cell level) pairs ({c['active_pairs']} active), "
-            f"{c['touched_rows']} cell rows touched; K10 rel err "
-            f"{c['err10']:.3g}, {c['t10']['ms']:.4f} ms (call "
-            f"{c['t10']['call_ms']:.4f}, plain {c['t10']['plain_ms']:.4f}, "
-            f"embedding_bag {c['lib10_ms']:.4f}, bound "
-            f"{c['bound10'][0]:.4f} {c['bound10'][1]}); K11 rel err "
-            f"{c['err11']:.3g}, {c['t11']['ms']:.4f} ms (call "
-            f"{c['t11']['call_ms']:.4f}, plain {c['t11']['plain_ms']:.4f}, "
-            f"index_add_ {c['lib11_ms']:.4f}, bound {c['bound11'][0]:.4f} "
-            f"{c['bound11'][1]}; the kernel alone {c['k11_kernel_ms']:.4f}, "
-            f"the zero fill alone {c['k11_fill_ms']:.4f})")
-        if not (c["err10"] <= TOL_K10_REL and c["err11"] <= TOL_K11_REL):
-            raise RuntimeError(f"K10/K11 disagree with their plain versions "
-                               f"on the {name} batch")
+        log_cell_case(f"cell teacher, {name}", c)
     c = cases["compacted"]
     shape = (f"{c['points']} compacted pts x "
              f"{len(trainer.state.field.grid.cell_levels)} cell levels "
@@ -1793,7 +1923,8 @@ def check_cell_kernels(trainer, scene, gen) -> tuple:
                   trainer.cfg.num_rays), gen)
     log_k6("cell teacher, compacted", k6)
     extra = {"padded": cases["padded"], "k7_compacted": k7,
-             "k1_compacted": k1, "k6_compacted": k6,
+             "k1_compacted": k1, "k6_compacted": k6, "k8_padded": k8,
+             "k9_padded": k9,
              "vector_atomics": bool(kernels.load()
                                     .pvd_hash_cell_vector_atomics())}
     return results, extra
@@ -1990,7 +2121,7 @@ def log_k15(label: str, c: dict):
     """Log one bake_case's K15; raise above TOL_K15_REL."""
     log(f"K15 {label} (side {c['side']}, {c['dense_levels']} dense levels, "
         f"{c['touched_rows']} vertex rows touched): rel err "
-        f"{c['err15']:.3g}, {c['t15']['ms']:.4f} ms (call "
+        f"{c['err15']:.3g}, {c['t15']['ms']:.4f} ms{alone(c['t15'])} (call "
         f"{c['t15']['call_ms']:.4f}, plain {c['t15']['plain_ms']:.4f}, "
         f"F.grid_sample {c['lib15_ms']:.4f} [max diff "
         f"{c['lib15_abs_err']:.3g}], bound {c['bound15'][0]:.4f} "
@@ -2032,7 +2163,8 @@ def check_bake_kernels(tea, gen) -> tuple:
                                                                     gs))}
         log(f"K16 {name}: side {side}, {Ld} dense levels, fine level exact "
             f"{fine_exact}, max |kernel - plain| {abs16:.3g} (rel "
-            f"{err16:.3g}); {k16[name]['t16']['ms']:.4f} ms (call "
+            f"{err16:.3g}); {k16[name]['t16']['ms']:.4f} ms"
+            f"{alone(k16[name]['t16'])} (call "
             f"{k16[name]['t16']['call_ms']:.4f}, plain "
             f"{k16[name]['t16']['plain_ms']:.4f}, bound {b16[0]:.4f} "
             f"{b16[1]})")
@@ -2240,7 +2372,7 @@ def log_march(kernel: str, label: str, c: dict):
     log(f"{kernel} {label} ({c['rays']} rays, L {c['L']}, S {c['S']}): "
         f"{c['samples']} samples, {c['points']} lattice points needed; "
         f"t/dt/mask/t0 exact {c['exact']}, delta_depth err "
-        f"{c['dd_err']:.3g}; kernel {c['ms']:.4f} ms (call "
+        f"{c['dd_err']:.3g}; kernel {c['ms']:.4f} ms{alone(c)} (call "
         f"{c['call_ms']:.4f}), plain {c['plain_ms']:.4f} ms, bound "
         f"{c['bound'][0]:.4f} ms ({c['bound'][1]})")
     if not (c["exact"] and c["dd_err"] <= TOL_K2_DD):
@@ -2826,13 +2958,34 @@ def k11_hard_inputs(n: int = 4099, seed: int = 0) -> dict:
             "levels20": (march_runs(rng, n), g20, K11_SPEC20)}
 
 
+def k10_on_views(cell, x01, gs) -> float:
+    """K10 on an x01 and an out that are views one float into larger
+    buffers (4-byte aligned only), out filled with 7 first: the cell
+    slots' error relative to max |plain| (NaN where the plain version
+    gives NaN, else inf), inf if a slot outside the cell levels changed."""
+    dev = x01.device
+    P, L2 = x01.shape[0], gs.output_dim
+    xv = torch.empty(x01.numel() + 1, device=dev)[1:].view(x01.shape)
+    xv.copy_(x01)
+    ov = torch.full((P * L2 + 1,), 7.0, device=dev)[1:].view(P, L2)
+    hash_encode_cell_fwd(cell, xv, gs, ov)
+    cols = [c for lv in gs.cell_levels for c in (2 * lv, 2 * lv + 1)]
+    others = [c for c in range(L2) if c not in cols]
+    if not bool((ov[:, others] == 7.0).all()):
+        return math.inf
+    p = hash_encode_cell_plain(cell, x01, gs)
+    return nan_abs(ov[:, cols], p) / float(torch.nan_to_num(p).abs().max())
+
+
 def check_k11_hard_cases(dev) -> dict:
     """K11 on k11_hard_inputs, with g as given and one float into a larger
     buffer (the wrapper realigns it), against the plain gradient of the
     points without a NaN coordinate (a NaN point adds nothing; the plain
     version, as JAX, adds NaN at a row its NaN lattice casts to), relative
     to max |plain|; and K10 on the same points against
-    hash_encode_cell_plain, NaN where it gives NaN.  Raises on a case over
+    hash_encode_cell_plain, NaN where it gives NaN, then (after every
+    other case) on them as views one float into larger buffers
+    (`k10_on_views`).  Raises on a case over
     TOL_K11_REL or TOL_K10_REL (a NaN in K11's gradient counts as inf);
     else each case's errors, which the caller folds into K11's and K10's
     rows."""
@@ -2860,6 +3013,20 @@ def check_k11_hard_cases(dev) -> dict:
             raise RuntimeError(f"K11 or K10 disagrees with its plain version "
                                f"on the {name} case: {err11:.3g}, "
                                f"{c10['err']:.3g}")
+    # K10 on an x01 and an out that are views one float into larger
+    # buffers, after every other case (a K10 that stores wider than a float
+    # faults on them)
+    for name, (x, _, kw) in k11_hard_inputs().items():
+        gs = HashGridSpec(**kw)
+        cell = torch.rand(gs.cell_table_size, gs.cell_row_width,
+                          generator=gen, device=dev) * 2 - 1
+        err = k10_on_views(cell, torch.from_numpy(x).to(dev), gs)
+        out[name]["err10"] = max(out[name]["err10"], err)
+        log(f"K10 {name} on views one float into larger buffers: rel err "
+            f"{err:.3g}")
+        if not err <= TOL_K10_REL:
+            raise RuntimeError(f"K10 disagrees with its plain version on "
+                               f"views ({name}): {err:.3g}")
     return out
 
 
@@ -2923,6 +3090,102 @@ def check_k6_hard_cases(dev) -> dict:
             f"{out[name]['lanes']} lanes per ray): max abs err {err:.3g}")
         if not err <= TOL_K6:
             raise RuntimeError(f"K6 disagrees with its plain version on the "
+                               f"{name} case: {err:.3g}")
+    return out
+
+
+def k9_hard_inputs(seed: int = 0) -> dict:
+    """K9's inputs, as numpy: name -> (sigmas [N, S], rgbs [N, S, 3],
+    delta_t [N, S], delta_depth [N, S], mask [N, S] bool, (g_ws [N],
+    g_depth [N], g_image [N, 3], g_weights [N, S])), N a multiple of no
+    block.  "S<k>": rows of k slots (1, 15-17, 31-33, 64, 96, and 130, past
+    the K9_ROW = 96 slots a group keeps in registers), each ray's valid
+    slots a prefix of random length as the padded march leaves them;
+    "S96_wide", "S130_wide": 4099 such rays (a batch past 4096 rays);
+    "scattered": [N, 96] with ~11% of the slots valid anywhere, the padded
+    warm-up's share; "all_masked"; "last_only": masked but for each row's
+    last slot; "opaque_first": a first slot with alpha = 1 (T = 0 after
+    it); "dt_zero": dt = 0 (alpha = 0) on every slot; "zero_<g>": one kind
+    of upstream gradient zero throughout.  tests/test_torch_composite.py
+    holds the plain padded gradient against JAX's autodiff on the same
+    ones."""
+    rng = np.random.default_rng(seed + 2)
+
+    def block(N, S, mask):
+        sig = rng.choice([0.0, 0.5, 3.0, 20.0, 80.0], size=(N, S))
+        sig = (sig * rng.uniform(0.5, 1.5, (N, S))).astype(np.float32)
+        rgb = rng.uniform(0, 1, (N, S, 3)).astype(np.float32)
+        dt = rng.uniform(0.002, 0.03, (N, S)).astype(np.float32)
+        dd = (dt * rng.uniform(0.8, 1.2, (N, S))).astype(np.float32)
+        g = tuple(rng.normal(size=shape).astype(np.float32)
+                  for shape in ((N,), (N,), (N, 3), (N, S)))
+        return [sig, rgb, dt, dd, mask, g]
+
+    def prefix(N, S, hi=None):
+        lens = rng.integers(0, (hi or S) + 1, N)
+        lens[:3] = (0, S, 1)
+        return np.arange(S)[None] < lens[:, None]
+
+    out = {f"S{S}": block(37 if S < 64 else 203, S,
+                          prefix(37 if S < 64 else 203, S))
+           for S in (1, 15, 16, 17, 31, 32, 33, 64, 96, 130)}
+    for S in (96, 130):  # a batch past 4096 rays
+        out[f"S{S}_wide"] = block(4099, S, prefix(4099, S, 24))
+    out["scattered"] = block(203, 96, rng.uniform(size=(203, 96)) < 0.11)
+    out["all_masked"] = block(37, 96, np.zeros((37, 96), bool))
+    last = np.zeros((37, 96), bool)
+    last[:, -1] = True
+    out["last_only"] = block(37, 96, last)
+    case = block(37, 96, prefix(37, 96, 20))
+    case[0][:, 0] = 1e4  # alpha = 1 where the first slot is valid
+    out["opaque_first"] = case
+    case = block(37, 96, prefix(37, 96))
+    case[2][:] = 0.0
+    out["dt_zero"] = case
+    for k, name in enumerate(("g_ws", "g_depth", "g_image", "g_weights")):
+        case = block(37, 33, prefix(37, 33))
+        case[5] = tuple(np.zeros_like(g) if i == k else g
+                        for i, g in enumerate(case[5]))
+        out[f"zero_{name}"] = case
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def k9_entry(sig, rgb, dt, dd, mask, g) -> tuple:
+    """K9 through its C entry, as the wrapper launches it, into outputs
+    filled with NaN first (the wrapper's are torch.empty), so a slot the
+    kernel leaves unwritten shows; no launch counted.  (d_sigma [N, S],
+    d_rgb [N, S, 3])."""
+    weights = composite_rays_fwd(sig, rgb, dt, dd, mask)[3]
+    N, S = sig.shape
+    d_sigma = torch.full_like(sig, math.nan)
+    d_rgb = torch.full_like(rgb, math.nan)
+    kernels.launch("pvd_composite_padded_bwd", sig.data_ptr(),
+                   rgb.data_ptr(), dt.data_ptr(), dd.data_ptr(),
+                   mask.data_ptr(), weights.data_ptr(), N, S,
+                   *(t.data_ptr() for t in g),
+                   d_sigma.data_ptr(), d_rgb.data_ptr(),
+                   kernels.stream_ptr(sig))
+    return d_sigma, d_rgb
+
+
+def check_k9_hard_cases(dev) -> dict:
+    """K9 on k9_hard_inputs (k9_entry: outputs filled with NaN first)
+    against composite_rays_bwd_plain.  Raises on a case over TOL_K9 (a
+    NaN counts as inf); else each case's max abs error, which the caller
+    folds into K9's row."""
+    out = {}
+    for name, (*arrays, gs) in k9_hard_inputs().items():
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        g = [torch.from_numpy(a).to(dev) for a in gs]
+        plain = composite_rays_bwd_plain(*args, *g)
+        err = max(max_abs(a, b) for a, b in zip(k9_entry(*args, g), plain))
+        N, S = arrays[0].shape
+        out[name] = {"err": err, "rays": N, "S": S,
+                     "valid": int(arrays[4].sum())}
+        log(f"K9 {name} ([{N}, {S}], {out[name]['valid']} valid): max abs "
+            f"err {err:.3g}")
+        if not err <= TOL_K9:
+            raise RuntimeError(f"K9 disagrees with its plain version on the "
                                f"{name} case: {err:.3g}")
     return out
 
@@ -3203,7 +3466,8 @@ def check_k1_hard_cases(dev) -> dict:
 def log_k1(label: str, c: dict):
     log(f"K1 {label}: {c['points']} points x {c['levels']} levels, "
         f"{c['touched_rows']} rows touched: max abs err {c['err']:.3g}, "
-        f"{c['ms']:.4f} ms (call of the {c['via']} {c['call_ms']:.4f}, plain "
+        f"{c['ms']:.4f} ms{alone(c)} (call of the {c['via']} "
+        f"{c['call_ms']:.4f}, plain "
         f"{c['plain_ms']:.4f}, embedding_bag {c['library_ms']:.4f}, bound "
         f"{c['bound'][0]:.4f} {c['bound'][1]})")
     if not c["err"] <= TOL_K1:
@@ -3233,7 +3497,7 @@ def k3_case(args, n_rays: int, early_stop: bool) -> dict:
 def log_k3(label: str, c: dict):
     log(f"K3 {label}: {c['slots']} slots ({c['valid']} valid), {c['rays']} "
         f"rays, {c['lanes']} lanes per ray, early stop {c['early_stop']}: "
-        f"max abs err {c['err']:.3g}, {c['ms']:.4f} ms (call "
+        f"max abs err {c['err']:.3g}, {c['ms']:.4f} ms{alone(c)} (call "
         f"{c['call_ms']:.4f}, plain {c['plain_ms']:.4f}, bound "
         f"{c['bound'][0]:.5f} {c['bound'][1]})")
 
@@ -3265,6 +3529,24 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
     tr = march_case(bits, o_t, d_t, n_t, f_t, rs_train, u)
     for name, c in (("eval", ev), ("train", tr)):
         log_march("K14", name, c)
+    # K8/K9 on a padded warm-up batch of the trained field; K10/K11 on a
+    # compacted batch
+    b = tea.rspec.bound
+    o_p, d_p, s_p = teacher_batch(tea, scene, gen, rs_train)
+    xyz_p = fma32(s_p.t[..., None], d_p[:, None, :],
+                  o_p[:, None, :]).clamp(-b, b)
+    k8, k9 = k8_k9_case(tea.state.field, xyz_p, d_p, s_p,
+                        rs_train.density_scale, gen)
+    log_k8_k9("large-scene teacher, padded", k8, k9)
+    del xyz_p
+    o_c, d_c, s_c = teacher_batch(tea, scene, gen, tea.rspec)
+    cmp = compact_samples(s_c.mask, tea.rspec.sample_budget(
+        tea.cfg.num_rays), prefix=True)
+    xyz_c = fma32(s_c.t.reshape(-1)[cmp.idx][:, None], d_c[cmp.ray_id],
+                  o_c[cmp.ray_id]).clamp(-b, b)
+    cell = cell_case(tea, ((xyz_c + b) / (2.0 * b)).contiguous(), cmp.valid,
+                     gen)
+    log_cell_case("large-scene teacher, compacted", cell)
     table = tea.state.field.bg.encoder.detach()
     side = 512
     big_intr = tuple(v * side / test.H for v in intr)
@@ -3280,11 +3562,12 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
             f"alone {c['zero13_ms']:.4f} ms")
         log(f"K12/K13 at {name} polar points ({c['touched_rows']} rows "
             f"touched): K12 rel err {c['err12']:.3g}, {c['t12']['ms']:.4f} "
-            f"ms (call {c['t12']['call_ms']:.4f}, plain "
+            f"ms{alone(c['t12'])} (call {c['t12']['call_ms']:.4f}, plain "
             f"{c['t12']['plain_ms']:.4f}, grid_sample on the dense levels "
             f"{c['lib12_ms']:.4f}, bound {c['bound12'][0]:.5f} "
             f"{c['bound12'][1]}); K13 rel err {c['err13']:.3g}, "
-            f"{c['t13']['ms']:.4f} ms (call {c['t13']['call_ms']:.4f}, "
+            f"{c['t13']['ms']:.4f} ms{alone(c['t13'])} (call "
+            f"{c['t13']['call_ms']:.4f}, "
             f"plain {c['t13']['plain_ms']:.4f}, index_add_ "
             f"{c['lib13_ms']:.4f}, bound {c['bound13'][0]:.5f} "
             f"{c['bound13'][1]})")
@@ -3295,7 +3578,8 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
     results = [
         dict(name="march_rays_geom", source="pvd_tpu_torch/csrc/march.cu",
              replaces="pvd_tpu/render/renderer.py:643", err=ev["dd_err"],
-             tol=TOL_K14_DD, ms=ev["ms"], call_ms=ev["call_ms"],
+             tol=TOL_K14_DD, ms=ev["ms"], kernel_ms=ev["kernel_ms"],
+             call_ms=ev["call_ms"],
              plain_ms=ev["plain_ms"], bound=ev["bound"], library_ms=None,
              library_call="no single call",
              shape=f"N={CHUNK} rays x L={rs_eval.max_steps} eval slots, two "
@@ -3320,7 +3604,8 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
              shape=f"{c['points']} polar points x 4 levels")]
     results[0]["shapes"] = {"eval_chunk": ev, "train_batch": tr,
                             "hard_inputs": check_k14_hard_cases(dev)}
-    extra = {"k12_k13": cases, "k13_hard": hard13}
+    extra = {"k12_k13": cases, "k13_hard": hard13, "k8_padded": k8,
+             "k9_padded": k9, "cell_compacted": cell}
     return results, extra
 
 
@@ -3656,8 +3941,8 @@ def main(argv=None) -> int:
         name="hash_encode", source="pvd_tpu_torch/csrc/hash_encode.cu",
         replaces="pvd_tpu/ops/hashgrid.py:533", tol=TOL_K1,
         err=max([k1_sweep["err"]] + [c["err"] for c in k1_hard.values()]),
-        **{k: k1_sweep[k] for k in ("ms", "call_ms", "plain_ms",
-                                    "library_ms", "bound")},
+        **{k: k1_sweep[k] for k in ("ms", "kernel_ms", "call_ms",
+                                    "plain_ms", "library_ms", "bound")},
         library_call="F.embedding_bag(mode='sum', per_sample_weights) on "
         "the precomputed corner rows and weights",
         shape=f"N={x01.shape[0]} points x {gs.num_levels} levels (err: "
@@ -3923,17 +4208,31 @@ def main(argv=None) -> int:
     for r in results:
         if r["name"] in shapes:
             r["shapes"] = shapes[r["name"]]
+    for name, key in (("composite_rays", "k8_padded"),
+                      ("composite_rays_bwd", "k9_padded")):
+        next(r for r in results if r["name"] == name)["shapes"].update(
+            cell_teacher_padded=c_extra.pop(key),
+            large_scene_padded=l_extra.pop(key))
+    next(r for r in results if r["name"] == "hash_encode_cell_fwd")[
+        "shapes"].update(cell_teacher_padded=c_extra["padded"]["t10"],
+                         large_scene_compacted=l_extra["cell_compacted"][
+                             "t10"])
 
-    # hard inputs of K11/K10 and K6, and the NaN rule of K7, K12, K13 and
-    # K15: checked after every timing, each raising on a case over its
+    # hard inputs of K6, K9 and K11/K10 and the NaN rule of K7, K12, K13
+    # and K15: checked after every timing, each raising on a case over its
     # tolerance, and folded into its kernel's row
-    k11_hard = check_k11_hard_cases(dev)
     k6_hard = check_k6_hard_cases(dev)
+    k9_hard = check_k9_hard_cases(dev)
     nan_rule = check_nan_rule(dev)
+    k11_hard = check_k11_hard_cases(dev)
+    short = [n for n in RECORDS if n < 20]
+    log(f"kernel_ms: {len(RECORDS)} timings, {len(short)} on fewer than 20 "
+        f"launch records ({sorted(short)})")
     held = {"hash_encode_cell_bwd": [c["err11"] for c in k11_hard.values()],
             "hash_encode_cell_fwd": [c["err10"] for c in k11_hard.values()],
             "composite_rays_compact_bwd": [c["err"] for c in
                                            k6_hard.values()],
+            "composite_rays_bwd": [c["err"] for c in k9_hard.values()],
             "hash_encode_bwd": [nan_rule["k7"]],
             "hash_encode_2d_bwd": [nan_rule["k13"]],
             "hash_encode_2d_fwd": [nan_rule["k12"]],
@@ -3942,6 +4241,8 @@ def main(argv=None) -> int:
         if r["name"] in held:  # NaN-free: each check raised on a NaN
             r["err"] = max([r["err"]] + held[r["name"]])
     k6_row["shapes"]["hard_inputs"] = k6_hard
+    next(r for r in results if r["name"] == "composite_rays_bwd")[
+        "shapes"]["hard_inputs"] = k9_hard
     next(r for r in results if r["name"] == "hash_encode_cell_bwd")[
         "shapes"]["hard_inputs"] = k11_hard
 
@@ -3950,7 +4251,7 @@ def main(argv=None) -> int:
         lib = r.get("library_ms")
         log(f"{r['name']} ({r['shape']}): "
             f"{r.get('err_kind', 'max |kernel - plain|')} {r['err']:.3g}"
-            f" (tol {r['tol']:g}), kernel {r['ms']:.4f} ms (call "
+            f" (tol {r['tol']:g}), kernel {r['ms']:.4f} ms{alone(r)} (call "
             f"{r['call_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
             f"({r['bound'][1]})"
@@ -4003,7 +4304,8 @@ def main(argv=None) -> int:
         "max_abs_err": r.get("abs_err", r["err"]),
         "max_abs_diff": r.get("abs_err", r["err"]), "tol_err": r["err"],
         "tol": r["tol"],
-        "ms": r["ms"], "kernel_ms": r["ms"], "call_ms": r["call_ms"],
+        "ms": r["ms"], "kernel_ms": r.get("kernel_ms"),
+        "call_ms": r["call_ms"],
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
         "library_ms": r.get("library_ms"),

@@ -74,22 +74,47 @@
 // cumsums over [N, S] blocks).  The teacher trainer runs its first
 // 16 x update_extra_interval steps on this path (the sample budget is off
 // while the occupancy grid warms up), and eval with samples_per_ray = 0.
-// One thread per ray walks its S slots in order:
 //   alpha_i = (1 - exp(-sigma_i * dt_i)) * m_i
 //   T_i     = prod_{j<i} (1 - alpha_j)      (exclusive, from the unmodified
 //                                            alphas)
 //   w_i     = alpha_i * T_i, alpha zeroed where T_i < 1e-4 if early_stop
 //   t_cum_i = sum_{j<=i} delta_depth_j * m_j
-// and writes weights [N, S] and weights_sum, depth = sum w * t_cum,
-// image = sum w * rgb.  K9 is K6's closed form over a padded row, with
-// G_i = g_img . rgb_i + g_ws + g_depth * t_cum_i + g_w_i and S = sum w_j G_j:
+// K8 writes weights [N, S] and weights_sum, depth = sum w * t_cum,
+// image = sum w * rgb: one thread per ray walks its S slots in order
+// (the first design; its loads stride S floats from the neighbour's).
+// K9 is K6's closed form over a padded row, with G_i = g_img . rgb_i + g_ws
+// + g_depth * t_cum_i + g_w_i and S = sum w_j G_j:
 //   dsigma_i = m_i * dt_i * (T_{i+1} G_i - (S - sum_{j<=i} w_j G_j))
-//   drgb_i   = w_i * g_img
+//   drgb_i   = w_i * g_img                  (0 where m_i is 0)
 // (no early stop: inference only).  Every output has one writer, no
-// atomics.  Bound on the H100: memory, a few MB at [8192, 96] (25 B read
-// per slot forward, 29 B read and 16 B written backward); each thread's
-// loads stride S floats from its neighbour's, so a warp touches 32 rows
-// per step and relies on L1/L2 to reuse the lines over the next slots.
+// atomics.  Bound on the H100: memory.  A training row holds a ray's few
+// samples among S = 96 or 64 slots (10-11% valid at the exact and A/B
+// teachers' warm-up, ~45-50% at the large scene's), so K9 need only read
+// the mask, the valid slots' inputs (32 B each) and the per-ray values,
+// and write both outputs (16 B a slot): 4.8 us at the exact teacher's
+// [8192, 96].  The first design ran one thread per ray in blocks of 64
+// (128 blocks for 132 SMs at 8192 rays, 64 at 4096), walking its row twice
+// with every slot's inputs loaded, masked or not, at a stride of S floats
+// from its neighbour's: a serial chain of L2 round trips, 18-33x its bound
+// (PERF.md §6).  The design now (composite_padded_bwd_kernel): K6's lane
+// groups, a warp a ray (K9_LANES) walking the row in tiles of 32 slots.  A lane reads
+// its slot's mask first and the other inputs only where it is set; a tile
+// without a valid slot (most of a padded row) writes zeros and leaves T,
+// t_cum and the prefix as they were.  t_cum by a group scan with a carry,
+// S by a group reduction, the row's first 96 slots kept in registers
+// between the two walks, T by K3's broadcast product (bit for bit K8's),
+// sum_{j<=i} w_j G_j by a group scan, d_sigma and the tile's 3 G floats
+// of d_rgb stored by consecutive lanes (group_transmittance, group_scan,
+// group_sum and group_store_drgb, shared with K3 and K6).  Only the order
+// of the sums (t_cum's too) differs from the first design.  On the H100
+// 80GB HBM3 at 700 W (PERF.md §6) the kernel alone takes 0.0077-0.0078
+// ms at [8192, 96] against the first design's 0.085-0.087, and
+// 0.0050-0.0057 against 0.056-0.081 at the 4096-ray batches: 1.6-2.3x
+// its bound.  The long rows set its time: in the exact teacher's warm-up
+// ~1,080 of 8,192 rows hold every valid slot, 73 each on average, and a
+// warp walks its row's tiles in turn (the same batch with prefixes of
+// 0-20 slots takes 0.0062-0.0070).  Measured and dropped: 16 lanes a
+// ray, slower on every trained batch (0.0104-0.0112 at [8192, 96]).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +122,78 @@
 #define K3_THREADS 128
 #define K6_THREADS 128
 #define K6_CACHED 4  // tiles a K6 group keeps in registers between its walks
+#define K9_THREADS 128
+#define K9_LANES 32  // a warp a ray
+#define K9_ROW 96  // slots of a row a K9 warp keeps in registers
+
+// The lane groups of K3, K6 and K9: a group of G lanes (G | 32; `group` its
+// lanes' mask, j a lane's index in it) walks a ray in tiles of G slots.
+
+// T by the broadcast product in slot order: lane j gets T times the tile's
+// factors f_0 ... f_{j-1}, rounded as a serial walk rounds them, and T
+// becomes the product over the whole tile in every lane.
+template <int G>
+__device__ __forceinline__ float group_transmittance(unsigned group, int j,
+                                                     float f, float& T) {
+  float Tj = T;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const float fk = __shfl_sync(group, f, k, G);
+    if (k == j) Tj = T;
+    T = __fmul_rn(T, fk);
+  }
+  return Tj;
+}
+
+// Inclusive scan of v over the group plus carry; carry becomes the scan's
+// last value (the carry into the next tile).
+template <int G>
+__device__ __forceinline__ float group_scan(unsigned group, int j, float v,
+                                            float& carry) {
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+    const float y = __shfl_up_sync(group, v, o, G);
+    if (j >= o) v += y;
+  }
+  v += carry;
+  carry = __shfl_sync(group, v, G - 1, G);
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float group_sum(unsigned group, float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(group, v, o, G);
+  return v;
+}
+
+// d_rgb of a tile of n slots: float j + m G of its 3 n, slot (j + m G) / 3,
+// is that slot's w times g_img's channel (j + m G) % 3, stored by
+// consecutive lanes at dst (the tile's first d_rgb float).
+template <int G>
+__device__ __forceinline__ void group_store_drgb(unsigned group, int j,
+                                                 float w, int n, float gi0,
+                                                 float gi1, float gi2,
+                                                 float* __restrict__ dst) {
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int qi = j + m * G;
+    const float wq = __shfl_sync(group, w, qi / 3, G);
+    if (qi < 3 * n) {
+      const int ch = qi % 3;
+      dst[qi] = wq * (ch == 0 ? gi0 : (ch == 1 ? gi1 : gi2));
+    }
+  }
+}
+
+// G_i = g_img . rgb_i + g_ws + g_depth * t_cum_i + g_w_i of one slot (K6,
+// K9), in the first designs' expression
+__device__ __forceinline__ float composite_term(float r0, float r1, float r2,
+                                                float tc, float gw, float gi0,
+                                                float gi1, float gi2,
+                                                float gws, float gd) {
+  return gi0 * r0 + gi1 * r1 + gi2 * r2 + gws + gd * tc + gw;
+}
 
 __global__ void segment_bounds_kernel(const long long* __restrict__ ray_id,
                                       const uint8_t* __restrict__ valid,
@@ -173,14 +270,8 @@ __global__ void __launch_bounds__(K3_THREADS)
     if (i0 + G < e) load(i0 + G);
     const float alpha =
         in ? __fsub_rn(1.f, expf(__fmul_rn(-sg_i, dt_i))) : 0.f;
-    const float f = __fsub_rn(1.f, alpha);
-    float Tj = T;
-#pragma unroll
-    for (int k = 0; k < G; ++k) {
-      const float fk = __shfl_sync(group, f, k, G);
-      if (k == j) Tj = T;
-      T = __fmul_rn(T, fk);
-    }
+    const float Tj = group_transmittance<G>(group, j, __fsub_rn(1.f, alpha),
+                                            T);
     float w = 0.f;
     if (in) {
       w = (early_stop && Tj < 1e-4f) ? 0.f : __fmul_rn(alpha, Tj);
@@ -258,9 +349,9 @@ __device__ __forceinline__ float k6_term(const float* __restrict__ rgbs,
                                          const float* __restrict__ g_weights,
                                          int i, float gi0, float gi1,
                                          float gi2, float gws, float gd) {
-  return gi0 * rgbs[3 * (long long)i] + gi1 * rgbs[3 * (long long)i + 1] +
-         gi2 * rgbs[3 * (long long)i + 2] + gws + gd * t_cum[i] +
-         g_weights[i];
+  return composite_term(rgbs[3 * (long long)i], rgbs[3 * (long long)i + 1],
+                        rgbs[3 * (long long)i + 2], t_cum[i], g_weights[i],
+                        gi0, gi1, gi2, gws, gd);
 }
 
 // K6: blocks below ray_blocks give each ray a group of G lanes (G | 32, as
@@ -320,8 +411,7 @@ __global__ void __launch_bounds__(K6_THREADS) composite_bwd_kernel(
   for (int i = s + K6_CACHED * G + j; i < e; i += G)
     S = fmaf(weights[i],
              k6_term(rgbs, t_cum, g_weights, i, gi0, gi1, gi2, gws, gd), S);
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) S += __shfl_xor_sync(group, S, o, G);
+  S = group_sum<G>(group, S);
   // walk 2
   float T = 1.f, carry = 0.f;
   auto tile = [&](int i0, float sg, float dt, float w, float gv) {
@@ -329,34 +419,12 @@ __global__ void __launch_bounds__(K6_THREADS) composite_bwd_kernel(
     const bool in = i < e;
     const float alpha = in ? __fsub_rn(1.f, expf(__fmul_rn(-sg, dt))) : 0.f;
     const float f = __fsub_rn(1.f, alpha);
-    float Tj = T;
-#pragma unroll
-    for (int k = 0; k < G; ++k) {
-      const float fk = __shfl_sync(group, f, k, G);
-      if (k == j) Tj = T;
-      T = __fmul_rn(T, fk);
-    }
-    float pre = in ? w * gv : 0.f;  // inclusive scan of w G in the tile
-#pragma unroll
-    for (int o = 1; o < G; o <<= 1) {
-      const float y = __shfl_up_sync(group, pre, o, G);
-      if (j >= o) pre += y;
-    }
-    pre += carry;
-    carry = __shfl_sync(group, pre, G - 1, G);
+    const float Tj = group_transmittance<G>(group, j, f, T);
+    // sum_{j<=i} w_j G_j
+    const float pre = group_scan<G>(group, j, in ? w * gv : 0.f, carry);
     if (in) d_sigma[i] = dt * (__fmul_rn(Tj, f) * gv - (S - pre));
-    // d_rgb: float j + m G of the tile's 3 G, slot (j + m G) / 3
-    const int nq = 3 * min(G, e - i0);
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      const int qi = j + m * G;
-      const float wq = __shfl_sync(group, w, qi / 3, G);
-      if (qi < nq) {
-        const int ch = qi % 3;
-        d_rgb[3 * (long long)i0 + qi] =
-            wq * (ch == 0 ? gi0 : (ch == 1 ? gi1 : gi2));
-      }
-    }
+    group_store_drgb<G>(group, j, w, min(G, e - i0), gi0, gi1, gi2,
+                        d_rgb + 3 * (long long)i0);
   };
 #pragma unroll
   for (int t = 0; t < K6_CACHED; ++t) {
@@ -451,7 +519,22 @@ extern "C" int pvd_composite_padded_fwd(
   return (int)cudaGetLastError();
 }
 
-__global__ void composite_padded_bwd_kernel(
+// K9: a group of G = K9_LANES lanes per ray (a warp; 16 lanes measured
+// slower at every launch shape, PERF.md §6) walks its row of S slots in
+// tiles of G.  A lane reads its slot's mask
+// first and the slot's other inputs only where it is set; a tile with no
+// valid slot (most of a padded row: the march fills a ray's first slots)
+// only writes zeros, and leaves T, t_cum and the prefix as they were.
+// Walk 1: t_cum by a group scan of m * delta_depth with a carry, G_i, and
+// S = sum w_j G_j (lane partial sums, then a group reduction), the first
+// K9_ROW / G tiles' sigma, dt, w, G and mask kept in registers (a training
+// row has at most 96 slots; a longer row's later tiles are loaded again).
+// Walk 2: T by the broadcast product (bit for bit K8's serial product),
+// sum_{j<=i} w_j G_j by a group scan with a carry, d_sigma and the tile's
+// 3 G floats of d_rgb by consecutive lanes.  A masked slot's d_sigma and
+// d_rgb are 0; every slot is written, so the outputs need no fill.
+template <int G>
+__global__ void __launch_bounds__(K9_THREADS) composite_padded_bwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const float* __restrict__ dts, const float* __restrict__ dds,
     const uint8_t* __restrict__ mask, const float* __restrict__ weights,
@@ -459,52 +542,103 @@ __global__ void composite_padded_bwd_kernel(
     const float* __restrict__ g_depth, const float* __restrict__ g_image,
     const float* __restrict__ g_weights, float* __restrict__ d_sigma,
     float* __restrict__ d_rgb) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+  constexpr int C = K9_ROW / G;
+  const int r = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) / G);
+  if (r >= n_rays) return;  // the whole group
+  const int j = threadIdx.x & (G - 1);
+  const unsigned bit = 1u << (threadIdx.x & 31);
+  const unsigned group = (unsigned)((1ull << G) - 1ull)
+                         << ((threadIdx.x & 31) & ~(G - 1));
   const long long base = (long long)r * S;
   const float gi0 = g_image[3 * r], gi1 = g_image[3 * r + 1],
               gi2 = g_image[3 * r + 2], gws = g_ws[r], gd = g_depth[r];
-  float Ssum = 0.f, t_cum = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const long long i = base + s;
-    t_cum = __fadd_rn(t_cum, mask[i] ? dds[i] : 0.f);
-    const float G = gi0 * rgbs[3 * i] + gi1 * rgbs[3 * i + 1] +
-                    gi2 * rgbs[3 * i + 2] + gws + gd * t_cum + g_weights[i];
-    Ssum = fmaf(weights[i], G, Ssum);
+  // a tile's inputs: `live` the group's valid lanes (0: nothing loaded)
+  auto inputs = [&](int i0, float& tc_carry, unsigned& live, float& sg,
+                    float& dt, float& w, float& gv) {
+    const long long i = base + i0 + j;
+    const bool m = i0 + j < S && mask[i] != 0;
+    live = __ballot_sync(group, m);
+    sg = dt = w = gv = 0.f;
+    if (!live) return;  // the whole group
+    const float tc = group_scan<G>(group, j, m ? dds[i] : 0.f, tc_carry);
+    if (m) {
+      sg = sigmas[i];
+      dt = dts[i];
+      w = weights[i];
+      gv = composite_term(rgbs[3 * i], rgbs[3 * i + 1], rgbs[3 * i + 2], tc,
+                          g_weights[i], gi0, gi1, gi2, gws, gd);
+    }
+  };
+  // walk 1
+  float c_sg[C], c_dt[C], c_w[C], c_g[C];
+  unsigned c_live[C];
+  float Ssum = 0.f, tc_carry = 0.f;
+#pragma unroll
+  for (int t = 0; t < C; ++t) {
+    c_live[t] = 0u;
+    c_sg[t] = c_dt[t] = c_w[t] = c_g[t] = 0.f;
+    if (t * G < S) {
+      inputs(t * G, tc_carry, c_live[t], c_sg[t], c_dt[t], c_w[t], c_g[t]);
+      Ssum = fmaf(c_w[t], c_g[t], Ssum);
+    }
   }
-  float T = 1.f, prefix = 0.f;
-  t_cum = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const long long i = base + s;
-    const bool m = mask[i] != 0;
-    const float w = weights[i];
-    t_cum = __fadd_rn(t_cum, m ? dds[i] : 0.f);
-    const float G = gi0 * rgbs[3 * i] + gi1 * rgbs[3 * i + 1] +
-                    gi2 * rgbs[3 * i + 2] + gws + gd * t_cum + g_weights[i];
-    prefix = fmaf(w, G, prefix);
+  const float tc_row = tc_carry;  // t_cum after the cached tiles
+  for (int i0 = C * G; i0 < S; i0 += G) {
+    unsigned live;
+    float sg, dt, w, gv;
+    inputs(i0, tc_carry, live, sg, dt, w, gv);
+    Ssum = fmaf(w, gv, Ssum);
+  }
+  Ssum = group_sum<G>(group, Ssum);
+  // walk 2
+  float T = 1.f, carry = 0.f;
+  auto tile = [&](int i0, unsigned live, float sg, float dt, float w,
+                  float gv) {
+    const long long i = base + i0 + j;
+    const int n = min(G, S - i0);
+    float* dr = d_rgb + 3 * (base + i0);
+    if (!live) {  // the whole group
+      if (j < n) d_sigma[i] = 0.f;
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        if (j + m * G < 3 * n) dr[j + m * G] = 0.f;
+      return;
+    }
+    const bool m = (live & bit) != 0;
     // the forward's alpha, rounded the same way
-    const float alpha =
-        m ? __fsub_rn(1.f, expf(__fmul_rn(-sigmas[i], dts[i]))) : 0.f;
-    const float T_next = __fmul_rn(T, __fsub_rn(1.f, alpha));
-    d_sigma[i] = m ? dts[i] * (T_next * G - (Ssum - prefix)) : 0.f;
-    d_rgb[3 * i] = w * gi0;
-    d_rgb[3 * i + 1] = w * gi1;
-    d_rgb[3 * i + 2] = w * gi2;
-    T = T_next;
+    const float alpha = m ? __fsub_rn(1.f, expf(__fmul_rn(-sg, dt))) : 0.f;
+    const float f = __fsub_rn(1.f, alpha);
+    const float Tj = group_transmittance<G>(group, j, f, T);
+    const float pre = group_scan<G>(group, j, m ? w * gv : 0.f, carry);
+    if (j < n) d_sigma[i] = m ? dt * (__fmul_rn(Tj, f) * gv - (Ssum - pre))
+                              : 0.f;
+    group_store_drgb<G>(group, j, w, n, gi0, gi1, gi2, dr);
+  };
+#pragma unroll
+  for (int t = 0; t < C; ++t)
+    if (t * G < S) tile(t * G, c_live[t], c_sg[t], c_dt[t], c_w[t], c_g[t]);
+  tc_carry = tc_row;
+  for (int i0 = C * G; i0 < S; i0 += G) {
+    unsigned live;
+    float sg, dt, w, gv;
+    inputs(i0, tc_carry, live, sg, dt, w, gv);
+    tile(i0, live, sg, dt, w, gv);
   }
 }
 
+// d_sigma and d_rgb need no initial value
 extern "C" int pvd_composite_padded_bwd(
     const float* sigmas, const float* rgbs, const float* dt,
     const float* delta_depth, const uint8_t* mask, const float* weights,
     int n_rays, int S, const float* g_ws, const float* g_depth,
     const float* g_image, const float* g_weights, float* d_sigma,
     float* d_rgb, void* stream) {
-  if (n_rays <= 0) return 0;
-  const int ray_threads = 64;
-  composite_padded_bwd_kernel<<<(n_rays + ray_threads - 1) / ray_threads,
-                                ray_threads, 0, (cudaStream_t)stream>>>(
-      sigmas, rgbs, dt, delta_depth, mask, weights, n_rays, S, g_ws, g_depth,
-      g_image, g_weights, d_sigma, d_rgb);
+  if (n_rays <= 0 || S <= 0) return 0;
+  const long long blocks =
+      ((long long)n_rays * K9_LANES + K9_THREADS - 1) / K9_THREADS;
+  composite_padded_bwd_kernel<K9_LANES>
+      <<<(unsigned)blocks, K9_THREADS, 0, (cudaStream_t)stream>>>(
+          sigmas, rgbs, dt, delta_depth, mask, weights, n_rays, S, g_ws,
+          g_depth, g_image, g_weights, d_sigma, d_rgb);
   return (int)cudaGetLastError();
 }

@@ -102,12 +102,33 @@
 //         + cell_ordinal * 2^16
 //   out = sum_k w_k * row[2k : 2k+2]
 // with K1's corner_setup and corner_weight, so the weights are K1's bit for
-// bit.  One thread per (point, cell level) reads its row as four float4
-// loads and writes one float2; a NaN coordinate gives NaN there, also
-// beside one outside [0, 1] (K1's rule: JAX weights by w * okf), and a
-// point outside gives 0.  Bound: memory, one 64-byte row per pair (two
-// 32-byte sectors, all useful) against K1's eight scattered 8-byte rows;
-// the 37.7 MB cell table fits the L2.
+// bit; a NaN coordinate gives NaN there, also beside one outside [0, 1]
+// (K1's rule: JAX weights by w * okf), and a point outside gives 0.
+// Bound: memory, one 64-byte row per pair (two 32-byte sectors, all
+// useful) against K1's eight scattered 8-byte rows.  The 37.7 MB cell
+// table fits the L2, so the byte bound (the touched rows once, the output
+// once) is far under what the pairs pull from the L2: 64 B each, 37.7 MB
+// at the A/B teacher's 65,536 x 9.
+// The first design ran one thread per (point, cell level), level fastest:
+// a warp held ~3.5 points at 9 levels, read the level constants with a
+// per-lane index and stored one float2 a thread at a 112-byte stride.
+// The design now (hash_cell_fwd_kernel): K11's block shape, a block per 32
+// consecutive points and a warp per cell level, so the level constants
+// are warp-uniform and a warp's lanes are consecutive samples at one
+// level; each lane loads its row as four float4s, and the block stages
+// its results in shared memory and writes each point's run of cell slots
+// with consecutive lanes.  On the H100 80GB HBM3 at 700 W (PERF.md §6)
+// the kernel alone takes 0.0094-0.0095 ms against the first design's
+// 0.0116-0.0117 at the A/B teacher's batch and 0.042 against 0.053 in
+// the padded warm-up: the level constants were not what held it; the L2
+// traffic of its rows is (37.7 MB a call there, ~4 TB/s).
+// Measured and dropped (throwaway builds beside the parent's K10, so no
+// figures): four lanes a row (one float4 each and a shuffle sum, 8 whole
+// rows a warp instruction: slower at every shape), two points a lane
+// (slower), x01 staged in shared memory and K1's lattice without floorf
+// (no gain), and each lane storing its float2 straight into an 8-byte
+// aligned out instead of the staged runs (slower at every shape: a
+// warp's 32 stores then fall in 32 rows 112 bytes apart).
 //
 // K11: the cell table's gradient, replacing _cell_gather_sum_bwd (:362),
 // the table part (no g_w, as in K7): row[2k : 2k+2] += w_k * g[n, l].
@@ -237,6 +258,7 @@
 #define K13_THREADS 128
 #define K7_THREADS 128
 #define K11_SPAN 16  // cell levels a K11 block (a warp each)
+#define K10_SPAN 16  // cell levels a K10 block (a warp each)
 #define K1_POINTS 64  // points a K1 block
 #define K1_PER 2  // levels a K1 thread
 #define K1_MAX_THREADS 512  // 8 level groups of K1_POINTS threads
@@ -711,35 +733,61 @@ __device__ __forceinline__ long long cell_row(const Corners<3>& c, int l,
   return (long long)lv.offset[l] + corner_row<3>(c, 0, lv.hash_mask);
 }
 
-__global__ void hash_cell_fwd_kernel(const float* __restrict__ x01,
-                                     const float4* __restrict__ cell,
-                                     float2* __restrict__ out,
-                                     long long n_points, HashLevels lv) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_points * lv.n_levels) return;
-  const long long n = gid / lv.n_levels;
-  const int l = (int)(gid - n * lv.n_levels);
-  float2* o = out + n * lv.out_levels + lv.level[l];
-  float x[3], z;
-  load_point<3>(x01, n, x);
-  if (nan_or_outside<3>(x, z)) {
-    *o = make_float2(z, z);
-    return;
-  }
-  const Corners<3> c = corner_setup<3>(x, l, lv);
-  const float4* r = cell + 4 * cell_row(c, l, lv);
-  const float4 v[4] = {__ldg(r), __ldg(r + 1), __ldg(r + 2), __ldg(r + 3)};
-  float a0 = 0.f, a1 = 0.f;
+// K10: a block per 32 consecutive points of the ray-major stream (a lane
+// each) and up to K10_SPAN cell level entries (blockIdx.y takes the rest),
+// a warp per entry: the level constants are warp-uniform, a warp's lanes
+// are consecutive samples at one level (at the coarse cell levels a ray's
+// samples share a lattice cell, and their lanes load the same row in one
+// instruction).  A lane reads its point's x01, forms its lattice with
+// corner_setup / corner_weight / cell_row (the weights and rows bit for
+// bit the first design's), loads its row as four float4s and sums the 8
+// corners in corner order into the block's shared tile ([32, 2 m] floats,
+// rows of odd stride); then the block writes each point's run of cell
+// slots (consecutive slots: the entry checks it) with consecutive lanes,
+// as floats, so neither x01 nor out needs more than a float's alignment.
+__global__ void __launch_bounds__(32 * K10_SPAN)
+    hash_cell_fwd_kernel(const float* __restrict__ x01,
+                         const float4* __restrict__ cell,
+                         float* __restrict__ out, long long n_points,
+                         HashLevels lv) {
+  __shared__ float tile[32 * (2 * K10_SPAN + 1)];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e0 = blockIdx.y * K10_SPAN, m = min(lv.n_levels - e0, K10_SPAN);
+  const int st = 2 * m + 1, l = e0 + warp;  // st odd: no bank conflicts
+  const long long n0 = (long long)blockIdx.x * 32;
+  const int rows = (int)min(32LL, n_points - n0);
+  if (warp < m && lane < rows) {
+    float x[3], z, a0, a1;
+    load_point<3>(x01, n0 + lane, x);
+    if (nan_or_outside<3>(x, z)) {
+      a0 = a1 = z;
+    } else {
+      const Corners<3> c = corner_setup<3>(x, l, lv);
+      const float4* r = cell + 4 * cell_row(c, l, lv);
+      const float4 v[4] = {__ldg(r), __ldg(r + 1), __ldg(r + 2),
+                           __ldg(r + 3)};
+      a0 = a1 = 0.f;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float w0 = corner_weight<3>(c, 2 * q);
-    const float w1 = corner_weight<3>(c, 2 * q + 1);
-    a0 = __fmaf_rn(w0, v[q].x, a0);
-    a1 = __fmaf_rn(w0, v[q].y, a1);
-    a0 = __fmaf_rn(w1, v[q].z, a0);
-    a1 = __fmaf_rn(w1, v[q].w, a1);
+      for (int q = 0; q < 4; ++q) {
+        const float w0 = corner_weight<3>(c, 2 * q);
+        const float w1 = corner_weight<3>(c, 2 * q + 1);
+        a0 = __fmaf_rn(w0, v[q].x, a0);
+        a1 = __fmaf_rn(w0, v[q].y, a1);
+        a0 = __fmaf_rn(w1, v[q].z, a0);
+        a1 = __fmaf_rn(w1, v[q].w, a1);
+      }
+    }
+    tile[lane * st + 2 * warp] = a0;
+    tile[lane * st + 2 * warp + 1] = a1;
   }
-  *o = make_float2(a0, a1);
+  __syncthreads();
+  const int w2 = 2 * m;
+  const long long ostride = 2LL * lv.out_levels;
+  float* o = out + n0 * ostride + 2 * lv.level[e0];
+  for (int e = threadIdx.x; e < rows * w2; e += blockDim.x) {
+    const int r = e / w2;
+    o[r * ostride + (e - r * w2)] = tile[r * st + (e - r * w2)];
+  }
 }
 
 // K11, a dense block: cell level entry l (warp-uniform) of the warp's
@@ -1039,15 +1087,23 @@ extern "C" int pvd_hash_encode2_bwd(const float* x01, const float* g,
   return (int)cudaGetLastError();
 }
 
+// K10: the entries are consecutive level slots (the cell levels are the
+// finest hashed ones); the cell table 16-byte aligned (the wrapper checks
+// it); a block per 32 points and up to K10_SPAN entries
 extern "C" int pvd_hash_cell_fwd(const float* x01, const float* cell_table,
                                  float* out, long long n_points, HashLevels lv,
                                  void* stream) {
   if (n_points == 0 || lv.n_levels == 0) return 0;
-  const int threads = 256;
-  hash_cell_fwd_kernel<<<(unsigned)n_blocks(n_points, lv, threads), threads, 0,
-                         (cudaStream_t)stream>>>(
-      x01, reinterpret_cast<const float4*>(cell_table),
-      reinterpret_cast<float2*>(out), n_points, lv);
+  bool ok = lv.n_levels <= PVD_MAX_LEVELS &&
+            lv.level[0] + lv.n_levels <= lv.out_levels;
+  for (int l = 1; ok && l < lv.n_levels; ++l)
+    ok = lv.level[l] == lv.level[0] + l;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int span = lv.n_levels < K10_SPAN ? lv.n_levels : K10_SPAN;
+  const dim3 blocks((unsigned)((n_points + 31) / 32),
+                    (unsigned)((lv.n_levels + K10_SPAN - 1) / K10_SPAN));
+  hash_cell_fwd_kernel<<<blocks, 32 * span, 0, (cudaStream_t)stream>>>(
+      x01, reinterpret_cast<const float4*>(cell_table), out, n_points, lv);
   return (int)cudaGetLastError();
 }
 

@@ -254,8 +254,9 @@ def composite_rays_bwd(sigmas, rgbs, delta_t, delta_depth, mask, weights,
     """Kernel K9: gradients (d sigmas [N, S], d rgbs [N, S, 3]) of a padded
     composite (no early stop) from the upstream gradients of weights_sum
     [N], depth [N], image [N, 3] and weights [N, S]; `weights` comes from
-    `composite_rays_fwd`.  CUDA tensors only; `composite_rays_bwd_plain`
-    is its PyTorch version."""
+    `composite_rays_fwd`.  The kernel writes every slot (a masked one's
+    zeros too) with a warp a ray.  CUDA tensors only;
+    `composite_rays_bwd_plain` is its PyTorch version."""
     N, S = sigmas.shape
     grads = {"g_ws": (g_ws, (N,)), "g_depth": (g_depth, (N,)),
              "g_image": (g_image, (N, 3)), "g_weights": (g_weights, (N, S)),

@@ -398,8 +398,8 @@ def _check_cell_table(cell_table, spec: HashGridSpec):
 
 def hash_encode_cell_fwd(cell_table, x01, spec: HashGridSpec, out):
     """The cell levels' encode into their slots of `out` [N, L * 2] (the
-    other slots are left as they are): K10 on CUDA tensors, the plain
-    version on CPU tensors."""
+    other slots are left as they are): K10 on CUDA tensors (x01 and out
+    need only a float's alignment), the plain version on CPU tensors."""
     n = x01.shape[0]
     if tuple(out.shape) != (n, spec.output_dim):
         raise ValueError(f"out must be [{n}, {spec.output_dim}]")

@@ -309,3 +309,76 @@ def test_k6_lanes_plan():
     lanes = {k3_lanes(len(case[0]), case[6])
              for case in chip_smoke.k6_hard_inputs().values()}
     assert lanes == {16, 32}
+
+
+# K9's hard inputs (chip_smoke.py's `k9_hard_inputs`, the ones the card
+# holds K9 to against its plain version)
+K9_CASES = ["S1", "S15", "S16", "S17", "S31", "S32", "S33", "S64", "S96",
+            "S130", "S96_wide", "S130_wide", "scattered", "all_masked", "last_only", "opaque_first",
+            "dt_zero", "zero_g_ws", "zero_g_depth", "zero_g_image",
+            "zero_g_weights"]
+
+
+@pytest.mark.parametrize("name", K9_CASES)
+def test_composite_padded_grad_matches_jax_on_k9_hard_inputs(name):
+    """d(sigma), d(rgb) of the padded composite through
+    composite_rays_bwd_plain (what the card holds K9 to) against JAX's
+    autodiff of composite_rays on K9's hard inputs, to GRAD_TOL; masked
+    slots get nothing."""
+    import jax
+
+    import chip_smoke
+    from pvd_tpu_torch.ops.composite import composite_rays_bwd_plain
+
+    cases = chip_smoke.k9_hard_inputs()
+    assert sorted(cases) == sorted(K9_CASES)
+    sig, rgb, dt, dd, mask, gs = cases[name]
+    N, S = sig.shape
+    assert [g.shape for g in gs] == [(N,), (N,), (N, 3), (N, S)]
+
+    def j_loss(s, r):
+        outs = j_composite_rays(s, r, jnp.asarray(dt), jnp.asarray(dd),
+                                jnp.asarray(mask))
+        return sum(jnp.sum(o * g) for o, g in zip(outs, gs))
+
+    want = [np.asarray(w) for w in jax.grad(j_loss, argnums=(0, 1))(
+        jnp.asarray(sig), jnp.asarray(rgb))]
+    got = composite_rays_bwd_plain(_t(sig), _t(rgb), _t(dt), _t(dd),
+                                   _t(mask), *(_t(g) for g in gs))
+    for g, w, out in ((got[0], want[0], "sigma"), (got[1], want[1], "rgb")):
+        assert np.isfinite(g.numpy()).all()
+        np.testing.assert_allclose(g.numpy(), w, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=out)
+    assert not got[0].numpy()[~mask].any()
+    assert not got[1].numpy()[~mask].any()
+    if name == "all_masked":
+        assert not mask.any()
+    elif name == "dt_zero":  # alpha = 0 everywhere: no gradient at all
+        assert not want[0].any() and not want[1].any()
+    else:
+        assert np.abs(want[0]).max() > 0
+    if name == "opaque_first":  # T = 0 after an opaque first slot
+        rows = mask[:, 0] & mask[:, 1]
+        assert rows.any() and not got[1].numpy()[rows, 1:].any()
+    if name == "scattered":
+        assert 0.08 < mask.mean() < 0.14
+
+
+def test_k9_rows():
+    """`chip_smoke.k9_rows`, the row statistics logged beside K9's times:
+    rows with a valid slot, their mean and largest valid count, 32-slot
+    tiles holding one, and whether each row's valid slots are a prefix."""
+    import chip_smoke
+
+    mask = torch.zeros(4, 96, dtype=torch.uint8)
+    mask[0, :2] = 1
+    mask[2, :40] = 1
+    mask[3, :96] = 1
+    assert chip_smoke.k9_rows(mask) == {"rows": 3, "mean": 46.0,
+                                        "longest": 96, "tiles": 6,
+                                        "prefix": True}
+    mask[1, 33] = 1
+    got = chip_smoke.k9_rows(mask)
+    assert (got["rows"], got["tiles"], got["prefix"]) == (4, 7, False)
+    assert chip_smoke.k9_rows(torch.zeros(3, 1, dtype=torch.uint8)) == {
+        "rows": 0, "mean": 0.0, "longest": 0, "tiles": 0, "prefix": True}
