@@ -89,7 +89,9 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    24 dB (student) or more than 1.5 dB under the teacher.  Every march of
    this path is K14 (the geometric lattice) and every composite blends in
    the field's background through K12 (and K13 in training).  Then holds
-   K12, K13 and K14 against their plain versions at this phase's shapes,
+   K12, K13 and K14 against their plain versions at this phase's shapes
+   (K12 also on `hard_points` at every `HARD_COUNTS` count: 1 to 24,575
+   points, NaN, outside and far-face points among them),
    K8 and K9 on the teacher's padded warm-up batch ([4096, 64]), K10
    and K11 on its compacted batch (K13 also on 4096 points inside one level-0
    cell and on points on and outside the square's edges with a third of
@@ -116,8 +118,13 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    K16 against their plain versions at full width (bound 1: side 73, 5
    dense levels, the A/B teacher's table; bound 2: side 59, 4 levels) at
    131,072 and 2,097,152 points (points on the faces and outside
-   included), times them beside F.grid_sample, and profiles one stage-3
-   distill step with the baked teacher beside the exact one.
+   included) and at the largest teacher encode of `--test_teacher` (one
+   eval chunk's samples, the input the CLI's eval sends), K15 also on
+   `hard_points` at every `HARD_COUNTS` count into an output prefilled
+   with 7 (its other slots must stay so), times them beside F.grid_sample,
+   and profiles one stage-3 distill step with the baked teacher beside
+   the exact one.  Beside every K12 and K15 time it logs the device time
+   of one copy_ of the same output bytes (`floor_ms`).
 9. After every timing, holds K6 on its hard inputs (`k6_hard_inputs`)
    and K9 on its own (`k9_hard_inputs`: rows of 1 to 130 slots, 4099
    rays, masks all off, last slot only or scattered, an opaque first
@@ -172,7 +179,7 @@ from pvd_tpu_torch.engine.train_steps import (TrainState, chunk_rays,
 from pvd_tpu_torch.engine.trainer import Trainer
 from pvd_tpu_torch.models.api import (bg_grid_spec, param_group_label,
                                       trainable_label)
-from pvd_tpu_torch.models.hash_field import grid_spec
+from pvd_tpu_torch.models.hash_field import HashField, grid_spec
 from pvd_tpu_torch.models.vm_field import normalize
 from pvd_tpu_torch.ops.aabb import near_far_from_aabb, polar01_from_ray
 from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
@@ -993,6 +1000,26 @@ def kernel_ms(fn, name: str | None = None, reps: int = 20) -> float:
                 f"{k})")
     return sum(r["ms"] / r["calls"] for r in rows.values()) if rows \
         else math.nan
+
+
+def floor_ms(nbytes: int, dev) -> float:
+    """The device time of one PyTorch copy_ that reads and writes nbytes
+    (int32 into float32, so that it runs as a kernel: the profiler keeps
+    no record of a same-type copy's DMA here), from torch.profiler over 20
+    calls, the mean over the records it keeps: about the least a launch
+    that writes those bytes takes, logged beside a kernel whose bound is
+    below any launch."""
+    src = torch.ones(max(1, nbytes // 4), dtype=torch.int32, device=dev)
+    dst = torch.empty(src.shape, device=dev)
+
+    def run():
+        for _ in range(20):
+            dst.copy_(src)
+
+    run()
+    top = profile(run, top=4, cpu=False)["top"]
+    calls = sum(r["calls"] for r in top)
+    return sum(r["ms"] for r in top) / calls if calls else math.nan
 
 
 def k6_case(comp, gen) -> dict:
@@ -1978,11 +2005,33 @@ def cli_argv(scene: str, workspace: str, best: str, seed: int) -> list:
     return argv
 
 
+def largest_baked_encode(fn) -> tuple:
+    """fn() with HashField.encode recording the input of its baked encodes
+    (K15's x01, as encode forms it): fn's result and a copy of the largest
+    x01 it sent, one eval chunk's samples when fn renders."""
+    seen = []
+    encode = HashField.encode
+
+    def recording(field, x):
+        if field.baked is not None and (not seen
+                                        or x.shape[0] > seen[0].shape[0]):
+            b = field.spec.bound
+            seen[:] = [((x + b) / (2.0 * b)).detach().clone()]
+        return encode(field, x)
+
+    HashField.encode = recording
+    try:
+        return fn(), (seen[0] if seen else None)
+    finally:
+        HashField.encode = encode
+
+
 def drive_distill_cli(seed: int, workspace: str, best: str,
                       ab: dict) -> dict:
     """The distillation CLI with a baked teacher on the A/B recipe: the
     scene written to disk, `main` trains and evaluates, then `--test` and
-    `--test_teacher` render the renamed workspace again."""
+    `--test_teacher` render the renamed workspace again (the largest
+    teacher encode of the last kept, "test_teacher_chunk_x01")."""
     t0 = time.perf_counter()
     scene = write_synthetic_scene(os.path.join(workspace, "scene"),
                                   **AB_SCENE, seed=seed)
@@ -2017,7 +2066,8 @@ def drive_distill_cli(seed: int, workspace: str, best: str,
     test = distill_cli.main(again + ["--test"])
     test_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    test_tea = distill_cli.main(again + ["--test_teacher"])
+    test_tea, chunk = largest_baked_encode(
+        lambda: distill_cli.main(again + ["--test_teacher"]))
     test_tea_s = time.perf_counter() - t0
     H, W = AB_SCENE["H"], AB_SCENE["W"]
     for i in range(AB_SCENE["n_test"]):
@@ -2040,7 +2090,8 @@ def drive_distill_cli(seed: int, workspace: str, best: str,
                                      "student": ps - exact_s},
             "train_stats": {k: v for k, v in stats.items()
                             if k.startswith(("train_", "stage"))},
-            "workspace_files": sorted(os.listdir(done))}
+            "workspace_files": sorted(os.listdir(done)),
+            "test_teacher_chunk_x01": chunk}
     log(f"distill CLI (baked teacher): scene written in {write_s:.1f} s; "
         f"train+eval {train_s:.1f} s, --test {test_s:.1f} s, --test_teacher "
         f"{test_tea_s:.1f} s; student {ps:.3f} dB (SSIM {stats['ssim']:.4f}, "
@@ -2114,7 +2165,8 @@ def bake_case(table, gs, gen, n: int, cell=None, x01=None) -> dict:
             "t15": timings(lambda: hash_encode_baked_fwd(baked, x01, gs,
                                                          out),
                            lambda: hash_encode_baked_plain(baked, x01, gs)),
-            "lib15_ms": cuda_ms(lib), "lib15_abs_err": lib_err}
+            "lib15_ms": cuda_ms(lib), "lib15_abs_err": lib_err,
+            "floor15_ms": floor_ms(n * Ld * 8, dev)}
 
 
 def log_k15(label: str, c: dict):
@@ -2125,16 +2177,38 @@ def log_k15(label: str, c: dict):
         f"{c['t15']['call_ms']:.4f}, plain {c['t15']['plain_ms']:.4f}, "
         f"F.grid_sample {c['lib15_ms']:.4f} [max diff "
         f"{c['lib15_abs_err']:.3g}], bound {c['bound15'][0]:.4f} "
-        f"{c['bound15'][1]})")
+        f"{c['bound15'][1]}, copy_ of the output bytes "
+        f"{c['floor15_ms']:.4f})")
     if not c["err15"] <= TOL_K15_REL:
         raise RuntimeError(f"K15 disagrees with its plain version "
                            f"({label})")
 
 
-def check_bake_kernels(tea, gen) -> tuple:
+def check_k15_hard_counts(baked, gs, dev) -> dict:
+    """K15 on the hard points (`check_hard_counts`) into an output
+    prefilled with 7: its slots against the plain version, and every other
+    slot left as it was."""
+    cols = [2 * lv + c for lv in gs.dense_levels for c in (0, 1)]
+    others = [c for c in range(gs.output_dim) if c not in cols]
+
+    def encode(x01):
+        out = torch.full((x01.shape[0], gs.output_dim), 7.0, device=dev)
+        hash_encode_baked_fwd(baked, x01, gs, out)
+        if not bool((out[:, others] == 7.0).all()):
+            raise RuntimeError("K15 wrote outside its slots")
+        return out[:, cols]
+
+    return check_hard_counts(
+        "K15", encode, lambda x: hash_encode_baked_plain(baked, x, gs), 3,
+        TOL_K15_REL, dev)
+
+
+def check_bake_kernels(tea, gen, chunk=None) -> tuple:
     """K16 and K15 at full width: bound 1 (side 73, 5 dense levels) on the
     A/B teacher's trained table and cell table, bound 2 (side 59, 4 dense
-    levels) on a random table."""
+    levels) on a random table; K15 also on the hard points of both bakes
+    and, on bound 1, at the points `chunk` (the samples of a --test_teacher
+    eval chunk)."""
     field = tea.state.field
     gs1, table1 = field.grid, field.encoder.detach()
     gs2 = HashGridSpec(desired_resolution=4096, n_cell_levels=9)
@@ -2171,7 +2245,7 @@ def check_bake_kernels(tea, gen) -> tuple:
         if not (fine_exact and err16 <= TOL_K16_REL):
             raise RuntimeError(f"K16 disagrees with its plain version "
                                f"({name})")
-    cases = {}
+    cases, hard = {}, {}
     for name, gs, table, cell in (
             ("bound1", gs1, table1, field.encoder_cell.detach()),
             ("bound2", gs2, table2, None)):
@@ -2179,11 +2253,20 @@ def check_bake_kernels(tea, gen) -> tuple:
             c = bake_case(table, gs, gen, n, cell)
             cases[f"{name}_{n}"] = c
             log_k15(f"{name} at {n} points", c)
+        hard[name] = check_k15_hard_counts(build_baked_dense(table, gs), gs,
+                                           table.device)
+    if chunk is not None:
+        c = bake_case(table1, gs1, gen, chunk.shape[0],
+                      field.encoder_cell.detach(), x01=chunk)
+        cases["test_teacher_chunk"] = c
+        log_k15("--test_teacher eval chunk", c)
     c, b = cases[f"bound1_{BAKE_POINTS[0]}"], k16["bound1"]
     results = [
         dict(name="hash_encode_baked_fwd",
              source="pvd_tpu_torch/csrc/hash_encode.cu",
-             replaces="pvd_tpu/ops/hashgrid.py:635", err=c["err15"],
+             replaces="pvd_tpu/ops/hashgrid.py:635",
+             err=max([c["err15"]] + [e for h in hard.values()
+                                     for e in h.values()]),
              abs_err=c["abs15"], tol=TOL_K15_REL,
              err_kind="max |kernel - plain| / max |plain|", **c["t15"],
              library_ms=c["lib15_ms"],
@@ -2203,7 +2286,7 @@ def check_bake_kernels(tea, gen) -> tuple:
              bound=b["bound16"],
              shape=f"{b['side']}^3 vertices x {b['dense_levels']} dense "
              "levels")]
-    return results, {"k15": cases, "k16": k16}
+    return results, {"k15": cases, "k15_hard": hard, "k16": k16}
 
 
 def bake_step_profiles(stu, scene, gen) -> dict:
@@ -2438,6 +2521,7 @@ def k12_k13_case(table, x01, gen) -> dict:
             "t13": timings(lambda: hash_encode_bwd(x01, g, gs),
                            lambda: hash_encode_bwd_plain(x01, g, gs)),
             "lib12_ms": cuda_ms(lib12), "lib13_ms": cuda_ms(lib13),
+            "floor12_ms": floor_ms(P * gs.output_dim * 4, x01.device),
             # the dense zero fill alone, which both K13's call and the
             # index_add_ yardstick begin with
             "zero13_ms": cuda_ms(lambda: torch.zeros(gs.table_size, 2,
@@ -2887,6 +2971,59 @@ def with_nan_points(x: np.ndarray, every: int = 97) -> np.ndarray:
     return x
 
 
+# K12's and K15's ragged point counts: none a multiple of a block of 32,
+# 64 or 128 points (24,575: one short of the distill step's 24,576)
+HARD_COUNTS = (1, 31, 33, 4097, 24_575)
+_E = 1.0 - 2.0 ** -24
+# the hard points' first rows: the far corner first (n = 1 takes it alone),
+# corners and far faces (polar 0 and 1 for the background), 1 - 2^-24,
+# just outside [0, 1], NaN beside a coordinate outside and alone
+HARD_ROWS = {2: ((1, 1), (0, 0), (1, 0), (0, 1), (1, _E), (_E, 1), (0.5, 1),
+                 (1, 0.5), (-1e-3, 0.5), (0.5, 1.001), (math.nan, -0.5),
+                 (1.5, math.nan), (math.nan, 0.5), (1 + 2.0 ** -23, 0.25)),
+             3: ((1, 1, 1), (0, 0, 0), (1, 0, 1), (_E, _E, _E), (1, 1, _E),
+                 (0.5, 1, 0.25), (_E, 1, 0), (1, _E, 0.5), (-1e-3, 0.5, 0.5),
+                 (0.5, 1.001, 0.5), (math.nan, -1, 0.5),
+                 (1.5, math.nan, 0.25), (math.nan, 0.5, 0.5),
+                 (0.3, 0.6, 1 + 2.0 ** -23))}
+
+
+def hard_points(n: int, dim: int, seed: int = 0) -> np.ndarray:
+    """K12's (dim 2) or K15's (dim 3) hard points, as numpy [n, dim]:
+    HARD_ROWS first, then uniform points of [0, 1]^dim with NaN points
+    every 97th (`with_nan_points`) and every 7th point on a far face;
+    tests/test_torch_background.py and tests/test_torch_bake.py hold the
+    plain encodes against JAX's on them."""
+    rng = np.random.default_rng(seed + n)
+    x = rng.uniform(0.0, 1.0, (n, dim))
+    face = np.arange(0, n, 7)
+    x[face, face % dim] = 1.0
+    x = with_nan_points(x)
+    rows = np.asarray(HARD_ROWS[dim][:n])
+    x[:len(rows)] = rows
+    return x.astype(np.float32)
+
+
+def check_hard_counts(kernel: str, encode, plain, dim: int, tol: float,
+                      dev) -> dict:
+    """An encode on hard_points at every HARD_COUNTS count, against its
+    plain version: the error relative to max |plain| (finite entries), NaN
+    exactly where the plain version's is; raises on a count over tol."""
+    out = {}
+    for n in HARD_COUNTS:
+        x01 = torch.from_numpy(hard_points(n, dim)).to(dev)
+        p = plain(x01)
+        scale = float(torch.nan_to_num(p).abs().max()) or 1.0
+        out[n] = nan_abs(encode(x01), p) / scale
+    log(f"{kernel} hard points (rel err by count): " + ", ".join(
+        f"{n} {v:.3g}" for n, v in out.items()))
+    over = [n for n, v in out.items() if not v <= tol]
+    if over:
+        raise RuntimeError(f"{kernel} disagrees with its plain version on "
+                           f"the hard points at counts {over}")
+    return out
+
+
 K11_SPEC = dict(n_cell_levels=9)  # the A/B teacher's grid: levels 5-13
 # 20 levels, 18 of them cell-packed (2-19): more than a K11 block's
 # K11_SPAN = 16, so a second block (blockIdx.y) takes levels 18 and 19
@@ -3198,7 +3335,8 @@ def check_nan_rule(dev) -> dict:
     the other points.  Errors relative to max |plain| (finite entries).
     Raises on one over its kernel's tolerance; else the errors, which the
     caller folds into each kernel's row.  (K1's NaN cases are
-    k1_hard_inputs', K10's and K11's k11_hard_inputs'.)"""
+    k1_hard_inputs', K10's and K11's k11_hard_inputs', and K12 and K15
+    meet NaN points again in `hard_points`.)"""
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
 
@@ -3556,6 +3694,10 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
         "262144": k12_k13_case(table, polar01_from_ray(
             o_b, d_b, tea.spec.bg_radius).contiguous(), gen)}
     hard13 = check_k13_hard_cases(dev)
+    gs = bg_grid_spec()
+    hard12 = check_hard_counts(
+        "K12", lambda x: hash_encode_fwd(table, x, gs),
+        lambda x: hash_encode_plain(table, x, gs), 2, TOL_K12_REL, dev)
     for name, c in cases.items():
         log(f"K13 at {name} points: {-(-c['points'] // 128)} blocks of "
             f"128 threads, no shared-memory privatisation; the zero fill "
@@ -3565,7 +3707,8 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
             f"ms{alone(c['t12'])} (call {c['t12']['call_ms']:.4f}, plain "
             f"{c['t12']['plain_ms']:.4f}, grid_sample on the dense levels "
             f"{c['lib12_ms']:.4f}, bound {c['bound12'][0]:.5f} "
-            f"{c['bound12'][1]}); K13 rel err {c['err13']:.3g}, "
+            f"{c['bound12'][1]}, copy_ of the output bytes "
+            f"{c['floor12_ms']:.4f}); K13 rel err {c['err13']:.3g}, "
             f"{c['t13']['ms']:.4f} ms{alone(c['t13'])} (call "
             f"{c['t13']['call_ms']:.4f}, "
             f"plain {c['t13']['plain_ms']:.4f}, index_add_ "
@@ -3586,7 +3729,8 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
              "cascades (t/dt/mask/t0 bit-exact)"),
         dict(name="hash_encode_2d_fwd",
              source="pvd_tpu_torch/csrc/hash_encode.cu",
-             replaces="pvd_tpu/ops/hashgrid.py:533", err=c["err12"],
+             replaces="pvd_tpu/ops/hashgrid.py:533",
+             err=max([c["err12"], *hard12.values()]),
              abs_err=c["abs12"], tol=TOL_K12_REL,
              err_kind="max |kernel - plain| / max |plain|", **c["t12"],
              library_ms=c["lib12_ms"],
@@ -3604,8 +3748,8 @@ def check_large_scene_kernels(tea, scene, gen) -> tuple:
              shape=f"{c['points']} polar points x 4 levels")]
     results[0]["shapes"] = {"eval_chunk": ev, "train_batch": tr,
                             "hard_inputs": check_k14_hard_cases(dev)}
-    extra = {"k12_k13": cases, "k13_hard": hard13, "k8_padded": k8,
-             "k9_padded": k9, "cell_compacted": cell}
+    extra = {"k12_k13": cases, "k13_hard": hard13, "k12_hard": hard12,
+             "k8_padded": k8, "k9_padded": k9, "cell_compacted": cell}
     return results, extra
 
 
@@ -4145,7 +4289,8 @@ def main(argv=None) -> int:
     next(r for r in results if r["name"] == "vm_sample_bwd")["shapes"][
         "ab_stage3"] = ab_batch["k5"]
     cell_check = small_teacher_gpu_vs_cpu(spec_kw=SMALL_CELL_TEA)
-    b_results, b_extra = check_bake_kernels(tea_ab, gen)
+    b_results, b_extra = check_bake_kernels(
+        tea_ab, gen, cli.pop("test_teacher_chunk_x01"))
     results += b_results
     bake_profiles = bake_step_profiles(stu_ab, scene_ab, gen)
     del tea_ab, stu_ab

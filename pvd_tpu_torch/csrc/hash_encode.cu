@@ -169,12 +169,36 @@
 // on bg_grid_spec's 4 levels x 2 channels (resolutions 16/81/407/2048:
 // levels 0-2 dense and row-major, c0 + c1 * side; level 3 hashed,
 // (c0 * 1 ^ c1 * 2654435761) & (2^19 - 1)), a 697,776 x 2 table (5.6 MB).
-// It is K1's first design's body at D = 2: the same x01 * scale + 0.5 FMA,
-// bilinear weights over 4 corners and one thread per (point, level);
-// inputs outside [0, 1]^2 give 0, a NaN coordinate NaN (K1's rule).  Bound on the H100: memory, 4 rows of
-// 8 B per (point, level) from a table that fits the L2, 8 B read and 32 B
-// written per point; one launch per composited batch, on N rays, not on
-// the samples, so it is small beside K1.
+// The same x01 * scale + 0.5 FMA and bilinear weights over 4 corners as
+// K1; inputs outside [0, 1]^2 give 0, a NaN coordinate NaN (K1's rule).
+// Bound on the H100: memory, 4 rows of 8 B per (point, level) from a table
+// that fits the L2, 8 B read and 32 B written per point: 0.1 us at the
+// 4,096 rays every path sends it (a training batch, an eval chunk), far
+// below any launch, so what holds it is one thread's latency: its x01
+// load, its rows' loads, its store.
+// The design is the first one, K1's first design's body at D = 2
+// (encode_fwd<2>): one thread per (point, level), level fastest, blocks of
+// 256, so a warp's stores are 256 consecutive bytes and a thread waits on
+// two loads in turn, the shortest chain any design has.  Timed against it
+// in ten rotated rounds on the H100 80GB HBM3 at 700 W (the kernel alone,
+// at 4,096 polar points / 262,144; tools/torch_k12_k15_rounds.py, the
+// designs in tools/k12_k15_candidates.cu; PERF.md §6):
+//   this design                                      0.00187 / 0.00825 ms
+//   (a) K1's redesigned body: a thread per point and pair of levels, the
+//       lattice without float-to-int, its 8 loads issued together, rows
+//       staged in shared memory and written as 32-byte runs
+//                                                    0.00196 / 0.00613
+//   (b) a thread per point over the 4 levels: x01 as one float2, 16 loads
+//       in flight, the row stored as two float4s, 32 / 64 / 128 a block
+//                                0.00234 / 0.00230 / 0.00242, 0.0081-0.0086
+//   (c) this design in blocks of 64                  0.00193 / 0.01150
+//   (d) this design without its 64-bit division and runtime-indexed level
+//       constants, with (a)'s lattice, 256 / 128 a block
+//                                          0.00189 / 0.00195, 0.0079-0.0081
+// At 4,096 points every other design lengthens a thread's chain (a's
+// barrier and shared-memory round trip, b's 16 loads a thread over 4,096
+// threads) or adds blocks; (a) wins only at a whole view's 262,144 points,
+// which no path sends, so it is not built.
 //
 // K13: its table gradient, g_table[offset_l + row(corner k)] += w_k * g[n, l]
 // into a zeroed dense [697,776, 2] gradient, with K12's corner rows and
@@ -214,25 +238,49 @@
 // pvd_tpu/ops/hashgrid.py:533 hash_encode (:584-590, :635-646) for a frozen
 // table.  The bake (K16) stores at every vertex of the finest dense level's
 // lattice (side_f per axis) the features of all Ld dense levels, one row of
-// Ld * 2 floats.  Per point: the finest dense level's base cell and 8
-// trilinear weights exactly as K1 forms them (corner_setup, corner_weight:
-// the x01 * scale + 0.5 FMA, zeros outside [0, 1]^3, NaN for a NaN
-// coordinate as in K1), then the 8 corner
-// rows c0 + c1 * side_f + c2 * side_f^2 of the vertex table, and for each
-// dense level j the weighted corner sum of its 2 floats into level slot
-// level[j] of the [N, L * 2] output that K1 (the other corner levels) and
-// K10 (the cell levels) fill too.  A point inside the cube never reaches
-// past the far faces (base <= side_f - 2), where the JAX package's packed
-// rows hold zeros.  The TPU packs the 8 neighbours into one row for its
-// row-rate-bound gather engine; here one thread per point reads the 8 rows
-// of Ld * 8 bytes (40 B at Ld 5) directly: pairs of rows (x, x + 1) are
-// adjacent, so a point touches 4 runs of 80 B.  The corner sum runs in
-// corner order with FMAs, not XLA's 0/1 matmul order.  The level loop is
-// unrolled to PVD_MAX_BAKED with compile-time indices, so the by-value
-// level list stays in registers and constant memory.
+// Ld * 2 floats (40 B at Ld 5, 8-byte aligned).  Per point: the finest
+// dense level's base cell and 8 trilinear weights exactly as K1 forms them
+// (corner_setup, corner_weight: the x01 * scale + 0.5 FMA, zeros outside
+// [0, 1]^3, NaN for a NaN coordinate as in K1), then the 8 corner rows
+// c0 + c1 * side_f + c2 * side_f^2 of the vertex table, and for each dense
+// level j the weighted corner sum of its 2 floats (FMAs over corners 0..7
+// in order, not XLA's 0/1 matmul order) into level slot level[0] + j of
+// the [N, L * 2] output that K1 (the other corner levels) and K10 (the
+// cell levels) fill too.  A point inside the cube never reaches past the
+// far faces (base <= side_f - 2), where the JAX package's packed rows hold
+// zeros.  The TPU packs the 8 neighbours into one row for its row-rate-
+// bound gather engine; here the vertex rows are read directly.
 // Bound on the H100: memory.  12 B of x01 in and Ld * 8 B out per point,
-// and the vertex table (15.6 MB at side 73, Ld 5) once, which fits the 50 MB
-// L2; the 8 corner rows per point are L2 hits after the first touch.
+// and the touched vertex rows once (the table, 15.6 MB at side 73, Ld 5,
+// fits the 50 MB L2).  What held the first design (one thread per point:
+// 40 scalar 8-byte loads, 8 corner rows x 5 levels, then 5 stores at the
+// output's 112-byte row stride; 96 blocks at the CLI step's 24,576
+// points, under one wave) was the L2's sector traffic: at scattered points
+// each of a warp's load instructions touched 32 sectors, ~1,280 B a point
+// for its 320 B of rows.
+// The design now (hash_baked_fwd_kernel): a thread per (point, dense
+// level), level fastest, a block of (Ld, K15_POINTS) threads; a point's Ld
+// lanes read each corner row as consecutive 8-byte pieces, so one warp
+// instruction touches ~2 sectors a point, and write the point's slots as
+// one 40-byte run.  Each lane forms the lattice and runs the FMA chain as
+// the first design did, so every slot is its bit for bit.  In ten rotated
+// rounds on the H100 80GB HBM3 at 700 W (the kernel alone; at 24,576 and
+// 65,536 ray-ordered points, 131,072 and 2,097,152 uniform ones;
+// tools/torch_k12_k15_rounds.py; PERF.md §6):
+//   this design, 64 points a block        0.00250 / 0.00383 / 0.0129 / 0.2025
+//   the first design                      0.00448 / 0.00751 / 0.0494 / 0.8024
+//   (a) (point, corner) lanes: 8 lanes a point, lane pairs reading the
+//       80-byte run of rows x, x + 1 as consecutive float2s, rows and
+//       weights staged in shared memory, then (point, level) lanes, 32 / 64
+//       points a block                    0.00363 / 0.00667 / 0.0169 / 0.2434
+//                                         0.00366 / 0.00703 / 0.0175 / 0.2500
+//   this design at 32 / 128 points a block: within 3% of 64 everywhere.
+// (a) loads the fewest sectors, but runs 8 lanes a point through a barrier
+// and a shared-memory round trip; the level lanes' loads of corners x and
+// x + 1 (adjacent rows) share their sectors through the L1.  At an eval
+// chunk's 393,216 slots (12,394 vertex rows touched) F.grid_sample, which
+// writes its own contiguous [10, N] output, beats it (PERF.md §6, §7: the
+// 40-byte runs at a 112-byte stride write two partly filled sectors each).
 //
 // K16: the bake, replacing pvd_tpu/ops/hashgrid.py:461 build_baked_dense
 // (its unpacked vertex table; ops/packing.pack_rows_3d is a TPU layout).
@@ -263,6 +311,7 @@
 #define K1_PER 2  // levels a K1 thread
 #define K1_MAX_THREADS 512  // 8 level groups of K1_POINTS threads
 #define K1_SPAN (K1_MAX_THREADS / K1_POINTS * K1_PER)  // levels a K1 block
+#define K15_POINTS 64  // points a K15 block (a thread per dense level each)
 
 #if defined(__CUDACC_VER_MAJOR__) && \
     (__CUDACC_VER_MAJOR__ > 12 ||      \
@@ -918,44 +967,37 @@ __global__ void __launch_bounds__(32 * K11_SPAN)
                 32 * warp);
 }
 
-// K15: one thread per point; entry j of lv is dense level j (slot
-// level[j]); entry 0 carries the finest dense level's side and scale.
+// K15: a block of (Ld, K15_POINTS) threads, a thread per (point, dense
+// level j = threadIdx.x), level fastest; entry j of lv is dense level j,
+// whose slot is level[0] + j (the entry checks that the slots are
+// consecutive); entry 0 carries the finest dense level's side and scale.
 __global__ void hash_baked_fwd_kernel(const float* __restrict__ x01,
                                       const float2* __restrict__ baked,
                                       float2* __restrict__ out,
                                       long long n_points, HashLevels lv) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   if (n >= n_points) return;
-  float2* o = out + n * lv.out_levels;
-  const int ld = lv.n_levels;
+  const int ld = lv.n_levels, j = threadIdx.x;
+  float2* o = out + n * lv.out_levels + lv.level[0] + j;
   float x[3], z;
   load_point<3>(x01, n, x);
   if (nan_or_outside<3>(x, z)) {
-#pragma unroll
-    for (int j = 0; j < PVD_MAX_BAKED; ++j)
-      if (j < ld) o[lv.level[j]] = make_float2(z, z);
+    *o = make_float2(z, z);
     return;
   }
   const Corners<3> c = corner_setup<3>(x, 0, lv);
-  float w[8];
-  long long row[8];
+  float2 v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    v[k] = __ldg(baked + (long long)corner_row<3>(c, k, 0u) * ld + j);
+  float a0 = 0.f, a1 = 0.f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    w[k] = corner_weight<3>(c, k);
-    row[k] = (long long)corner_row<3>(c, k, 0u) * ld;
+    const float w = corner_weight<3>(c, k);
+    a0 = __fmaf_rn(w, v[k].x, a0);
+    a1 = __fmaf_rn(w, v[k].y, a1);
   }
-#pragma unroll
-  for (int j = 0; j < PVD_MAX_BAKED; ++j) {
-    if (j >= ld) break;
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float2 v = __ldg(baked + row[k] + j);
-      a0 = __fmaf_rn(w[k], v.x, a0);
-      a1 = __fmaf_rn(w[k], v.y, a1);
-    }
-    o[lv.level[j]] = make_float2(a0, a1);
-  }
+  *o = make_float2(a0, a1);
 }
 
 // K16: one thread per (fine vertex, dense level entry j), j fastest so a
@@ -1129,14 +1171,19 @@ extern "C" int pvd_hash_cell_bwd(const float* x01, const float* g,
   return (int)cudaGetLastError();
 }
 
+// K15: the dense levels in consecutive slots (they are levels 0..Ld-1 of
+// the grid); a block per K15_POINTS points
 extern "C" int pvd_hash_baked_fwd(const float* x01, const float* baked,
                                   float* out, long long n_points,
                                   HashLevels lv, void* stream) {
   if (n_points == 0 || lv.n_levels == 0) return 0;
-  if (lv.n_levels > PVD_MAX_BAKED) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  hash_baked_fwd_kernel<<<(unsigned)((n_points + threads - 1) / threads),
-                          threads, 0, (cudaStream_t)stream>>>(
+  const int ld = lv.n_levels;
+  bool ok = ld <= PVD_MAX_BAKED && lv.level[0] + ld <= lv.out_levels;
+  for (int j = 1; ok && j < ld; ++j) ok = lv.level[j] == lv.level[0] + j;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  hash_baked_fwd_kernel<<<(unsigned)((n_points + K15_POINTS - 1) /
+                                     K15_POINTS),
+                          dim3(ld, K15_POINTS), 0, (cudaStream_t)stream>>>(
       x01, reinterpret_cast<const float2*>(baked),
       reinterpret_cast<float2*>(out), n_points, lv);
   return (int)cudaGetLastError();

@@ -140,6 +140,32 @@ def test_hash_encode_2d_matches_jax():
                         spec).numpy(), got.numpy())
 
 
+@pytest.mark.parametrize("n", chip_smoke.HARD_COUNTS)
+def test_hash_encode_2d_hard_points_match_jax(n):
+    """The plain 2-D encode (K12's reference on the card) against JAX's on
+    K12's hard points (`chip_smoke.hard_points`, the ones the card holds
+    K12 to): ragged counts, polar coordinates 0 and 1, points just outside
+    [0, 1]^2 and NaN points, alone and beside a coordinate outside.  A NaN
+    point's row is NaN, an outside point's 0."""
+    spec = bg_grid_spec()
+    table = np.random.default_rng(n).uniform(
+        -1, 1, (spec.table_size, 2)).astype(np.float32)
+    x = chip_smoke.hard_points(n, 2)
+    nan = np.isnan(x).any(-1)
+    outside = ((x < 0) | (x > 1)).any(-1) & ~nan
+    if n > 1:
+        assert nan.any() and outside.any() and (x == 0).any() \
+            and (x == 1).any()
+    want = np.asarray(jax.jit(lambda t, x: j_hash_encode(
+        t, x, j_bg_grid_spec()))(table, x))
+    got = hash_encode_fwd(torch.from_numpy(table), torch.from_numpy(x),
+                          spec).numpy()
+    assert got.shape == (n, 8)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ENC_TOL)
+    assert np.isnan(got).all(-1).tolist() == nan.tolist()
+    assert (got[outside] == 0).all() and not np.isnan(got[~nan]).any()
+
+
 @pytest.mark.parametrize("seed", [0, 1, "one_cell", "edge"])
 def test_hash_encode_2d_bwd_matches_jax_vjp(seed):
     """The plain table gradient (K13's reference on the card) against JAX's

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pvd_tpu.config import ModelSpec as JModelSpec
 from pvd_tpu.models import hash_field as j_hash
 from pvd_tpu.ops.hashgrid import HashGridSpec as JHashGridSpec
@@ -89,11 +90,20 @@ def _points(bound, n, rng):
     return x
 
 
-@pytest.mark.parametrize("cell", [0, 9], ids=["cell0", "cell9"])
-def test_baked_field_encode_matches_jax(cell):
+HARD = chip_smoke.HARD_COUNTS[:4]
+
+
+@pytest.mark.parametrize(
+    "cell,n", [(0, None), (9, None)] + [(9, n) for n in HARD],
+    ids=["cell0", "cell9"] + [f"cell9-hard{n}" for n in HARD])
+def test_baked_field_encode_matches_jax(cell, n):
     """A baked HashField (full width, bound 1) against the JAX field's
     _encode on attach_packed params, and the same field unbaked for the
-    levels the bake leaves alone."""
+    levels the bake leaves alone.  Seeded points (`_points`), or K15's hard
+    points (`chip_smoke.hard_points`, the ones the card holds K15 to, at
+    ragged counts: corners and far faces, 1 - 2^-24, just outside the cube,
+    NaN alone and beside a coordinate outside) mapped to [-1, 1]^3; a NaN
+    point's row is NaN, an outside point's 0."""
     kw = dict(hash_cell_levels=cell, hash_bake_dense=True)
     spec_j, spec_t = JModelSpec(**kw), ModelSpec(**kw)
     tree = jax.tree_util.tree_map(np.asarray, j_hash.init(
@@ -104,7 +114,8 @@ def test_baked_field_encode_matches_jax(cell):
             tree[k] = rng.uniform(-1, 1, tree[k].shape).astype(np.float32)
     params_j = j_hash.attach_packed(
         jax.tree_util.tree_map(jnp.asarray, tree), spec_j)
-    x = _points(1.0, 3000, rng)
+    x = _points(1.0, 3000, rng) if n is None else \
+        chip_smoke.hard_points(n, 3) * np.float32(2) - np.float32(1)
     want = np.asarray(jax.jit(lambda p, xx: j_hash._encode(p, spec_j, xx))(
         params_j, jnp.asarray(x)))
     field = hash_field_from_jax(tree, spec_t, "cpu").bake()
@@ -113,8 +124,16 @@ def test_baked_field_encode_matches_jax(cell):
     with torch.no_grad():
         got = field.encode(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=ENC_ATOL)
-    inside = np.r_[0:8, 12:len(x)]
-    assert (got[8:12] == 0).all() and (np.abs(got[inside]).sum(-1) > 0).all()
+    if n is None:
+        inside = np.r_[0:8, 12:len(x)]
+        assert (got[8:12] == 0).all() and \
+            (np.abs(got[inside]).sum(-1) > 0).all()
+    else:
+        nan = np.isnan(x).any(-1)
+        outside = (np.abs(x) > 1).any(-1) & ~nan
+        assert np.isnan(got).all(-1).tolist() == nan.tolist()
+        assert (got[outside] == 0).all()
+        assert (np.abs(got[~nan & ~outside]).sum(-1) > 0).all()
     # the levels the bake leaves alone are the exact encode's
     exact = jax.jit(lambda t, c, xx: j_hash_encode(
         t, xx, j_hash.grid_spec(spec_j), cell_table=c))(
