@@ -125,11 +125,16 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    and profiles one stage-3 distill step with the baked teacher beside
    the exact one.  Beside every K12 and K15 time it logs the device time
    of one copy_ of the same output bytes (`floor_ms`).
-9. After every timing, holds K6 on its hard inputs (`k6_hard_inputs`)
-   and K9 on its own (`k9_hard_inputs`: rows of 1 to 130 slots, 4099
-   rays, masks all off, last slot only or scattered, an opaque first
-   slot, dt = 0, each kind of upstream gradient zero), each through its C
-   entry into outputs filled with NaN; the NaN rule (`check_nan_rule`:
+9. After every timing, holds K6 on its hard inputs (`k6_hard_inputs`),
+   K8 on its own (`k8_hard_inputs`: K9's and a T crossing 1e-4 inside a
+   tile; early stop off and on) and K9 on its own (`k9_hard_inputs`:
+   rows of 1 to 130 slots, 4099 rays, masks all off, last slot only or
+   scattered, an opaque first slot, dt = 0, each kind of upstream
+   gradient zero), each through its C entry into outputs filled with NaN;
+   K16 bit for bit its plain version on four more grids
+   (`K16_HARD_SPECS`: one dense level, three, base resolution 4, a 2^22
+   hash map up to side 152; tables of +-1e4 and subnormals); the NaN
+   rule (`check_nan_rule`:
    K12 and K15 give NaN exactly where their plain versions do; K7 and K13
    add nothing for a NaN point); then K11 and K10 on their hard inputs
    (`k11_hard_inputs`: ray runs, one cell, colliding cell rows, zero
@@ -347,7 +352,8 @@ CLI_KERNELS = ("hash_encode_baked_fwd", "build_baked_dense",
                "composite_rays_compact_bwd")
 # K15: the same f32 products as the plain version, summed in another order,
 # 1e-5 of max |out|; K16: the same separately rounded products and sums as
-# the plain version, so exact is expected (held to 1e-6 of max |value|)
+# the plain version, so it is held bit for bit (its error relative to max
+# |value| also logged against 1e-6)
 TOL_K15_REL, TOL_K16_REL = 1e-5, 1e-6
 BAKE_POINTS = (131_072, 2_097_152)
 # the small large-scene steps (tests/test_torch_large_scene.py's sizes)
@@ -1463,9 +1469,10 @@ def check_teacher_kernels(trainer, scene, gen) -> tuple:
 def k8_k9_case(field, xyz, d, s, density_scale: float, gen) -> tuple:
     """K8 (early stop off and on) and K9 against their plain versions on a
     trained field's padded samples (march output `s` [N, S] at positions
-    xyz [N, S, 3] along d [N, 3]), with times and bounds: (k8, k9).  K9
-    also alone on the same batch with its mask replaced by prefixes of
-    0-20 slots drawn uniformly, and the rows of both masks (`k9_rows`)."""
+    xyz [N, S, 3] along d [N, 3]), with times and bounds: (k8, k9).  K8
+    also alone with early stop; both alone on the same batch with its mask
+    replaced by prefixes of 0-20 slots drawn uniformly, and the rows of
+    both masks (`k9_rows`)."""
     N, S = s.mask.shape
     dev = xyz.device
     with torch.no_grad():
@@ -1490,10 +1497,14 @@ def k8_k9_case(field, xyz, d, s, density_scale: float, gen) -> tuple:
     err9 = max(max_abs(a, c) for a, c in zip(k9, p9))
     shape = {"rays": N, "S": S, "valid": n_valid,
              "ws_mean": float(ws.mean())}
-    k8 = {**shape, "err": err8,
-          "bound": bound(N * S * 25 + N * S * 4 + N * 20, N * S * 16),
+    k8 = {**shape, "err": err8, "bound": k8_bound(N, S, n_valid),
+          "bound_every_slot": bound(N * S * 25 + N * S * 4 + N * 20,
+                                    N * S * 16),
           **timings(lambda: composite_rays_fwd(*args8),
                     lambda: composite_rays_plain(*args8))}
+    k8["early_stop"] = {"kernel_ms": kernel_ms(
+        lambda: composite_rays_fwd(*args8, early_stop=True),
+        "composite_padded_fwd_kernel")}
     k9 = {**shape, "err": err9, "rows": k9_rows(s.mask),
           "bound": k9_bound(N, S, n_valid),
           **timings(lambda: composite_rays_bwd(*args8, weights, *gs9),
@@ -1502,6 +1513,14 @@ def k8_k9_case(field, xyz, d, s, density_scale: float, gen) -> tuple:
     mask_u = (torch.arange(S, device=dev) < lens).to(s.mask.dtype)
     args_u = (sig, rgb, s.dt, s.delta_depth, mask_u)
     w_u = composite_rays_fwd(*args_u)[3]
+    k8["uniform_prefix"] = {
+        "valid": int(mask_u.sum()), "kernel_ms": kernel_ms(
+            lambda: composite_rays_fwd(*args_u),
+            "composite_padded_fwd_kernel"),
+        "bound": k8_bound(N, S, int(mask_u.sum())),
+        "err": max(max_abs(a, c) for a, c in zip(
+            composite_rays_fwd(*args_u), composite_rays_plain(*args_u)))}
+    k8["err"] = max(err8, k8["uniform_prefix"]["err"])
     k9["uniform_prefix"] = {
         "rows": k9_rows(mask_u), "kernel_ms": kernel_ms(
             lambda: composite_rays_bwd(*args_u, w_u, *gs9),
@@ -1539,6 +1558,14 @@ def k9_bound(N: int, S: int, n_valid: int) -> tuple:
     return bound(N * S + n_valid * 32 + N * 20 + N * S * 16, n_valid * 30)
 
 
+def k8_bound(N: int, S: int, n_valid: int) -> tuple:
+    """K8's bound: bytes the mask [N, S] (1 B a slot) and the valid
+    slots' sigma, dt, delta_depth and rgb (24 B) read once, the weights
+    (4 B a slot) and the per-ray sums (20 B a ray) written once; ops ~16
+    a valid slot."""
+    return bound(N * S + n_valid * 24 + N * S * 4 + N * 20, n_valid * 16)
+
+
 def log_k8_k9(label: str, k8: dict, k9: dict):
     """Log one k8_k9_case; raise above TOL_K8 or TOL_K9."""
     log(f"K8/K9 {label}: [{k8['rays']}, {k8['S']}], {k8['valid']} valid "
@@ -1549,7 +1576,14 @@ def log_k8_k9(label: str, k8: dict, k9: dict):
             f"{c['ms']:.4f} ms{alone(c)} (call {c['call_ms']:.4f}, plain "
             f"{c['plain_ms']:.4f}, bound {c['bound'][0]:.5f} "
             f"{c['bound'][1]})")
-    u = k9["uniform_prefix"]
+    u, e8, u8 = k9["uniform_prefix"], k8["early_stop"], \
+        k8["uniform_prefix"]
+    log(f"K8 {label}: the kernel alone with early stop "
+        f"{e8['kernel_ms']:.4f} ms; bound {k8['bound'][0]:.5f} (every "
+        f"slot's inputs counted: {k8['bound_every_slot'][0]:.5f}); on "
+        f"prefixes of 0-20 slots ({u8['valid']} valid) the kernel alone "
+        f"{u8['kernel_ms']:.4f} ms (bound {u8['bound'][0]:.5f}), max abs "
+        f"err {u8['err']:.3g}")
     log(f"K9 {label}, rows {json.dumps(k9['rows'])}; on prefixes of 0-20 "
         f"slots (rows {json.dumps(u['rows'])}) the kernel alone "
         f"{u['kernel_ms']:.4f} ms, max abs err {u['err']:.3g}")
@@ -2219,7 +2253,7 @@ def check_bake_kernels(tea, gen, chunk=None) -> tuple:
                             ("bound2", gs2, table2)):
         bk = build_baked_dense(table, gs)
         bp = build_baked_dense_plain(table, gs)
-        fine_exact = torch.equal(bk[:, -2:], bp[:, -2:])
+        exact = torch.equal(bk.view(torch.int32), bp.view(torch.int32))
         abs16 = max_abs(bk, bp)
         err16 = abs16 / float(bp.abs().max())
         side = gs.level_side(gs.dense_levels[-1])
@@ -2230,19 +2264,19 @@ def check_bake_kernels(tea, gen, chunk=None) -> tuple:
         # 2 weight products, 2 products and 2 sums
         b16 = bound(read + side ** 3 * Ld * 8, side ** 3 * (Ld - 1) * 48)
         k16[name] = {"side": side, "dense_levels": Ld, "err16": err16,
-                     "abs16": abs16, "fine_exact": fine_exact,
+                     "abs16": abs16, "exact": exact,
                      "bound16": b16,
                      "t16": timings(lambda: build_baked_dense(table, gs),
                                     lambda: build_baked_dense_plain(table,
                                                                     gs))}
-        log(f"K16 {name}: side {side}, {Ld} dense levels, fine level exact "
-            f"{fine_exact}, max |kernel - plain| {abs16:.3g} (rel "
+        log(f"K16 {name}: side {side}, {Ld} dense levels, bit for bit "
+            f"{exact}, max |kernel - plain| {abs16:.3g} (rel "
             f"{err16:.3g}); {k16[name]['t16']['ms']:.4f} ms"
             f"{alone(k16[name]['t16'])} (call "
             f"{k16[name]['t16']['call_ms']:.4f}, plain "
             f"{k16[name]['t16']['plain_ms']:.4f}, bound {b16[0]:.4f} "
             f"{b16[1]})")
-        if not (fine_exact and err16 <= TOL_K16_REL):
+        if not (exact and err16 <= TOL_K16_REL):
             raise RuntimeError(f"K16 disagrees with its plain version "
                                f"({name})")
     cases, hard = {}, {}
@@ -3327,6 +3361,118 @@ def check_k9_hard_cases(dev) -> dict:
     return out
 
 
+def k8_hard_inputs(seed: int = 0) -> dict:
+    """K8's inputs, as numpy: name -> (sigmas [N, S], rgbs [N, S, 3],
+    delta_t [N, S], delta_depth [N, S], mask [N, S] bool): every case of
+    `k9_hard_inputs` (its upstream gradients left out) and "t_crosses":
+    [203, 96] rows with valid prefixes of 64-96 slots whose sigma * dt
+    (0.15-0.6 a slot) takes T under 1e-4 after 15-61 slots, inside a tile
+    of 32 in most rows (early stop zeroes the weights from there on).
+    tests/test_torch_composite.py holds the plain padded composite against
+    JAX's on the same ones."""
+    out = {k: v[:5] for k, v in k9_hard_inputs(seed).items()}
+    rng = np.random.default_rng(seed + 3)
+    N, S = 203, 96
+    lens = rng.integers(64, S + 1, N)
+    mask = np.arange(S)[None] < lens[:, None]
+    dt = rng.uniform(0.002, 0.03, (N, S)).astype(np.float32)
+    rate = rng.uniform(0.15, 0.6, (N, 1))
+    sig = (rate / dt * rng.uniform(0.9, 1.1, (N, S))).astype(np.float32)
+    rgb = rng.uniform(0, 1, (N, S, 3)).astype(np.float32)
+    dd = (dt * rng.uniform(0.8, 1.2, (N, S))).astype(np.float32)
+    out["t_crosses"] = (sig, rgb, dt, dd, mask)
+    return out
+
+
+def k8_entry(sig, rgb, dt, dd, mask, early_stop: bool) -> tuple:
+    """K8 through its C entry, as the wrapper launches it, into outputs
+    filled with NaN first (the wrapper's are torch.empty), so a slot or
+    ray the kernel leaves unwritten shows; no launch counted.
+    (weights_sum [N], depth [N], image [N, 3], weights [N, S])."""
+    N, S = sig.shape
+    outs = (torch.full((N,), math.nan, device=sig.device),
+            torch.full((N,), math.nan, device=sig.device),
+            torch.full((N, 3), math.nan, device=sig.device),
+            torch.full((N, S), math.nan, device=sig.device))
+    kernels.launch("pvd_composite_padded_fwd", sig.data_ptr(),
+                   rgb.data_ptr(), dt.data_ptr(), dd.data_ptr(),
+                   mask.data_ptr(), N, S, int(early_stop),
+                   outs[3].data_ptr(), outs[0].data_ptr(),
+                   outs[1].data_ptr(), outs[2].data_ptr(),
+                   kernels.stream_ptr(sig))
+    return outs
+
+
+def check_k8_hard_cases(dev) -> dict:
+    """K8 on k8_hard_inputs with early stop off and on (k8_entry: outputs
+    filled with NaN first) against composite_rays_plain.  Raises on a case
+    over TOL_K8 (a NaN counts as inf); else each case's max abs error,
+    which the caller folds into K8's row."""
+    out = {}
+    for name, arrays in k8_hard_inputs().items():
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        N, S = arrays[0].shape
+        for early in (False, True):
+            plain = composite_rays_plain(*args, early_stop=early)
+            err = max(max_abs(a, b) for a, b in
+                      zip(k8_entry(*args, early), plain))
+            key = name + ("_early_stop" if early else "")
+            out[key] = {"err": err, "rays": N, "S": S,
+                        "valid": int(arrays[4].sum())}
+            log(f"K8 {key} ([{N}, {S}], {out[key]['valid']} valid): max "
+                f"abs err {err:.3g}")
+            if not err <= TOL_K8:
+                raise RuntimeError(f"K8 disagrees with its plain version on "
+                                   f"the {key} case: {err:.3g}")
+    return out
+
+
+# K16's hard specs: one dense level (side 17); three (17, 25, 35); base
+# resolution 4 (seven, sides 5 to 73); a 2^22-row hash map (seven, up to
+# side 152: 3.5 M vertices, the largest)
+K16_HARD_SPECS = {"one_level": dict(num_levels=1),
+                  "three_levels": dict(num_levels=3, desired_resolution=34),
+                  "base_res4": dict(base_resolution=4),
+                  "log2_22": dict(log2_hashmap_size=22)}
+
+
+def k16_hard_table(gs, seed: int = 0) -> np.ndarray:
+    """A random corner table [T, 2] for a K16 hard spec: values of
+    magnitude up to 1e4, a third of them subnormal (the build flushes
+    none), some zero."""
+    rng = np.random.default_rng(seed + 5)
+    shape = (gs.table_size, 2)
+    t = rng.uniform(-1e4, 1e4, shape)
+    kind = rng.integers(0, 6, shape)
+    sub = rng.uniform(-1, 1, shape) * np.float32(2.0 ** -127)
+    t = np.where(kind < 2, sub, t)
+    t[kind == 2] = 0.0
+    return t.astype(np.float32)
+
+
+def check_k16_hard_cases(dev) -> dict:
+    """K16 on each of K16_HARD_SPECS (a random table of `k16_hard_table`),
+    held to build_baked_dense_plain bit for bit at every vertex and level;
+    raises on a difference."""
+    out = {}
+    for name, kw in K16_HARD_SPECS.items():
+        gs = HashGridSpec(**kw)
+        table = torch.from_numpy(k16_hard_table(gs)).to(dev)
+        got = build_baked_dense(table, gs)
+        want = build_baked_dense_plain(table, gs)
+        exact = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        sides = [gs.level_side(lv) for lv in gs.dense_levels]
+        out[name] = {"sides": sides, "exact": exact,
+                     "vertices": sides[-1] ** 3}
+        log(f"K16 {name}: dense sides {sides}, bit for bit the plain "
+            f"version {exact}")
+        if not exact:
+            raise RuntimeError(f"K16 differs from its plain version on the "
+                               f"{name} spec")
+        del table, got, want
+    return out
+
+
 def check_nan_rule(dev) -> dict:
     """The NaN rule on the card: K12 and K15 (the forward encodes) give NaN
     exactly where their plain versions do on edge points with NaN points
@@ -4363,11 +4509,13 @@ def main(argv=None) -> int:
                          large_scene_compacted=l_extra["cell_compacted"][
                              "t10"])
 
-    # hard inputs of K6, K9 and K11/K10 and the NaN rule of K7, K12, K13
-    # and K15: checked after every timing, each raising on a case over its
-    # tolerance, and folded into its kernel's row
+    # hard inputs of K6, K8, K9, K16 and K11/K10 and the NaN rule of K7,
+    # K12, K13 and K15: checked after every timing, each raising on a case
+    # over its tolerance, and folded into its kernel's row
     k6_hard = check_k6_hard_cases(dev)
+    k8_hard = check_k8_hard_cases(dev)
     k9_hard = check_k9_hard_cases(dev)
+    k16_hard = check_k16_hard_cases(dev)
     nan_rule = check_nan_rule(dev)
     k11_hard = check_k11_hard_cases(dev)
     short = [n for n in RECORDS if n < 20]
@@ -4377,6 +4525,7 @@ def main(argv=None) -> int:
             "hash_encode_cell_fwd": [c["err10"] for c in k11_hard.values()],
             "composite_rays_compact_bwd": [c["err"] for c in
                                            k6_hard.values()],
+            "composite_rays": [c["err"] for c in k8_hard.values()],
             "composite_rays_bwd": [c["err"] for c in k9_hard.values()],
             "hash_encode_bwd": [nan_rule["k7"]],
             "hash_encode_2d_bwd": [nan_rule["k13"]],
@@ -4386,8 +4535,12 @@ def main(argv=None) -> int:
         if r["name"] in held:  # NaN-free: each check raised on a NaN
             r["err"] = max([r["err"]] + held[r["name"]])
     k6_row["shapes"]["hard_inputs"] = k6_hard
+    next(r for r in results if r["name"] == "composite_rays")[
+        "shapes"]["hard_inputs"] = k8_hard
     next(r for r in results if r["name"] == "composite_rays_bwd")[
         "shapes"]["hard_inputs"] = k9_hard
+    next(r for r in results if r["name"] == "build_baked_dense")[
+        "shapes"] = {"hard_specs": k16_hard}
     next(r for r in results if r["name"] == "hash_encode_cell_bwd")[
         "shapes"]["hard_inputs"] = k11_hard
 

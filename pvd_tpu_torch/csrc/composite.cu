@@ -80,8 +80,36 @@
 //   w_i     = alpha_i * T_i, alpha zeroed where T_i < 1e-4 if early_stop
 //   t_cum_i = sum_{j<=i} delta_depth_j * m_j
 // K8 writes weights [N, S] and weights_sum, depth = sum w * t_cum,
-// image = sum w * rgb: one thread per ray walks its S slots in order
-// (the first design; its loads stride S floats from the neighbour's).
+// image = sum w * rgb.  Bound on the H100: memory, the mask (1 B a slot),
+// the valid slots' sigma, dt, delta_depth and rgb (24 B) read once, the
+// weights (4 B a slot) and 20 B a ray written once: 1.8 us at the exact
+// teacher's [8192, 96] (~79,000 valid slots).  The first design ran one
+// thread per ray in blocks of 64 (128 blocks at 8,192 rays), walking its
+// S slots in turn with every slot's inputs loaded, masked or not, at a
+// stride of S floats from its neighbour's: 0.029-0.030 ms alone at
+// [8192, 96] and [4096, 96], 0.022-0.024 at [4096, 64], 16x its bound.
+// The design now (composite_padded_fwd_kernel): K9's lane groups over a
+// forward walk, a warp a ray (K8_LANES) in tiles of 32 slots, the masks of
+// K8_ROW / 32 = 3 tiles loaded together, then only the valid slots'
+// inputs; a tile without a valid slot writes its weights and leaves T and
+// t_cum; T by the broadcast product (the weights are the first design's
+// bit for bit, which K9 relies on), t_cum by a group scan, the sums by
+// group reductions (only their order differs).  On the H100 80GB HBM3 at
+// 700 W (PERF.md §6, the kernel alone) 0.0065-0.0069 ms at [8192, 96],
+// 0.0043 at [4096, 96], 0.0047-0.0048 at [4096, 64], 3.6-4.7x its bound:
+// the time is as long with early stop and on prefixes of 0-20 slots
+// (0.0065-0.0067 at 8,192 rays), so the long rows do not set it; the
+// per-warp walk of 8,192 warps (56 registers: ~1.9 waves) does.  Measured
+// and dropped, in rotated rounds at the trained batches' synthetic shapes
+// (tools/torch_k8_k16_rounds.py; the shipped 0.00660 / 0.00467 / 0.00484
+// ms at [8192, 96] / [4096, 96] / [4096, 64], 0.00650 on prefixes of
+// 0-20 slots): a tile's loads at a time, 0.00722 / 0.00506 / 0.00462 /
+// 0.00684; 2 tiles' loads together, 0.00728 / 0.00521 / 0.00450 /
+// 0.00684 (both faster only at [4096, 64], by 5-7%); 16 lanes a ray, 96
+// slots' loads together, 0.00798 / 0.00565 / 0.00495 / 0.00706, a tile at
+// a time 0.00962 / 0.00704 / 0.00534 / 0.00756; and (rounds since taken
+// out of the tool) the shipped body held to 16 or 10 blocks an SM (32
+// registers, spilling: 0.0150-0.0152 at [8192, 96]; 51: 0.0072).
 // K9 is K6's closed form over a padded row, with G_i = g_img . rgb_i + g_ws
 // + g_depth * t_cum_i + g_w_i and S = sum w_j G_j:
 //   dsigma_i = m_i * dt_i * (T_{i+1} G_i - (S - sum_{j<=i} w_j G_j))
@@ -122,6 +150,9 @@
 #define K3_THREADS 128
 #define K6_THREADS 128
 #define K6_CACHED 4  // tiles a K6 group keeps in registers between its walks
+#define K8_THREADS 128
+#define K8_LANES 32  // a warp a ray
+#define K8_ROW 96  // slots of a row whose loads a K8 group issues together
 #define K9_THREADS 128
 #define K9_LANES 32  // a warp a ray
 #define K9_ROW 96  // slots of a row a K9 warp keeps in registers
@@ -472,32 +503,111 @@ extern "C" int pvd_composite_compact_bwd(
   return (int)cudaGetLastError();
 }
 
-__global__ void composite_padded_fwd_kernel(
+// K8: a group of G = K8_LANES lanes per ray (a warp; G | 32) walks its
+// row of S slots in tiles of G, C = K8_ROW / G tiles at a time: it loads
+// the C tiles' masks together, then, for the tiles' valid slots only,
+// sigma, dt, delta_depth and the tile's 3 G floats of rgb (float j + m G
+// of the tile, slot (j + m G) / 3, loaded where that slot's mask bit is
+// set), all in flight together, and works through the tiles in order.  A
+// tile with no valid slot writes its weights as 0 * T (0, or NaN after a
+// NaN alpha, as the first design's serial walk writes them) and leaves T
+// and t_cum as they were: a masked slot's factor is 1 and its delta_depth
+// counts 0.  A live tile takes T by the broadcast product in slot order
+// (the first design's serial product, so w = alpha * T_j bit for bit), and
+// t_cum by a group scan of m * delta_depth with a carry.  Under early stop
+// a slot whose T_j < 1e-4 gets w = 0, and a tile that begins with
+// T < 1e-4 ends the walk: the rest of the row's weights are written as
+// zeros (T only falls from there; a chunk's loads are issued before its
+// tiles test T).  Weights are stored by consecutive lanes; ws, depth and
+// the image are lane partial sums reduced across the group, written by
+// lane 0.
+template <int G, int C>
+__global__ void __launch_bounds__(K8_THREADS) composite_padded_fwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const float* __restrict__ dts, const float* __restrict__ dds,
     const uint8_t* __restrict__ mask, int n_rays, int S, int early_stop,
     float* __restrict__ weights, float* __restrict__ ws_out,
     float* __restrict__ depth_out, float* __restrict__ image_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+  const int r = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) / G);
+  if (r >= n_rays) return;  // the whole group
+  const int j = threadIdx.x & (G - 1);
+  const int first = (threadIdx.x & 31) & ~(G - 1);  // the group's lane 0
+  const unsigned group = (unsigned)((1ull << G) - 1ull) << first;
   const long long base = (long long)r * S;
-  float T = 1.f, ws = 0.f, depth = 0.f, t_cum = 0.f, c0 = 0.f, c1 = 0.f,
+  float* __restrict__ wrow = weights + base;
+  float T = 1.f, tc_carry = 0.f, ws = 0.f, depth = 0.f, c0 = 0.f, c1 = 0.f,
         c2 = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const long long i = base + s;
-    const bool m = mask[i] != 0;
-    const float alpha =
-        m ? __fsub_rn(1.f, expf(__fmul_rn(-sigmas[i], dts[i]))) : 0.f;
-    t_cum = __fadd_rn(t_cum, m ? dds[i] : 0.f);
-    const float w = (early_stop && T < 1e-4f) ? 0.f : __fmul_rn(alpha, T);
-    weights[i] = w;
-    ws = __fadd_rn(ws, w);
-    depth = __fmaf_rn(w, t_cum, depth);
-    c0 = __fmaf_rn(w, rgbs[3 * i], c0);
-    c1 = __fmaf_rn(w, rgbs[3 * i + 1], c1);
-    c2 = __fmaf_rn(w, rgbs[3 * i + 2], c2);
-    T = __fmul_rn(T, __fsub_rn(1.f, alpha));
+  int z = S;  // the row's first slot left to zero after an early stop
+  for (int i0 = 0; i0 < S && z == S; i0 += C * G) {
+    if (early_stop && T < 1e-4f) {
+      z = i0;
+      break;
+    }
+    unsigned live[C];  // the tiles' valid slots, bit k for slot k
+    float sg[C], dt[C], dd[C], q[C][3];
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int i = i0 + t * G + j;
+      live[t] = (__ballot_sync(group, i < S && mask[base + i] != 0) & group)
+                >> first;
+    }
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const long long i = base + i0 + t * G + j;
+      sg[t] = dt[t] = dd[t] = 0.f;
+      if ((live[t] >> j) & 1u) {
+        sg[t] = sigmas[i];
+        dt[t] = dts[i];
+        dd[t] = dds[i];
+      }
+      const float* tile = rgbs + 3 * (base + i0 + t * G);
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const int qi = j + m * G;
+        q[t][m] = ((live[t] >> (qi / 3)) & 1u) ? tile[qi] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < C; ++t) {
+      const int t0 = i0 + t * G;
+      if (t0 >= S) break;  // the whole group
+      if (early_stop && T < 1e-4f) {
+        z = t0;
+        break;
+      }
+      const bool in = j < S - t0;
+      if (!live[t]) {  // the whole group
+        if (in) wrow[t0 + j] = __fmul_rn(0.f, T);
+        continue;
+      }
+      const bool m = (live[t] >> j) & 1u;
+      const float alpha =
+          m ? __fsub_rn(1.f, expf(__fmul_rn(-sg[t], dt[t]))) : 0.f;
+      const float Tj = group_transmittance<G>(group, j, __fsub_rn(1.f, alpha),
+                                              T);
+      const float w = (early_stop && Tj < 1e-4f) ? 0.f : __fmul_rn(alpha, Tj);
+      const float tc = group_scan<G>(group, j, m ? dd[t] : 0.f, tc_carry);
+      if (in) wrow[t0 + j] = w;
+      ws = __fadd_rn(ws, w);
+      depth = __fmaf_rn(w, tc, depth);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int qi = j + k * G;
+        const float wq = __shfl_sync(group, w, qi / 3, G);
+        const int ch = qi % 3;
+        if (ch == 0) c0 = __fmaf_rn(wq, q[t][k], c0);
+        else if (ch == 1) c1 = __fmaf_rn(wq, q[t][k], c1);
+        else c2 = __fmaf_rn(wq, q[t][k], c2);
+      }
+    }
   }
+  for (int i = z + j; i < S; i += G) wrow[i] = 0.f;
+  ws = group_sum<G>(group, ws);
+  depth = group_sum<G>(group, depth);
+  c0 = group_sum<G>(group, c0);
+  c1 = group_sum<G>(group, c1);
+  c2 = group_sum<G>(group, c2);
+  if (j) return;
   ws_out[r] = ws;
   depth_out[r] = depth;
   image_out[3 * r] = c0;
@@ -511,11 +621,12 @@ extern "C" int pvd_composite_padded_fwd(
     int early_stop, float* weights, float* weights_sum, float* depth,
     float* image, void* stream) {
   if (n_rays <= 0) return 0;
-  const int ray_threads = 64;
-  composite_padded_fwd_kernel<<<(n_rays + ray_threads - 1) / ray_threads,
-                                ray_threads, 0, (cudaStream_t)stream>>>(
-      sigmas, rgbs, dt, delta_depth, mask, n_rays, S, early_stop, weights,
-      weights_sum, depth, image);
+  const long long blocks =
+      ((long long)n_rays * K8_LANES + K8_THREADS - 1) / K8_THREADS;
+  composite_padded_fwd_kernel<K8_LANES, K8_ROW / K8_LANES>
+      <<<(unsigned)blocks, K8_THREADS, 0, (cudaStream_t)stream>>>(
+          sigmas, rgbs, dt, delta_depth, mask, n_rays, S, early_stop,
+          weights, weights_sum, depth, image);
   return (int)cudaGetLastError();
 }
 

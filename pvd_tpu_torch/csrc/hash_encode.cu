@@ -293,8 +293,38 @@
 // k = dx + 2 dy + 4 dz, each product and sum rounded on its own
 // (__fmul_rn, __fadd_rn): the JAX package builds the table with eager ops,
 // which XLA:CPU does not contract into FMAs, so K16 equals it bit for bit.
-// Runs once per load_teacher.  Bound: memory, the fine level's rows read
-// once and the vertex table written once.
+// Runs once per load_teacher.  Bound on the H100: memory, every dense
+// level's rows read once (1.57 MB of coarse tables and 3.11 MB of the
+// finest at bound 1's side 73, 5 levels) and the vertex table written once
+// (15.56 MB): 6.0 us.  The first design ran one thread per (fine vertex,
+// level), level fastest, over a flat grid: a 64-bit division and
+// remainder a thread, the level constants read with a runtime index, and
+// in one warp the finest level's copying lanes beside coarse lanes
+// gathering from four tables: 0.022-0.024 ms alone at bound 1, 4x its
+// bound.  The design now (hash_bake_kernel): a block per fine row (y, z),
+// K16_THREADS lanes running along x within a level, so adjacent lanes
+// gather adjacent rows of one coarse table; the row-uniform y and z terms
+// set out once a block, the constants read by compile-time index; the
+// row's Ld * side_f float2s staged in shared memory and stored as one
+// contiguous run (2,920 B at side 73).  On the H100 80GB HBM3 at 700 W
+// (PERF.md §6, the kernel alone, in turns with the first design) 0.0145-
+// 0.0150 ms at bound 1 against 0.0223-0.0244, 0.0082 at bound 2 (side 59,
+// 4 levels) against 0.0113-0.0114: 2.4x and 3.1x the bound.  Measured
+// and dropped, in six rotated rounds on random tables
+// (tools/torch_k8_k16_rounds.py; this design 0.01436 / 0.00817 ms at
+// bound 1 / 2, the first 0.02426 / 0.01125):
+//   (b) the first design's mapping on a 3-D grid (no division), (Ld, 32)
+//       or (Ld, 64) a block                   0.02051-0.02203 / 0.00927-0.00934
+//   this design at 64 / 256 threads a block   0.01527 / 0.01902, 0.00869 / 0.01003
+//   this design with a thread's base and fraction loads issued before the
+//       level terms and 2 or 3 of its entries' loads at once, 64 or 128
+//       threads (52-72 registers: fewer blocks an SM)
+//                                             0.01694-0.01949 / 0.00922-0.01136
+//   (c) each coarse level's four x-lines of the row's cell staged in
+//       shared memory first, the corners read from there, 64 / 128 threads
+//                                             0.02493 / 0.02330, 0.01244 / 0.01266
+// Neither more loads in flight nor fewer L2 gathers paid: what holds the
+// kernel is not established (PERF.md §7).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -312,6 +342,7 @@
 #define K1_MAX_THREADS 512  // 8 level groups of K1_POINTS threads
 #define K1_SPAN (K1_MAX_THREADS / K1_POINTS * K1_PER)  // levels a K1 block
 #define K15_POINTS 64  // points a K15 block (a thread per dense level each)
+#define K16_THREADS 128  // threads a K16 block (a fine row)
 
 #if defined(__CUDACC_VER_MAJOR__) && \
     (__CUDACC_VER_MAJOR__ > 12 ||      \
@@ -1000,48 +1031,79 @@ __global__ void hash_baked_fwd_kernel(const float* __restrict__ x01,
   *o = make_float2(a0, a1);
 }
 
-// K16: one thread per (fine vertex, dense level entry j), j fastest so a
-// warp writes whole rows of the vertex table.
-__global__ void hash_bake_kernel(const float2* __restrict__ table,
-                                 const int* __restrict__ b,
-                                 const float* __restrict__ f,
-                                 float2* __restrict__ baked, int side_f,
-                                 HashLevels lv) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n_vert = (long long)side_f * side_f * side_f;
-  const int ld = lv.n_levels;
-  if (gid >= n_vert * ld) return;
-  const long long v = gid / ld;
-  const int j = (int)(gid - v * ld);
-  const float2* tl = table + lv.offset[j];
-  if (j == ld - 1) {  // the finest dense level: its own vertex
-    baked[gid] = __ldg(tl + v);
-    return;
-  }
-  const int ix[3] = {(int)(v % side_f), (int)((v / side_f) % side_f),
-                     (int)(v / ((long long)side_f * side_f))};
-  int bs[3];
-  float fs[3], gs[3];
+// K16: a block per fine row (y, z) = (blockIdx.x, blockIdx.y) of side_f
+// vertices x.  Entry j of lv is dense level j (the last one the finest).
+// The block first sets out each level's row-uniform terms: the table row
+// of the y and z bases, offset + by * s + bz * s^2 (the finest level's b
+// is the vertex itself, so its row is the copy's), and the y and z
+// weights.  Then thread e of the row's side_f * Ld entries takes level
+// e / side_f, vertex e % side_f, x fastest, so adjacent lanes gather
+// adjacent rows of one table; the finest level copies its contiguous
+// float2s.  Results are staged as the row's [side_f][Ld] float2s and
+// stored as its contiguous run by consecutive lanes.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS) hash_bake_kernel(
+    const float2* __restrict__ table, const int* __restrict__ b,
+    const float* __restrict__ f, float2* __restrict__ baked, int side_f,
+    HashLevels lv) {
+  extern __shared__ float2 k16_row[];  // [side_f][ld]
+  __shared__ long long k16_base[PVD_MAX_LEVELS];
+  __shared__ int k16_side[PVD_MAX_LEVELS];
+  __shared__ float k16_w[PVD_MAX_LEVELS][4];  // 1 - fy, fy, 1 - fz, fz
+  const int ld = lv.n_levels, y = blockIdx.x, z = blockIdx.y;
+  const int n = side_f * ld, t = threadIdx.x;
+  if (t < ld) {  // THREADS >= 32 >= ld
+    // the level's constants by compile-time index (a runtime index would
+    // copy the by-value lv to local memory)
+    long long off = 0, s = 0;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    bs[d] = __ldg(b + j * side_f + ix[d]);
-    fs[d] = __ldg(f + j * side_f + ix[d]);
-    gs[d] = __fsub_rn(1.f, fs[d]);
+    for (int k = 0; k < PVD_MAX_LEVELS; ++k)
+      if (k == t) {
+        off = lv.offset[k];
+        s = lv.side[k];
+      }
+    const int by = __ldg(b + t * side_f + y), bz = __ldg(b + t * side_f + z);
+    const float fy = __ldg(f + t * side_f + y), fz = __ldg(f + t * side_f + z);
+    k16_base[t] = off + (long long)by * s + (long long)bz * s * s;
+    k16_side[t] = (int)s;
+    k16_w[t][0] = __fsub_rn(1.f, fy);
+    k16_w[t][1] = fy;
+    k16_w[t][2] = __fsub_rn(1.f, fz);
+    k16_w[t][3] = fz;
   }
-  const long long s = lv.side[j];
-  float a0 = 0.f, a1 = 0.f;
+  __syncthreads();
+  // b and f are [Ld, side_f], so entry e's x base and fraction are b[e],
+  // f[e] (the finest level's base is x itself)
+  for (int e = t; e < n; e += THREADS) {
+    const int j = e / side_f, x = e - j * side_f;
+    const float2* row = table + k16_base[j] + __ldg(b + e);
+    float2 v;
+    if (j == ld - 1) {  // the finest dense level: its own vertex
+      v = __ldg(row);
+    } else {
+      const long long s = k16_side[j];
+      const float fx = __ldg(f + e);
+      const float wx[2] = {__fsub_rn(1.f, fx), fx};
+      float2 c[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int dx = k & 1, dy = (k >> 1) & 1, dz = (k >> 2) & 1;
-    const float w = __fmul_rn(__fmul_rn(dx ? fs[0] : gs[0],
-                                        dy ? fs[1] : gs[1]),
-                              dz ? fs[2] : gs[2]);
-    const float2 t = __ldg(tl + (bs[0] + dx) + (bs[1] + dy) * s
-                           + (bs[2] + dz) * s * s);
-    a0 = __fadd_rn(a0, __fmul_rn(t.x, w));
-    a1 = __fadd_rn(a1, __fmul_rn(t.y, w));
+      for (int k = 0; k < 8; ++k)
+        c[k] = __ldg(row + (k & 1) + ((k >> 1) & 1) * s
+                     + ((k >> 2) & 1) * s * s);
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float w = __fmul_rn(__fmul_rn(wx[k & 1], k16_w[j][(k >> 1) & 1]),
+                                  k16_w[j][2 + ((k >> 2) & 1)]);
+        a0 = __fadd_rn(a0, __fmul_rn(c[k].x, w));
+        a1 = __fadd_rn(a1, __fmul_rn(c[k].y, w));
+      }
+      v = make_float2(a0, a1);
+    }
+    k16_row[x * ld + j] = v;
   }
-  baked[gid] = make_float2(a0, a1);
+  __syncthreads();
+  float2* dst = baked + ((long long)z * side_f + y) * side_f * ld;
+  for (int e = t; e < n; e += THREADS) dst[e] = k16_row[e];
 }
 
 static long long n_blocks(long long n_points, const HashLevels& lv,
@@ -1189,14 +1251,18 @@ extern "C" int pvd_hash_baked_fwd(const float* x01, const float* baked,
   return (int)cudaGetLastError();
 }
 
+// K16: a block per fine row, whose staging takes side_f * Ld * 8 bytes of
+// shared memory (2,920 at side 73, 5 levels; 8,512 at side 152, 7 levels:
+// a grid past 48 KB is refused)
 extern "C" int pvd_hash_bake(const float* table, const int* b, const float* f,
                              float* baked, int side_f, HashLevels lv,
                              void* stream) {
-  if (lv.n_levels == 0) return 0;
-  const int threads = 256;
-  const long long n = (long long)side_f * side_f * side_f * lv.n_levels;
-  hash_bake_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                     (cudaStream_t)stream>>>(
+  if (lv.n_levels == 0 || side_f <= 0) return 0;
+  const size_t smem = (size_t)side_f * lv.n_levels * sizeof(float2);
+  if (lv.n_levels > PVD_MAX_LEVELS || side_f > 65535 || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  hash_bake_kernel<K16_THREADS>
+      <<<dim3(side_f, side_f), K16_THREADS, smem, (cudaStream_t)stream>>>(
       reinterpret_cast<const float2*>(table), b, f,
       reinterpret_cast<float2*>(baked), side_f, lv);
   return (int)cudaGetLastError();

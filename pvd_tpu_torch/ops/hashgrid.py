@@ -583,6 +583,17 @@ def build_baked_dense_plain(table, spec: HashGridSpec):
     return torch.cat(feats, dim=-1)
 
 
+def _bake_levels(spec: HashGridSpec) -> kernels.HashLevels:
+    """K16's level list: entry j is dense level j's table block; the last
+    entry, the finest level, is copied."""
+    lv = kernels.HashLevels()
+    lv.n_levels = len(spec.dense_levels)
+    for j, level in enumerate(spec.dense_levels):
+        lv.offset[j] = int(spec.offsets[level])
+        lv.side[j] = spec.level_side(level)
+    return lv
+
+
 def build_baked_dense(table, spec: HashGridSpec):
     """The baked vertex table [side_f^3, Ld * 2] of a frozen corner table
     [T, 2]: K16 on a CUDA table, the plain version on a CPU one."""
@@ -594,16 +605,9 @@ def build_baked_dense(table, spec: HashGridSpec):
     if table.dtype != torch.float32:
         raise TypeError("build_baked_dense: the table must be float32")
     _check_table(table, spec)
-    fine = spec.dense_levels[-1]
-    side_f = spec.level_side(fine)
+    side_f = spec.level_side(spec.dense_levels[-1])
     b, f = _bake_axes_on(spec, dev)
-    # entry j: dense level j's table block; the last entry, the finest
-    # level, is copied
-    lv = kernels.HashLevels()
-    lv.n_levels = len(spec.dense_levels)
-    for j, level in enumerate(spec.dense_levels):
-        lv.offset[j] = int(spec.offsets[level])
-        lv.side[j] = spec.level_side(level)
+    lv = _bake_levels(spec)
     baked = torch.empty(side_f ** 3, 2 * lv.n_levels, device=dev)
     with torch.cuda.device(dev):
         kernels.launch("pvd_hash_bake", table.data_ptr(), b.data_ptr(),

@@ -44,13 +44,21 @@ torch.set_num_threads(1)
 
 ENC_ATOL = 1e-6
 # a test width with 3 dense levels; the INGP teacher at bound 1 (side 73,
-# Ld 5) and bound 2 (side 59, Ld 4), cell mode as the quality recipe has it
+# Ld 5) and bound 2 (side 59, Ld 4), cell mode as the quality recipe has
+# it; and K16's hard specs but the largest (chip_smoke.K16_HARD_SPECS: one
+# dense level, three, base resolution 4; the 2^22 hash map's side 152 is
+# held on the card only)
 SPECS = {
     "test_width": dict(num_levels=5, base_resolution=4,
                        desired_resolution=32, log2_hashmap_size=12),
     "bound1": dict(desired_resolution=2048, n_cell_levels=9),
     "bound2": dict(desired_resolution=4096, n_cell_levels=9),
+    **{k: v for k, v in chip_smoke.K16_HARD_SPECS.items() if k != "log2_22"},
 }
+# the dense levels' sides of every spec but the test width
+DENSE_SIDES = {"bound1": [17, 25, 35, 51, 73], "bound2": [17, 26, 39, 59],
+               "one_level": [17], "three_levels": [17, 25, 35],
+               "base_res4": [5, 8, 12, 18, 29, 46, 73]}
 
 
 def _table(spec, seed=0):
@@ -65,8 +73,7 @@ def test_bake_matches_jax(name):
     fine, dense = j_plan(js)
     assert ts.dense_levels == list(dense) and ts.dense_levels[-1] == fine
     if name != "test_width":
-        assert ts.level_side(fine) == {"bound1": 73, "bound2": 59}[name]
-        assert len(dense) == {"bound1": 5, "bound2": 4}[name]
+        assert [ts.level_side(lv) for lv in dense] == DENSE_SIDES[name]
     else:
         assert len(dense) >= 3
     table = _table(ts)

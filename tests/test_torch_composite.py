@@ -364,6 +364,57 @@ def test_composite_padded_grad_matches_jax_on_k9_hard_inputs(name):
         assert 0.08 < mask.mean() < 0.14
 
 
+# K8's hard inputs (chip_smoke.py's `k8_hard_inputs`: K9's and a T that
+# crosses 1e-4 inside a tile, the ones the card holds K8 to)
+K8_CASES = K9_CASES + ["t_crosses"]
+# cases whose alphas round alike in both packages (none, 0 or 1): there
+# XLA's exp and torch's cannot part, so every output is equal
+K8_EXACT = ("all_masked", "opaque_first", "dt_zero")
+
+
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("name", K8_CASES)
+def test_composite_padded_matches_jax_on_k9_hard_inputs(name, early_stop):
+    """composite_rays_plain (what the card holds K8 to) against JAX's
+    composite_rays (pvd_tpu/ops/composite.py:97) on K8's hard inputs, with
+    early stop off and on: equal where the alphas are (K8_EXACT); else
+    within COMP_TOL, as in test_composite_padded_matches_jax, because the
+    two packages' exps can part by an ulp (measured up to 3.6e-7 on these
+    cases); masked slots weigh 0 in both, and under early stop every slot
+    whose T is under 1e-4 does too."""
+    import chip_smoke
+    from pvd_tpu_torch.ops.composite import composite_rays_plain
+
+    cases = chip_smoke.k8_hard_inputs()
+    assert sorted(cases) == sorted(K8_CASES)
+    arrays = cases[name]
+    mask = arrays[4]
+    want = [np.asarray(w) for w in j_composite_rays(
+        *(jnp.asarray(a) for a in arrays), early_stop=early_stop)]
+    got = [g.numpy() for g in composite_rays_plain(
+        *(_t(a) for a in arrays), early_stop=early_stop)]
+    for g, w, out in zip(got, want, ("weights_sum", "depth", "image",
+                                     "weights")):
+        assert g.shape == w.shape and np.isfinite(g).all()
+        if name in K8_EXACT:
+            np.testing.assert_array_equal(g, w, err_msg=out)
+        else:
+            np.testing.assert_allclose(g, w, rtol=COMP_TOL, atol=COMP_TOL,
+                                       err_msg=out)
+    assert not got[3][~mask].any() and not want[3][~mask].any()
+    if name == "t_crosses":
+        sig, _, dt, _, _ = arrays
+        alpha = (1.0 - np.exp(-sig.astype(np.float64) * dt)) * mask
+        T = np.cumprod(np.c_[np.ones(len(sig)), 1.0 - alpha[:, :-1]], 1)
+        late = T < 0.5e-4  # well past the cut, clear of rounding
+        cross = (T < 1e-4).argmax(1)
+        assert ((cross % 32) != 0).mean() > 0.9  # inside a tile
+        if early_stop:
+            assert not got[3][late].any() and not want[3][late].any()
+        else:
+            assert got[3][late & mask].all()
+
+
 def test_k9_rows():
     """`chip_smoke.k9_rows`, the row statistics logged beside K9's times:
     rows with a valid slot, their mean and largest valid count, 32-slot
