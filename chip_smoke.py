@@ -3,9 +3,13 @@
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --host-ab OTHER_CHECKOUT
+    python3 chip_smoke.py --field-runs
 
 The second form only times the A/B recipe's teacher (phase 6) in this
 checkout and another one in turn, with a host profile of each (`host_ab`).
+The third only runs the new fields' spread checks (`field_runs`): the MLP
+teacher's first 600 steps for three seeds, preloaded and host-batched,
+and phase 11's mlp -> tensors student three times on one teacher.
 
 1. Builds the CUDA kernels from pvd_tpu_torch/csrc (nvcc, sm_90a).
 2. Drives the serving path at the full INGP width (14 levels x 2, 2^19
@@ -142,7 +146,28 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    cell levels; g also off 8-byte alignment; K10 last also on an x01 and
    an out one float into larger buffers, out's other slots untouched);
    each check raises on a case over its kernel's tolerance.
-10. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+10. Runs the teacher CLI (inside phase 6, on the scene phase 8 wrote):
+   `pvd_tpu_torch.cli.train_teacher.main` with the A/B teacher's flags
+   (--hash_cell_levels 9, 4096 rays, grid 64, 3000 steps; the config
+   checked field for field) and no --preload, so every batch comes from
+   the host batcher (`data/raybatch.RayBatcher`, the port's own g++ build
+   of csrc/raybatch.cpp), then `--test`.  Fails under 28.0 dB or more
+   than 1.0 dB under the Python-API A/B teacher of the same run; logs its
+   padded and compacted ms per step beside that teacher's and profiles
+   one padded and one compacted host-batcher step.
+11. Trains the MLP field (PE 10, 8 x 256, skip 3, bf16 layers) and the
+   plenoxel field (128^3 x 28, degree 3) as teachers through the teacher
+   CLI on the same scene (3000 steps of 4096 rays at grid 64, --preload),
+   then distills each into the other through the distill CLI
+   (mlp -> tensors, tensors -> mlp: 2000 steps, stages 300/800 with no
+   stage 1, max_samples 64, 6 samples per ray;
+   MATRIX_QUALITY_r05.json's recipe).  Fails under 25 dB (teachers),
+   24 dB (students) or a student more than 3.0 dB under its teacher.
+   Logs each run's ms per step, a profile of one padded and one
+   compacted teacher step and of one stage-3 distill step, and times the
+   plenoxel query (`grid_sample_3d`, forward and backward) beside
+   F.grid_sample at 65,536 points of the trained volume.
+12. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails, no GPU is present
@@ -169,18 +194,23 @@ import torch
 
 from pvd_tpu_torch import kernels
 from pvd_tpu_torch.cli import distill as distill_cli
+from pvd_tpu_torch.cli import train_teacher as teacher_cli
 from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
 from pvd_tpu_torch.data.png import read_png, write_png
 from pvd_tpu_torch.data.poses import get_rand_poses, pose_spherical
+from pvd_tpu_torch.data.provider import NeRFDataset
+from pvd_tpu_torch.data.raybatch import RayBatcher
 from pvd_tpu_torch.data.synth import (make_synthetic_scene,
                                       write_synthetic_scene)
+from pvd_tpu_torch.engine import checkpoint as ckpt
 from pvd_tpu_torch.engine.optim import (build_optimizer, cosine_schedule,
                                         exp_decay_schedule)
 from pvd_tpu_torch.engine.train_steps import (TrainState, chunk_rays,
                                               make_distill_step,
                                               make_eval_renderer,
                                               make_occ_update,
-                                              make_teacher_step)
+                                              make_teacher_step,
+                                              make_teacher_step_host)
 from pvd_tpu_torch.engine.trainer import Trainer
 from pvd_tpu_torch.models.api import (bg_grid_spec, param_group_label,
                                       trainable_label)
@@ -197,6 +227,7 @@ from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
                                          composite_rays_plain, k3_lanes)
 from pvd_tpu_torch.ops.fma import fma32
 from pvd_tpu_torch.ops import hashgrid
+from pvd_tpu_torch.ops.grid_sample import grid_sample_3d
 from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
                                         build_baked_dense_plain, cell_corners,
                                         corner_level_plain,
@@ -356,6 +387,38 @@ CLI_KERNELS = ("hash_encode_baked_fwd", "build_baked_dense",
 # |value| also logged against 1e-6)
 TOL_K15_REL, TOL_K16_REL = 1e-5, 1e-6
 BAKE_POINTS = (131_072, 2_097_152)
+# the teacher CLI on the A/B scene on disk with the A/B teacher's flags
+# and no --preload, so on the host batcher; floors against the Python-API
+# A/B teacher of the same run.  `--test` renders the renamed workspace
+# again from a fresh Trainer, whose eval ladder starts at the config's
+# budget where the trained one's starts at the autotuned: the same samples
+# in other buffers
+TEACHER_CLI_FLOOR, TEACHER_CLI_MAX_DROP = AB_TEACHER_FLOOR, AB_MAX_DROP
+TEACHER_CLI_RELOAD_DB = 0.01
+# the MLP (PE 10, 8 x 256, skip 3) and plenoxel (128^3, degree 3) fields
+# at MATRIX_QUALITY_r05.json's recipe (tools/matrix_quality.py:60-72,
+# 166-177): teachers 3000 steps of 4096 rays at grid 64 with --preload
+# (its scan_steps 8 are not ported: single steps), students 2000 steps,
+# stages 300/800, max_samples 64, 6 samples per ray, the budget frozen.
+# The MLP's first few hundred steps learn little until the occupancy grid
+# has pruned the empty space; a run that does not leave that phase
+# empties its grid and stays near 17 dB (PERF.md §7)
+FIELD_TEACHER = dict(iters=3000, grid_size=64, num_rays=4096,
+                     eval_interval=1000, preload=True)
+FIELD_DISTILL = dict(iters=2000, stage1_iters=300, stage2_iters=800,
+                     grid_size=64, num_rays=4096, max_samples=64,
+                     samples_per_ray=6.0, autotune_budget=False,
+                     eval_interval=1000)
+FIELD_TEACHER_KERNELS = ("march_rays", "composite_rays", "composite_rays_bwd",
+                         "composite_rays_compact",
+                         "composite_rays_compact_bwd")
+FIELD_DISTILL_KERNELS = ("march_rays", "composite_rays_compact",
+                         "composite_rays_compact_bwd")
+# floors that catch a broken path, well under the JAX package's TPU run of
+# the recipe (MATRIX_QUALITY_r05.json)
+FIELD_TEACHER_FLOOR, FIELD_STUDENT_FLOOR, FIELD_MAX_DROP = 25.0, 24.0, 3.0
+FIELD_JAX_TPU = {"mlp": 31.15, "tensors": 30.07, "mlp2tensors": 30.08,
+                 "tensors2mlp": 29.49}
 # the small large-scene steps (tests/test_torch_large_scene.py's sizes)
 SMALL_LS = dict(bound=2.0, dt_gamma=1.0 / 256.0, bg_radius=32.0)
 SMALL_LS_TEA = dict(SMALL_TEA, bound=2.0, bg_radius=32.0)
@@ -2112,7 +2175,8 @@ def drive_distill_cli(seed: int, workspace: str, best: str,
                 raise RuntimeError(f"{name}: shape {img.shape} != {shape}")
     ps, pt = stats["psnr"], test_tea["psnr"]
     exact_s, exact_t = ab["student"]["psnr"], ab["teacher_reloaded"]["psnr"]
-    info = {"argv": argv[1:], "scene_write_s": write_s, "train_s": train_s,
+    info = {"argv": argv[1:], "scene": scene, "scene_write_s": write_s,
+            "train_s": train_s,
             "test_s": test_s, "test_teacher_s": test_tea_s,
             "student": {k: stats[k] for k in ("psnr", "ssim", "lpips_proxy",
                                               "eval_s_per_image")},
@@ -2143,6 +2207,328 @@ def drive_distill_cli(seed: int, workspace: str, best: str,
                            f"{ps:.3f}; --test_teacher {pt}")
     return info
 
+
+def cli_flags(d: dict) -> list:
+    """A config dict (AB_TEACHER, FIELD_TEACHER, ...) as CLI flags."""
+    d = dict(d)
+    argv = []
+    if "stage1_iters" in d:
+        argv += ["--stage_iters", f"stage1={d.pop('stage1_iters')},"
+                 f"stage2={d.pop('stage2_iters')}"]
+    if not d.pop("autotune_budget", True):
+        argv.append("--no_autotune_budget")
+    for k, v in d.items():
+        argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    return argv
+
+
+def renamed(ws: str) -> str:
+    """The workspace `ws` renamed with its PSNR suffix by finalize_run."""
+    done = glob.glob(ws + "-psnr*")
+    if len(done) != 1:
+        raise RuntimeError(f"no renamed workspace for {ws}: {done}")
+    return done[0]
+
+
+def run_teacher_cli(argv: list, label: str, kernels: tuple) -> dict:
+    """`python -m pvd_tpu_torch.cli.train_teacher` (its `main`) on argv,
+    then `--test` on the renamed workspace; the launch counters set to 0
+    just before the training run and read just after it.  The run must
+    have taken its batches from the host batcher exactly when argv has
+    no --preload.  Returns the stats, the launches, the renamed workspace
+    and the run's config."""
+    reset_counters()
+    t0 = time.perf_counter()
+    stats = teacher_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counters()
+    for name in kernels:
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the "
+                               f"{label} path")
+    ws = argv[argv.index("--workspace") + 1]
+    done = renamed(ws)
+    again = list(argv)
+    again[again.index("--workspace") + 1] = done
+    t0 = time.perf_counter()
+    test = teacher_cli.main(again + ["--test"])
+    test_s = time.perf_counter() - t0
+    if stats.get("host_batcher") != ("--preload" not in argv):
+        raise RuntimeError(f"the {label} did not take its batches where "
+                           f"its flags say (host_batcher "
+                           f"{stats.get('host_batcher')})")
+    log(f"{label}: train+eval {train_s:.1f} s, --test {test_s:.1f} s; test "
+        f"PSNR {stats['psnr']:.3f} dB (SSIM {stats['ssim']:.4f}), --test "
+        f"reload {test['psnr']:.3f}; padded "
+        f"{stats['padded_ms_per_step']:.3f} ms/step, compacted "
+        f"{stats['compacted_ms_per_step']:.3f}; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    log(f"{label} train_stats " + json.dumps(
+        {k: v for k, v in stats.items() if k.startswith(
+            ("train_", "padded", "compacted", "occ_", "host_"))}))
+    return {"stats": stats, "test_psnr": test["psnr"], "train_s": train_s,
+            "test_s": test_s, "launches": launches, "workspace": done,
+            "cfg": teacher_cli.parse_args(again)[1]}
+
+
+def host_step_profiles(run: dict, name: str, label: str) -> dict:
+    """Launches and a profile of one padded and one compacted host-batcher
+    teacher step of the run's field, loaded from its last checkpoint, on
+    batches of a RayBatcher over its training views."""
+    cfg = run["cfg"]
+    tr = Trainer(cfg)
+    tr.load_student(ckpt.latest_checkpoint(os.path.join(
+        run["workspace"], "checkpoints"), name))
+    ds = NeRFDataset(cfg, "train")
+    poses = torch.as_tensor(ds.poses, device=tr.device)
+    batcher = RayBatcher(ds.images, cfg.num_rays, seed=cfg.seed)
+    out = {"batcher_native": batcher.is_native}
+    flavors = {"padded": dataclasses.replace(tr.rspec, samples_per_ray=0.0),
+               "compacted": tr.rspec}
+    try:
+        for flv, rs in flavors.items():
+            step = make_teacher_step_host(
+                tr.spec, rs, tr.opt, cfg, ds.intrinsics, ds.H, ds.W,
+                image_channels=ds.images.shape[-1], device=tr.device)
+
+            def one():
+                idx, inds, pix = batcher.next()
+                step(tr.state, poses[idx], inds, pix, tr.generator)
+
+            for _ in range(3):  # warm-up
+                one()
+            torch.cuda.synchronize()
+            reset_counters()
+            one()
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in counters().items() if v}
+            prof = profile(one)
+            log(f"{label} {flv} host step: launches {json.dumps(launched)};"
+                f" profile wall {prof['wall_ms']:.2f} ms, device busy "
+                f"{prof['device_busy_ms']:.2f} ms (share "
+                f"{prof['device_busy_share']:.3f})")
+            for row in prof["top"]:
+                log(f"  {row['ms']:9.3f} ms {row['calls']:6d} x "
+                    f"{row['kernel']}")
+            out[flv] = {"launches_per_step": launched, "profile": prof}
+    finally:
+        batcher.close()
+    return out
+
+
+def drive_teacher_cli(seed: int, workspace: str, scene: str,
+                      ab: dict) -> dict:
+    """The teacher CLI on the A/B scene on disk with the A/B teacher's
+    flags and no --preload, so on the host batcher; floors against the
+    Python-API A/B teacher of the same run."""
+    argv = [scene, "--workspace", os.path.join(workspace, "hash_cli"),
+            "--seed", str(seed)] + cli_flags(AB_TEACHER)
+    _, cfg = teacher_cli.parse_args(argv)
+    want = PVDConfig(**AB_TEACHER, seed=seed)
+    differ = sorted(f.name for f in dataclasses.fields(PVDConfig)
+                    if getattr(cfg, f.name) != getattr(want, f.name))
+    log(f"teacher CLI: {' '.join(argv[1:])}; config differs from the A/B "
+        f"teacher's in {differ}")
+    # the teacher parser's distill loss rates (the JAX CLI's defaults) are
+    # not read by a teacher step
+    if set(differ) != {"path", "workspace", "preload", "loss_rate_fea_sc",
+                       "loss_rate_color", "loss_rate_sigma"}:
+        raise RuntimeError(f"the teacher CLI's config is not the A/B "
+                           f"teacher's: {differ}")
+    run = run_teacher_cli(argv, "teacher CLI", TEACHER_KERNELS + (
+        "hash_encode_cell_fwd", "hash_encode_cell_bwd"))
+    st, api = run["stats"], ab["teacher_train_stats"]
+    pt, pa = st["psnr"], ab["teacher"]["psnr"]
+    prof = host_step_profiles(run, "hash", "teacher CLI")
+    info = {"argv": argv[1:], "psnr": pt, "ssim": st["ssim"],
+            "test_reload_psnr": run["test_psnr"], "api_psnr": pa,
+            "train_s": run["train_s"], "test_s": run["test_s"],
+            "host_batcher": st["host_batcher"],
+            "batcher_native": prof["batcher_native"],
+            "ms_per_step": {k: (st[f"{k}_ms_per_step"],
+                                api[f"{k}_ms_per_step"])
+                            for k in ("padded", "compacted")},
+            "train_stats": {k: v for k, v in st.items()
+                            if k.startswith(("train_", "padded",
+                                             "compacted", "occ_"))},
+            "launches": run["launches"], "step_profiles": prof}
+    log(f"teacher CLI (host batcher, native {prof['batcher_native']}): "
+        f"test PSNR {pt:.3f} dB against the Python-API A/B teacher's "
+        f"{pa:.3f}; ms per step padded {st['padded_ms_per_step']:.3f} "
+        f"(API {api['padded_ms_per_step']:.3f}), compacted "
+        f"{st['compacted_ms_per_step']:.3f} (API "
+        f"{api['compacted_ms_per_step']:.3f})")
+    if not (np.isfinite(pt) and pt >= TEACHER_CLI_FLOOR
+            and pt >= pa - TEACHER_CLI_MAX_DROP):
+        raise RuntimeError(f"teacher CLI test PSNR {pt:.3f}: floor "
+                           f"{TEACHER_CLI_FLOOR}, API teacher {pa:.3f} - "
+                           f"{TEACHER_CLI_MAX_DROP}")
+    if abs(run["test_psnr"] - pt) > TEACHER_CLI_RELOAD_DB:
+        raise RuntimeError(f"teacher CLI --test renders {run['test_psnr']:.3f}"
+                           f" dB against {pt:.3f}")
+    return info
+
+
+def grid_sample_case(volume, n: int, gen) -> dict:
+    """grid_sample_3d (the plenoxel query: eight row gathers, autograd's
+    scatter as the backward) beside F.grid_sample on the [1, C, D, H, W]
+    view, forward and forward + backward, at n random points of the
+    trained volume."""
+    c = (torch.rand(n, 3, generator=gen, device=volume.device) * 2 - 1)
+    vol = volume.detach().clone().requires_grad_(True)
+    view = vol.detach().permute(3, 0, 1, 2)[None].contiguous() \
+        .requires_grad_(True)
+    g = torch.randn(n, vol.shape[-1], generator=gen, device=vol.device)
+
+    def ours():
+        return grid_sample_3d(vol, c)
+
+    def lib():
+        return torch.nn.functional.grid_sample(
+            view, c[None, :, None, None, :], align_corners=True,
+            padding_mode="zeros")[0, :, :, 0, 0].T
+
+    def ours_bwd():
+        vol.grad = None
+        (ours() * g).sum().backward()
+
+    def lib_bwd():
+        view.grad = None
+        (lib() * g).sum().backward()
+
+    with torch.no_grad():
+        err = max_abs(ours(), lib())
+    out = {"n": n, "channels": vol.shape[-1], "max_abs_diff": err,
+           "fwd_ms": cuda_ms(ours), "library_fwd_ms": cuda_ms(lib),
+           "fwd_bwd_ms": cuda_ms(ours_bwd),
+           "library_fwd_bwd_ms": cuda_ms(lib_bwd)}
+    log(f"grid_sample_3d at {n} points of the {tuple(vol.shape)} volume: "
+        f"fwd {out['fwd_ms']:.4f} ms (F.grid_sample "
+        f"{out['library_fwd_ms']:.4f}), fwd+bwd {out['fwd_bwd_ms']:.4f} "
+        f"(F.grid_sample {out['library_fwd_bwd_ms']:.4f}); max |diff| "
+        f"{err:.3g}")
+    return out
+
+
+def distill_cli_run(seed: int, workspace: str, scene: str, tea: str,
+                    stu: str, best: str, gen) -> dict:
+    """The distill CLI on `tea`'s best checkpoint into a `stu` student
+    (FIELD_DISTILL), the launch counters set to 0 just before and read
+    just after; then one stage-3 step's launches and profile."""
+    ws = os.path.join(workspace, f"{tea}2{stu}_cli")
+    argv = [scene, "--workspace", ws, "--seed", str(seed), "--teacher_type",
+            tea, "--model_type", stu, "--ckpt_teacher", best, "--ckpt",
+            "scratch"] + cli_flags(FIELD_DISTILL)
+    reset_counters()
+    t0 = time.perf_counter()
+    stats = distill_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = counters()
+    for name in FIELD_DISTILL_KERNELS:
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the "
+                               f"{tea}2{stu} path")
+    done = renamed(ws)
+    again = list(argv)
+    again[again.index("--workspace") + 1] = done
+    _, cfg = distill_cli.parse_args(again)
+    tr = Trainer(cfg, mode="distill")
+    tr.load_teacher(best)
+    tr.load_student(ckpt.latest_checkpoint(os.path.join(done, "checkpoints"),
+                                           f"{tea}2{stu}"))
+    prof = distill_step_profile(tr, {"train": NeRFDataset(cfg, "train")},
+                                gen, f"{tea}2{stu}")
+    log(f"{tea}2{stu} (distill CLI): train+eval {train_s:.1f} s; test PSNR "
+        f"{stats['psnr']:.3f} dB (SSIM {stats['ssim']:.4f}); stage2 "
+        f"{stats['stage2_ms_per_step']:.3f} ms/step, stage3 "
+        f"{stats['stage3_ms_per_step']:.3f}; stage-1 steps "
+        f"{stats['stage1_steps']}; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    return {"psnr": stats["psnr"], "ssim": stats["ssim"],
+            "train_s": train_s, "launches": launches,
+            "train_stats": {k: v for k, v in stats.items()
+                            if k.startswith(("train_", "stage"))},
+            "step_profile": prof}
+
+
+def field_step_profiles(run: dict, name: str) -> dict:
+    """Launches and a profile of one padded and one compacted preload
+    teacher step (`teacher_step_flavors`) of the run's field, loaded from
+    its last checkpoint, on its training views."""
+    cfg = run["cfg"]
+    tr = Trainer(cfg)
+    tr.load_student(ckpt.latest_checkpoint(os.path.join(
+        run["workspace"], "checkpoints"), name))
+    return teacher_step_flavors(tr, {"train": NeRFDataset(cfg, "train")},
+                                f"{name} teacher")
+
+
+def drive_new_fields(seed: int, workspace: str, scene: str, gen) -> dict:
+    """The MLP (PE 10, 8 x 256, skip 3) and plenoxel (128^3, degree 3)
+    fields as teachers through the teacher CLI, then each distilled into
+    the other through the distill CLI (MATRIX_QUALITY_r05.json's recipe);
+    floors on every test PSNR."""
+    info = {}
+    best = {}
+    for name in ("mlp", "tensors"):
+        argv = [scene, "--workspace", os.path.join(workspace, f"{name}_cli"),
+                "--seed", str(seed), "--model_type", name] \
+            + cli_flags(FIELD_TEACHER)
+        run = run_teacher_cli(argv, f"{name} teacher",
+                              FIELD_TEACHER_KERNELS)
+        spec = run["cfg"].model_spec()
+        log(f"{name} teacher: " + (
+            f"PE {spec.pe_multires}, {spec.nerf_layer_num} x "
+            f"{spec.nerf_layer_wide}, skip {spec.skip}"
+            if name == "mlp" else
+            f"volume {spec.plenoxel_res} x {spec.plenoxel_fea_dim} "
+            f"(degree {spec.plenoxel_degree})") + f", heads "
+            f"{spec.compute_dtype}")
+        st = run["stats"]
+        info[name] = {"psnr": st["psnr"], "ssim": st["ssim"],
+                      "test_reload_psnr": run["test_psnr"],
+                      "train_s": run["train_s"], "test_s": run["test_s"],
+                      "ms_per_step": {k: st[f"{k}_ms_per_step"]
+                                      for k in ("padded", "compacted")},
+                      "train_stats": {k: v for k, v in st.items()
+                                      if k.startswith(("train_", "padded",
+                                                       "compacted", "occ_"))},
+                      "launches": run["launches"],
+                      "jax_tpu_psnr": FIELD_JAX_TPU[name],
+                      "step_profiles": field_step_profiles(run, name)}
+        if name == "tensors":
+            tr = Trainer(run["cfg"])
+            tr.load_student(ckpt.latest_checkpoint(os.path.join(
+                run["workspace"], "checkpoints"), name))
+            info[name]["grid_sample"] = grid_sample_case(
+                tr.state.field.volume, 65_536, gen)
+            del tr
+        best[name] = os.path.join(run["workspace"], "checkpoints",
+                                  f"{name}_best.ckpt")
+        pt = st["psnr"]
+        if not (np.isfinite(pt) and pt >= FIELD_TEACHER_FLOOR):
+            raise RuntimeError(f"{name} teacher test PSNR {pt:.3f} < "
+                               f"{FIELD_TEACHER_FLOOR}")
+        if abs(run["test_psnr"] - pt) > TEACHER_CLI_RELOAD_DB:
+            raise RuntimeError(f"{name} teacher --test renders "
+                               f"{run['test_psnr']:.3f} dB against {pt:.3f}")
+    for tea, stu in (("mlp", "tensors"), ("tensors", "mlp")):
+        pair = f"{tea}2{stu}"
+        info[pair] = distill_cli_run(seed, workspace, scene, tea, stu,
+                                     best[tea], gen)
+        info[pair]["jax_tpu_psnr"] = FIELD_JAX_TPU[pair]
+        ps, pt = info[pair]["psnr"], info[tea]["psnr"]
+        if not (np.isfinite(ps) and ps >= FIELD_STUDENT_FLOOR
+                and ps >= pt - FIELD_MAX_DROP):
+            raise RuntimeError(f"{pair} student test PSNR {ps:.3f}: floor "
+                               f"{FIELD_STUDENT_FLOOR}, teacher {pt:.3f} - "
+                               f"{FIELD_MAX_DROP}")
+    log("new fields: test PSNR " + ", ".join(
+        f"{k} {v['psnr']:.3f} dB (JAX on the TPU {v['jax_tpu_psnr']})"
+        for k, v in info.items()))
+    return info
 
 def bake_case(table, gs, gen, n: int, cell=None, x01=None) -> dict:
     """K15 against its plain version on n points of [0, 1]^3 (corners,
@@ -4028,6 +4414,55 @@ print(json.dumps({
 """
 
 
+def field_runs(seed: int) -> int:
+    """How the MLP teacher leaves its flat start, and the spread of a
+    student: the MLP teacher through the Trainer on the A/B scene
+    (FIELD_TEACHER's settings) for 600 steps at seeds seed..seed+2, each
+    on preloaded and on host-batched batches, logging the batch PSNR and
+    mask_frac every 100 steps; then phase 11's MLP teacher through the
+    teacher CLI and its mlp -> tensors student through the distill CLI
+    three times.  Prints one JSON line."""
+    dev = torch.device("cuda")
+    scene = make_synthetic_scene(**AB_SCENE, seed=seed,
+                                 scale=PVDConfig().scale)
+    starts = {}
+    for s in range(seed, seed + 3):
+        for preload in (True, False):
+            with tempfile.TemporaryDirectory(prefix="pvd_runs_") as ws:
+                kw = {k: v for k, v in FIELD_TEACHER.items()
+                      if k != "preload"}
+                tr = Trainer(PVDConfig(**kw, model_type="mlp", seed=s,
+                                       preload=preload, workspace=ws))
+                tr.train(scene["train"], max_steps=600)
+            row = [(i, float(tr.history[i]["psnr"]),
+                    float(tr.history[i]["mask_frac"]))
+                   for i in range(0, 600, 100)]
+            starts[f"seed{s}_{'preload' if preload else 'host'}"] = row
+            brief = [(i, round(p, 2), round(m, 3)) for i, p, m in row]
+            log(f"MLP teacher seed {s}, preload {preload}: (step, batch "
+                f"PSNR, mask_frac) {brief}")
+    students = []
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with tempfile.TemporaryDirectory(prefix="pvd_runs_") as ws:
+        root = write_synthetic_scene(os.path.join(ws, "scene"), **AB_SCENE,
+                                     seed=seed)
+        run = run_teacher_cli(
+            [root, "--workspace", os.path.join(ws, "mlp_cli"), "--seed",
+             str(seed), "--model_type", "mlp"] + cli_flags(FIELD_TEACHER),
+            "mlp teacher", FIELD_TEACHER_KERNELS)
+        best = os.path.join(run["workspace"], "checkpoints", "mlp_best.ckpt")
+        for i in range(3):
+            wsi = os.path.join(ws, f"run{i}")
+            os.makedirs(wsi)
+            students.append(distill_cli_run(seed, wsi, root, "mlp",
+                                            "tensors", best, gen)["psnr"])
+    pt = run["stats"]["psnr"]
+    log(f"mlp teacher {pt!r} dB; mlp->tensors students {students!r}")
+    print(json.dumps({"mlp_starts": starts, "mlp_teacher_psnr": pt,
+                      "mlp2tensors_psnr": students}), flush=True)
+    return 0
+
+
 def host_ab(other: str, seed: int) -> int:
     """This checkout and `other` (another checkout of the repo) in turn,
     HOST_AB_REPS runs each of HOST_AB_CHILD in the order this, other,
@@ -4081,6 +4516,9 @@ def host_ab(other: str, seed: int) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--field-runs", action="store_true",
+                    help="only run the new fields' spread checks (see "
+                         "field_runs)")
     ap.add_argument("--host-ab", metavar="DIR", default=None,
                     help="only time the A/B teacher in this checkout and "
                          "in the checkout DIR in turn, with a host profile"
@@ -4092,6 +4530,8 @@ def main(argv=None) -> int:
         return 1
     if args.host_ab:
         return host_ab(args.host_ab, args.seed)
+    if args.field_runs:
+        return field_runs(args.seed)
     dev = torch.device("cuda")
     t_script = time.perf_counter()
 
@@ -4410,6 +4850,18 @@ def main(argv=None) -> int:
         cli = drive_distill_cli(args.seed, ws, best, ab)
         cli["wall_s"] = time.perf_counter() - t0
         cli_launches = counters()
+        # ---- main path 6: the teacher CLI on that scene, on the host
+        # batcher; main path 7: the MLP and plenoxel fields as teachers
+        # (teacher CLI) and students (distill CLI).  Each run's counters
+        # are set to 0 just before it and read just after
+        t0 = time.perf_counter()
+        tea_cli = drive_teacher_cli(args.seed, ws, cli["scene"], ab)
+        tea_cli["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fields = drive_new_fields(args.seed, ws, cli["scene"], gen)
+        fields_wall_s = time.perf_counter() - t0
+        log(f"teacher CLI phase {tea_cli['wall_s']:.1f} s, new fields "
+            f"{fields_wall_s:.1f} s")
     log(f"launches on the A/B path ({AB_TEACHER['iters']} teacher + "
         f"{AB_DISTILL['iters']} distill steps, evals included, "
         f"{ab['wall_s']:.1f} s): {json.dumps(ab_launches)}")
@@ -4590,6 +5042,21 @@ def main(argv=None) -> int:
         f["launches_per_teacher_step"] = {
             flv: v["launches_per_step"].get(name, 0)
             for flv, v in flavors.items()}
+        f["launches_teacher_cli"] = tea_cli["launches"][name]
+        f["launches_new_fields"] = {k: v["launches"][name]
+                                    for k, v in fields.items()}
+        per = {f"teacher_cli_{flv}": tea_cli["step_profiles"][flv][
+            "launches_per_step"].get(name, 0)
+            for flv in ("padded", "compacted")}
+        for k, v in fields.items():
+            if "step_profiles" in v:
+                per.update({f"{k}_{flv}": v["step_profiles"][flv][
+                    "launches_per_step"].get(name, 0)
+                    for flv in ("padded", "compacted")})
+            else:
+                per[f"{k}_stage3"] = v["step_profile"][
+                    "launches_per_step"].get(name, 0)
+        f["launches_per_new_path_step"] = per
         return f
 
     def brief(prof):
@@ -4643,6 +5110,20 @@ def main(argv=None) -> int:
                         "distill_stage3_profile": brief(
                             ls_distill["profile"]),
                         "gpu_vs_cpu_steps": ls_checks},
+        "teacher_cli": {**{k: v for k, v in tea_cli.items()
+                           if k != "step_profiles"},
+                        "step_profiles": {
+                            flv: brief(tea_cli["step_profiles"][flv][
+                                "profile"])
+                            for flv in ("padded", "compacted")}},
+        "new_fields": {"wall_s": fields_wall_s, **{
+            k: {**{kk: vv for kk, vv in v.items()
+                   if kk not in ("step_profiles", "step_profile")},
+                "profiles": ({flv: brief(v["step_profiles"][flv]["profile"])
+                              for flv in ("padded", "compacted")}
+                             if "step_profiles" in v else
+                             {"stage3": brief(v["step_profile"]["profile"])})}
+            for k, v in fields.items()}},
         "nan_rule": nan_rule,
         "card": card, "wall_s": time.perf_counter() - t_script}
     log(f"chip_smoke wall {line['wall_s']:.1f} s (kernel build included)")

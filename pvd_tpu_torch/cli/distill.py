@@ -9,9 +9,11 @@ Usage:
   python -m pvd_tpu_torch.cli.distill <data_path> --test --workspace ws_h2v
   python -m pvd_tpu_torch.cli.distill <data_path> --test_teacher ...
 
-Training reads the blender-format scene at <data_path> (train, val when
-the scene has it, test), loads and freezes the teacher checkpoint (baked
-with --hash_bake_dense), resumes the student from the workspace's latest
+Any teacher and student of hash, mlp, vm and tensors.  Training reads the
+blender-format scene at <data_path> (train, val when the scene has it,
+test), loads and freezes the teacher checkpoint (a hash teacher baked with
+--hash_bake_dense; a tensors teacher edited with --enable_edit_plenoxel),
+resumes the student from the workspace's latest
 checkpoint under `--ckpt latest` (any other value starts from scratch),
 distills, evaluates the test split into `<workspace>/results` and writes
 `metrics.json`, then renames the workspace with its PSNR suffix.
@@ -63,6 +65,10 @@ def parse_args(argv=None):
     stages = parse_stage_iters(args.stage_iters)
     cfg.stage1_iters = stages["stage1"]
     cfg.stage2_iters = stages["stage2"]
+    # plenoxels have no separable feature: no stage 1 when either side is
+    # 'tensors' (main_distill_mutual.py:243-246)
+    if "tensors" in (cfg.model_type, cfg.teacher_type):
+        cfg.stage1_iters = 0
     return args, cfg
 
 
@@ -95,6 +101,11 @@ def main(argv=None, device="cuda") -> dict:
     write_args_txt(cfg, cfg.workspace)
     save_codes_env(cfg.workspace)
     trainer.load_teacher(cfg.ckpt_teacher)
+    if cfg.enable_edit_plenoxel and cfg.teacher_type == "tensors":
+        # scene editing: erase a region of the teacher's volume before
+        # distilling (network.py:313-316)
+        trainer.teacher.edit_erase_region()
+        trainer.log("[edit_plenoxel] teacher region erased")
     if cfg.ckpt_student:
         trainer.load_student(cfg.ckpt_student)
     elif cfg.ckpt == "latest":

@@ -2,7 +2,7 @@
 
 Only the fields this port reads so far (the serving path, the distill
 step, the teacher and distill Trainer, its checkpoints, the background
-model and the distillation CLI).  Defaults and derived properties
+model, both CLIs and the four fields).  Defaults and derived properties
 (`RenderSpec.cascades`, `RenderSpec.sample_budget`) are the JAX package's.
 `PVDConfig.to_json` / `from_json` read and write the checkpoint's
 `config_json` and the CLI's `args.json`.  A JAX config that sets one of
@@ -49,10 +49,20 @@ class ModelSpec:
     # (ops/hashgrid.build_baked_dense); exact for the finest dense level,
     # the coarser ones resampled onto its vertices
     hash_bake_dense: bool = False
+    # mlp (NeRF): PE(pe_multires) input, nerf_layer_num x nerf_layer_wide
+    # layers with biases, the encoded input concatenated after layer `skip`
+    pe_multires: int = 10
+    nerf_layer_num: int = 8
+    nerf_layer_wide: int = 256
+    skip: int = 3
     # vm (TensoRF-VM): plane/line ranks and per-axis resolution
     vm_sigma_rank: int = 16
     vm_color_rank: int = 48
     vm_resolution: tuple = (300, 300, 300)
+    # tensors (Plenoxels): SH degree of the dense volume's color channels
+    # and its (D, H, W) resolution
+    plenoxel_degree: int = 3
+    plenoxel_res: tuple = (128, 128, 128)
     # background sphere model (bg_radius > 0 enables it, for any field)
     bg_radius: float = -1.0
     num_layers_bg: int = 2
@@ -66,7 +76,16 @@ class ModelSpec:
 
     @property
     def dir_sh_degree(self) -> int:
-        return self.sh_degree
+        """Direction-encoder SH degree: plenoxels carry their own SH lobe
+        (config.py:85-88)."""
+        return (self.plenoxel_degree if self.model_type == "tensors"
+                else self.sh_degree)
+
+    @property
+    def plenoxel_fea_dim(self) -> int:
+        """Channels of the plenoxel volume: the sigma logit, then 3 x deg^2
+        SH coefficients (config.py:90-92)."""
+        return 3 * self.plenoxel_degree ** 2 + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,9 +151,15 @@ class PVDConfig:
     teacher_type: str = "hash"
     sigma_clip_min: float = -2.0
     sigma_clip_max: float = 7.0
+    PE: int = 10
+    nerf_layer_num: int = 8
+    nerf_layer_wide: int = 256
+    skip: int = 3
     resolution0: int = 300
     resolution1: int = 300
     upsample_model_steps: tuple = ()
+    plenoxel_degree: int = 3
+    plenoxel_res: tuple = (128, 128, 128)
     # distillation
     distill_mode: str = "no_fix_mlp"  # fix_mlp | no_fix_mlp
     stage1_iters: int = 2000
@@ -149,6 +174,7 @@ class PVDConfig:
     ckpt_teacher: str = ""
     ckpt_student: str = ""
     update_stu_extra: bool = False  # refresh student occupancy in distill
+    enable_edit_plenoxel: bool = False  # plenoxel region-erase demo
     max_samples: int = 96
     samples_per_ray: float = 16.0
     autotune_budget: bool = True
@@ -163,6 +189,9 @@ class PVDConfig:
     wall_budget: float = 0.0
 
     def __post_init__(self):
+        if isinstance(self.plenoxel_res, str):
+            self.plenoxel_res = json.loads(self.plenoxel_res)
+        self.plenoxel_res = tuple(self.plenoxel_res)
         self.upsample_model_steps = tuple(self.upsample_model_steps)
 
     def model_spec(self, model_type: str | None = None) -> ModelSpec:
@@ -173,7 +202,19 @@ class PVDConfig:
             bound=self.bound,
             sigma_clip_min=self.sigma_clip_min,
             sigma_clip_max=self.sigma_clip_max,
+            pe_multires=self.PE,
+            nerf_layer_num=self.nerf_layer_num,
+            nerf_layer_wide=self.nerf_layer_wide,
+            skip=self.skip,
             vm_resolution=(self.resolution0,) * 3,
+            plenoxel_degree=self.plenoxel_degree,
+            # a plenoxel upsample schedule starts the volume at
+            # resolution0^3 (config.py:293-300); resizing is not ported
+            # yet, so the Trainer refuses such a schedule
+            plenoxel_res=((self.resolution0,) * 3
+                          if (self.model_type == "tensors"
+                              and self.upsample_model_steps)
+                          else tuple(self.plenoxel_res)),
             hash_cell_levels=self.hash_cell_levels,
             hash_bake_dense=self.hash_bake_dense,
             bg_radius=self.bg_radius,
@@ -220,12 +261,5 @@ class PVDConfig:
 UNPORTED = {
     "num_steps": (512, "A14"),
     "upsample_steps": (0, "A14"),
-    "PE": (10, "A12"),
-    "nerf_layer_num": (8, "A12"),
-    "nerf_layer_wide": (256, "A12"),
-    "skip": (3, "A12"),
-    "plenoxel_degree": (3, "A12"),
-    "plenoxel_res": ((128, 128, 128), "A12"),
-    "enable_edit_plenoxel": (False, "A12"),
     "mesh_shape": (None, "A17"),
 }

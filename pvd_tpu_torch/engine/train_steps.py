@@ -8,12 +8,14 @@
     flavor: the student renders with a perturbed march, the frozen teacher
     replays the student's compacted samples under `torch.no_grad()` (the
     JAX package's stop_gradient), the three-stage loss, then AdamW;
+  * the host-batcher teacher step (train_steps.py:350-453): the same
+    core, fed with pixel ids and GT pixels drawn on the host;
   * the occupancy refresh and the chunked full-image eval renderer
     (train_steps.py:621-731).
 
-The host-batcher, scan, error-map, EMA and data-parallel flavors are not
-ported yet (ROADMAP A9, A16, A17).  The state is updated in place: the
-trained field's parameters and the optimizer moments.
+The scan, error-map, EMA and data-parallel flavors are not ported yet
+(ROADMAP A16, A17).  The state is updated in place: the trained field's
+parameters and the optimizer moments.
 """
 
 from __future__ import annotations
@@ -147,25 +149,13 @@ def _zero_grads(field):
         p.grad = None
 
 
-def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
-                      cfg: PVDConfig, intrinsics, H: int, W: int,
-                      image_channels: int, device="cuda"):
-    """One teacher training step, single-step preload flavor
-    (train_steps.py:193-347, no error map, no EMA).
-
-    Returns step(state, pose [4, 4], image_flat [H*W, C], generator) ->
-    (state, metrics): it draws `cfg.num_rays` uniform pixels, then the
-    per-pixel background [N, 3] and the march perturbation u [N], all from
-    `generator`, gathers the pixels from `image_flat` (on the device) and
-    calls `step.core`, i.e. teacher_step_core(state, o, d, pix, bg, u) ->
-    (state, metrics): the color-space conversion, `compose_gt` (GT on white
-    and the field's own background when it has one), the loss,
-    its gradients (left in the field's `.grad`), one AdamW update and
-    step + 1.  Metrics: loss, psnr (of the batch against its gt),
-    budget_hit, mask_frac and, on the compacted path, compact_frac.
-    """
-    device = resolve_device(device)
-    intr = tuple(float(v) for v in intrinsics)
+def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
+                  cfg: PVDConfig, image_channels: int, device: torch.device):
+    """teacher_step_core(state, o, d, pix, bg, u) -> (state, metrics): the
+    color-space conversion, `compose_gt` (GT on white and the field's own
+    background when it has one), the loss, its gradients (left in the
+    field's `.grad`), one AdamW update and step + 1 (train_steps.py:
+    254-281, 382-409)."""
 
     def teacher_step_core(state: TrainState, o, d, pix, bg, u):
         _check_device(device, field=_param_device(state.field), rays_o=o,
@@ -189,6 +179,30 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
                 metrics["compact_frac"] = out["compact_frac"]
         return state, metrics
 
+    return teacher_step_core
+
+
+def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
+                      cfg: PVDConfig, intrinsics, H: int, W: int,
+                      image_channels: int, device="cuda"):
+    """One teacher training step, single-step preload flavor
+    (train_steps.py:193-347, no error map, no EMA).
+
+    Returns step(state, pose [4, 4], image_flat [H*W, C], generator) ->
+    (state, metrics): it draws `cfg.num_rays` uniform pixels, then the
+    per-pixel background [N, 3] and the march perturbation u [N], all from
+    `generator`, gathers the pixels from `image_flat` (on the device) and
+    calls `step.core`, i.e. teacher_step_core(state, o, d, pix, bg, u) ->
+    (state, metrics): the color-space conversion, `compose_gt` (GT on white
+    and the field's own background when it has one), the loss,
+    its gradients (left in the field's `.grad`), one AdamW update and
+    step + 1.  Metrics: loss, psnr (of the batch against its gt),
+    budget_hit, mask_frac and, on the compacted path, compact_frac.
+    """
+    device = resolve_device(device)
+    intr = tuple(float(v) for v in intrinsics)
+    core = _teacher_core(spec, rspec, opt, cfg, image_channels, device)
+
     def step(state: TrainState, pose, image_flat, generator: torch.Generator):
         pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
         inds = random_pixels(generator, cfg.num_rays, H, W, device)
@@ -197,10 +211,60 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
         n = inds.shape[0]
         bg = torch.rand(n, 3, generator=generator, device=device)
         u = torch.rand(n, generator=generator, device=device)
-        return teacher_step_core(state, rays["rays_o"][0].contiguous(),
-                                 rays["rays_d"][0].contiguous(), pix, bg, u)
+        return core(state, rays["rays_o"][0].contiguous(),
+                    rays["rays_d"][0].contiguous(), pix, bg, u)
 
-    step.core = teacher_step_core
+    step.core = core
+    return step
+
+
+def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
+                           opt: GroupedAdamW, cfg: PVDConfig, intrinsics,
+                           H: int, W: int, image_channels: int,
+                           device="cuda"):
+    """One teacher step fed by the host batcher (`data/raybatch.py`, the
+    preload=False path; train_steps.py:350-453, single step, no error map,
+    no EMA).
+
+    Returns step(state, pose [4, 4], inds [N], pix [N, C], generator) ->
+    (state, metrics): the batch's pixel ids and GT pixels come from the
+    host (numpy or tensors; copied to the device through pinned memory
+    here, so the host does not wait for the queued steps), the
+    rays from `step.rays(pose, inds)` (`pixel_dirs` rotated by the pose),
+    then the per-pixel background [N, 3] and the march perturbation u [N]
+    are drawn from `generator` and `step.core` (make_teacher_step's
+    core: the same loss and AdamW step) runs.
+    """
+    device = resolve_device(device)
+    intr = tuple(float(v) for v in intrinsics)
+    core = _teacher_core(spec, rspec, opt, cfg, image_channels, device)
+
+    def upload(a, dtype):
+        """A host batch array on the device.  A copy from pageable memory
+        would wait for the stream's queued work; from a pinned buffer of
+        the caching host allocator (which keeps it until the copy is
+        done) the host goes on queueing the step."""
+        t = torch.as_tensor(a, dtype=dtype)
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    def rays(pose, inds):
+        pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
+        inds = upload(inds, torch.int32).long()
+        d = rotate(pixel_dirs(intr, inds, H, W), pose[:3, :3])
+        return pose[:3, 3].expand_as(d).contiguous(), d.contiguous()
+
+    def step(state: TrainState, pose, inds, pix, generator: torch.Generator):
+        o, d = rays(pose, inds)
+        pix = upload(pix, torch.float32)
+        n = o.shape[0]
+        bg = torch.rand(n, 3, generator=generator, device=device)
+        u = torch.rand(n, generator=generator, device=device)
+        return core(state, o, d, pix, bg, u)
+
+    step.rays = rays
+    step.core = core
     return step
 
 
@@ -286,6 +350,11 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
     """
     if stage not in (1, 2, 3):
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
+    if stage == 1 and "tensors" in (spec_stu.model_type,
+                                    spec_tea.model_type):
+        raise ValueError("stage 1 has no loss when either side is a "
+                         "plenoxel field (it has no fea_sc): the Trainer "
+                         "and the CLI skip it (stage1_iters = 0)")
     device = resolve_device(device)
     intr = tuple(float(v) for v in intrinsics)
 

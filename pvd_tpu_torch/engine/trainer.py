@@ -1,22 +1,29 @@
 """Host-side training orchestrator (port of pvd_tpu/engine/trainer.py).
 
-One device, preloaded images, single steps, in two modes
-(trainer.py:60-277, 417-470, 569-1126):
+One device, single steps, any of the four fields (hash, mlp, vm,
+tensors) as teacher or student, in two modes (trainer.py:60-277, 417-470,
+569-1126):
 
-  mode="teacher": train a hash (INGP) field against the images:
+  mode="teacher": train a field against the images:
     mark_untrained_grid -> per step: autotune tick, occupancy refresh every
     `update_extra_interval` steps (full sweeps while fewer than 16 updates
-    have run, then partial), one teacher step on a random training image.
+    have run, then partial), one teacher step on a training image: with
+    `preload` a random image resident on the device, else a batch of the
+    host batcher (`data/raybatch.RayBatcher`: image, pixel ids and GT
+    pixels drawn on the host and copied over, trainer.py:656-668).
     The first 16 x update_extra_interval steps render uncompacted (the
     padded [N, S] path) while the fresh grid converges; at the first
     autotune tick after them the sample budget turns on.
-  mode="distill": a frozen hash teacher (`load_teacher`, a checkpoint file;
-    baked with `hash_bake_dense`, as the JAX package's attach_packed does)
-    and a VM student warm-started from the teacher's shared heads; the
-    student inherits the teacher's occupancy grid and does not refresh it
-    unless `update_stu_extra`; each epoch draws fresh random poses
+  mode="distill": a frozen teacher (`load_teacher`, a checkpoint file; a
+    hash teacher baked with `hash_bake_dense`, as the JAX package's
+    attach_packed does) and a student warm-started from every teacher
+    leaf whose path and shape match (the shared heads); the student
+    inherits the teacher's occupancy grid and does not refresh it unless
+    `update_stu_extra`; each epoch draws fresh random poses
     (`data/poses.get_rand_poses`); stages 1 -> 2 -> 3 switch at
-    `stage1_iters` / `stage2_iters`; cosine learning-rate schedules.
+    `stage1_iters` / `stage2_iters` (stage 1 skipped when either side is a
+    plenoxel field, which has no feature to distill); cosine learning-rate
+    schedules.  An MLP field trains at 0.1 x lr (trainer.py:88).
 
 Both modes run in epochs (the training images, or one epoch's random
 poses), write step checkpoints over the last two epochs and at the end,
@@ -33,14 +40,15 @@ occupancy cascades), the geometric march (dt_gamma > 0) and the background
 model (bg_radius > 0), which both fields then own and train.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-EMA, the error map, scan steps, data parallelism, the host batcher, VM
-resizing, teachers other than hash and students other than VM (ROADMAP
-A12-A17).  Real LPIPS needs pretrained weights that neither machine has;
-like the JAX package without them, `evaluate` reports the proxy.
+EMA, the error map, scan steps, data parallelism and VM or plenoxel
+resizing (ROADMAP A12, A16, A17).  Real LPIPS needs pretrained weights
+that neither machine has; like the JAX package without them, `evaluate`
+reports the proxy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -52,6 +60,7 @@ import torch
 from pvd_tpu_torch.config import PVDConfig
 from pvd_tpu_torch.data.png import write_png
 from pvd_tpu_torch.data.poses import get_rand_poses, rand_orbit_poses
+from pvd_tpu_torch.data.raybatch import RayBatcher
 from pvd_tpu_torch.device import resolve_device
 from pvd_tpu_torch.engine import checkpoint as ckpt
 from pvd_tpu_torch.engine.autotune import retune
@@ -60,11 +69,10 @@ from pvd_tpu_torch.engine.optim import (build_optimizer, cosine_schedule,
 from pvd_tpu_torch.engine.train_steps import (TrainState, make_distill_step,
                                               make_eval_renderer,
                                               make_occ_update,
-                                              make_teacher_step)
+                                              make_teacher_step,
+                                              make_teacher_step_host)
 from pvd_tpu_torch.models.api import param_group_label, trainable_label
-from pvd_tpu_torch.models.hash_field import HashField
-from pvd_tpu_torch.models.vm_field import VMField
-from pvd_tpu_torch.params import field_from_tree, tree_from_field
+from pvd_tpu_torch.params import field_from_tree, new_field, tree_from_field
 from pvd_tpu_torch.render.occupancy import (draw_occ_inputs,
                                             init_occupancy_state,
                                             mark_untrained_grid)
@@ -78,31 +86,18 @@ def _unported(what: str, item: str):
                               f"(ROADMAP {item})")
 
 
-def _check_cfg(cfg: PVDConfig, mode: str):
-    if mode == "teacher":
-        roles = ((cfg.model_type != "hash", f"model_type {cfg.model_type!r} "
-                  "as a teacher", "A12"),
-                 (not cfg.preload, "the host batcher (preload=False)", "A15"))
-    else:
-        roles = ((cfg.teacher_type != "hash", f"teacher_type "
-                  f"{cfg.teacher_type!r}", "A12"),
-                 (cfg.model_type != "vm", f"a {cfg.model_type!r} student "
-                  "(only vm)", "A12"))
-    checks = roles + (
+def _check_cfg(cfg: PVDConfig):
+    checks = (
         (cfg.ema_decay > 0, "EMA (ema_decay > 0)", "A16"),
         (cfg.error_map, "the error map", "A16"),
         (cfg.scan_steps > 1, "scan steps", "A16"),
         (cfg.n_devices != 1, "data parallelism (n_devices != 1)", "A17"),
-        (bool(cfg.upsample_model_steps), "VM resizing", "A12"),
+        (bool(cfg.upsample_model_steps), "VM and plenoxel resizing "
+         "(upsample_model_steps)", "A12"),
     )
     for bad, what, item in checks:
         if bad:
             _unported(what, item)
-
-
-def _new_field(spec, device, gen):
-    return (HashField if spec.model_type == "hash" else VMField)(
-        spec, device=device, generator=gen)
 
 
 class _PhaseClock:
@@ -131,21 +126,27 @@ class _PhaseClock:
 
 
 class Trainer:
-    """Trains a hash teacher (mode "teacher") or distills a frozen hash
-    teacher into a VM student (mode "distill").
+    """Trains a teacher (mode "teacher") or distills a frozen teacher into
+    a student (mode "distill"), each of any of the four fields.
 
     `device` defaults to CUDA and raises without a GPU unless "cpu" is
     passed.  The trained field's initial weights come from `cfg.seed`; the
     steps' and occupancy updates' draws from a `torch.Generator` seeded
     with `cfg.seed + 1`; the image order and the distillation poses from
-    `np.random.default_rng(cfg.seed)` (the JAX Trainer's host draws).
+    `np.random.default_rng(cfg.seed)` (the JAX Trainer's host draws); the
+    host batcher's from its own producer seeded with `cfg.seed`.
     """
 
     def __init__(self, cfg: PVDConfig, mode: str = "teacher",
                  name: Optional[str] = None, device="cuda"):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        _check_cfg(cfg, mode)
+        _check_cfg(cfg)
+        if mode == "distill" and cfg.stage1_iters and "tensors" in (
+                cfg.model_type, cfg.teacher_type):
+            # a plenoxel side has no fea_sc: stage 1 has nothing to distill
+            # (main_distill_mutual.py:243-246)
+            cfg = dataclasses.replace(cfg, stage1_iters=0)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mode = mode
@@ -160,10 +161,10 @@ class Trainer:
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(cfg.seed)
             gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
-            field = _new_field(self.spec_stu, self.device, gen)
+            field = new_field(self.spec_stu, self.device, gen)
             # distill: a random teacher until load_teacher, as in the JAX
             # package
-            self.teacher = (_new_field(self.spec_tea, self.device, gen)
+            self.teacher = (new_field(self.spec_tea, self.device, gen)
                             .requires_grad_(False)
                             if mode == "distill" else None)
         self.occ_tea = (init_occupancy_state(self.rspec, self.device)
@@ -300,11 +301,13 @@ class Trainer:
             self.spec_tea, self.rspec, chunk=self.cfg.max_ray_batch,
             device=self.device) if self.mode == "distill" else None)
 
-    def _get_step_fn(self, stage: int, H: int, W: int, C: int, intr):
-        key = (stage, H, W, C)
+    def _get_step_fn(self, stage: int, H: int, W: int, C: int, intr,
+                     host: bool = False):
+        key = (stage, H, W, C, host)
         if key not in self._steps:
             if self.mode == "teacher":
-                self._steps[key] = make_teacher_step(
+                make = make_teacher_step_host if host else make_teacher_step
+                self._steps[key] = make(
                     self.spec_stu, self.rspec, self.opt, self.cfg, intr, H,
                     W, image_channels=C, device=self.device)
             else:
@@ -398,6 +401,11 @@ class Trainer:
         checkpoint seconds, rays/s, and the host-clock ms per step of each
         phase (teacher: padded and compacted; distill: stage1-3) and per
         full and partial occupancy update."""
+        # the host batcher's threads stop when training ends, or raises
+        with contextlib.ExitStack() as stack:
+            return self._train(stack, train_ds, valid_ds, max_steps)
+
+    def _train(self, stack, train_ds, valid_ds, max_steps):
         cfg = self.cfg
         total = max_steps or cfg.iters
         H, W = train_ds.H, train_ds.W
@@ -419,12 +427,20 @@ class Trainer:
         def as_dev(a):
             return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
+        batcher = None
         if teacher_mode:
             self.state.occ = mark_untrained_grid(
                 self.state.occ, train_ds.poses, intr, self.rspec)
             poses = as_dev(train_ds.poses)
-            images = as_dev(train_ds.images_flat())
-            C = int(images.shape[-1])
+            C = int(train_ds.images.shape[-1])
+            if cfg.preload:
+                images = as_dev(train_ds.images_flat())
+            else:
+                # host-side batch assembly (trainer.py:656-668)
+                batcher = stack.enter_context(contextlib.closing(
+                    RayBatcher(train_ds.images, cfg.num_rays,
+                               seed=cfg.seed)))
+                self.log("[data] host batching (native)")
             phases = ("padded", "compacted")
         else:
             poses = as_dev(self._distill_epoch_poses(rng_np, train_ds))
@@ -463,8 +479,15 @@ class Trainer:
                     clock.phase = phase
                 idx = int(rng_np.integers(0, len(poses)))
                 stage = self._stage_of(step)
-                step_fn = self._get_step_fn(stage, H, W, C, intr)
-                if teacher_mode:
+                step_fn = self._get_step_fn(stage, H, W, C, intr,
+                                            host=batcher is not None)
+                if batcher is not None:
+                    # the batch's image replaces the host draw above, as in
+                    # the JAX package
+                    idx, inds, pix = batcher.next()
+                    self.state, metrics = step_fn(self.state, poses[idx],
+                                                  inds, pix, self.generator)
+                elif teacher_mode:
                     self.state, metrics = step_fn(self.state, poses[idx],
                                                   images[idx], self.generator)
                 else:
@@ -526,6 +549,8 @@ class Trainer:
                 self.train_stats[f"occ_{kind}_updates"] = n
                 self.train_stats[f"occ_{kind}_ms"] = \
                     secs / n * 1e3 if n else None
+            if teacher_mode:
+                self.train_stats["host_batcher"] = batcher is not None
             self.log(f"[{self.name}] e2e throughput: {self.train_stats}")
         self.save()
         return self.state

@@ -1,10 +1,12 @@
 """Field-network interface over the four architectures (port of
 pvd_tpu/models/api.py:42-137).
 
-The hash and VM fields are ported; the others raise with the ROADMAP item
-that ports them.  Parameter paths are the port's parameter names split at
-the dots (`planes.0`, `basis_mat`, `color_net.1.weight`, `bg.encoder`):
-their first element names the same part as the JAX package's pytree path.
+`field_forward` and `field_density` dispatch on `spec.model_type`: the
+hash and MLP fields ignore `aabb` (they use the cubic bound), the VM and
+plenoxel fields map positions through it.  Parameter paths are the port's
+parameter names split at the dots (`planes.0`, `basis_mat`,
+`color_net.1.weight`, `bg.encoder`): their first element names the same
+part as the JAX package's pytree path.
 
 The background sphere model (`bg_radius > 0`, any field) is `Background`:
 a 2-D hash grid over the polar coordinates of the point where a ray leaves
@@ -27,34 +29,21 @@ from pvd_tpu_torch.ops.aabb import polar01_from_ray
 from pvd_tpu_torch.ops.hashgrid import HashGridSpec, hash_encode
 from pvd_tpu_torch.ops.sh import sh_encode
 
-_PENDING = {
-    "mlp": "ROADMAP A12 (other fields)",
-    "tensors": "ROADMAP A12 (other fields)",
-}
-
-
-def _check(spec: ModelSpec):
-    if spec.model_type not in ("hash", "vm"):
-        raise NotImplementedError(
-            f"model_type {spec.model_type!r} is not ported yet: "
-            f"{_PENDING[spec.model_type]}")
+# the fields whose queries map positions through the aabb
+_AABB_FIELDS = ("vm", "tensors")
 
 
 def field_forward(field, spec: ModelSpec, x, d, aabb,
                   want_color: bool = True) -> FieldOut:
-    """x: [N, 3] in [-bound, bound]; d: [N, 3] unit directions.  The hash
-    field ignores `aabb` (it uses the cubic bound); the VM field maps x
-    through it."""
-    _check(spec)
-    if spec.model_type == "vm":
+    """x: [N, 3] in [-bound, bound]; d: [N, 3] unit directions."""
+    if spec.model_type in _AABB_FIELDS:
         return field(x, d, aabb, want_color)
     return field(x, d, want_color)
 
 
 def field_density(field, spec: ModelSpec, x, aabb):
     """Density-only query for occupancy-grid upkeep."""
-    _check(spec)
-    if spec.model_type == "vm":
+    if spec.model_type in _AABB_FIELDS:
         return field.density(x, aabb)
     return field.density(x)
 

@@ -6,6 +6,9 @@ it with numpy (or any array-protocol) leaves, so no JAX is needed here:
     "color_net": [...]}, and "encoder_cell": [Tc, 16] in cell mode; keys
     starting with "_" (the TPU's packed and baked gather tables) are
     ignored;
+  * MLP field: {"nerf_mlp": [{"w": [in, out], "b": [out]}, ...],
+    "sigma_net": [...], "color_net": [...]};
+  * plenoxel field: {"volume": [D, H, W, 1 + 3 deg^2]};
   * VM field: {"sigma_mat": 3 x [res[m1], res[m0], Rs], "sigma_vec":
     3 x [res[v], Rs], "color_mat", "color_vec" likewise with Rc,
     "basis_mat": {"w": [3 * Rc, geo]}, "color_net": [...]};
@@ -23,11 +26,24 @@ import torch
 from pvd_tpu_torch.config import ModelSpec
 from pvd_tpu_torch.device import resolve_device
 from pvd_tpu_torch.models.hash_field import HashField
+from pvd_tpu_torch.models.mlp_field import MLPField
+from pvd_tpu_torch.models.tensors_field import TensorsField
 from pvd_tpu_torch.models.vm_field import VMField
 from pvd_tpu_torch.render.occupancy import OccupancyState
 
+FIELDS = {"hash": HashField, "mlp": MLPField, "vm": VMField,
+          "tensors": TensorsField}
+
+
+def new_field(spec: ModelSpec, device="cuda",
+              generator: torch.Generator | None = None):
+    """A freshly initialized field of `spec.model_type` (api.py:42-49)."""
+    return FIELDS[spec.model_type](spec, device=device, generator=generator)
+
 
 def _load_mlp(layers, tree_layers, name: str):
+    """Copy JAX Linear layers ({"w": [in, out]} and, where the field's
+    layer has a bias, "b": [out]) into `layers`."""
     if len(layers) != len(tree_layers):
         raise ValueError(f"{name}: {len(tree_layers)} layers, field has "
                          f"{len(layers)}")
@@ -36,9 +52,24 @@ def _load_mlp(layers, tree_layers, name: str):
         if w.shape != (lin.in_features, lin.out_features):
             raise ValueError(f"{name}[{i}].w has shape {w.shape}, expected "
                              f"{(lin.in_features, lin.out_features)}")
-        if "b" in p:
-            raise ValueError(f"{name}[{i}] has a bias; the heads have none")
+        if ("b" in p) != (lin.bias is not None):
+            raise ValueError(f"{name}[{i}]: a bias in the tree but not in "
+                             "the field, or the other way round")
         lin.weight.data.copy_(torch.from_numpy(w.T.copy()))
+        if lin.bias is not None:
+            lin.bias.data.copy_(torch.from_numpy(
+                _leaf(p["b"], lin.bias.shape, f"{name}[{i}].b")))
+
+
+def _mlp_tree(layers, grad: bool) -> list:
+    """JAX Linear layers of `layers` (their `.grad` when `grad`)."""
+    out = []
+    for lin in layers:
+        p = {"w": _val(lin.weight, grad).T.copy()}
+        if lin.bias is not None:
+            p["b"] = _val(lin.bias, grad)
+        out.append(p)
+    return out
 
 
 def _load_bg(field, tree):
@@ -56,8 +87,7 @@ def _load_bg(field, tree):
 
 def _bg_tree(field, grad: bool):
     return {"encoder": _val(field.bg.encoder, grad),
-            "net": [{"w": _val(lin.weight, grad).T.copy()}
-                    for lin in field.bg.net]}
+            "net": _mlp_tree(field.bg.net, grad)}
 
 
 def hash_field_from_jax(tree, spec: ModelSpec, device="cuda") -> HashField:
@@ -97,10 +127,8 @@ def hash_tree_from_field(field: HashField, grad: bool = False) -> dict:
     parameters, or of their `.grad` when `grad` (zeros where None)."""
     tree = {
         "encoder": _val(field.encoder, grad),
-        "sigma_net": [{"w": _val(lin.weight, grad).T.copy()}
-                      for lin in field.sigma_net],
-        "color_net": [{"w": _val(lin.weight, grad).T.copy()}
-                      for lin in field.color_net],
+        "sigma_net": _mlp_tree(field.sigma_net, grad),
+        "color_net": _mlp_tree(field.color_net, grad),
     }
     if field.encoder_cell is not None:
         tree["encoder_cell"] = _val(field.encoder_cell, grad)
@@ -158,9 +186,51 @@ def vm_tree_from_field(field: VMField, grad: bool = False) -> dict:
         "color_mat": [p[..., Rs:].copy() for p in planes],
         "color_vec": [v[..., Rs:].copy() for v in lines],
         "basis_mat": {"w": val(field.basis_mat).copy()},
-        "color_net": [{"w": val(lin.weight).T.copy()}
-                      for lin in field.color_net],
+        "color_net": _mlp_tree(field.color_net, grad),
     }
+    if field.bg is not None:
+        tree["bg"] = _bg_tree(field, grad)
+    return tree
+
+
+def mlp_field_from_jax(tree, spec: ModelSpec, device="cuda") -> MLPField:
+    """MLPField holding the JAX params `tree` (see module docstring)."""
+    field = MLPField(spec, device=resolve_device(device))
+    with torch.no_grad():
+        _load_mlp(field.nerf_mlp, tree["nerf_mlp"], "nerf_mlp")
+        _load_mlp(field.sigma_net, tree["sigma_net"], "sigma_net")
+        _load_mlp(field.color_net, tree["color_net"], "color_net")
+        _load_bg(field, tree)
+    return field
+
+
+def mlp_tree_from_field(field: MLPField, grad: bool = False) -> dict:
+    """The JAX package's MLP pytree (numpy leaves) of an MLPField's
+    parameters, or of their `.grad` when `grad` (zeros where None)."""
+    tree = {"nerf_mlp": _mlp_tree(field.nerf_mlp, grad),
+            "sigma_net": _mlp_tree(field.sigma_net, grad),
+            "color_net": _mlp_tree(field.color_net, grad)}
+    if field.bg is not None:
+        tree["bg"] = _bg_tree(field, grad)
+    return tree
+
+
+def tensors_field_from_jax(tree, spec: ModelSpec,
+                           device="cuda") -> TensorsField:
+    """TensorsField holding the JAX params `tree` (see module
+    docstring)."""
+    field = TensorsField(spec, device=resolve_device(device))
+    with torch.no_grad():
+        field.volume.copy_(torch.from_numpy(_leaf(
+            tree["volume"], field.volume.shape, "volume")))
+        _load_bg(field, tree)
+    return field
+
+
+def tensors_tree_from_field(field: TensorsField, grad: bool = False) -> dict:
+    """The JAX package's plenoxel pytree (numpy leaves) of a TensorsField's
+    volume, or of its `.grad` when `grad` (zeros where None)."""
+    tree = {"volume": _val(field.volume, grad)}
     if field.bg is not None:
         tree["bg"] = _bg_tree(field, grad)
     return tree
@@ -183,18 +253,18 @@ def occupancy_from_jax(state, device="cuda") -> OccupancyState:
     )
 
 
+_FROM_JAX = {"hash": hash_field_from_jax, "mlp": mlp_field_from_jax,
+             "vm": vm_field_from_jax, "tensors": tensors_field_from_jax}
+_TO_JAX = {HashField: hash_tree_from_field, MLPField: mlp_tree_from_field,
+           VMField: vm_tree_from_field, TensorsField: tensors_tree_from_field}
+
+
 def field_from_tree(tree, spec: ModelSpec, device="cuda"):
     """The field of `spec.model_type` holding the JAX pytree `tree`."""
-    if spec.model_type == "hash":
-        return hash_field_from_jax(tree, spec, device)
-    if spec.model_type == "vm":
-        return vm_field_from_jax(tree, spec, device)
-    raise NotImplementedError(f"model_type {spec.model_type!r} is not "
-                              "ported yet (ROADMAP A12)")
+    return _FROM_JAX[spec.model_type](tree, spec, device)
 
 
 def tree_from_field(field, grad: bool = False) -> dict:
-    """The JAX pytree (numpy leaves) of a hash or VM field."""
-    if isinstance(field, HashField):
-        return hash_tree_from_field(field, grad)
-    return vm_tree_from_field(field, grad)
+    """The JAX pytree (numpy leaves) of a field, or of its gradients when
+    `grad`."""
+    return _TO_JAX[type(field)](field, grad)

@@ -162,14 +162,17 @@ def test_to_config_matches_jax(scene):
     argv = [scene, "--iters", "77", "--hash_cell_levels", "9",
             "--hash_bake_dense", "--no_autotune_budget", "--ckpt", "scratch",
             "--downscale", "2", "--resolution1", "400", "--wall_budget",
-            "30", "--upsample_model_steps", "5", "--model_type", "vm"]
+            "30", "--upsample_model_steps", "5", "--model_type", "vm",
+            "--PE", "6", "--nerf_layer_wide", "64", "--skip", "2",
+            "--plenoxel_res", "[10,12,14]", "--plenoxel_degree", "2",
+            "--enable_edit_plenoxel"]
     want = j_common.to_config(j_common.base_parser(True).parse_args(argv))
     got = common.to_config(common.base_parser(True).parse_args(argv))
     for k, v in json.loads(got.to_json()).items():
         assert json.loads(want.to_json())[k] == v, k
-    with pytest.raises(NotImplementedError, match="PE.*ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="num_steps.*ROADMAP A14"):
         common.to_config(common.base_parser(True).parse_args(
-            [scene, "--PE", "4"]))
+            [scene, "--num_steps", "64"]))
 
 
 @pytest.mark.parametrize("text", ["", "stage1=10,stage2=20",

@@ -239,8 +239,7 @@ def test_lpips_proxy_matches_jax():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("PE", 4, "A12"), ("plenoxel_res", [12, 12, 12], "A12"),
-    ("enable_edit_plenoxel", True, "A12"), ("num_steps", 64, "A14"),
+    ("upsample_steps", 8, "A14"), ("num_steps", 64, "A14"),
     ("mesh_shape", [2, 2], "A17")])
 def test_from_json_raises_for_unported_options(field, value, item):
     """A JAX config that sets an option the port lacks raises, naming the
@@ -258,7 +257,10 @@ def test_from_json_loads_the_ported_options():
     keys neither package has are dropped."""
     want = JPVDConfig(hash_bake_dense=True, hash_cell_levels=9, path="/s",
                       ckpt="scratch", downscale=2, resolution1=512,
-                      wall_budget=60.0, tensorboard=False)
+                      wall_budget=60.0, tensorboard=False, PE=6,
+                      nerf_layer_num=5, nerf_layer_wide=64, skip=2,
+                      plenoxel_degree=2, plenoxel_res=(12, 14, 16),
+                      enable_edit_plenoxel=True)
     raw = json.loads(want.to_json())
     raw["no_such_option"] = 1
     got = PVDConfig.from_json(json.dumps(raw))

@@ -10,14 +10,18 @@ import pytest
 import torch
 
 from pvd_tpu_torch.cli import distill as distill_cli
+from pvd_tpu_torch.cli import train_teacher as teacher_cli
 from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
 from pvd_tpu_torch.engine.checkpoint import load_checkpoint
 from pvd_tpu_torch.engine.train_steps import (make_distill_step,
                                               make_eval_renderer,
                                               make_occ_update,
-                                              make_teacher_step)
+                                              make_teacher_step,
+                                              make_teacher_step_host)
 from pvd_tpu_torch.engine.trainer import Trainer
 from pvd_tpu_torch.models.hash_field import HashField
+from pvd_tpu_torch.models.mlp_field import MLPField
+from pvd_tpu_torch.models.tensors_field import TensorsField
 from pvd_tpu_torch.models.vm_field import VMField
 from pvd_tpu_torch.ops.composite import (composite_rays,
                                          composite_rays_bwd,
@@ -31,7 +35,10 @@ from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
                                         hash_encode_cell_fwd, hash_encode_fwd)
 from pvd_tpu_torch.ops.vm_sample import (vm_sample, vm_sample_bwd,
                                          vm_sample_fwd)
-from pvd_tpu_torch.params import vm_field_from_jax, vm_tree_from_field
+from pvd_tpu_torch.params import (mlp_field_from_jax, mlp_tree_from_field,
+                                  tensors_field_from_jax,
+                                  tensors_tree_from_field, vm_field_from_jax,
+                                  vm_tree_from_field)
 from pvd_tpu_torch.render.occupancy import init_occupancy_state
 from pvd_tpu_torch.render.renderer import march_rays
 
@@ -67,6 +74,22 @@ def test_new_modules_are_checked():
     # the distillation CLI's
     assert {f"pvd_tpu_torch/{m}.py" for m in (
         "cli/common", "cli/distill", "data/png", "data/provider")} <= names
+    # the teacher CLI's and the MLP and plenoxel fields'
+    assert {f"pvd_tpu_torch/{m}.py" for m in (
+        "cli/train_teacher", "data/raybatch", "ops/freq", "ops/grid_sample",
+        "models/mlp_field", "models/tensors_field")} <= names
+
+
+def test_native_batcher_source_is_the_ports_own():
+    """The host batcher builds its own copy of the producer (csrc/), not the
+    JAX package's native/ files."""
+    from pvd_tpu_torch.data import raybatch
+
+    assert raybatch.SOURCE == ROOT / "pvd_tpu_torch" / "csrc" / \
+        "raybatch.cpp"
+    assert raybatch.BUILD_DIR == ROOT / "build" / "raybatch"
+    text = (ROOT / "pvd_tpu_torch" / "data" / "raybatch.py").read_text()
+    assert "native/" not in text.replace("native/raybatch.cpp", "")
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -91,6 +114,9 @@ def test_no_jax_imports(path):
 SMALL = ModelSpec(hash_num_levels=4, hash_log2_size=14, hash_desired_res=128)
 VM = ModelSpec(model_type="vm", vm_sigma_rank=2, vm_color_rank=3,
                vm_resolution=(4, 5, 6))
+MLP = ModelSpec(model_type="mlp", nerf_layer_num=3, nerf_layer_wide=8,
+                pe_multires=2, skip=0)
+TENSORS = ModelSpec(model_type="tensors", plenoxel_res=(4, 5, 6))
 RSPEC = RenderSpec(grid_size=32, max_steps=128, samples_per_ray=4)
 
 
@@ -117,11 +143,26 @@ def _vm_tree():
     lambda: load_checkpoint("no_such_file.ckpt"),
     lambda: distill_cli.main(["no_such_scene", "--model_type", "vm",
                               "--test"]),
+    lambda: MLPField(MLP),
+    lambda: TensorsField(TENSORS),
+    lambda: mlp_field_from_jax(mlp_tree_from_field(MLPField(MLP, "cpu")),
+                               MLP),
+    lambda: tensors_field_from_jax(
+        tensors_tree_from_field(TensorsField(TENSORS, "cpu")), TENSORS),
+    lambda: make_teacher_step_host(MLP, RSPEC, None, PVDConfig(),
+                                   (1, 1, 1, 1), 4, 4, image_channels=4),
+    lambda: Trainer(PVDConfig(model_type="tensors", preload=False)),
+    lambda: Trainer(PVDConfig(model_type="mlp", teacher_type="tensors"),
+                    mode="distill"),
+    lambda: teacher_cli.main(["no_such_scene", "--model_type", "mlp",
+                              "--test"]),
 ], ids=["HashField", "make_occ_update", "make_eval_renderer",
         "init_occupancy_state", "VMField", "vm_field_from_jax",
         "make_distill_step", "make_teacher_step", "Trainer",
         "Trainer-distill", "HashField-cell", "load_checkpoint",
-        "distill-cli"])
+        "distill-cli", "MLPField", "TensorsField", "mlp_field_from_jax",
+        "tensors_field_from_jax", "make_teacher_step_host",
+        "Trainer-host-batcher", "Trainer-tensors2mlp", "teacher-cli"])
 def test_entry_points_need_a_gpu_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

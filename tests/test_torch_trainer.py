@@ -90,8 +90,7 @@ def test_warmup_ends_with_the_sample_budget(scene, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     dict(ema_decay=0.95), dict(error_map=True), dict(scan_steps=4),
-    dict(n_devices=2), dict(preload=False), dict(upsample_model_steps=(5,)),
-    dict(model_type="vm")],
+    dict(n_devices=2), dict(upsample_model_steps=(5,))],
     ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -114,12 +113,12 @@ def test_wall_budget_ends_at_an_epoch_boundary(scene, tmp_path):
 
 
 def test_unported_modes_and_methods_raise(scene, tmp_path):
-    """Distillation takes a hash teacher and a VM student only; evaluate
-    writes each view's image and depth PNG, and a video only where
-    imageio has a codec."""
-    for kw in (dict(), dict(model_type="mlp"),
-               dict(model_type="vm", teacher_type="vm"),
-               dict(model_type="vm", ema_decay=0.9),
+    """Distillation raises for EMA and resizing, whatever the pair;
+    evaluate writes each view's image and depth PNG, and a video only
+    where imageio has a codec."""
+    for kw in (dict(model_type="vm", ema_decay=0.9),
+               dict(model_type="mlp", teacher_type="tensors",
+                    error_map=True),
                dict(model_type="vm", upsample_model_steps=(5,))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(PVDConfig(**kw), mode="distill", device="cpu")
