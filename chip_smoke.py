@@ -3,13 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --host-ab OTHER_CHECKOUT
-    python3 chip_smoke.py --field-runs
 
 The second form only times the A/B recipe's teacher (phase 6) in this
 checkout and another one in turn, with a host profile of each (`host_ab`).
-The third only runs the new fields' spread checks (`field_runs`): the MLP
-teacher's first 600 steps for three seeds, preloaded and host-batched,
-and phase 11's mlp -> tensors student three times on one teacher.
 
 1. Builds the CUDA kernels from pvd_tpu_torch/csrc (nvcc, sm_90a).
 2. Drives the serving path at the full INGP width (14 levels x 2, 2^19
@@ -2283,7 +2279,7 @@ def host_step_profiles(run: dict, name: str, label: str) -> dict:
     ds = NeRFDataset(cfg, "train")
     poses = torch.as_tensor(ds.poses, device=tr.device)
     batcher = RayBatcher(ds.images, cfg.num_rays, seed=cfg.seed)
-    out = {"batcher_native": batcher.is_native}
+    out = {}
     flavors = {"padded": dataclasses.replace(tr.rspec, samples_per_ray=0.0),
                "compacted": tr.rspec}
     try:
@@ -2345,7 +2341,6 @@ def drive_teacher_cli(seed: int, workspace: str, scene: str,
             "test_reload_psnr": run["test_psnr"], "api_psnr": pa,
             "train_s": run["train_s"], "test_s": run["test_s"],
             "host_batcher": st["host_batcher"],
-            "batcher_native": prof["batcher_native"],
             "ms_per_step": {k: (st[f"{k}_ms_per_step"],
                                 api[f"{k}_ms_per_step"])
                             for k in ("padded", "compacted")},
@@ -2353,7 +2348,7 @@ def drive_teacher_cli(seed: int, workspace: str, scene: str,
                             if k.startswith(("train_", "padded",
                                              "compacted", "occ_"))},
             "launches": run["launches"], "step_profiles": prof}
-    log(f"teacher CLI (host batcher, native {prof['batcher_native']}): "
+    log(f"teacher CLI (host batcher {st['host_batcher']}): "
         f"test PSNR {pt:.3f} dB against the Python-API A/B teacher's "
         f"{pa:.3f}; ms per step padded {st['padded_ms_per_step']:.3f} "
         f"(API {api['padded_ms_per_step']:.3f}), compacted "
@@ -4414,55 +4409,6 @@ print(json.dumps({
 """
 
 
-def field_runs(seed: int) -> int:
-    """How the MLP teacher leaves its flat start, and the spread of a
-    student: the MLP teacher through the Trainer on the A/B scene
-    (FIELD_TEACHER's settings) for 600 steps at seeds seed..seed+2, each
-    on preloaded and on host-batched batches, logging the batch PSNR and
-    mask_frac every 100 steps; then phase 11's MLP teacher through the
-    teacher CLI and its mlp -> tensors student through the distill CLI
-    three times.  Prints one JSON line."""
-    dev = torch.device("cuda")
-    scene = make_synthetic_scene(**AB_SCENE, seed=seed,
-                                 scale=PVDConfig().scale)
-    starts = {}
-    for s in range(seed, seed + 3):
-        for preload in (True, False):
-            with tempfile.TemporaryDirectory(prefix="pvd_runs_") as ws:
-                kw = {k: v for k, v in FIELD_TEACHER.items()
-                      if k != "preload"}
-                tr = Trainer(PVDConfig(**kw, model_type="mlp", seed=s,
-                                       preload=preload, workspace=ws))
-                tr.train(scene["train"], max_steps=600)
-            row = [(i, float(tr.history[i]["psnr"]),
-                    float(tr.history[i]["mask_frac"]))
-                   for i in range(0, 600, 100)]
-            starts[f"seed{s}_{'preload' if preload else 'host'}"] = row
-            brief = [(i, round(p, 2), round(m, 3)) for i, p, m in row]
-            log(f"MLP teacher seed {s}, preload {preload}: (step, batch "
-                f"PSNR, mask_frac) {brief}")
-    students = []
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    with tempfile.TemporaryDirectory(prefix="pvd_runs_") as ws:
-        root = write_synthetic_scene(os.path.join(ws, "scene"), **AB_SCENE,
-                                     seed=seed)
-        run = run_teacher_cli(
-            [root, "--workspace", os.path.join(ws, "mlp_cli"), "--seed",
-             str(seed), "--model_type", "mlp"] + cli_flags(FIELD_TEACHER),
-            "mlp teacher", FIELD_TEACHER_KERNELS)
-        best = os.path.join(run["workspace"], "checkpoints", "mlp_best.ckpt")
-        for i in range(3):
-            wsi = os.path.join(ws, f"run{i}")
-            os.makedirs(wsi)
-            students.append(distill_cli_run(seed, wsi, root, "mlp",
-                                            "tensors", best, gen)["psnr"])
-    pt = run["stats"]["psnr"]
-    log(f"mlp teacher {pt!r} dB; mlp->tensors students {students!r}")
-    print(json.dumps({"mlp_starts": starts, "mlp_teacher_psnr": pt,
-                      "mlp2tensors_psnr": students}), flush=True)
-    return 0
-
-
 def host_ab(other: str, seed: int) -> int:
     """This checkout and `other` (another checkout of the repo) in turn,
     HOST_AB_REPS runs each of HOST_AB_CHILD in the order this, other,
@@ -4516,9 +4462,6 @@ def host_ab(other: str, seed: int) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--field-runs", action="store_true",
-                    help="only run the new fields' spread checks (see "
-                         "field_runs)")
     ap.add_argument("--host-ab", metavar="DIR", default=None,
                     help="only time the A/B teacher in this checkout and "
                          "in the checkout DIR in turn, with a host profile"
@@ -4530,8 +4473,6 @@ def main(argv=None) -> int:
         return 1
     if args.host_ab:
         return host_ab(args.host_ab, args.seed)
-    if args.field_runs:
-        return field_runs(args.seed)
     dev = torch.device("cuda")
     t_script = time.perf_counter()
 

@@ -65,10 +65,6 @@ def parse_args(argv=None):
     stages = parse_stage_iters(args.stage_iters)
     cfg.stage1_iters = stages["stage1"]
     cfg.stage2_iters = stages["stage2"]
-    # plenoxels have no separable feature: no stage 1 when either side is
-    # 'tensors' (main_distill_mutual.py:243-246)
-    if "tensors" in (cfg.model_type, cfg.teacher_type):
-        cfg.stage1_iters = 0
     return args, cfg
 
 
@@ -98,7 +94,8 @@ def main(argv=None, device="cuda") -> dict:
 
     if not cfg.ckpt_teacher:
         raise SystemExit("--ckpt_teacher is required for distillation")
-    write_args_txt(cfg, cfg.workspace)
+    # the Trainer's config: it drops stage 1 when a side is 'tensors'
+    write_args_txt(trainer.cfg, cfg.workspace)
     save_codes_env(cfg.workspace)
     trainer.load_teacher(cfg.ckpt_teacher)
     if cfg.enable_edit_plenoxel and cfg.teacher_type == "tensors":

@@ -9,8 +9,8 @@ a deterministic function of the seed (with more threads their order
 depends on timing).  The library is built with g++ at first use into
 `build/raybatch/` beside the package (git-ignored), named by a hash of the
 source and flags so an edited source rebuilds; nothing is built at import
-time.  A failed build raises: the batcher has no second random stream to
-fall back to.
+time.  The library is always this native producer: a failed build raises,
+since the batcher has no second random stream to fall back to.
 """
 
 from __future__ import annotations
@@ -99,11 +99,6 @@ class RayBatcher:
             b, h, w, c, n_rays, seed, queue_depth, n_threads)
         self._inds = np.empty(n_rays, np.int32)
         self._pix = np.empty((n_rays, c), np.float32)
-
-    @property
-    def is_native(self) -> bool:
-        """Always true while open: there is no other producer."""
-        return self._handle is not None
 
     def next(self) -> Tuple[int, np.ndarray, np.ndarray]:
         """The next batch from the queue (blocks until one is ready)."""

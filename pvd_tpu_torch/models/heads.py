@@ -16,7 +16,7 @@ import torch
 
 from pvd_tpu_torch.config import ModelSpec
 from pvd_tpu_torch.models.common import apply_mlp
-from pvd_tpu_torch.ops.activation import trunc_exp
+from pvd_tpu_torch.ops.activation import clip, trunc_exp
 from pvd_tpu_torch.ops.sh import sh_encode
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -38,7 +38,7 @@ def shared_sigma_color(field, spec: ModelSpec, enc, d,
     """sigma_net -> (clipped sigma logit, geo feature) -> color_net."""
     cdt = compute_dtype(spec)
     h = apply_mlp(field.sigma_net, enc.to(cdt)).float()
-    s = h[..., 0].clamp(spec.sigma_clip_min, spec.sigma_clip_max)
+    s = clip(h[..., 0], spec.sigma_clip_min, spec.sigma_clip_max)
     h = torch.cat([s[..., None], h[..., 1:]], dim=-1)
     sigma = trunc_exp(s)
     if not want_color:
@@ -55,5 +55,5 @@ def shared_sigma_color(field, spec: ModelSpec, enc, d,
 def shared_density(field, spec: ModelSpec, enc):
     """Density-only tail: clips ALL channels, float32."""
     h = apply_mlp(field.sigma_net, enc)
-    h = h.clamp(spec.sigma_clip_min, spec.sigma_clip_max)
+    h = clip(h, spec.sigma_clip_min, spec.sigma_clip_max)
     return trunc_exp(h[..., 0])

@@ -24,7 +24,7 @@ from pvd_tpu_torch.config import ModelSpec
 from pvd_tpu_torch.device import resolve_device
 from pvd_tpu_torch.models.api import make_background
 from pvd_tpu_torch.models.heads import FieldOut
-from pvd_tpu_torch.ops.activation import trunc_exp
+from pvd_tpu_torch.ops.activation import clip, trunc_exp
 from pvd_tpu_torch.ops.grid_sample import grid_sample_3d
 from pvd_tpu_torch.ops.sh import sh_encode
 
@@ -64,7 +64,7 @@ class TensorsField(nn.Module):
         package computes it (tensors_field.py:50-55)."""
         spec = self.spec
         h = self.query(x, aabb)
-        s = h[..., 0].clamp(spec.sigma_clip_min, spec.sigma_clip_max)
+        s = clip(h[..., 0], spec.sigma_clip_min, spec.sigma_clip_max)
         deg2 = spec.plenoxel_degree ** 2
         sh_coef = h[..., 1:].reshape(-1, 3, deg2)
         enc_d = sh_encode(d, spec.plenoxel_degree)[:, None, :]

@@ -26,7 +26,7 @@ from pvd_tpu_torch.device import resolve_device
 from pvd_tpu_torch.models.api import make_background
 from pvd_tpu_torch.models.common import apply_mlp, make_mlp, mlp_dims
 from pvd_tpu_torch.models.heads import FieldOut, compute_dtype
-from pvd_tpu_torch.ops.activation import trunc_exp
+from pvd_tpu_torch.ops.activation import clip, trunc_exp
 from pvd_tpu_torch.ops.sh import sh_encode
 from pvd_tpu_torch.ops.vm_sample import MAT_IDS, VEC_IDS, vm_sample
 
@@ -99,8 +99,8 @@ class VMField(nn.Module):
         Every channel of sigma and color is clipped (vm_field.py:266-267)."""
         spec = self.spec
         s_raw, c_raw = self.features(x, aabb)
-        s = s_raw.clamp(spec.sigma_clip_min, spec.sigma_clip_max)
-        c = c_raw.clamp(spec.sigma_clip_min, spec.sigma_clip_max)
+        s = clip(s_raw, spec.sigma_clip_min, spec.sigma_clip_max)
+        c = clip(c_raw, spec.sigma_clip_min, spec.sigma_clip_max)
         fea_sc = torch.cat([s[:, None], c], dim=-1)
         sigma = trunc_exp(s)
         if not want_color:
@@ -118,8 +118,8 @@ class VMField(nn.Module):
                          normalize(x, aabb))
         s = prod[:, :, :Rs].sum(-1)
         s = s[0] + s[1] + s[2]
-        return trunc_exp(s.clamp(self.spec.sigma_clip_min,
-                                 self.spec.sigma_clip_max))
+        return trunc_exp(clip(s, self.spec.sigma_clip_min,
+                              self.spec.sigma_clip_max))
 
     def density_l1(self):
         """Mean |.| over the sigma planes and lines (vm_field.py:287-292):

@@ -12,6 +12,13 @@ gradient as the backward.  On the CPU that gives JAX's sums in JAX's
 order.  A corner outside the volume adds nothing (its row is
 clamped and its weight zeroed).  `F.grid_sample` on a [1, C, D, H, W] view
 computes the same function; `chip_smoke.py` times it beside this one.
+
+The trade-off behind the choice: this route gives the CPU tests JAX's
+sums exactly, and it costs speed on the card.  On an H100 80GB HBM3 at
+700 W it took 8-9x `F.grid_sample`'s time forward and 2.1-2.8x forward
+plus backward, and its scatter led the plenoxel teacher's padded step
+(PERF.md §5 and §7).  Moving to `F.grid_sample` or a kernel of its own
+would trade that exact CPU parity for the card's time.
 """
 
 from __future__ import annotations

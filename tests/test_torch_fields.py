@@ -254,6 +254,111 @@ def test_mlp_field_bf16_close_to_jax():
                                    atol=2e-2 * np.abs(b).max())
 
 
+@pytest.mark.parametrize("kw,n", [(MLP_SMALL, 2000), (MLP_FULL, 512)],
+                         ids=["mlp-small", "mlp-full"])
+def test_mlp_field_bf16_grads_close_to_jax(kw, n):
+    """Every parameter gradient of the bf16 MLP field (the default compute
+    dtype, the teacher's) against JAX's jitted VJP: the same direction
+    (cosine >= 0.999 per leaf) and within 5e-2 of the leaf's max.  The
+    bf16 products round in other orders; seen: cosine >= 0.99985 and
+    2.3e-2 of the max at the full width."""
+    kw = dict(kw, compute_dtype="bfloat16")
+    spec_j, tree = _jax_tree(kw, seed=n)
+    x, d = _points(n, n + 1, -1.1, 1.1)
+    rng = np.random.default_rng(n + 2)
+    cot = [rng.normal(size=n * k).astype(np.float32) for k in (1, 3, 1, 16)]
+    _, _, want_g = _np_tree(jax.jit(
+        lambda t: _jax_outputs(spec_j, t, x, d, cot))(tree))
+    spec = ModelSpec(**kw)
+    field = field_from_tree(tree, spec, "cpu")
+    o = field_forward(field, spec, torch.from_numpy(x), torch.from_numpy(d),
+                      torch.from_numpy(AABB))
+    loss = sum((p * torch.from_numpy(c[:p.numel()]).reshape(p.shape)).sum()
+               for p, c in zip((o.sigma, o.rgb, o.sigma_logit, o.fea_sc),
+                               cot))
+    loss.backward()
+    for (path, w), g in zip(_leaves(want_g), jax.tree_util.tree_leaves(
+            tree_from_field(field, grad=True))):
+        w = np.asarray(w, np.float64).ravel()
+        g = np.asarray(g, np.float64).ravel()
+        cos = w @ g / (np.linalg.norm(w) * np.linalg.norm(g))
+        assert cos >= 0.999, (jax.tree_util.keystr(path), cos)
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=5e-2 * np.abs(w).max(),
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_clip_gradient_matches_jax(dtype):
+    """`ops.activation.clip` against jnp.clip: the same values, and the
+    same gradient, half of it for a value exactly on a bound (exact)."""
+    from pvd_tpu_torch.ops.activation import clip
+
+    x = np.array([-3.0, -2.0, -1.9921875, 0.5, 7.0, 7.25, -2.0, 7.0],
+                 np.float32)
+    g = np.random.default_rng(0).normal(size=x.shape).astype(np.float32)
+    jx = jnp.asarray(x, dtype)
+    want, vjp = jax.vjp(lambda v: jnp.clip(v, -2.0, 7.0), jx)
+    (want_g,) = vjp(jnp.asarray(g, dtype))
+    t = torch.tensor(x, dtype=getattr(torch, dtype), requires_grad=True)
+    got = clip(t, -2.0, 7.0)
+    got.backward(torch.tensor(g, dtype=t.dtype))
+    np.testing.assert_array_equal(got.detach().float().numpy(),
+                                  np.asarray(want, np.float32))
+    np.testing.assert_array_equal(t.grad.float().numpy(),
+                                  np.asarray(want_g, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_heads_logit_on_the_clip_bound_matches_jax(dtype):
+    """The shared heads with a sigma logit exactly on -2 and on 7 (the
+    sigma_net here gives logit = -enc[:, 0]): the gradient of the logit
+    and sigma with respect to the encoding and the sigma_net, against
+    JAX's (exact at float32; 1e-2 of the max at bfloat16, whose products
+    round in other orders).  On a bound the clip passes half the
+    gradient, as jnp.clip does."""
+    from pvd_tpu.models import heads as j_heads
+    from pvd_tpu_torch.models.heads import shared_sigma_color
+
+    kw = dict(MLP_SMALL, compute_dtype=dtype)
+    spec_j, tree = _jax_tree(kw, seed=7)
+    w0 = np.zeros_like(tree["sigma_net"][0]["w"])
+    w1 = np.zeros_like(tree["sigma_net"][1]["w"])
+    w0[0, 0], w0[0, 1], w1[0, 0], w1[1, 0] = 1.0, -1.0, -1.0, 1.0
+    w1[2:, 1:] = np.random.default_rng(1).normal(
+        scale=0.1, size=w1[2:, 1:].shape)
+    w0[1:, 2:] = np.random.default_rng(2).normal(
+        scale=0.1, size=w0[1:, 2:].shape)
+    tree["sigma_net"] = [{"w": w0}, {"w": w1}]
+    rng = np.random.default_rng(3)
+    enc = rng.normal(size=(8, w0.shape[0])).astype(np.float32)
+    enc[:, 0] = [2.0, -7.0, 2.0, -7.0, 0.5, 3.0, -8.0, 1.0]
+    d = rng.normal(size=(8, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    cot = rng.normal(size=(2, 8)).astype(np.float32)
+
+    def j_loss(p, e):
+        o = j_heads.shared_sigma_color(p, spec_j, e, jnp.asarray(d), True)
+        return jnp.sum(o.sigma_logit * cot[0]) + jnp.sum(o.sigma * cot[1])
+
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    want_p, want_e = jax.grad(j_loss, argnums=(0, 1))(jp, jnp.asarray(enc))
+    field = field_from_tree(tree, ModelSpec(**kw), "cpu")
+    e = torch.tensor(enc, requires_grad=True)
+    o = shared_sigma_color(field, field.spec, e, torch.from_numpy(d), True)
+    np.testing.assert_array_equal(o.sigma_logit.detach().numpy()[:4],
+                                  [-2.0, 7.0, -2.0, 7.0])
+    ((o.sigma_logit * torch.from_numpy(cot[0])).sum()
+     + (o.sigma * torch.from_numpy(cot[1])).sum()).backward()
+    tol = 0.0 if dtype == "float32" else 1e-2
+    pairs = [(e.grad.numpy(), np.asarray(want_e))] + [
+        (lin.weight.grad.numpy().T, np.asarray(w["w"]))
+        for lin, w in zip(field.sigma_net, want_p["sigma_net"])]
+    for got, want in pairs:
+        np.testing.assert_allclose(got, want, rtol=1e-6,
+                                   atol=tol * np.abs(want).max())
+
+
 def test_edit_erase_region_matches_jax():
     _, tree = _jax_tree(dict(TENSORS, plenoxel_res=(8, 200, 140)), seed=2)
     want = j_tensors.edit_erase_region(

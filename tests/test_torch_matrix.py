@@ -146,12 +146,14 @@ def test_new_fields_through_both_clis(scene, tmp_path, tea, stu):
             "--stage_iters", "stage1=3,stage2=5", *SMALL, *FIELDS]
     if tea == "tensors":
         argv.append("--enable_edit_plenoxel")
-    _, cfg = distill.parse_args(argv)
-    assert cfg.stage1_iters == 0 and cfg.stage2_iters == 5
     out = distill.main(argv, device="cpu")
     assert np.isfinite(out["psnr"]) and out["stage1_steps"] == 0
     assert out["train_steps"] == 8
     (ddone,) = glob.glob(ws + "-psnr*")
+    # args.json holds the run's config: the Trainer's, without stage 1
+    with open(os.path.join(ddone, "args.json")) as f:
+        cfg = PVDConfig.from_json(f.read())
+    assert cfg.stage1_iters == 0 and cfg.stage2_iters == 5
     saved = ckpt.load_checkpoint(sorted(glob.glob(os.path.join(
         ddone, "checkpoints", f"{tea}2{stu}_*.ckpt")))[-1], "cpu")
     key = "volume" if stu == "tensors" else "nerf_mlp"
