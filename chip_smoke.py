@@ -44,8 +44,9 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    loss.
 5. Trains a full-width hash teacher through `Trainer.train` (the quality
    recipe: the synthetic scene with 100 training views at 96x96, PVDConfig
-   defaults except grid_size 64, 3000 steps: 256 padded warm-up steps,
-   then the compacted path; its checkpoints go to a temporary workspace),
+   defaults except grid_size 64, 600 steps (the recipe's 3000, cut): 256
+   padded warm-up steps, then the compacted path; its checkpoints go to a
+   temporary workspace),
    evaluates the 3 test views with `Trainer.evaluate` and fails below
    25 dB test PSNR.  Then holds K7 (table gradient), K8 and K9 (padded
    composite) against their plain versions on inputs from that run, K1 at
@@ -81,10 +82,10 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    geometric march dt_gamma 1/256, bg_radius 32, grid 128, 1024 march
    steps, max_samples 64, 4096 rays) through the Trainer on the synthetic
    scene with 100/3/10 views at 96x96, its images composited over a sky
-   dome on the background sphere: a cell-mode hash teacher (3000
+   dome on the background sphere: a cell-mode hash teacher (1500
    steps; the 256-step padded warm-up, then compacted) whose val eval
    writes `hash_best.ckpt`, then `Trainer(mode="distill")` loads it and
-   distills a VM student (2000 steps, stages 300/800, 6 samples per ray);
+   distills a VM student (1000 steps, stages 150/400, 6 samples per ray);
    both evaluated on the 10 test views.  Fails below 25 dB (teacher),
    24 dB (student) or more than 1.5 dB under the teacher.  Every march of
    this path is K14 (the geometric lattice) and every composite blends in
@@ -153,17 +154,45 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    one padded and one compacted host-batcher step.
 11. Trains the MLP field (PE 10, 8 x 256, skip 3, bf16 layers) and the
    plenoxel field (128^3 x 28, degree 3) as teachers through the teacher
-   CLI on the same scene (3000 steps of 4096 rays at grid 64, --preload),
+   CLI on the same scene (1500 and 2000 steps of 4096 rays at grid 64,
+   --preload),
    then distills each into the other through the distill CLI
-   (mlp -> tensors, tensors -> mlp: 2000 steps, stages 300/800 with no
+   (mlp -> tensors, tensors -> mlp: 1500 steps, stages 225/600 with no
    stage 1, max_samples 64, 6 samples per ray;
-   MATRIX_QUALITY_r05.json's recipe).  Fails under 25 dB (teachers),
-   24 dB (students) or a student more than 3.0 dB under its teacher.
+   MATRIX_QUALITY_r05.json's recipe, its 3000 and 2000 steps cut).
+   Fails under 25 dB (teachers), 24 dB (students) or a student more
+   than 3.0 dB under its teacher.
    Logs each run's ms per step, a profile of one padded and one
    compacted teacher step and of one stage-3 distill step, and times the
    plenoxel query (`grid_sample_3d`, forward and backward) beside
    F.grid_sample at 65,536 points of the trained volume.
-12. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+12. Trains TensoRF's coarse-to-fine VM teacher through the teacher CLI on
+   the same scene (resolution 128 -> 300, shrinks and upsamples after
+   steps 200, 300, 400, 550 and 700 of 3000; the A/B teacher's rays and
+   grid, --preload), then `--test`; logs each resize's shape and the
+   teacher's test PSNR (no floor: its eval reads the shrunk tables over
+   aabb_infer, as the JAX package's does, ROADMAP C9) beside its PSNR over
+   aabb_train; distills a cell-mode hash student from its best checkpoint
+   through the distill CLI (1000 steps, stages 150/400), then `--test`:
+   fails under 24 dB.  Holds K4 and K5 against their plain versions at
+   131,072 samples at the trained teacher's per-axis shape and at its
+   shape after the first shrink (random tables), with their times and
+   bounds.
+13. Distills MATRIX_QUALITY_r05.json's hash2tensors_c2f student (the
+   plenoxel volume from 64^3 to 128^3, lr 2e-2) from the A/B teacher
+   through the distill CLI, cut to 2000 steps with the upsamples at 400
+   and 800, then `--test`: fails under 24 dB or more than 3.0 dB under
+   the A/B teacher, or if the volume does not end at 128^3.
+14. Trains the A/B teacher through the teacher CLI on the host batcher
+   with --error_map --ema_decay 0.95, then distills the A/B student from
+   its best checkpoint with the same two flags, each followed by
+   `--test`: fails under 28.0 / 27.5 dB, a student more than 1.0 dB under
+   its teacher, or a best checkpoint that does not hold the EMA weights.
+   Profiles one host step with the error map and one stage-3 distill
+   step with it, and holds one small preloaded teacher step with an
+   error map on the GPU against the CPU: loss, gradients, params and the
+   updated map row.
+15. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails, no GPU is present
@@ -173,6 +202,7 @@ or the package is not beside it (the script alone exits 1).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import json
@@ -211,6 +241,7 @@ from pvd_tpu_torch.engine.trainer import Trainer
 from pvd_tpu_torch.models.api import (bg_grid_spec, param_group_label,
                                       trainable_label)
 from pvd_tpu_torch.models.hash_field import HashField, grid_spec
+from pvd_tpu_torch.models import vm_field
 from pvd_tpu_torch.models.vm_field import normalize
 from pvd_tpu_torch.ops.aabb import near_far_from_aabb, polar01_from_ray
 from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
@@ -237,8 +268,10 @@ from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
                                         hash_encode_cell_plain,
                                         hash_encode_fwd, hash_encode_plain,
                                         level_corners)
-from pvd_tpu_torch.ops.rays import get_rays, nerf_matrix_to_ngp
-from pvd_tpu_torch.ops.vm_sample import (grad_buffers, k4_variant, k5_variant,
+from pvd_tpu_torch.ops.rays import (draw_error_map_inds_np, get_rays,
+                                    nerf_matrix_to_ngp)
+from pvd_tpu_torch.ops.vm_sample import (MAT_IDS, VEC_IDS, grad_buffers,
+                                         k4_variant, k5_variant,
                                          vm_sample_bwd, vm_sample_bwd_plain,
                                          vm_sample_fwd, vm_sample_plain)
 from pvd_tpu_torch.params import (field_from_tree, hash_field_from_jax,
@@ -297,10 +330,11 @@ STEP_PARAM_TOL, STEP_MASK_FRAC = 1e-6, 1e-3
 # CPU: the same samples (K2 is exact), f32 heads summed in other orders
 E2E_RES, E2E_CHUNK, TOL_E2E = 64, 1024, 1e-4
 # the teacher recipe of the repo's quality A/B (tools/quality_ab.py): 100
-# training views at 96x96, grid 64, 3000 steps; the JAX package's run of
-# it reached ~31.5 dB test PSNR
+# training views at 96x96, grid 64, 3000 steps, cut to 600 (the 256-step
+# padded warm-up, then the compacted path) to keep the script's time; the
+# JAX package's run of it reached ~31.5 dB test PSNR at 3000
 RECIPE = dict(n_train=100, n_val=0, n_test=3, H=96, W=96, grid_size=64,
-              iters=3000)
+              iters=600)
 PSNR_FLOOR = 25.0
 TEACHER_KERNELS = ("hash_encode", "march_rays", "composite_rays_compact",
                    "composite_rays_compact_bwd", "hash_encode_bwd",
@@ -354,10 +388,14 @@ LS_SKY_RADIUS = 32.0 / LS_SCALE
 LS_COMMON = dict(bound=2.0, dt_gamma=1.0 / 256.0, bg_radius=32.0,
                  grid_size=128, max_steps=1024, max_samples=64,
                  num_rays=4096, hash_cell_levels=9, eval_interval=1000)
-LS_TEACHER = dict(LS_COMMON, model_type="hash", iters=3000)
+# cut to 1500 teacher and 1000 student steps (stages 150/400; the A/B
+# recipe's 3000 and 2000) to keep the script's time (at 1000 / 800 the
+# student's eval truncated chunks at the ladder's last rung and it sat
+# 1.1 dB under its teacher, against the 1.5 dB floor)
+LS_TEACHER = dict(LS_COMMON, model_type="hash", iters=1500)
 LS_DISTILL = dict(LS_COMMON, teacher_type="hash", model_type="vm",
-                  resolution0=300, iters=2000, stage1_iters=300,
-                  stage2_iters=800, samples_per_ray=6.0,
+                  resolution0=300, iters=1000, stage1_iters=150,
+                  stage2_iters=400, samples_per_ray=6.0,
                   autotune_budget=False)
 LS_TEACHER_FLOOR, LS_STUDENT_FLOOR, LS_MAX_DROP = 25.0, 24.0, 1.5
 LS_KERNELS = ("hash_encode", "hash_encode_cell_fwd", "hash_encode_bwd",
@@ -395,13 +433,17 @@ TEACHER_CLI_RELOAD_DB = 0.01
 # at MATRIX_QUALITY_r05.json's recipe (tools/matrix_quality.py:60-72,
 # 166-177): teachers 3000 steps of 4096 rays at grid 64 with --preload
 # (its scan_steps 8 are not ported: single steps), students 2000 steps,
-# stages 300/800, max_samples 64, 6 samples per ray, the budget frozen.
+# stages 300/800, max_samples 64, 6 samples per ray, the budget frozen;
+# cut to 1500 (MLP) and 2000 (plenoxel: 24.2 dB at 1500 steps on the
+# H100, 29.9 at 2500) teacher steps and 1500 student steps (stages
+# 225/600) to keep the script's time.
 # The MLP's first few hundred steps learn little until the occupancy grid
 # has pruned the empty space; a run that does not leave that phase
 # empties its grid and stays near 17 dB (PERF.md §7)
-FIELD_TEACHER = dict(iters=3000, grid_size=64, num_rays=4096,
-                     eval_interval=1000, preload=True)
-FIELD_DISTILL = dict(iters=2000, stage1_iters=300, stage2_iters=800,
+FIELD_TEACHER = dict(grid_size=64, num_rays=4096, eval_interval=1000,
+                     preload=True)
+FIELD_TEACHER_ITERS = {"mlp": 1500, "tensors": 2000}
+FIELD_DISTILL = dict(iters=1500, stage1_iters=225, stage2_iters=600,
                      grid_size=64, num_rays=4096, max_samples=64,
                      samples_per_ray=6.0, autotune_budget=False,
                      eval_interval=1000)
@@ -415,6 +457,60 @@ FIELD_DISTILL_KERNELS = ("march_rays", "composite_rays_compact",
 FIELD_TEACHER_FLOOR, FIELD_STUDENT_FLOOR, FIELD_MAX_DROP = 25.0, 24.0, 3.0
 FIELD_JAX_TPU = {"mlp": 31.15, "tensors": 30.07, "mlp2tensors": 30.08,
                  "tensors2mlp": 29.49}
+# phase 12: TensoRF's coarse-to-fine VM recipe through the teacher CLI:
+# resolution 128 -> 300 with upsamples at its Synthetic-NeRF upsamp_list
+# (2000, 3000, 4000, 5500, 7000 of 30,000 steps) scaled to 3000 steps; the
+# A/B teacher's rays and grid.  Then a cell-mode hash student distilled
+# from it (1000 steps, stages 150/400): the hash field reads no aabb at
+# eval, so its PSNR measures what the resized teacher learned.  The VM
+# teacher's own test PSNR has no floor: its eval reads the shrunk tables
+# over aabb_infer, as the JAX package's does (ROADMAP C9)
+VM_C2F_TEACHER = dict(model_type="vm", resolution0=128, resolution1=300,
+                      upsample_model_steps=(200, 300, 400, 550, 700),
+                      iters=3000, grid_size=64, num_rays=4096,
+                      eval_interval=1000, preload=True)
+VM_C2F_STUDENT = dict(hash_cell_levels=9, iters=1000, stage1_iters=150,
+                      stage2_iters=400, grid_size=64, num_rays=4096,
+                      max_samples=64, samples_per_ray=6.0,
+                      autotune_budget=False, eval_interval=1000)
+VM_C2F_TEACHER_KERNELS = FIELD_TEACHER_KERNELS + ("vm_sample_fwd",
+                                                  "vm_sample_bwd")
+VM_C2F_STUDENT_KERNELS = ("hash_encode", "hash_encode_cell_fwd",
+                          "hash_encode_bwd", "hash_encode_cell_bwd",
+                          "march_rays", "vm_sample_fwd",
+                          "composite_rays_compact",
+                          "composite_rays_compact_bwd")
+VM_C2F_STUDENT_FLOOR = 24.0
+RESIZED_SAMPLES = 131_072
+# phase 13: MATRIX_QUALITY_r05.json's hash2tensors_c2f flags (a plenoxel
+# student from resolution 64 to 128, lr 2e-2) from the A/B teacher, cut to
+# 2000 steps with the upsamples at 400 and 800 (4000 there, at 800 and
+# 1600; its --scan_steps 8 is not ported); JAX on the TPU 29.553 dB
+C2F_PLENOXEL = dict(hash_cell_levels=9, iters=2000, stage1_iters=300,
+                    stage2_iters=800, grid_size=64, num_rays=4096,
+                    max_samples=64, samples_per_ray=6.0,
+                    autotune_budget=False, eval_interval=1000, lr=0.02,
+                    resolution0=64, resolution1=128,
+                    upsample_model_steps=(400, 800))
+C2F_PLENOXEL_KERNELS = ("hash_encode", "hash_encode_cell_fwd", "march_rays",
+                        "composite_rays_compact",
+                        "composite_rays_compact_bwd")
+C2F_FLOOR, C2F_MAX_DROP, C2F_JAX_TPU = 24.0, 3.0, 29.553
+# phase 14: the error map and EMA through both CLIs: the teacher CLI on
+# the host batcher with the A/B teacher's flags, then the A/B distill
+# flags from its best checkpoint; the A/B floors (with the teacher cut to
+# 1500 steps its student sat 0.6-0.9 dB under it, near the 1.0 dB floor)
+EMAP_EMA = ("--error_map", "--ema_decay", "0.95")
+EMAP_DISTILL = {k: v for k, v in AB_DISTILL.items()
+                if k not in ("teacher_type", "model_type")}
+EMAP_DISTILL_KERNELS = ("hash_encode", "hash_encode_cell_fwd", "march_rays",
+                        "vm_sample_fwd", "vm_sample_bwd",
+                        "composite_rays_compact",
+                        "composite_rays_compact_bwd")
+# the map row of a small step, GPU against CPU: cells drawn once rtol
+# 2e-5 plus 2e-5 of the row's max; a cell drawn by several rays holds one
+# of their values on each device
+TOL_EMAP_ROW = 2e-5
 # the small large-scene steps (tests/test_torch_large_scene.py's sizes)
 SMALL_LS = dict(bound=2.0, dt_gamma=1.0 / 256.0, bg_radius=32.0)
 SMALL_LS_TEA = dict(SMALL_TEA, bound=2.0, bg_radius=32.0)
@@ -570,7 +666,7 @@ def timings(kernel_fn, plain_fn) -> dict:
     and the plain version's time."""
     return {"ms": cuda_ms(kernel_fn), "kernel_ms": kernel_ms(kernel_fn),
             "call_ms": cuda_ms(kernel_fn, queue_ahead=False),
-            "plain_ms": cuda_ms(plain_fn, reps=10)}
+            "plain_ms": cuda_ms(plain_fn, reps=5, warmup=1)}
 
 
 def alone(c: dict) -> str:
@@ -2058,19 +2154,28 @@ def distill_step_profile(stu, scene, gen, label: str = "A/B",
     teacher = stu.teacher if teacher is None else teacher
     train = scene["train"]
     intr = tuple(float(v) for v in train.intrinsics)
+    emap = stu.cfg.error_map
     step = make_distill_step(stu.spec_stu, stu.spec_tea, stu.rspec, stu.opt,
                              stu.cfg, intr, train.H, train.W, 3,
-                             device=stu.device)
+                             device=stu.device, use_error_map=emap)
     pose = torch.as_tensor(get_rand_poses(np.random.default_rng(0))[0],
                            device=stu.device)
+    row = torch.ones(128 * 128, device=stu.device)
+
+    def one():
+        if emap:  # the error-map flavor, on a row of ones
+            step(stu.state, teacher, stu.occ_tea, pose, row, gen)
+        else:
+            step(stu.state, teacher, stu.occ_tea, pose, gen)
+
     for _ in range(3):  # warm-up
-        step(stu.state, teacher, stu.occ_tea, pose, gen)
+        one()
     torch.cuda.synchronize()
     reset_counters()
-    step(stu.state, teacher, stu.occ_tea, pose, gen)
+    one()
     torch.cuda.synchronize()
     launched = {k: v for k, v in counters().items() if v}
-    prof = profile(lambda: step(stu.state, teacher, stu.occ_tea, pose, gen))
+    prof = profile(one)
     log(f"{label} distill stage-3 step: launches {json.dumps(launched)}; "
         f"profile wall {prof['wall_ms']:.2f} ms, device busy "
         f"{prof['device_busy_ms']:.2f} ms (share "
@@ -2214,7 +2319,11 @@ def cli_flags(d: dict) -> list:
     if not d.pop("autotune_budget", True):
         argv.append("--no_autotune_budget")
     for k, v in d.items():
-        argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+        if isinstance(v, tuple):  # an appended flag, once per value
+            for x in v:
+                argv += [f"--{k}", str(x)]
+        else:
+            argv += [f"--{k}"] if v is True else [f"--{k}", str(v)]
     return argv
 
 
@@ -2407,42 +2516,58 @@ def grid_sample_case(volume, n: int, gen) -> dict:
 
 
 def distill_cli_run(seed: int, workspace: str, scene: str, tea: str,
-                    stu: str, best: str, gen) -> dict:
+                    stu: str, best: str, gen, flags: dict = FIELD_DISTILL,
+                    kernels: tuple = FIELD_DISTILL_KERNELS, extra=(),
+                    label: str = "") -> dict:
     """The distill CLI on `tea`'s best checkpoint into a `stu` student
-    (FIELD_DISTILL), the launch counters set to 0 just before and read
-    just after; then one stage-3 step's launches and profile."""
-    ws = os.path.join(workspace, f"{tea}2{stu}_cli")
+    (`flags` and `extra` flags; FIELD_DISTILL by default), the launch
+    counters set to 0 just before and read just after, then `--test` on
+    the renamed workspace (it must render the same PSNR); then one
+    stage-3 step's launches and profile."""
+    label = label or f"{tea}2{stu}"
+    ws = os.path.join(workspace, f"{label}_cli")
     argv = [scene, "--workspace", ws, "--seed", str(seed), "--teacher_type",
             tea, "--model_type", stu, "--ckpt_teacher", best, "--ckpt",
-            "scratch"] + cli_flags(FIELD_DISTILL)
+            "scratch"] + cli_flags(flags) + list(extra)
     reset_counters()
     t0 = time.perf_counter()
     stats = distill_cli.main(argv)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = counters()
-    for name in FIELD_DISTILL_KERNELS:
+    for name in kernels:
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} never launched on the "
-                               f"{tea}2{stu} path")
+                               f"{label} path")
     done = renamed(ws)
     again = list(argv)
     again[again.index("--workspace") + 1] = done
+    t0 = time.perf_counter()
+    test = distill_cli.main(again + ["--test"])
+    test_s = time.perf_counter() - t0
+    if abs(test["psnr"] - stats["psnr"]) > TEACHER_CLI_RELOAD_DB:
+        raise RuntimeError(f"{label} --test renders {test['psnr']:.3f} dB "
+                           f"against {stats['psnr']:.3f}")
     _, cfg = distill_cli.parse_args(again)
     tr = Trainer(cfg, mode="distill")
     tr.load_teacher(best)
     tr.load_student(ckpt.latest_checkpoint(os.path.join(done, "checkpoints"),
                                            f"{tea}2{stu}"))
     prof = distill_step_profile(tr, {"train": NeRFDataset(cfg, "train")},
-                                gen, f"{tea}2{stu}")
-    log(f"{tea}2{stu} (distill CLI): train+eval {train_s:.1f} s; test PSNR "
-        f"{stats['psnr']:.3f} dB (SSIM {stats['ssim']:.4f}); stage2 "
+                                gen, label)
+    log(f"{label} (distill CLI): train+eval {train_s:.1f} s, --test "
+        f"{test_s:.1f} s; test PSNR {stats['psnr']:.3f} dB (SSIM "
+        f"{stats['ssim']:.4f}, --test {test['psnr']:.3f}); stage2 "
         f"{stats['stage2_ms_per_step']:.3f} ms/step, stage3 "
         f"{stats['stage3_ms_per_step']:.3f}; stage-1 steps "
         f"{stats['stage1_steps']}; launches "
         f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    log(f"{label} train_stats " + json.dumps(
+        {k: v for k, v in stats.items() if k.startswith(("train_",
+                                                         "stage"))}))
     return {"psnr": stats["psnr"], "ssim": stats["ssim"],
-            "train_s": train_s, "launches": launches,
+            "test_reload_psnr": test["psnr"], "train_s": train_s,
+            "test_s": test_s, "launches": launches, "workspace": done,
             "train_stats": {k: v for k, v in stats.items()
                             if k.startswith(("train_", "stage"))},
             "step_profile": prof}
@@ -2470,7 +2595,7 @@ def drive_new_fields(seed: int, workspace: str, scene: str, gen) -> dict:
     for name in ("mlp", "tensors"):
         argv = [scene, "--workspace", os.path.join(workspace, f"{name}_cli"),
                 "--seed", str(seed), "--model_type", name] \
-            + cli_flags(FIELD_TEACHER)
+            + cli_flags(dict(FIELD_TEACHER, iters=FIELD_TEACHER_ITERS[name]))
         run = run_teacher_cli(argv, f"{name} teacher",
                               FIELD_TEACHER_KERNELS)
         spec = run["cfg"].model_spec()
@@ -2524,6 +2649,381 @@ def drive_new_fields(seed: int, workspace: str, scene: str, gen) -> dict:
         f"{k} {v['psnr']:.3f} dB (JAX on the TPU {v['jax_tpu_psnr']})"
         for k, v in info.items()))
     return info
+
+@contextlib.contextmanager
+def resize_log():
+    """Records each VM resize the Trainer makes while active: (kind, the
+    tables' per-axis resolution after it)."""
+    events = []
+    shrink, upsample = vm_field.shrink_params, vm_field.upsample_params
+
+    def shrink_rec(field, *a):
+        out = shrink(field, *a)
+        events.append(("shrink", tuple(field.spec.vm_resolution)))
+        return out
+
+    def upsample_rec(field, *a):
+        out = upsample(field, *a)
+        events.append(("upsample", tuple(field.spec.vm_resolution)))
+        return out
+
+    vm_field.shrink_params, vm_field.upsample_params = shrink_rec, upsample_rec
+    try:
+        yield events
+    finally:
+        vm_field.shrink_params, vm_field.upsample_params = shrink, upsample
+
+
+def vm_tables(res, R: int, gen, dev) -> tuple:
+    """Random planes and lines of a VM field at per-axis resolution res."""
+    planes = [torch.randn(res[m1], res[m0], R, generator=gen, device=dev)
+              * 0.1 for m0, m1 in MAT_IDS]
+    lines = [torch.randn(res[v], R, generator=gen, device=dev) * 0.1
+             for v in VEC_IDS]
+    return planes, lines
+
+
+def vm_resized_case(planes, lines, gen, label: str) -> dict:
+    """K4 and K5 against their plain versions on RESIZED_SAMPLES random
+    points of [-1, 1]^3 over the tables of a resized (non-cubic) VM field:
+    K4 timed and bounded as check_vm_kernels does, K5 through k5_case
+    (every upstream row live)."""
+    dev = planes[0].device
+    M, R = RESIZED_SAMPLES, planes[0].shape[-1]
+    xn = (torch.rand(M, 3, generator=gen, device=dev) * 2 - 1).contiguous()
+    kind, lanes = k4_variant(R, [t.data_ptr() for t in (*planes, *lines)])
+    err4 = max_abs(vm_sample_fwd(planes, lines, xn),
+                   vm_sample_plain(planes, lines, xn))
+    touched = vm_touched_rows(planes, lines, xn)
+    k4 = {"M": M, "R": R, "err": err4, "variant": kind, "lanes": lanes,
+          "bound": bound(M * 12 + touched * R * 4 + 3 * M * R * 4,
+                         3 * M * R * 14),
+          **timings(lambda: vm_sample_fwd(planes, lines, xn),
+                    lambda: vm_sample_plain(planes, lines, xn))}
+    k5 = k5_case(planes, lines, xn, torch.ones(M, device=dev), gen)
+    shape = {"planes": [list(p.shape[:2]) for p in planes],
+             "lines": [v.shape[0] for v in lines], "R": R}
+    log(f"K4 at the {label} VM shape {shape}: {kind} instantiation, "
+        f"{lanes} lanes per sample, M {M}: max |kernel - plain| "
+        f"{err4:.3g}, {k4['ms']:.4f} ms{alone(k4)} (call "
+        f"{k4['call_ms']:.4f}, plain {k4['plain_ms']:.4f}), bound "
+        f"{k4['bound'][0]:.4f} ms ({k4['bound'][1]})")
+    if not err4 <= TOL_K4:
+        raise RuntimeError(f"K4 disagrees with its plain version at the "
+                           f"{label} VM shape: {err4:.3g}")
+    return {"shape": shape, "k4": k4, "k5": k5}
+
+
+def drive_vm_c2f(seed: int, workspace: str, scene: str, gen) -> dict:
+    """TensoRF's coarse-to-fine VM teacher through the teacher CLI
+    (VM_C2F_TEACHER: five shrinks and upsamples), then a cell-mode hash
+    student distilled from its best checkpoint (VM_C2F_STUDENT); K4 and
+    K5 at the trained teacher's per-axis shape and at its shape after the
+    first shrink."""
+    argv = [scene, "--workspace", os.path.join(workspace, "vm_cli"),
+            "--seed", str(seed)] + cli_flags(VM_C2F_TEACHER)
+    with resize_log() as resizes:
+        run = run_teacher_cli(argv, "VM c2f teacher", VM_C2F_TEACHER_KERNELS)
+    ups = [r for kind, r in resizes if kind == "upsample"]
+    shrinks = [r for kind, r in resizes if kind == "shrink"]
+    log(f"VM c2f teacher resizes (training, then --test: none): {resizes}")
+    if len(ups) != len(VM_C2F_TEACHER["upsample_model_steps"]) \
+            or not shrinks:
+        raise RuntimeError(f"the VM teacher did not resize as scheduled: "
+                           f"{resizes}")
+    cfg, st = run["cfg"], run["stats"]
+    tr = Trainer(cfg)
+    tr.load_student(ckpt.latest_checkpoint(os.path.join(
+        run["workspace"], "checkpoints"), "vm"))
+    res = tuple(tr.spec_stu.vm_resolution)
+    if res != ups[-1]:
+        raise RuntimeError(f"the checkpoint's VM shape {res} is not the "
+                           f"last upsample's {ups[-1]}")
+    # C9: the same field read over aabb_train at eval
+    occ = tr.state.occ
+    tr.state.occ = occ.replace(aabb_infer=occ.aabb_train)
+    over_train = tr.evaluate(NeRFDataset(cfg, "test"), save_dir=os.path.join(
+        workspace, "vm_over_aabb_train"))["psnr"]
+    tr.state.occ = occ
+    planes = [p.detach() for p in tr.state.field.planes]
+    lines = [v.detach() for v in tr.state.field.lines]
+    cases = {"final": vm_resized_case(planes, lines, gen, f"trained {res}"),
+             "first_shrink": vm_resized_case(
+                 *vm_tables(shrinks[0], planes[0].shape[-1], gen,
+                            tr.device), gen, f"first shrink {shrinks[0]}")}
+    prof = teacher_step_flavors(tr, {"train": NeRFDataset(cfg, "train")},
+                                "VM c2f teacher")
+    aabb = occ.aabb_train.tolist()
+    del tr
+    best = os.path.join(run["workspace"], "checkpoints", "vm_best.ckpt")
+    stu = distill_cli_run(seed, workspace, scene, "vm", "hash", best, gen,
+                          VM_C2F_STUDENT, VM_C2F_STUDENT_KERNELS)
+    pt, ps = st["psnr"], stu["psnr"]
+    log(f"VM c2f teacher: final shape {res}, aabb_train {aabb}; test PSNR "
+        f"{pt:.3f} dB (SSIM {st['ssim']:.4f}; its eval reads the shrunk "
+        f"tables over aabb_infer, as the JAX package's does: ROADMAP C9; "
+        f"no floor), {over_train:.3f} dB over aabb_train; hash student "
+        f"{ps:.3f} dB (floor {VM_C2F_STUDENT_FLOOR}); ms per step padded "
+        f"{st['padded_ms_per_step']:.3f}, compacted "
+        f"{st['compacted_ms_per_step']:.3f}")
+    if not (np.isfinite(ps) and ps >= VM_C2F_STUDENT_FLOOR):
+        raise RuntimeError(f"the hash student of the VM c2f teacher: "
+                           f"{ps:.3f} dB < {VM_C2F_STUDENT_FLOOR}")
+    if not np.isfinite(pt):
+        raise RuntimeError("the VM c2f teacher's eval is not finite")
+    return {"teacher": {"psnr": pt, "ssim": st["ssim"],
+                        "psnr_over_aabb_train": over_train,
+                        "test_reload_psnr": run["test_psnr"],
+                        "train_s": run["train_s"], "test_s": run["test_s"],
+                        "resizes": resizes, "final_shape": res,
+                        "aabb_train": aabb,
+                        "train_stats": {
+                            k: v for k, v in st.items() if k.startswith((
+                                "train_", "padded", "compacted", "occ_"))},
+                        "launches": run["launches"],
+                        "step_profiles": prof},
+            "student": stu, "kernels": cases, "launches": {
+                "teacher": run["launches"], "student": stu["launches"]}}
+
+
+def drive_c2f_plenoxel(seed: int, workspace: str, scene: str, best: str,
+                       ab: dict, gen) -> dict:
+    """MATRIX_QUALITY_r05.json's hash2tensors_c2f student from the A/B
+    teacher (C2F_PLENOXEL): the volume from 64^3 to 91^3 at step 400 and
+    128^3 at step 800 (it must end at resolution1^3); floors against the
+    A/B teacher."""
+    run = distill_cli_run(seed, workspace, scene, "hash", "tensors", best,
+                          gen, C2F_PLENOXEL, C2F_PLENOXEL_KERNELS,
+                          label="hash2tensors_c2f")
+    vol = ckpt.load_checkpoint(ckpt.latest_checkpoint(os.path.join(
+        run["workspace"], "checkpoints"), "hash2tensors"), "cpu")[
+            "params"]["volume"]
+    ps, pt = run["psnr"], ab["teacher"]["psnr"]
+    log(f"hash2tensors_c2f: volume {tuple(vol.shape)}; test PSNR {ps:.3f} "
+        f"dB against the A/B teacher's {pt:.3f} (floor {C2F_FLOOR}, teacher "
+        f"- {C2F_MAX_DROP}; JAX on the TPU {C2F_JAX_TPU} at 4000 steps)")
+    if tuple(vol.shape[:3]) != (C2F_PLENOXEL["resolution1"],) * 3:
+        raise RuntimeError(f"the c2f volume ends at {vol.shape}")
+    if not (np.isfinite(ps) and ps >= C2F_FLOOR and ps >= pt - C2F_MAX_DROP):
+        raise RuntimeError(f"hash2tensors_c2f {ps:.3f} dB: floor "
+                           f"{C2F_FLOOR}, teacher {pt:.3f} - {C2F_MAX_DROP}")
+    run["volume_shape"] = list(vol.shape)
+    run["jax_tpu_psnr"] = C2F_JAX_TPU
+    return run
+
+
+def check_best_holds_ema(workspace: str, name: str) -> dict:
+    """`{name}_best.ckpt` holds the EMA weights as its params and as its
+    ema_params, the same as the final checkpoint's ema_params (both are
+    written after the last step), and they differ from the final raw
+    params."""
+    d = os.path.join(workspace, "checkpoints")
+    best = ckpt.load_checkpoint(os.path.join(d, f"{name}_best.ckpt"), "cpu")
+    last = ckpt.load_checkpoint(ckpt.latest_checkpoint(d, name), "cpu")
+
+    def diff(a, b):
+        return max(float(np.abs(x - y).max()) for (_, x), (_, y) in zip(
+            named_leaves(a), named_leaves(b)))
+
+    out = {"best_params_vs_ema": diff(best["params"], best["ema_params"]),
+           "best_ema_vs_last_ema": diff(best["ema_params"],
+                                        last["ema_params"]),
+           "ema_vs_raw_params": diff(best["ema_params"], last["params"]),
+           "steps": [best["step"], last["step"]]}
+    log(f"{name}_best.ckpt: max |params - ema_params| "
+        f"{out['best_params_vs_ema']:.3g}, against the final checkpoint's "
+        f"EMA {out['best_ema_vs_last_ema']:.3g}, EMA against the raw "
+        f"params {out['ema_vs_raw_params']:.3g} (steps {out['steps']})")
+    if out["best_params_vs_ema"] or out["best_ema_vs_last_ema"] \
+            or not out["ema_vs_raw_params"] > 0:
+        raise RuntimeError(f"{name}_best.ckpt does not hold the EMA weights")
+    return out
+
+
+def emap_host_profile(run: dict, name: str) -> dict:
+    """Launches and a profile of one compacted host-batcher teacher step
+    with the error map: the host draw from a map row, the pixel gather,
+    the step, and the per-ray losses read back, as the Trainer runs it."""
+    cfg = run["cfg"]
+    tr = Trainer(cfg)
+    tr.load_student(ckpt.latest_checkpoint(os.path.join(
+        run["workspace"], "checkpoints"), name))
+    ds = NeRFDataset(cfg, "train")
+    poses = torch.as_tensor(ds.poses, device=tr.device)
+    batcher = RayBatcher(ds.images, cfg.num_rays, seed=cfg.seed)
+    step = make_teacher_step_host(
+        tr.spec, tr.rspec, tr.opt, cfg, ds.intrinsics, ds.H, ds.W,
+        image_channels=ds.images.shape[-1], device=tr.device,
+        use_error_map=True)
+    rng = np.random.default_rng(0)
+    row = np.ones(128 * 128, np.float32)
+
+    def one():
+        inds, _ = draw_error_map_inds_np(rng, row, ds.H, ds.W, cfg.num_rays)
+        _, per_ray, _ = step(tr.state, poses[1], inds, batcher.gather(
+            1, inds), tr.generator)
+        per_ray.cpu()
+
+    try:
+        for _ in range(3):  # warm-up
+            one()
+        torch.cuda.synchronize()
+        reset_counters()
+        one()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counters().items() if v}
+        prof = profile(one)
+    finally:
+        batcher.close()
+    log(f"error-map teacher compacted host step: launches "
+        f"{json.dumps(launched)}; profile wall {prof['wall_ms']:.2f} ms, "
+        f"device busy {prof['device_busy_ms']:.2f} ms (share "
+        f"{prof['device_busy_share']:.3f})")
+    for r in prof["top"]:
+        log(f"  {r['ms']:9.3f} ms {r['calls']:6d} x {r['kernel']}")
+    return {"launches_per_step": launched, "profile": prof}
+
+
+def drive_emap_ema(seed: int, workspace: str, scene: str, gen) -> dict:
+    """The error map and EMA through both CLIs: the teacher CLI with the
+    A/B teacher's flags on the host batcher, then the distill CLI with the
+    A/B distill flags from its best checkpoint, both with EMAP_EMA; the
+    A/B floors; each best checkpoint must hold the EMA weights."""
+    argv = [scene, "--workspace", os.path.join(workspace, "hash_emap"),
+            "--seed", str(seed)] + cli_flags(AB_TEACHER) + list(EMAP_EMA)
+    run = run_teacher_cli(argv, "error-map + EMA teacher", TEACHER_KERNELS
+                          + ("hash_encode_cell_fwd", "hash_encode_cell_bwd"))
+    st = run["stats"]
+    pt = st["psnr"]
+    if abs(run["test_psnr"] - pt) > TEACHER_CLI_RELOAD_DB:
+        raise RuntimeError(f"the error-map teacher's --test renders "
+                           f"{run['test_psnr']:.3f} dB against {pt:.3f}")
+    tea_best = check_best_holds_ema(run["workspace"], "hash")
+    prof = emap_host_profile(run, "hash")
+    best = os.path.join(run["workspace"], "checkpoints", "hash_best.ckpt")
+    stu = distill_cli_run(seed, workspace, scene, "hash", "vm", best, gen,
+                          EMAP_DISTILL, EMAP_DISTILL_KERNELS, EMAP_EMA,
+                          "hash2vm_emap")
+    stu["best"] = check_best_holds_ema(stu["workspace"], "hash2vm")
+    ps = stu["psnr"]
+    log(f"error map + EMA: teacher (host batcher {st['host_batcher']}) "
+        f"{pt:.3f} dB (floor {AB_TEACHER_FLOOR}), ms per step padded "
+        f"{st['padded_ms_per_step']:.3f}, compacted "
+        f"{st['compacted_ms_per_step']:.3f}; student {ps:.3f} dB (floor "
+        f"{AB_STUDENT_FLOOR}, teacher - {AB_MAX_DROP})")
+    if not (np.isfinite(pt) and pt >= AB_TEACHER_FLOOR):
+        raise RuntimeError(f"the error-map teacher: {pt:.3f} dB < "
+                           f"{AB_TEACHER_FLOOR}")
+    if not (np.isfinite(ps) and ps >= AB_STUDENT_FLOOR
+            and ps >= pt - AB_MAX_DROP):
+        raise RuntimeError(f"the error-map student {ps:.3f} dB: floor "
+                           f"{AB_STUDENT_FLOOR}, teacher {pt:.3f} - "
+                           f"{AB_MAX_DROP}")
+    return {"teacher": {"psnr": pt, "ssim": st["ssim"],
+                        "test_reload_psnr": run["test_psnr"],
+                        "host_batcher": st["host_batcher"],
+                        "train_s": run["train_s"], "best": tea_best,
+                        "train_stats": {
+                            k: v for k, v in st.items() if k.startswith((
+                                "train_", "padded", "compacted", "occ_"))},
+                        "launches": run["launches"], "step_profile": prof},
+            "student": stu, "launches": {"teacher": run["launches"],
+                                         "student": stu["launches"]}}
+
+
+def check_emap_row(got, want, old, cells, per_ray, tol: float) -> dict:
+    """Two updated error-map rows (numpy) of the same step against each
+    other: cells drawn once within tol (relative, plus tol of the row's
+    max), a cell drawn by several rays holding one of their values
+    (0.1 x old + 0.9 x the ray's loss, `per_ray` [N]) in each row, the
+    others untouched."""
+    atol = tol * float(np.abs(want).max())
+    uniq, counts = np.unique(cells, return_counts=True)
+    once, many = uniq[counts == 1], uniq[counts > 1]
+    rest = np.setdiff1d(np.arange(old.shape[0]), uniq)
+    ok = bool(np.array_equal(got[rest], old[rest])
+              and np.array_equal(want[rest], old[rest])
+              and np.allclose(got[once], want[once], rtol=tol, atol=atol))
+    for c in many:
+        cand = 0.1 * old[c] + 0.9 * per_ray[cells == c]
+        for v in (got[c], want[c]):
+            ok = ok and bool(np.min(np.abs(cand - v)) <= atol + tol * abs(v))
+    return {"ok": ok, "cells_once": int(once.size),
+            "cells_repeated": int(many.size),
+            "max_diff_once": float(np.abs(got[once] - want[once]).max())}
+
+
+def small_emap_step_gpu_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """One preloaded teacher step with an error map at test sizes
+    (tests/test_torch_teacher.py's, compacted): kernels on the GPU against
+    the plain path on the CPU, same params, pixels drawn from the same
+    map row (on 300 cells, so many are drawn twice), same background and
+    perturbation: the loss, the gradients and params (compare_steps) and
+    the updated map row (check_emap_row)."""
+    rng = np.random.default_rng(13)
+    spec = ModelSpec(**SMALL_TEA)
+    tree = random_hash_params(spec, rng)
+    bits = rng.uniform(size=32 ** 3) < 0.25
+    image = rng.uniform(size=(SMALL_HW ** 2, 4)).astype(np.float32)
+    image[:, 3] = rng.choice([0.0, 1.0, 0.3], size=SMALL_HW ** 2)
+    pose = nerf_matrix_to_ngp(pose_spherical(30.0, -30.0, 4.0), scale=0.8)
+    n = SMALL_TEACHER_CFG["num_rays"]
+    row = rng.uniform(0.05, 1.0, 128 * 128).astype(np.float32)
+    row[rng.permutation(128 * 128)[300:]] = 0.0
+    inds, cells = draw_error_map_inds_np(rng, row, SMALL_HW, SMALL_HW, n)
+    bg = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+    cfg = PVDConfig(**SMALL_TEACHER_CFG, samples_per_ray=16.0)
+    res, rows = [], []
+    for where in devices:
+        field = hash_field_from_jax(tree, spec, where)
+        occ = set_bitfield(init_occupancy_state(cfg.render_spec(), where),
+                           torch.from_numpy(bits).to(where))
+        params = dict(field.named_parameters())
+        opt = build_optimizer(params, param_group_label(spec),
+                              trainable_label(spec, ""),
+                              exp_decay_schedule(1e-2, 100),
+                              exp_decay_schedule(1e-3, 100))
+        state = TrainState(field=field, opt_state=opt.init(params), occ=occ)
+        step = make_teacher_step(spec, cfg.render_spec(), opt, cfg,
+                                 SMALL_INTR, SMALL_HW, SMALL_HW, 4,
+                                 device=where, use_error_map=True)
+        state, new_row, m = step.with_rays(
+            state, torch.from_numpy(pose).to(where),
+            torch.from_numpy(image).to(where), torch.from_numpy(row).to(where),
+            torch.from_numpy(inds.astype(np.int64)).to(where),
+            torch.from_numpy(cells.astype(np.int64)).to(where), bg.to(where),
+            u.to(where))
+        res.append(({k: float(v) for k, v in m.items()},
+                    hash_tree_from_field(field, grad=True),
+                    hash_tree_from_field(field)))
+        rows.append(new_row.cpu().numpy())
+        if where == devices[-1]:  # the per-ray losses, for repeated cells
+            field = hash_field_from_jax(tree, spec, where)
+            state = TrainState(field=field, opt_state=opt.init(dict(
+                field.named_parameters())), occ=occ)
+            rays = get_rays(torch.from_numpy(pose)[None], SMALL_INTR,
+                            SMALL_HW, SMALL_HW,
+                            torch.from_numpy(inds.astype(np.int64)))
+            per_ray = step.core(state, rays["rays_o"][0].contiguous().to(
+                where), rays["rays_d"][0].contiguous().to(where),
+                torch.from_numpy(image[inds]).to(where), bg.to(where),
+                u.to(where), per_ray=True)[2].cpu().numpy()
+    c = compare_steps(*res)
+    r = check_emap_row(rows[0], rows[1], row, cells, per_ray, TOL_EMAP_ROW)
+    log(f"error-map teacher step GPU kernels vs CPU plain (test sizes, "
+        f"compacted, f32 heads): max rel loss/metric diff "
+        f"{c['loss_rel_err']:.3g} (tol {STEP_LOSS_RTOL:g}); max grad diff "
+        f"/ leaf max {c['grad_err_rel_leaf_max']:.3g}; map row: "
+        f"{r['cells_once']} cells drawn once, max diff "
+        f"{r['max_diff_once']:.3g} (tol {TOL_EMAP_ROW:g}), "
+        f"{r['cells_repeated']} drawn several times, each holding one of "
+        f"its rays' values: {r['ok']}")
+    if not (c.pop("ok") and r["ok"]):
+        raise RuntimeError("the GPU error-map teacher step disagrees with "
+                           "the CPU plain step")
+    return {**c, "row": r}
+
 
 def bake_case(table, gs, gen, n: int, cell=None, x01=None) -> dict:
     """K15 against its plain version on n points of [0, 1]^3 (corners,
@@ -4803,6 +5303,27 @@ def main(argv=None) -> int:
         fields_wall_s = time.perf_counter() - t0
         log(f"teacher CLI phase {tea_cli['wall_s']:.1f} s, new fields "
             f"{fields_wall_s:.1f} s")
+        # ---- main paths 8-10: resizing (the VM c2f teacher and its hash
+        # student; the c2f plenoxel student), the error map and EMA
+        # through both CLIs; each run's counters set to 0 just before it
+        # and read just after
+        walls = {}
+        t0 = time.perf_counter()
+        vm_c2f = drive_vm_c2f(args.seed, ws, cli["scene"], gen)
+        walls["vm_c2f"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c2f = drive_c2f_plenoxel(args.seed, ws, cli["scene"], best, ab, gen)
+        walls["c2f_plenoxel"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emap = drive_emap_ema(args.seed, ws, cli["scene"], gen)
+        walls["emap_ema"] = time.perf_counter() - t0
+        log("resize and error-map phases: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in walls.items()))
+    emap_check = small_emap_step_gpu_vs_cpu()
+    for name, key in (("vm_sample_fwd", "k4"), ("vm_sample_bwd", "k5")):
+        next(r for r in results if r["name"] == name).setdefault(
+            "shapes", {}).update({f"resized_{k}": v[key] for k, v in
+                                  vm_c2f["kernels"].items()})
     log(f"launches on the A/B path ({AB_TEACHER['iters']} teacher + "
         f"{AB_DISTILL['iters']} distill steps, evals included, "
         f"{ab['wall_s']:.1f} s): {json.dumps(ab_launches)}")
@@ -4998,6 +5519,23 @@ def main(argv=None) -> int:
                 per[f"{k}_stage3"] = v["step_profile"][
                     "launches_per_step"].get(name, 0)
         f["launches_per_new_path_step"] = per
+        f["launches_resize_emap"] = {
+            "vm_c2f_teacher": vm_c2f["launches"]["teacher"][name],
+            "vm_c2f_student": vm_c2f["launches"]["student"][name],
+            "c2f_plenoxel": c2f["launches"][name],
+            "emap_teacher": emap["launches"]["teacher"][name],
+            "emap_student": emap["launches"]["student"][name]}
+        f["launches_per_resize_emap_step"] = {
+            **{f"vm_c2f_teacher_{flv}": v["launches_per_step"].get(name, 0)
+               for flv, v in vm_c2f["teacher"]["step_profiles"].items()},
+            "vm_c2f_student_stage3": vm_c2f["student"]["step_profile"][
+                "launches_per_step"].get(name, 0),
+            "c2f_plenoxel_stage3": c2f["step_profile"][
+                "launches_per_step"].get(name, 0),
+            "emap_teacher_compacted": emap["teacher"]["step_profile"][
+                "launches_per_step"].get(name, 0),
+            "emap_student_stage3": emap["student"]["step_profile"][
+                "launches_per_step"].get(name, 0)}
         return f
 
     def brief(prof):
@@ -5065,6 +5603,29 @@ def main(argv=None) -> int:
                              if "step_profiles" in v else
                              {"stage3": brief(v["step_profile"]["profile"])})}
             for k, v in fields.items()}},
+        "vm_c2f": {
+            "wall_s": walls["vm_c2f"],
+            "teacher": {**{k: v for k, v in vm_c2f["teacher"].items()
+                           if k != "step_profiles"}, "profiles": {
+                flv: brief(v["profile"]) for flv, v in
+                vm_c2f["teacher"]["step_profiles"].items()}},
+            "student": {**{k: v for k, v in vm_c2f["student"].items()
+                           if k != "step_profile"}, "profile": brief(
+                vm_c2f["student"]["step_profile"]["profile"])},
+            "kernels": vm_c2f["kernels"]},
+        "c2f_plenoxel": {**{k: v for k, v in c2f.items()
+                            if k != "step_profile"},
+                         "wall_s": walls["c2f_plenoxel"],
+                         "profile": brief(c2f["step_profile"]["profile"])},
+        "emap_ema": {
+            "wall_s": walls["emap_ema"],
+            "teacher": {**{k: v for k, v in emap["teacher"].items()
+                           if k != "step_profile"}, "profile": brief(
+                emap["teacher"]["step_profile"]["profile"])},
+            "student": {**{k: v for k, v in emap["student"].items()
+                           if k != "step_profile"}, "profile": brief(
+                emap["student"]["step_profile"]["profile"])},
+            "gpu_vs_cpu_step": emap_check},
         "nan_rule": nan_rule,
         "card": card, "wall_s": time.perf_counter() - t_script}
     log(f"chip_smoke wall {line['wall_s']:.1f} s (kernel build included)")

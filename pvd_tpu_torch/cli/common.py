@@ -17,6 +17,8 @@ import json
 import os
 import shutil
 
+import numpy as np
+
 from pvd_tpu_torch.config import PVDConfig
 
 
@@ -156,6 +158,19 @@ def base_parser(distill: bool) -> argparse.ArgumentParser:
                         "(0 = unlimited); ends early at an epoch boundary "
                         "with the normal final checkpoint + eval")
     return p
+
+
+def upsample_schedule(cfg: PVDConfig) -> list:
+    """The resolutions of the scheduled resizes: one per entry of
+    `upsample_model_steps`, log-spaced from resolution0 to resolution1
+    with resolution0 left out (common.py:156-170).  The Trainer turns each
+    into a per-axis resolution over the current aabb when it resizes."""
+    n = len(cfg.upsample_model_steps)
+    if n == 0:
+        return []
+    return np.round(np.exp(np.linspace(
+        np.log(cfg.resolution0), np.log(cfg.resolution1), n + 1))
+    ).astype(int).tolist()[1:]
 
 
 def to_config(args) -> PVDConfig:

@@ -18,7 +18,9 @@ checkpoint under `--ckpt latest` (any other value starts from scratch),
 distills, evaluates the test split into `<workspace>/results` and writes
 `metrics.json`, then renames the workspace with its PSNR suffix.
 `--test` / `--test_teacher` / `--test_type_trainval` render the student
-(or the teacher) again.  Runs on the GPU; `main(argv, device="cpu")` runs
+(or the teacher) again.  `--upsample_model_steps`, `--error_map` and
+`--ema_decay` act as in the teacher CLI (the error map per pose slot,
+updated at stage 3).  Runs on the GPU; `main(argv, device="cpu")` runs
 the plain PyTorch path on the CPU.
 """
 
@@ -28,7 +30,7 @@ import sys
 
 from pvd_tpu_torch.cli.common import (base_parser, finalize_run,
                                       save_codes_env, to_config,
-                                      write_args_txt)
+                                      upsample_schedule, write_args_txt)
 from pvd_tpu_torch.config import PVDConfig
 from pvd_tpu_torch.data.provider import NeRFDataset
 from pvd_tpu_torch.engine.trainer import Trainer
@@ -107,6 +109,8 @@ def main(argv=None, device="cuda") -> dict:
         trainer.load_student(cfg.ckpt_student)
     elif cfg.ckpt == "latest":
         trainer.try_resume()
+    # the resize schedule's resolutions (main_distill_mutual.py:367-382)
+    trainer.upsample_resolutions = upsample_schedule(cfg)
 
     train_ds = NeRFDataset(cfg, "train", downscale=cfg.downscale)
     try:

@@ -15,9 +15,14 @@ writes `metrics.json`, then renames the workspace with its PSNR suffix.
 Without `--preload` (the default) the batches come from the host batcher
 (`data/raybatch.py`); with it the images live on the device.  `--test`
 renders the test split again from the workspace's latest checkpoint (or
-`--ckpt_student`).  Runs on the GPU; `main(argv, device="cpu")` runs the
-plain PyTorch path on the CPU.  `--upsample_model_steps` (VM and plenoxel
-resizing) is not ported yet and raises (ROADMAP A12).
+`--ckpt_student`).  `--upsample_model_steps` resizes a VM or plenoxel
+field after each listed step, to resolutions log-spaced from
+`--resolution0` to `--resolution1` (`common.upsample_schedule`; a VM
+field first shrinks to its occupied box); `--error_map` draws the pixels
+by importance from a per-image error map; `--ema_decay` > 0 keeps an EMA
+of the weights, which the evaluations render and the best checkpoint
+holds.  Runs on the GPU; `main(argv, device="cpu")` runs the plain
+PyTorch path on the CPU.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from __future__ import annotations
 import sys
 
 from pvd_tpu_torch.cli.common import (base_parser, finalize_run, to_config,
-                                      write_args_txt)
+                                      upsample_schedule, write_args_txt)
 from pvd_tpu_torch.data.provider import NeRFDataset
 from pvd_tpu_torch.engine.trainer import Trainer
 from pvd_tpu_torch.utils.misc import seed_everything
@@ -57,6 +62,8 @@ def main(argv=None, device="cuda") -> dict:
     train_ds = NeRFDataset(cfg, "train", downscale=cfg.downscale)
     if cfg.ckpt == "latest":
         trainer.try_resume()
+    # the resize schedule's resolutions (main_just_train_tea.py:320-334)
+    trainer.upsample_resolutions = upsample_schedule(cfg)
     try:
         valid_ds = NeRFDataset(cfg, "val", downscale=cfg.downscale)
     except (FileNotFoundError, RuntimeError):

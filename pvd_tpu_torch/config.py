@@ -209,8 +209,7 @@ class PVDConfig:
             vm_resolution=(self.resolution0,) * 3,
             plenoxel_degree=self.plenoxel_degree,
             # a plenoxel upsample schedule starts the volume at
-            # resolution0^3 (config.py:293-300); resizing is not ported
-            # yet, so the Trainer refuses such a schedule
+            # resolution0^3 (config.py:293-300)
             plenoxel_res=((self.resolution0,) * 3
                           if (self.model_type == "tensors"
                               and self.upsample_model_steps)

@@ -4,7 +4,7 @@
     flavor: GT pixels gathered from the device-resident image, composited
     on a per-pixel random background, a perturbed render, the image MSE,
     then AdamW;
-  * the distillation step (train_steps.py:121-190, 456-524), single-step
+  * the distillation step (train_steps.py:121-190, 456-618), single-step
     flavor: the student renders with a perturbed march, the frozen teacher
     replays the student's compacted samples under `torch.no_grad()` (the
     JAX package's stop_gradient), the three-stage loss, then AdamW;
@@ -13,9 +13,15 @@
   * the occupancy refresh and the chunked full-image eval renderer
     (train_steps.py:621-731).
 
-The scan, error-map, EMA and data-parallel flavors are not ported yet
-(ROADMAP A16, A17).  The state is updated in place: the trained field's
-parameters and the optimizer moments.
+With `use_error_map` the preload teacher step and the distillation step
+draw their pixels by importance from the image's (or pose slot's) 128 x
+128 error map and return its updated row; the host step returns the
+per-ray losses for the caller's host-resident map (`error_map_update`).
+A state with `ema` (a frozen copy of the field) gets its shadow update
+after each AdamW update (train_steps.py:248-252).  The scan and
+data-parallel flavors are not ported yet (ROADMAP A16, A17).  The state
+is updated in place: the trained field's parameters, the optimizer
+moments and the EMA copy.
 """
 
 from __future__ import annotations
@@ -28,9 +34,10 @@ import torch
 
 from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
 from pvd_tpu_torch.device import resolve_device
-from pvd_tpu_torch.engine.optim import AdamWState, GroupedAdamW
+from pvd_tpu_torch.engine.optim import AdamWState, GroupedAdamW, ema_update
 from pvd_tpu_torch.models.api import field_density, vm_density_l1
-from pvd_tpu_torch.ops.rays import get_rays, pixel_dirs, random_pixels, rotate
+from pvd_tpu_torch.ops.rays import (draw_error_map_pixels, get_rays,
+                                    pixel_dirs, random_pixels, rotate)
 from pvd_tpu_torch.render.occupancy import (OccupancyState,
                                             update_density_grid)
 from pvd_tpu_torch.render.renderer import render_rays
@@ -52,13 +59,15 @@ def _param_device(field) -> torch.device:
 @dataclasses.dataclass
 class TrainState:
     """A field in training (teacher or student): `field` (an nn.Module,
-    updated in place), its AdamW state, its occupancy grid and the step
-    counter."""
+    updated in place), its AdamW state, its occupancy grid, the step
+    counter and, when EMA is on, `ema`: a frozen copy of the field that
+    holds the shadow weights."""
 
     field: Any
     opt_state: AdamWState
     occ: OccupancyState
     step: int = 0
+    ema: Any = None
 
 
 def masked_loss(pred, gt, mask, loss_type: str):
@@ -131,9 +140,11 @@ def teacher_loss(field, spec: ModelSpec, rspec: RenderSpec, cfg: PVDConfig,
     return loss, (out, per_ray)
 
 
-def _adamw_step(state: TrainState, opt: GroupedAdamW, loss):
-    """Backward of `loss`, one AdamW update of the state's field, step + 1;
-    the gradients stay in `.grad`."""
+def _adamw_step(state: TrainState, opt: GroupedAdamW, loss,
+                ema_decay: float):
+    """Backward of `loss`, one AdamW update of the state's field, the EMA
+    copy's shadow update when the state has one, step + 1; the gradients
+    stay in `.grad`."""
     params = dict(state.field.named_parameters())
     loss.backward()
     for p in params.values():  # leaves the loss does not reach
@@ -141,7 +152,30 @@ def _adamw_step(state: TrainState, opt: GroupedAdamW, loss):
             p.grad = torch.zeros_like(p)
     opt.update_(params, {n: p.grad for n, p in params.items()},
                 state.opt_state)
+    if state.ema is not None:
+        ema_update(dict(state.ema.named_parameters()), params, ema_decay)
     state.step += 1
+
+
+@torch.no_grad()
+def error_map_update(row, cells, per_ray):
+    """The error-map row after a step (train_steps.py:338-346): each
+    drawn cell becomes 0.1 x its old weight + 0.9 x the per-ray loss of
+    its ray.  Returns a new row.  A cell drawn more than once takes one of
+    its rays' values: which one is unspecified (index_put_ without
+    accumulate; on CUDA it varies from run to run), as the JAX package's
+    `.at[].set` leaves it."""
+    new = row.clone()
+    new[cells] = 0.1 * row[cells] + 0.9 * per_ray.detach()
+    return new
+
+
+def _draw_bg_u(generator: torch.Generator, n: int, device):
+    """The per-ray background [n, 3] and march perturbation u [n], in
+    that order from `generator`."""
+    bg = torch.rand(n, 3, generator=generator, device=device)
+    u = torch.rand(n, generator=generator, device=device)
+    return bg, u
 
 
 def _zero_grads(field):
@@ -151,13 +185,15 @@ def _zero_grads(field):
 
 def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
                   cfg: PVDConfig, image_channels: int, device: torch.device):
-    """teacher_step_core(state, o, d, pix, bg, u) -> (state, metrics): the
+    """teacher_step_core(state, o, d, pix, bg, u, per_ray=False) -> (state,
+    metrics), and the per-ray losses [N] after them with per_ray: the
     color-space conversion, `compose_gt` (GT on white and the field's own
     background when it has one), the loss, its gradients (left in the
-    field's `.grad`), one AdamW update and step + 1 (train_steps.py:
-    254-281, 382-409)."""
+    field's `.grad`), one AdamW update, the EMA update and step + 1
+    (train_steps.py: 254-281, 382-409)."""
 
-    def teacher_step_core(state: TrainState, o, d, pix, bg, u):
+    def teacher_step_core(state: TrainState, o, d, pix, bg, u,
+                          per_ray: bool = False):
         _check_device(device, field=_param_device(state.field), rays_o=o,
                       pix=pix)
         if cfg.color_space == "linear":
@@ -165,9 +201,9 @@ def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
                             dim=-1)
         gt, bg_r = compose_gt(pix, image_channels, cfg.bg_radius, bg)
         _zero_grads(state.field)
-        loss, (out, _) = teacher_loss(state.field, spec, rspec, cfg,
-                                      state.occ, o, d, gt, bg_r, u)
-        _adamw_step(state, opt, loss)
+        loss, (out, ray_loss) = teacher_loss(state.field, spec, rspec, cfg,
+                                             state.occ, o, d, gt, bg_r, u)
+        _adamw_step(state, opt, loss, cfg.ema_decay)
         with torch.no_grad():
             metrics = {
                 "loss": loss.detach(),
@@ -177,6 +213,8 @@ def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
                 "mask_frac": out["mask_frac"]}
             if "compact_frac" in out:
                 metrics["compact_frac"] = out["compact_frac"]
+        if per_ray:
+            return state, metrics, ray_loss.detach()
         return state, metrics
 
     return teacher_step_core
@@ -184,9 +222,10 @@ def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
 
 def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
                       cfg: PVDConfig, intrinsics, H: int, W: int,
-                      image_channels: int, device="cuda"):
+                      image_channels: int, device="cuda",
+                      use_error_map: bool = False):
     """One teacher training step, single-step preload flavor
-    (train_steps.py:193-347, no error map, no EMA).
+    (train_steps.py:193-347).
 
     Returns step(state, pose [4, 4], image_flat [H*W, C], generator) ->
     (state, metrics): it draws `cfg.num_rays` uniform pixels, then the
@@ -198,21 +237,48 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
     its gradients (left in the field's `.grad`), one AdamW update and
     step + 1.  Metrics: loss, psnr (of the batch against its gt),
     budget_hit, mask_frac and, on the compacted path, compact_frac.
+
+    With `use_error_map` it is step(state, pose, image_flat, emap_row
+    [128 * 128], generator) -> (state, new_row, metrics): the pixels are
+    drawn by importance from the image's error-map row
+    (`ops.rays.draw_error_map_pixels`: the cells, then their jitters),
+    then the background and u, and `step.with_rays(state, pose,
+    image_flat, emap_row, inds, cells, bg, u)` runs the rest: the core,
+    then `error_map_update` of the row with the per-ray losses.
     """
     device = resolve_device(device)
     intr = tuple(float(v) for v in intrinsics)
     core = _teacher_core(spec, rspec, opt, cfg, image_channels, device)
 
-    def step(state: TrainState, pose, image_flat, generator: torch.Generator):
+    def run(state, pose, image_flat, inds, bg, u, per_ray=False):
         pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
-        inds = random_pixels(generator, cfg.num_rays, H, W, device)
         rays = get_rays(pose[None], intr, H, W, inds)
-        pix = image_flat[inds]
-        n = inds.shape[0]
-        bg = torch.rand(n, 3, generator=generator, device=device)
-        u = torch.rand(n, generator=generator, device=device)
         return core(state, rays["rays_o"][0].contiguous(),
-                    rays["rays_d"][0].contiguous(), pix, bg, u)
+                    rays["rays_d"][0].contiguous(), image_flat[inds], bg, u,
+                    per_ray)
+
+    if use_error_map:
+        def with_rays(state, pose, image_flat, emap_row, inds, cells, bg, u):
+            state, metrics, ray_loss = run(state, pose, image_flat, inds, bg,
+                                           u, per_ray=True)
+            return state, error_map_update(emap_row, cells, ray_loss), \
+                metrics
+
+        def step(state: TrainState, pose, image_flat, emap_row,
+                 generator: torch.Generator):
+            inds, cells = draw_error_map_pixels(generator, emap_row,
+                                                cfg.num_rays, H, W)
+            bg, u = _draw_bg_u(generator, inds.shape[0], device)
+            return with_rays(state, pose, image_flat, emap_row, inds, cells,
+                             bg, u)
+
+        step.with_rays = with_rays
+    else:
+        def step(state: TrainState, pose, image_flat,
+                 generator: torch.Generator):
+            inds = random_pixels(generator, cfg.num_rays, H, W, device)
+            bg, u = _draw_bg_u(generator, inds.shape[0], device)
+            return run(state, pose, image_flat, inds, bg, u)
 
     step.core = core
     return step
@@ -221,10 +287,9 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
 def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
                            opt: GroupedAdamW, cfg: PVDConfig, intrinsics,
                            H: int, W: int, image_channels: int,
-                           device="cuda"):
+                           device="cuda", use_error_map: bool = False):
     """One teacher step fed by the host batcher (`data/raybatch.py`, the
-    preload=False path; train_steps.py:350-453, single step, no error map,
-    no EMA).
+    preload=False path; train_steps.py:350-453, single step).
 
     Returns step(state, pose [4, 4], inds [N], pix [N, C], generator) ->
     (state, metrics): the batch's pixel ids and GT pixels come from the
@@ -233,7 +298,10 @@ def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
     rays from `step.rays(pose, inds)` (`pixel_dirs` rotated by the pose),
     then the per-pixel background [N, 3] and the march perturbation u [N]
     are drawn from `generator` and `step.core` (make_teacher_step's
-    core: the same loss and AdamW step) runs.
+    core: the same loss and AdamW step) runs.  With `use_error_map` it
+    returns (state, per_ray [N], metrics): the caller drew the pixels from
+    its host-resident map (`ops.rays.draw_error_map_inds_np`) and updates
+    it with the per-ray losses (train_steps.py:440-445).
     """
     device = resolve_device(device)
     intr = tuple(float(v) for v in intrinsics)
@@ -258,10 +326,12 @@ def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
     def step(state: TrainState, pose, inds, pix, generator: torch.Generator):
         o, d = rays(pose, inds)
         pix = upload(pix, torch.float32)
-        n = o.shape[0]
-        bg = torch.rand(n, 3, generator=generator, device=device)
-        u = torch.rand(n, generator=generator, device=device)
-        return core(state, o, d, pix, bg, u)
+        bg, u = _draw_bg_u(generator, o.shape[0], device)
+        if not use_error_map:
+            return core(state, o, d, pix, bg, u)
+        state, metrics, ray_loss = core(state, o, d, pix, bg, u,
+                                        per_ray=True)
+        return state, ray_loss, metrics
 
     step.rays = rays
     step.core = core
@@ -335,7 +405,7 @@ def distill_loss(student, teacher, spec_stu: ModelSpec, spec_tea: ModelSpec,
 def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
                       rspec: RenderSpec, opt: GroupedAdamW, cfg: PVDConfig,
                       intrinsics, H: int, W: int, stage: int,
-                      device="cuda"):
+                      device="cuda", use_error_map: bool = False):
     """One distillation step of `stage` (1: features, 2: + point sigma and
     color, 3: + RGB and the VM L1), single-step flavor
     (train_steps.py:456-524).
@@ -346,7 +416,15 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
     `generator`, and calls `step.core`, i.e.
     distill_step_core(state, teacher, occ_tea, o, d, bg, u) -> (state,
     logs): the loss, its gradients (left in the student's `.grad`), one
-    AdamW update and step + 1.
+    AdamW update, the EMA update and step + 1.
+
+    With `use_error_map` it is step(state, teacher, occ_tea, pose,
+    emap_row [128 * 128], generator) -> (state, new_row, logs): the pixels
+    are drawn by importance from the pose slot's error-map row, then the
+    background and u, and `step.with_rays(state, teacher, occ_tea, pose,
+    emap_row, inds, cells, bg, u)` runs the rest; at stage 3 with the L2
+    loss the row takes the per-ray RGB losses (`error_map_update`), else
+    it is returned unchanged (train_steps.py:597-618).
     """
     if stage not in (1, 2, 3):
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
@@ -358,27 +436,55 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
     device = resolve_device(device)
     intr = tuple(float(v) for v in intrinsics)
 
-    def distill_step_core(state: TrainState, teacher, occ_tea, o, d, bg, u):
+    def distill_step_core(state: TrainState, teacher, occ_tea, o, d, bg, u,
+                          per_ray: bool = False):
         _check_device(device, student=_param_device(state.field),
                       teacher=_param_device(teacher), rays_o=o)
         _zero_grads(state.field)
-        loss, (logs, _) = distill_loss(
+        loss, (logs, ray_loss) = distill_loss(
             state.field, teacher, spec_stu, spec_tea, rspec, cfg, stage,
             state.occ, occ_tea, o, d, bg, u, state.step)
-        _adamw_step(state, opt, loss)
-        return state, {k: v.detach() for k, v in logs.items()}
+        _adamw_step(state, opt, loss, cfg.ema_decay)
+        logs = {k: v.detach() for k, v in logs.items()}
+        if per_ray:  # None before stage 3
+            return state, logs, (None if ray_loss is None
+                                 else ray_loss.detach())
+        return state, logs
 
-    def step(state: TrainState, teacher, occ_tea, pose,
-             generator: torch.Generator):
+    def run(state, teacher, occ_tea, pose, inds, bg, u, per_ray=False):
         pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
-        inds = random_pixels(generator, cfg.num_rays, H, W, device)
         rays = get_rays(pose[None], intr, H, W, inds)
-        n = inds.shape[0]
-        bg = torch.rand(n, 3, generator=generator, device=device)
-        u = torch.rand(n, generator=generator, device=device)
         return distill_step_core(state, teacher, occ_tea,
                                  rays["rays_o"][0].contiguous(),
-                                 rays["rays_d"][0].contiguous(), bg, u)
+                                 rays["rays_d"][0].contiguous(), bg, u,
+                                 per_ray)
+
+    if use_error_map:
+        update_map = stage == 3 and cfg.loss_type == "L2"
+
+        def with_rays(state, teacher, occ_tea, pose, emap_row, inds, cells,
+                      bg, u):
+            state, logs, ray_loss = run(state, teacher, occ_tea, pose, inds,
+                                        bg, u, per_ray=True)
+            if update_map:
+                emap_row = error_map_update(emap_row, cells, ray_loss)
+            return state, emap_row, logs
+
+        def step(state: TrainState, teacher, occ_tea, pose, emap_row,
+                 generator: torch.Generator):
+            inds, cells = draw_error_map_pixels(generator, emap_row,
+                                                cfg.num_rays, H, W)
+            bg, u = _draw_bg_u(generator, inds.shape[0], device)
+            return with_rays(state, teacher, occ_tea, pose, emap_row, inds,
+                             cells, bg, u)
+
+        step.with_rays = with_rays
+    else:
+        def step(state: TrainState, teacher, occ_tea, pose,
+                 generator: torch.Generator):
+            inds = random_pixels(generator, cfg.num_rays, H, W, device)
+            bg, u = _draw_bg_u(generator, inds.shape[0], device)
+            return run(state, teacher, occ_tea, pose, inds, bg, u)
 
     step.core = distill_step_core
     return step

@@ -39,16 +39,37 @@ Both modes take the large-scene settings: bound > 1 (two or more
 occupancy cascades), the geometric march (dt_gamma > 0) and the background
 model (bg_radius > 0), which both fields then own and train.
 
+Options of both modes (trainer.py:104-117, 498-566, 592-616, 667-684):
+  * `upsample_model_steps`: after each listed step a VM field shrinks to
+    the occupied box of the finest occupancy cascade (which moves the
+    state's `aabb_train`) and then, when `upsample_resolutions` (the CLIs
+    set it from `cli.common.upsample_schedule`) has an entry for that
+    step, resizes to that many equal-volume voxels per axis over the
+    shrunk box; a plenoxel field only resizes, to that resolution per
+    axis.  The optimizer state starts afresh.  The resize is left out of
+    the step clock.
+  * `error_map`: pixels are drawn by importance from a 128 x 128 error
+    map per training image (teacher: on the device when preloaded, on the
+    host with the host batcher, which applies each step's update one step
+    late) or per pose slot of the epoch (distill: updated at stage 3
+    under the L2 loss, reset when the epoch's pose count changes).
+  * `ema_decay` > 0: an EMA copy of the trained field (`state.ema`),
+    updated after every step; `evaluate` renders it, the best checkpoint
+    holds it as its params, and every checkpoint holds it as
+    `ema_params`.
+
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-EMA, the error map, scan steps, data parallelism and VM or plenoxel
-resizing (ROADMAP A12, A16, A17).  Real LPIPS needs pretrained weights
-that neither machine has; like the JAX package without them, `evaluate`
-reports the proxy.
+scan steps and data parallelism (ROADMAP A16, A17).  EMA together with
+resizing raises too: the JAX package's resize leaves the EMA weights at
+the old shapes, and its next EMA update fails (ROADMAP C10).  Real LPIPS
+needs pretrained weights that neither machine has; like the JAX package
+without them, `evaluate` reports the proxy.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import os
 import time
@@ -71,8 +92,11 @@ from pvd_tpu_torch.engine.train_steps import (TrainState, make_distill_step,
                                               make_occ_update,
                                               make_teacher_step,
                                               make_teacher_step_host)
+from pvd_tpu_torch.models import tensors_field, vm_field
 from pvd_tpu_torch.models.api import param_group_label, trainable_label
-from pvd_tpu_torch.params import field_from_tree, new_field, tree_from_field
+from pvd_tpu_torch.ops.rays import ERROR_MAP_CELLS, draw_error_map_inds_np
+from pvd_tpu_torch.params import (field_from_tree, new_field, spec_from_tree,
+                                  tree_from_field)
 from pvd_tpu_torch.render.occupancy import (draw_occ_inputs,
                                             init_occupancy_state,
                                             mark_untrained_grid)
@@ -88,16 +112,49 @@ def _unported(what: str, item: str):
 
 def _check_cfg(cfg: PVDConfig):
     checks = (
-        (cfg.ema_decay > 0, "EMA (ema_decay > 0)", "A16"),
-        (cfg.error_map, "the error map", "A16"),
         (cfg.scan_steps > 1, "scan steps", "A16"),
         (cfg.n_devices != 1, "data parallelism (n_devices != 1)", "A17"),
-        (bool(cfg.upsample_model_steps), "VM and plenoxel resizing "
-         "(upsample_model_steps)", "A12"),
     )
     for bad, what, item in checks:
         if bad:
             _unported(what, item)
+    if (cfg.ema_decay > 0 and cfg.upsample_model_steps
+            and cfg.model_type in ("vm", "tensors")):
+        raise NotImplementedError(
+            "Trainer: EMA (ema_decay > 0) together with resizing "
+            "(upsample_model_steps) of a VM or plenoxel field: the JAX "
+            "package resizes the field but not its EMA weights, and its "
+            "next EMA update fails on the shapes (ROADMAP C10)")
+
+
+def _frozen_copy(field):
+    """A copy of `field` that takes no gradient: the EMA's shadow weights
+    (trainer.py:104-106)."""
+    ema = copy.deepcopy(field).requires_grad_(False)
+    for p in ema.parameters():
+        p.grad = None
+    return ema
+
+
+class _HostRow:
+    """The per-ray losses of a host-batcher step with the error map, on
+    their way to the host (trainer.py:812-816): on the GPU a copy into
+    pinned memory, queued behind the step, that `numpy()` waits for."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type == "cuda":
+            self.t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.t.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.t = t
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.t.numpy()
 
 
 class _PhaseClock:
@@ -186,9 +243,17 @@ class Trainer:
             sched(base_lr, cfg.iters), sched(lr2, cfg.iters))
         self.state = TrainState(
             field=field, opt_state=self.opt.init(params),
-            occ=init_occupancy_state(self.rspec, self.device))
+            occ=init_occupancy_state(self.rspec, self.device),
+            ema=_frozen_copy(field) if cfg.ema_decay > 0 else None)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
+        # the resize schedule: the steps, and the resolution of each (the
+        # CLIs set it from cli.common.upsample_schedule)
+        self.upsample_steps = list(cfg.upsample_model_steps)
+        self.upsample_resolutions: list = []
+        # [B, 128 * 128] when cfg.error_map: a tensor on the device, or a
+        # numpy array on the host for the host batcher
+        self.error_map = None
         self._steps = {}
         self._warmup_spr = 0.0
         self._autotune_cooldown = 0
@@ -220,6 +285,12 @@ class Trainer:
                 f"teacher occupancy grid {got} != this run's {exp}: the "
                 "student inherits the teacher's grid verbatim, so grid_size"
                 " and bound must match the teacher's training settings")
+        # a resized teacher's shapes come from its leaves
+        spec = spec_from_tree(payload["params"], self.spec_tea)
+        if spec != self.spec_tea:
+            self.spec_tea = spec
+            self._steps.clear()
+            self._rebuild_renderers()
         self.teacher = field_from_tree(payload["params"], self.spec_tea,
                                        self.device).requires_grad_(False)
         if self.spec_tea.model_type == "hash":
@@ -229,43 +300,53 @@ class Trainer:
         tree = ckpt.warm_start_student(tree_from_field(self.state.field),
                                        payload["params"])
         field = field_from_tree(tree, self.spec_stu, self.device)
+        # the EMA starts again from the warm-started weights
+        # (trainer.py:214-220)
         self.state = TrainState(
             field=field, opt_state=self.opt.init(dict(
                 field.named_parameters())),
-            occ=payload["occ"], step=self.state.step)
+            occ=payload["occ"], step=self.state.step,
+            ema=None if self.state.ema is None else _frozen_copy(field))
         self.log(f"[load_teacher] {path} (step {payload['step']})")
 
     def load_student(self, path: str):
         """Resume the trained field, its grid and its step from a
-        checkpoint; the optimizer starts afresh (trainer.py:224-246)."""
+        checkpoint; the optimizer starts afresh (trainer.py:224-246).
+        With EMA on, the checkpoint's EMA weights, or a copy of its params
+        where it has none."""
         payload = ckpt.load_checkpoint(path, self.device)
         params = payload["params"]
-        if self.spec_stu.model_type == "vm":
-            # the live resolution from the loaded plane and line shapes
-            # (trainer.py:240-245)
-            m0, v0 = params["sigma_mat"][0], params["sigma_vec"][0]
-            res = (m0.shape[1], m0.shape[0], v0.shape[0])
-            if res != tuple(self.spec_stu.vm_resolution):
-                self.spec_stu = dataclasses.replace(self.spec_stu,
-                                                    vm_resolution=res)
-                self._steps.clear()
-                self._rebuild_renderers()
+        # the live shapes from the loaded leaves (trainer.py:240-245)
+        spec = spec_from_tree(params, self.spec_stu)
+        if spec != self.spec_stu:
+            self.spec_stu = spec
+            self._steps.clear()
+            self._rebuild_renderers()
         field = field_from_tree(params, self.spec_stu, self.device)
+        ema = None
+        if self.state.ema is not None:
+            saved = payload["ema_params"]
+            ema = (_frozen_copy(field) if saved is None else field_from_tree(
+                saved, self.spec_stu, self.device).requires_grad_(False))
         self.state = TrainState(
             field=field, opt_state=self.opt.init(dict(
                 field.named_parameters())),
-            occ=payload["occ"], step=payload["step"])
+            occ=payload["occ"], step=payload["step"], ema=ema)
         self.log(f"[load_student] {path} (step {payload['step']})")
 
     def _ckpt_dir(self) -> str:
         return os.path.join(self.workspace, "checkpoints")
 
     def save(self, stats: Optional[dict] = None,
-             filename: Optional[str] = None) -> str:
-        """A checkpoint of the trained field (trainer.py:248-258)."""
+             filename: Optional[str] = None, field=None) -> str:
+        """A checkpoint of the trained field, or of `field` as its params
+        (trainer.py:248-258), with the EMA weights when EMA is on."""
+        ema = self.state.ema
         return ckpt.save_checkpoint(
             self._ckpt_dir(), self.name, self.state.step,
-            tree_from_field(self.state.field), self.state.occ,
+            tree_from_field(self.state.field if field is None else field),
+            self.state.occ,
+            ema_params=None if ema is None else tree_from_field(ema),
             stats=stats or self.stats, config_json=self.cfg.to_json(),
             filename=filename)
 
@@ -305,15 +386,18 @@ class Trainer:
                      host: bool = False):
         key = (stage, H, W, C, host)
         if key not in self._steps:
+            emap = self.cfg.error_map
             if self.mode == "teacher":
                 make = make_teacher_step_host if host else make_teacher_step
                 self._steps[key] = make(
                     self.spec_stu, self.rspec, self.opt, self.cfg, intr, H,
-                    W, image_channels=C, device=self.device)
+                    W, image_channels=C, device=self.device,
+                    use_error_map=emap)
             else:
                 self._steps[key] = make_distill_step(
                     self.spec_stu, self.spec_tea, self.rspec, self.opt,
-                    self.cfg, intr, H, W, stage, device=self.device)
+                    self.cfg, intr, H, W, stage, device=self.device,
+                    use_error_map=emap)
         return self._steps[key]
 
     def _sync(self):
@@ -365,6 +449,61 @@ class Trainer:
                      f"->{new_rs.samples_per_ray} "
                      f"(budget_hit={budget_hit:.3f} mask_frac={mask_frac:.3f})")
 
+    def _resize_due(self, step: int) -> bool:
+        return (self.spec_stu.model_type in ("vm", "tensors")
+                and step in self.upsample_steps)
+
+    def _maybe_vm_resize(self, step: int):
+        """The scheduled resize after `step` steps (trainer.py:498-566): a
+        VM field shrinks to the box of the finest cascade's cells whose
+        density exceeds min(density_thresh, mean density), which becomes
+        the state's new `aabb_train` (a new tensor: the distill teacher's
+        grid, which the student's state shares until then, keeps its own),
+        then upsamples to equal-volume voxels at the step's scheduled
+        resolution; a plenoxel field only upsamples.  The optimizer state
+        starts afresh."""
+        if not self._resize_due(step):
+            return
+        i = self.upsample_steps.index(step)
+        target = (self.upsample_resolutions[i]
+                  if i < len(self.upsample_resolutions) else None)
+        field = self.state.field
+        if self.spec_stu.model_type == "tensors":
+            if target is None:
+                return
+            tensors_field.upsample_params(field, (target,) * 3)
+            self.log(f"[plenoxel upsample] res -> {(target,) * 3}")
+        else:
+            occ = self.state.occ
+            H, bound = self.rspec.grid_size, self.rspec.bound
+            half = bound / H
+            grid = occ.density_grid[-1].cpu().numpy()
+            thresh = min(self.cfg.density_thresh, float(occ.mean_density))
+            idx = np.argwhere(grid > thresh)
+            if len(idx) > 0:
+                pos = (2.0 * idx / (H - 1) - 1.0) * (bound - half)
+                new_aabb = np.concatenate([pos.min(0) - half,
+                                           pos.max(0) + half])
+                vm_field.shrink_params(field, occ.aabb_train.cpu().numpy(),
+                                       new_aabb, field.spec.vm_resolution)
+                self.state.occ = occ.replace(aabb_train=torch.as_tensor(
+                    new_aabb, dtype=torch.float32, device=self.device))
+                self.log(f"[vm shrink] aabb -> {new_aabb.tolist()} res -> "
+                         f"{field.spec.vm_resolution}")
+            if target is not None:
+                # equal-volume voxels at the scheduled count inside the
+                # (shrunk) aabb (trainer.py:551-562)
+                cur = self.state.occ.aabb_train.cpu().numpy()
+                size = cur[3:] - cur[:3]
+                vox = float(np.cbrt(np.prod(size) / float(target) ** 3))
+                reso = tuple(int(v) for v in (size / vox).astype(np.int64))
+                vm_field.upsample_params(field, reso)
+                self.log(f"[vm upsample] res -> {reso}")
+        self.spec_stu = field.spec
+        self.state.opt_state = self.opt.init(dict(field.named_parameters()))
+        self._steps.clear()
+        self._rebuild_renderers()
+
     def _distill_epoch_poses(self, rng_np, train_ds) -> np.ndarray:
         """Fresh random viewpoints for one distillation epoch, plus the
         optional `rand_pose` orbit cameras (trainer.py:569-590): 0 = orbit
@@ -386,7 +525,10 @@ class Trainer:
         psnr = stats.get("psnr", 0.0)
         if psnr > self.best_psnr:
             self.best_psnr = psnr
-            path = self.save(stats=stats, filename=f"{self.name}_best.ckpt")
+            # the EMA weights, when EMA is on, are the best checkpoint's
+            # params (trainer.py:600-603)
+            path = self.save(stats=stats, filename=f"{self.name}_best.ckpt",
+                             field=self.state.ema)
             self.log(f"[best] psnr={psnr:.2f} -> {path}")
         return stats
 
@@ -427,6 +569,9 @@ class Trainer:
         def as_dev(a):
             return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
+        def ones_map(n):
+            return torch.ones(n, ERROR_MAP_CELLS, device=self.device)
+
         batcher = None
         if teacher_mode:
             self.state.occ = mark_untrained_grid(
@@ -441,15 +586,25 @@ class Trainer:
                     RayBatcher(train_ds.images, cfg.num_rays,
                                seed=cfg.seed)))
                 self.log("[data] host batching (native)")
+            if cfg.error_map:
+                # with the host batcher the map lives on the host, where
+                # the pixels are drawn (trainer.py:667-677)
+                self.error_map = (ones_map(len(poses)) if batcher is None
+                                  else np.ones((len(poses), ERROR_MAP_CELLS),
+                                               np.float32))
             phases = ("padded", "compacted")
         else:
             poses = as_dev(self._distill_epoch_poses(rng_np, train_ds))
             C = 4
             phases = ("stage1", "stage2", "stage3")
+            if cfg.error_map:
+                # a row per pose slot of the epoch (trainer.py:681-684)
+                self.error_map = ones_map(len(poses))
         refresh_occ = teacher_mode or cfg.update_stu_extra
+        pending = None  # the host map's lagged update: ((view, cells), losses)
 
         occ_s = {"full": [0, 0.0], "partial": [0, 0.0]}
-        side_s = {"eval": 0.0, "ckpt": 0.0}
+        side_s = {"eval": 0.0, "ckpt": 0.0, "resize": 0.0}
         self._sync()
         t_start = time.perf_counter()
         step = step0 = self.state.step
@@ -461,6 +616,8 @@ class Trainer:
             # fresh random poses per distillation epoch
             if not teacher_mode and step > 0:
                 poses = as_dev(self._distill_epoch_poses(rng_np, train_ds))
+                if self.error_map is not None and len(poses) != epoch_len:
+                    self.error_map = ones_map(len(poses))
                 epoch_len = len(poses)
             for _ in range(min(epoch_len, total - step)):
                 if step % cfg.update_extra_interval == 0:
@@ -481,19 +638,50 @@ class Trainer:
                 stage = self._stage_of(step)
                 step_fn = self._get_step_fn(stage, H, W, C, intr,
                                             host=batcher is not None)
-                if batcher is not None:
+                emap = self.error_map
+                if batcher is not None and emap is not None:
+                    # apply the previous step's per-ray losses to the host
+                    # map in step order, then draw this step's pixels from
+                    # it (trainer.py:736-747, 804-816)
+                    if pending is not None:
+                        (p_idx, p_cells), p_loss = pending
+                        row = emap[p_idx]
+                        row[p_cells] = 0.1 * row[p_cells] \
+                            + 0.9 * p_loss.numpy()
+                    inds, cells = draw_error_map_inds_np(
+                        rng_np, emap[idx], H, W, cfg.num_rays)
+                    pix = batcher.gather(idx, inds)
+                    self.state, per_ray, metrics = step_fn(
+                        self.state, poses[idx], inds, pix, self.generator)
+                    pending = (idx, cells), _HostRow(per_ray)
+                elif batcher is not None:
                     # the batch's image replaces the host draw above, as in
                     # the JAX package
                     idx, inds, pix = batcher.next()
                     self.state, metrics = step_fn(self.state, poses[idx],
                                                   inds, pix, self.generator)
+                elif teacher_mode and emap is not None:
+                    self.state, emap[idx], metrics = step_fn(
+                        self.state, poses[idx], images[idx], emap[idx],
+                        self.generator)
                 elif teacher_mode:
                     self.state, metrics = step_fn(self.state, poses[idx],
                                                   images[idx], self.generator)
+                elif emap is not None:
+                    self.state, emap[idx], metrics = step_fn(
+                        self.state, self.teacher, self.occ_tea, poses[idx],
+                        emap[idx], self.generator)
                 else:
                     self.state, metrics = step_fn(self.state, self.teacher,
                                                   self.occ_tea, poses[idx],
                                                   self.generator)
+                if self._resize_due(step + 1):
+                    clock.mark(step + 1)
+                    t0 = time.perf_counter()
+                    self._maybe_vm_resize(step + 1)
+                    self._sync()
+                    side_s["resize"] += time.perf_counter() - t0
+                    clock.restart()
                 self._last_metrics = metrics
                 self.history.append(metrics)
                 if step % 100 == 0:
@@ -530,13 +718,14 @@ class Trainer:
         steps_done = step - step0
         if steps_done:
             t_occ = occ_s["full"][1] + occ_s["partial"][1]
-            steady = max(wall - t_occ - side_s["eval"] - side_s["ckpt"], 1e-9)
+            steady = max(wall - t_occ - sum(side_s.values()), 1e-9)
             self.train_stats = {
                 "train_steps": steps_done,
                 "train_wall_s": wall,
                 "train_occ_s": t_occ,
                 "train_eval_s": side_s["eval"],
                 "train_ckpt_s": side_s["ckpt"],
+                "train_resize_s": side_s["resize"],
                 "train_rays_per_sec": steps_done * cfg.num_rays / wall,
                 "train_rays_per_sec_steady": steps_done * cfg.num_rays
                 / steady,
@@ -595,8 +784,10 @@ class Trainer:
             field, occ, render = self.teacher, self.occ_tea, \
                 self.eval_render_tea
         else:
-            field, occ, render = self.state.field, self.state.occ, \
-                self.eval_render
+            # the EMA weights when EMA is on (trainer.py:1054-1058)
+            field = (self.state.field if self.state.ema is None
+                     else self.state.ema)
+            occ, render = self.state.occ, self.eval_render
         save_dir = save_dir or os.path.join(self.workspace, "results")
         os.makedirs(save_dir, exist_ok=True)
         meter, ssims, lp, times = PSNRMeter(), [], [], []

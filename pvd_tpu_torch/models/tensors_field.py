@@ -12,10 +12,14 @@ distillation skips stage 1 whenever either side is a plenoxel field.
 and then overwrites with the unclipped logit, network.py:470-476).  With
 `bg_radius` > 0 the field owns a background model, `bg`
 (`models/api.Background`), whose direction encoder then has the plenoxel
-degree.
+degree.  `upsample_params` resizes the volume trilinearly
+(align_corners=True) for a coarse-to-fine schedule
+(tensors_field.py:76-99).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -24,6 +28,7 @@ from pvd_tpu_torch.config import ModelSpec
 from pvd_tpu_torch.device import resolve_device
 from pvd_tpu_torch.models.api import make_background
 from pvd_tpu_torch.models.heads import FieldOut
+from pvd_tpu_torch.models.vm_field import linear_resize_1d, linear_resize_2d
 from pvd_tpu_torch.ops.activation import clip, trunc_exp
 from pvd_tpu_torch.ops.grid_sample import grid_sample_3d
 from pvd_tpu_torch.ops.sh import sh_encode
@@ -86,3 +91,22 @@ class TensorsField(nn.Module):
         (d0, d1), (h0, h1), (w0, w1) = region
         self.volume[d0:d1, h0:h1, w0:w1, 0] = value
         return self
+
+
+@torch.no_grad()
+def upsample_params(field: TensorsField, resolution) -> TensorsField:
+    """Resize the volume separably and linearly (align_corners=True) to
+    `resolution` (D, H, W) (tensors_field.py:76-99), in place: a new
+    Parameter, and `field.spec.plenoxel_res` set to it.  The JAX package
+    resizes (D, H), then (W, D * H) with the second axis unchanged; the
+    port resizes W alone, which gives the same sums.  Returns the
+    field."""
+    vol = field.volume
+    D, H, W, C = vol.shape
+    nD, nH, nW = (int(r) for r in resolution)
+    v = linear_resize_2d(vol.reshape(D, H, W * C), (nD, nH))
+    v = v.reshape(nD, nH, W, C).permute(2, 0, 1, 3).reshape(W, -1)
+    v = linear_resize_1d(v, nW).reshape(nW, nD, nH, C).permute(1, 2, 0, 3)
+    field.volume = nn.Parameter(v.contiguous())
+    field.spec = dataclasses.replace(field.spec, plenoxel_res=(nD, nH, nW))
+    return field

@@ -14,10 +14,19 @@ factors.  AdamW acts elementwise, so the concatenation changes no update.
 Positions are normalized by the aabb and carry no gradient.  With
 `bg_radius` > 0 the field owns a background model, `bg`
 (`models/api.Background`).
+
+Resizing (vm_field.py:298-386): `shrink_params` crops every plane and line
+to an occupied sub-box of the aabb and `upsample_params` resizes them
+linearly (align_corners=True) to a per-axis resolution.  Both replace the
+tables with new contiguous Parameters under the same names, on the
+field's device, so the caller rebuilds the optimizer state.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -129,3 +138,89 @@ class VMField(nn.Module):
         for m, v in zip(self.planes, self.lines):
             loss = loss + m[..., :Rs].abs().mean() + v[..., :Rs].abs().mean()
         return loss
+
+
+def _axis_positions(n_old: int, n_new: int):
+    """(fraction, lower index) of each of n_new align_corners=True sample
+    positions over n_old, in float64 (vm_field.py:304-309)."""
+    if n_new == 1:
+        return np.zeros(1), np.zeros(1, np.int64)
+    p = np.arange(n_new) * (n_old - 1) / (n_new - 1)
+    i0 = np.clip(np.floor(p).astype(np.int64), 0, n_old - 1)
+    return p - i0, i0
+
+
+def linear_resize_2d(t: torch.Tensor, new_hw) -> torch.Tensor:
+    """Bilinear align_corners=True resize of t [H, W, R] to [nh, nw, R],
+    in float32 on t's device: the JAX package's corner indices and its
+    term order a (1 - wy) (1 - wx) + b (1 - wy) wx + c wy (1 - wx) +
+    d wy wx (vm_field.py:298-321), with the weights and their complements
+    rounded from float64 (that function sums in float64 and rounds once,
+    so the two agree to a few float32 ulps of max |t|)."""
+    H, W = t.shape[0], t.shape[1]
+    nh, nw = int(new_hw[0]), int(new_hw[1])
+    fy, y0 = _axis_positions(H, nh)
+    fx, x0 = _axis_positions(W, nw)
+    y1, x1 = np.minimum(y0 + 1, H - 1), np.minimum(x0 + 1, W - 1)
+
+    def ids(a):
+        return torch.as_tensor(a, device=t.device)
+
+    def wts(a, shape):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=t.device).reshape(shape)
+
+    top, bot = t[ids(y0)], t[ids(y1)]
+    a, b = top[:, ids(x0)], top[:, ids(x1)]
+    c, d = bot[:, ids(x0)], bot[:, ids(x1)]
+    wy, vy = wts(fy, (-1, 1, 1)), wts(1.0 - fy, (-1, 1, 1))
+    wx, vx = wts(fx, (1, -1, 1)), wts(1.0 - fx, (1, -1, 1))
+    return a * vy * vx + b * vy * wx + c * wy * vx + d * wy * wx
+
+
+def linear_resize_1d(t: torch.Tensor, new_l: int) -> torch.Tensor:
+    """Linear align_corners=True resize of t [L, R] to [new_l, R]."""
+    return linear_resize_2d(t[:, None, :], (new_l, 1))[:, 0, :]
+
+
+def _set_tables(field: VMField, planes, lines, resolution):
+    field.planes = nn.ParameterList(nn.Parameter(p.contiguous())
+                                    for p in planes)
+    field.lines = nn.ParameterList(nn.Parameter(v.contiguous())
+                                   for v in lines)
+    field.spec = dataclasses.replace(
+        field.spec, vm_resolution=tuple(int(r) for r in resolution))
+
+
+@torch.no_grad()
+def upsample_params(field: VMField, resolution) -> VMField:
+    """Resize every plane and line of `field` linearly to `resolution`
+    (X, Y, Z) (vm_field.py:330-360), in place: new Parameters, and
+    `field.spec.vm_resolution` set to it.  Returns the field."""
+    planes = [linear_resize_2d(p, (resolution[m1], resolution[m0]))
+              for p, (m0, m1) in zip(field.planes, MAT_IDS)]
+    lines = [linear_resize_1d(v, resolution[i])
+             for v, i in zip(field.lines, VEC_IDS)]
+    _set_tables(field, planes, lines, resolution)
+    return field
+
+
+@torch.no_grad()
+def shrink_params(field: VMField, aabb: np.ndarray, new_aabb: np.ndarray,
+                  resolution):
+    """Crop every plane and line of `field` to the voxels of the sub-box
+    `new_aabb` of `aabb` ([6] numpy each; the tables span `aabb` at
+    `resolution`), in place (vm_field.py:363-386): new Parameters, and
+    `field.spec.vm_resolution` set to br - tl.  Returns (tl, br), the
+    integer crop bounds per axis."""
+    reso = np.asarray(resolution, np.int64)
+    units = (aabb[3:] - aabb[:3]) / reso
+    tl = np.clip(np.round((new_aabb[:3] - aabb[:3]) / units).astype(np.int64),
+                 0, None)
+    br = np.minimum(np.round((new_aabb[3:] - aabb[:3]) / units)
+                    .astype(np.int64), reso)
+    planes = [p[tl[m1]:br[m1], tl[m0]:br[m0]].clone()
+              for p, (m0, m1) in zip(field.planes, MAT_IDS)]
+    lines = [v[tl[i]:br[i]].clone() for v, i in zip(field.lines, VEC_IDS)]
+    _set_tables(field, planes, lines, br - tl)
+    return tl, br

@@ -20,6 +20,8 @@ it with numpy (or any array-protocol) leaves, so no JAX is needed here:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -257,6 +259,21 @@ _FROM_JAX = {"hash": hash_field_from_jax, "mlp": mlp_field_from_jax,
              "vm": vm_field_from_jax, "tensors": tensors_field_from_jax}
 _TO_JAX = {HashField: hash_tree_from_field, MLPField: mlp_tree_from_field,
            VMField: vm_tree_from_field, TensorsField: tensors_tree_from_field}
+
+
+def spec_from_tree(tree, spec: ModelSpec) -> ModelSpec:
+    """`spec` with the table shapes of `tree`: a VM field's per-axis
+    resolution read from its planes and lines (trainer.py:240-245), a
+    plenoxel field's from its volume.  A resized field's checkpoint holds
+    shapes its run's config does not name."""
+    if spec.model_type == "vm":
+        m0 = np.shape(tree["sigma_mat"][0])
+        v0 = np.shape(tree["sigma_vec"][0])
+        return dataclasses.replace(spec, vm_resolution=(m0[1], m0[0], v0[0]))
+    if spec.model_type == "tensors":
+        return dataclasses.replace(
+            spec, plenoxel_res=tuple(np.shape(tree["volume"])[:3]))
+    return spec
 
 
 def field_from_tree(tree, spec: ModelSpec, device="cuda"):

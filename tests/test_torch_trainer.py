@@ -89,10 +89,20 @@ def test_warmup_ends_with_the_sample_budget(scene, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(ema_decay=0.95), dict(error_map=True), dict(scan_steps=4),
-    dict(n_devices=2), dict(upsample_model_steps=(5,))],
+    pytest.param(dict(model_type="vm", ema_decay=0.95,
+                      upsample_model_steps=(5,)), id="ema_decay"),
+    pytest.param(dict(error_map=True, scan_steps=4), id="error_map"),
+    dict(scan_steps=4), dict(n_devices=2),
+    pytest.param(dict(model_type="tensors", ema_decay=0.95,
+                      upsample_model_steps=(5,)),
+                 id="upsample_model_steps")],
     ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
+    """Scan steps (A16) and data parallelism (A17) are not ported; EMA
+    together with resizing is refused (C10: the JAX package resizes the
+    field but not its EMA weights).  EMA, the error map and resizing
+    alone are taken (tests/test_torch_error_map.py,
+    tests/test_torch_resize.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(PVDConfig(**kw), device="cpu")
 
@@ -113,13 +123,14 @@ def test_wall_budget_ends_at_an_epoch_boundary(scene, tmp_path):
 
 
 def test_unported_modes_and_methods_raise(scene, tmp_path):
-    """Distillation raises for EMA and resizing, whatever the pair;
-    evaluate writes each view's image and depth PNG, and a video only
-    where imageio has a codec."""
-    for kw in (dict(model_type="vm", ema_decay=0.9),
+    """Distillation raises for scan steps, data parallelism and EMA
+    together with resizing, whatever the pair; evaluate writes each view's
+    image and depth PNG, and a video only where imageio has a codec."""
+    for kw in (dict(model_type="vm", ema_decay=0.9,
+                    upsample_model_steps=(5,)),
                dict(model_type="mlp", teacher_type="tensors",
-                    error_map=True),
-               dict(model_type="vm", upsample_model_steps=(5,))):
+                    scan_steps=4),
+               dict(model_type="vm", n_devices=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(PVDConfig(**kw), mode="distill", device="cpu")
     with pytest.raises(ValueError, match="mode"):
