@@ -168,12 +168,12 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    F.grid_sample at 65,536 points of the trained volume.
 12. Trains TensoRF's coarse-to-fine VM teacher through the teacher CLI on
    the same scene (resolution 128 -> 300, shrinks and upsamples after
-   steps 200, 300, 400, 550 and 700 of 3000; the A/B teacher's rays and
+   steps 200, 300, 400, 550 and 700 of 1500; the A/B teacher's rays and
    grid, --preload), then `--test`; logs each resize's shape and the
    teacher's test PSNR (no floor: its eval reads the shrunk tables over
    aabb_infer, as the JAX package's does, ROADMAP C9) beside its PSNR over
    aabb_train; distills a cell-mode hash student from its best checkpoint
-   through the distill CLI (1000 steps, stages 150/400), then `--test`:
+   through the distill CLI (600 steps, stages 90/240), then `--test`:
    fails under 24 dB.  Holds K4 and K5 against their plain versions at
    131,072 samples at the trained teacher's per-axis shape and at its
    shape after the first shrink (random tables), with their times and
@@ -184,15 +184,35 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    and 800, then `--test`: fails under 24 dB or more than 3.0 dB under
    the A/B teacher, or if the volume does not end at 128^3.
 14. Trains the A/B teacher through the teacher CLI on the host batcher
-   with --error_map --ema_decay 0.95, then distills the A/B student from
-   its best checkpoint with the same two flags, each followed by
-   `--test`: fails under 28.0 / 27.5 dB, a student more than 1.0 dB under
-   its teacher, or a best checkpoint that does not hold the EMA weights.
+   with --error_map --ema_decay 0.95 --scan_steps 8, then distills the
+   A/B student from its best checkpoint with the same three flags, each
+   followed by `--test`: fails under 28.0 / 27.5 dB, a student more than
+   1.0 dB under its teacher, a best checkpoint that does not hold the EMA
+   weights, or a run with fewer than half its steps in 8-step calls.
    Profiles one host step with the error map and one stage-3 distill
    step with it, and holds one small preloaded teacher step with an
    error map on the GPU against the CPU: loss, gradients, params and the
    updated map row.
-15. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+15. Scan steps (phase 14 runs them on the host batcher): the A/B teacher
+   through the teacher CLI with --preload --scan_steps 8, then `--test`;
+   fails under 28.0 dB, more than 1.0 dB under the single-step A/B
+   teacher, or with fewer than half its steps in 8-step calls.  Then one
+   8-step chunk against its 8 single steps on the card from the same
+   checkpoint and draws (per-step losses and metrics within 1e-4
+   relative), and a profile of each: ms per step and device busy share.
+16. Data parallel over the ray axis: two ranks (spawned processes)
+   sharing the card over gloo hold the DP teacher step and the rgb-only
+   DP distill step on fixed shards (test sizes, f32 heads) against the
+   single-process step on the concatenated batch (the GPU step
+   tolerances), the DP occupancy sweep and one 800x800 DP eval image of
+   the A/B teacher (f32 heads) against the single-process ones, and
+   train the A/B student cut to 500 steps at resolution 128 through the
+   Trainer with n_devices=2 (every rank's launch counters read around
+   its run), within 1.0 dB of the single-process student; they time a
+   mean all-reduce of the full A/B student's gradient size.  Then one
+   rank over NCCL: `make_dp_distill_step` against the single-chip step,
+   and the same all-reduce's time.
+17. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails, no GPU is present
@@ -274,6 +294,11 @@ from pvd_tpu_torch.ops.vm_sample import (MAT_IDS, VEC_IDS, grad_buffers,
                                          k4_variant, k5_variant,
                                          vm_sample_bwd, vm_sample_bwd_plain,
                                          vm_sample_fwd, vm_sample_plain)
+from pvd_tpu_torch.parallel.dp import (make_dp_distill_step,
+                                       make_dp_eval_renderer,
+                                       make_dp_occ_update,
+                                       make_dp_teacher_step)
+from pvd_tpu_torch.parallel.mesh import init_ray_group
 from pvd_tpu_torch.params import (field_from_tree, hash_field_from_jax,
                                   hash_tree_from_field, tree_from_field,
                                   vm_field_from_jax, vm_tree_from_field)
@@ -432,11 +457,11 @@ TEACHER_CLI_RELOAD_DB = 0.01
 # the MLP (PE 10, 8 x 256, skip 3) and plenoxel (128^3, degree 3) fields
 # at MATRIX_QUALITY_r05.json's recipe (tools/matrix_quality.py:60-72,
 # 166-177): teachers 3000 steps of 4096 rays at grid 64 with --preload
-# (its scan_steps 8 are not ported: single steps), students 2000 steps,
+# (single steps here: phase 15 runs scan steps), students 2000 steps,
 # stages 300/800, max_samples 64, 6 samples per ray, the budget frozen;
-# cut to 1500 (MLP) and 2000 (plenoxel: 24.2 dB at 1500 steps on the
-# H100, 29.9 at 2500) teacher steps and 1500 student steps (stages
-# 225/600) to keep the script's time.
+# cut to 1500 (MLP: 22.6 dB at 1000 on the H100) and 2000 (plenoxel:
+# 24.2 dB at 1500, 29.9 at 2500) teacher steps and 1500 student steps
+# (stages 225/600) to keep the script's time.
 # The MLP's first few hundred steps learn little until the occupancy grid
 # has pruned the empty space; a run that does not leave that phase
 # empties its grid and stays near 17 dB (PERF.md §7)
@@ -459,18 +484,19 @@ FIELD_JAX_TPU = {"mlp": 31.15, "tensors": 30.07, "mlp2tensors": 30.08,
                  "tensors2mlp": 29.49}
 # phase 12: TensoRF's coarse-to-fine VM recipe through the teacher CLI:
 # resolution 128 -> 300 with upsamples at its Synthetic-NeRF upsamp_list
-# (2000, 3000, 4000, 5500, 7000 of 30,000 steps) scaled to 3000 steps; the
-# A/B teacher's rays and grid.  Then a cell-mode hash student distilled
-# from it (1000 steps, stages 150/400): the hash field reads no aabb at
+# (2000, 3000, 4000, 5500, 7000 of 30,000 steps) scaled to 3000 steps, the
+# run cut to 1500 (its resizes all inside); the A/B teacher's rays and
+# grid.  Then a cell-mode hash student distilled from it (600 steps,
+# stages 90/240; 33.5 dB at 1000): the hash field reads no aabb at
 # eval, so its PSNR measures what the resized teacher learned.  The VM
 # teacher's own test PSNR has no floor: its eval reads the shrunk tables
 # over aabb_infer, as the JAX package's does (ROADMAP C9)
 VM_C2F_TEACHER = dict(model_type="vm", resolution0=128, resolution1=300,
                       upsample_model_steps=(200, 300, 400, 550, 700),
-                      iters=3000, grid_size=64, num_rays=4096,
+                      iters=1500, grid_size=64, num_rays=4096,
                       eval_interval=1000, preload=True)
-VM_C2F_STUDENT = dict(hash_cell_levels=9, iters=1000, stage1_iters=150,
-                      stage2_iters=400, grid_size=64, num_rays=4096,
+VM_C2F_STUDENT = dict(hash_cell_levels=9, iters=600, stage1_iters=90,
+                      stage2_iters=240, grid_size=64, num_rays=4096,
                       max_samples=64, samples_per_ray=6.0,
                       autotune_budget=False, eval_interval=1000)
 VM_C2F_TEACHER_KERNELS = FIELD_TEACHER_KERNELS + ("vm_sample_fwd",
@@ -484,8 +510,9 @@ VM_C2F_STUDENT_FLOOR = 24.0
 RESIZED_SAMPLES = 131_072
 # phase 13: MATRIX_QUALITY_r05.json's hash2tensors_c2f flags (a plenoxel
 # student from resolution 64 to 128, lr 2e-2) from the A/B teacher, cut to
-# 2000 steps with the upsamples at 400 and 800 (4000 there, at 800 and
-# 1600; its --scan_steps 8 is not ported); JAX on the TPU 29.553 dB
+# 2000 steps (31.5 dB at 1200, 3.5 under the A/B teacher) with the
+# upsamples at 400 and 800 (4000 there, at 800 and 1600; single steps
+# here); JAX on the TPU 29.553 dB
 C2F_PLENOXEL = dict(hash_cell_levels=9, iters=2000, stage1_iters=300,
                     stage2_iters=800, grid_size=64, num_rays=4096,
                     max_samples=64, samples_per_ray=6.0,
@@ -511,6 +538,35 @@ EMAP_DISTILL_KERNELS = ("hash_encode", "hash_encode_cell_fwd", "march_rays",
 # 2e-5 plus 2e-5 of the row's max; a cell drawn by several rays holds one
 # of their values on each device
 TOL_EMAP_ROW = 2e-5
+# scan steps (bench.py:233's teacher setting, --scan_steps 8): phase 14's
+# error-map teacher on the host batcher and its student run in 8-step
+# calls; phase 15 trains the A/B teacher with --preload --scan_steps 8 (the
+# A/B floors) and holds one 8-step chunk against its 8 single steps on the
+# card: K7 and K11 add with float atomics, so the per-step losses and
+# metrics are held to 1e-4 relative (two runs of the same single steps are
+# logged beside)
+SCAN_K = 8
+SCAN_FLAGS = ("--scan_steps", str(SCAN_K))
+CHUNK_RTOL = 1e-4
+# phase 16: data parallel with two ranks sharing the card over gloo
+# (NCCL refuses two ranks on one card), then one NCCL rank.  The small
+# steps at test sizes (f32 heads, padded) against the single-process step
+# on the concatenated batch at the GPU step tolerances above; the distill
+# step rgb-only (its point losses are per-shard means in JAX, dp.py:15-23;
+# those logs and its PSNR are left out).  The sweep and the 800x800 image
+# of the A/B teacher with f32 heads: the grid within 1e-5 of its max, at
+# most 8 bitfield cells flipped, the image within 1e-4 (the GEMMs see
+# other batch shapes).  DP_DISTILL: the A/B student cut to 500 steps at
+# resolution 128 through the Trainer, within 1 dB of the single-process
+# student (the two draw other rays)
+DP_WORLD = 2
+DP_TIMEOUT_S = 600.0
+DP_RGB_ONLY = dict(loss_rate_fea_sc=0.0, loss_rate_sigma=0.0,
+                   loss_rate_color=0.0)
+DP_SHARD_LOGS = ("loss_fea_sc", "loss_sigma", "loss_color", "psnr")
+DP_DISTILL = dict(AB_DISTILL, resolution0=128, iters=500, stage1_iters=75,
+                  stage2_iters=200)
+DP_GRID_RTOL, DP_BIT_FLIPS, DP_IMAGE_ATOL, DP_MAX_DROP = 1e-5, 8, 1e-4, 1.0
 # the small large-scene steps (tests/test_torch_large_scene.py's sizes)
 SMALL_LS = dict(bound=2.0, dt_gamma=1.0 / 256.0, bg_radius=32.0)
 SMALL_LS_TEA = dict(SMALL_TEA, bound=2.0, bg_radius=32.0)
@@ -2569,7 +2625,7 @@ def distill_cli_run(seed: int, workspace: str, scene: str, tea: str,
             "test_reload_psnr": test["psnr"], "train_s": train_s,
             "test_s": test_s, "launches": launches, "workspace": done,
             "train_stats": {k: v for k, v in stats.items()
-                            if k.startswith(("train_", "stage"))},
+                            if k.startswith(("train_", "stage", "chunk"))},
             "step_profile": prof}
 
 
@@ -2701,13 +2757,20 @@ def vm_resized_case(planes, lines, gen, label: str) -> dict:
           **timings(lambda: vm_sample_fwd(planes, lines, xn),
                     lambda: vm_sample_plain(planes, lines, xn))}
     k5 = k5_case(planes, lines, xn, torch.ones(M, device=dev), gen)
+    # the library yardsticks at this shape: F.grid_sample of the three
+    # planes, forward (K4's plane half) and backward (K5's)
+    lib_fwd, lib_bwd = vm_library(planes, xn, gen)
+    k4["library_ms"] = cuda_ms(lib_fwd)
+    k5["library_ms"] = cuda_ms(lib_bwd)
     shape = {"planes": [list(p.shape[:2]) for p in planes],
              "lines": [v.shape[0] for v in lines], "R": R}
     log(f"K4 at the {label} VM shape {shape}: {kind} instantiation, "
         f"{lanes} lanes per sample, M {M}: max |kernel - plain| "
         f"{err4:.3g}, {k4['ms']:.4f} ms{alone(k4)} (call "
-        f"{k4['call_ms']:.4f}, plain {k4['plain_ms']:.4f}), bound "
-        f"{k4['bound'][0]:.4f} ms ({k4['bound'][1]})")
+        f"{k4['call_ms']:.4f}, plain {k4['plain_ms']:.4f}, F.grid_sample "
+        f"x3 {k4['library_ms']:.4f}), bound "
+        f"{k4['bound'][0]:.4f} ms ({k4['bound'][1]}); K5's F.grid_sample "
+        f"backward x3 {k5['library_ms']:.4f} ms")
     if not err4 <= TOL_K4:
         raise RuntimeError(f"K4 disagrees with its plain version at the "
                            f"{label} VM shape: {err4:.3g}")
@@ -2885,12 +2948,15 @@ def emap_host_profile(run: dict, name: str) -> dict:
 
 
 def drive_emap_ema(seed: int, workspace: str, scene: str, gen) -> dict:
-    """The error map and EMA through both CLIs: the teacher CLI with the
-    A/B teacher's flags on the host batcher, then the distill CLI with the
-    A/B distill flags from its best checkpoint, both with EMAP_EMA; the
-    A/B floors; each best checkpoint must hold the EMA weights."""
+    """The error map and EMA through both CLIs, in 8-step calls: the
+    teacher CLI with the A/B teacher's flags on the host batcher, then the
+    distill CLI with the A/B distill flags from its best checkpoint, both
+    with EMAP_EMA and SCAN_FLAGS; the A/B floors; each best checkpoint
+    must hold the EMA weights, and each run must have taken most of its
+    steps in 8-step calls."""
     argv = [scene, "--workspace", os.path.join(workspace, "hash_emap"),
-            "--seed", str(seed)] + cli_flags(AB_TEACHER) + list(EMAP_EMA)
+            "--seed", str(seed)] + cli_flags(AB_TEACHER) + list(EMAP_EMA) \
+        + list(SCAN_FLAGS)
     run = run_teacher_cli(argv, "error-map + EMA teacher", TEACHER_KERNELS
                           + ("hash_encode_cell_fwd", "hash_encode_cell_bwd"))
     st = run["stats"]
@@ -2902,10 +2968,16 @@ def drive_emap_ema(seed: int, workspace: str, scene: str, gen) -> dict:
     prof = emap_host_profile(run, "hash")
     best = os.path.join(run["workspace"], "checkpoints", "hash_best.ckpt")
     stu = distill_cli_run(seed, workspace, scene, "hash", "vm", best, gen,
-                          EMAP_DISTILL, EMAP_DISTILL_KERNELS, EMAP_EMA,
-                          "hash2vm_emap")
+                          EMAP_DISTILL, EMAP_DISTILL_KERNELS,
+                          EMAP_EMA + SCAN_FLAGS, "hash2vm_emap")
     stu["best"] = check_best_holds_ema(stu["workspace"], "hash2vm")
     ps = stu["psnr"]
+    for label, done in (("teacher", st), ("student", stu["train_stats"])):
+        log(f"error map + EMA {label}: {done['chunk_steps']} of "
+            f"{done['train_steps']} steps in {SCAN_K}-step calls")
+        if done["chunk_steps"] < done["train_steps"] // 2:
+            raise RuntimeError(f"the error-map {label} ran few {SCAN_K}-step"
+                               " calls")
     log(f"error map + EMA: teacher (host batcher {st['host_batcher']}) "
         f"{pt:.3f} dB (floor {AB_TEACHER_FLOOR}), ms per step padded "
         f"{st['padded_ms_per_step']:.3f}, compacted "
@@ -2925,7 +2997,8 @@ def drive_emap_ema(seed: int, workspace: str, scene: str, gen) -> dict:
                         "train_s": run["train_s"], "best": tea_best,
                         "train_stats": {
                             k: v for k, v in st.items() if k.startswith((
-                                "train_", "padded", "compacted", "occ_"))},
+                                "train_", "padded", "compacted", "occ_",
+                                "chunk"))},
                         "launches": run["launches"], "step_profile": prof},
             "student": stu, "launches": {"teacher": run["launches"],
                                          "student": stu["launches"]}}
@@ -4866,6 +4939,432 @@ def render_large_scene(tea, scene) -> dict:
 # the checkout it runs in; then 512 more steps (256 padded, 256 compacted)
 # of a fresh Trainer under cProfile for the host's Python work per step
 HOST_AB_PROFILE_STEPS, HOST_AB_REPS = 512, 3
+# ---- phase 15: scan steps --------------------------------------------------
+
+def profile_brief(prof: dict) -> dict:
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                 "device_busy_share", "ours")}
+
+
+def scan_teacher_cli(seed: int, workspace: str, scene: str, flags: dict,
+                     extra: tuple, label: str, ab: dict) -> dict:
+    """The teacher CLI with `extra` (--scan_steps among them) on the A/B
+    scene; every chunk that the schedule allows must have run as one
+    K-step call (`chunk_steps`), and the A/B teacher's floor holds."""
+    argv = [scene, "--workspace", os.path.join(workspace, label),
+            "--seed", str(seed)] + cli_flags(flags) + list(extra)
+    run = run_teacher_cli(argv, label, TEACHER_KERNELS + (
+        "hash_encode_cell_fwd", "hash_encode_cell_bwd"))
+    st = run["stats"]
+    pt, pa = st["psnr"], ab["teacher"]["psnr"]
+    log(f"{label}: {st['chunk_steps']} of {st['train_steps']} steps in "
+        f"{SCAN_K}-step calls; test PSNR {pt:.3f} dB (the single-step A/B "
+        f"teacher {pa:.3f}); ms per step padded "
+        f"{st['padded_ms_per_step']:.3f}, compacted "
+        f"{st['compacted_ms_per_step']:.3f} (single steps, host batcher: "
+        f"{ab['teacher_train_stats']['padded_ms_per_step']:.3f} / "
+        f"{ab['teacher_train_stats']['compacted_ms_per_step']:.3f})")
+    if st["chunk_steps"] < st["train_steps"] // 2:
+        raise RuntimeError(f"{label}: only {st['chunk_steps']} steps ran "
+                           "in K-step calls")
+    if not (np.isfinite(pt) and pt >= AB_TEACHER_FLOOR):
+        raise RuntimeError(f"{label}: {pt:.3f} dB < {AB_TEACHER_FLOOR}")
+    return run
+
+
+def chunk_vs_singles(run: dict, name: str) -> dict:
+    """One K-step call against K single calls on the card, from the same
+    state (the run's last checkpoint, reloaded) and the same draws (one
+    generator seed), on the preloaded images (compacted, the cell-mode
+    teacher).  K7 and K11 add their table gradients with float atomics,
+    so two runs of the same single steps differ in the last bits too:
+    both spreads are logged and the chunk's per-step losses and metrics
+    must lie within CHUNK_RTOL of the singles'.  Then a profile of one
+    chunk and of K single calls: ms per step and device busy share."""
+    cfg = run["cfg"]
+    ds = NeRFDataset(cfg, "train")
+    dev = torch.device("cuda")
+    images = torch.as_tensor(ds.images_flat(), device=dev)
+    poses = torch.as_tensor(ds.poses, device=dev)
+    idxs = np.random.default_rng(0).integers(0, len(ds), SCAN_K)
+    path = ckpt.latest_checkpoint(os.path.join(run["workspace"],
+                                               "checkpoints"), name)
+
+    def fresh(k: int):
+        tr = Trainer(cfg)
+        tr.load_student(path)
+        step = make_teacher_step(tr.spec, tr.rspec, tr.opt, cfg,
+                                 ds.intrinsics, ds.H, ds.W,
+                                 ds.images.shape[-1], scan_steps=k)
+        return tr, step
+
+    def singles(tr, step, gen):
+        logs = []
+        for j, i in enumerate(idxs):
+            tr.state, m = step(tr.state, poses[i], images[i], gen)
+            logs.append(m)
+        return {k: torch.stack([m[k] for m in logs]) for k in logs[0]}
+
+    def chunk(tr, step, gen):
+        tr.state, logs = step(tr.state, images, idxs, poses[idxs], gen)
+        return logs
+
+    outs = []
+    for fn, k in ((singles, 0), (singles, 0), (chunk, SCAN_K)):
+        tr, step = fresh(k)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        outs.append({kk: v.cpu().numpy() for kk, v in
+                     fn(tr, step, gen).items()})
+
+    def spread(a, b):
+        return max(float(np.max(np.abs(a[k] - b[k]) / np.maximum(
+            np.abs(b[k]), 1e-12))) for k in b)
+
+    runs_err, chunk_err = spread(outs[1], outs[0]), spread(outs[2], outs[0])
+    # where the time goes: one chunk against K single calls
+    tr, step1 = fresh(0)
+    _, stepk = fresh(SCAN_K)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for _ in range(2):  # warm-up
+        singles(tr, step1, gen)
+    p1 = profile(lambda: singles(tr, step1, gen))
+    pk = profile(lambda: chunk(tr, stepk, gen))
+    log(f"{SCAN_K}-step chunk vs {SCAN_K} single steps on the card (cell "
+        f"teacher, compacted, {cfg.num_rays} rays): max rel diff of the "
+        f"per-step losses and metrics {chunk_err:.3g} (two runs of the "
+        f"singles: {runs_err:.3g}; tol {CHUNK_RTOL:g}); ms per step "
+        f"singles {p1['wall_ms'] / SCAN_K:.3f} (busy "
+        f"{p1['device_busy_ms'] / SCAN_K:.3f}, share "
+        f"{p1['device_busy_share']:.3f}), chunk "
+        f"{pk['wall_ms'] / SCAN_K:.3f} (busy "
+        f"{pk['device_busy_ms'] / SCAN_K:.3f}, share "
+        f"{pk['device_busy_share']:.3f})")
+    if not chunk_err <= CHUNK_RTOL:
+        raise RuntimeError(f"the {SCAN_K}-step chunk differs from its "
+                           f"single steps by {chunk_err:.3g}")
+    return {"chunk_rel_err": chunk_err, "singles_rel_err": runs_err,
+            "singles": profile_brief(p1), "chunk": profile_brief(pk),
+            "k": SCAN_K}
+
+
+def drive_scan(seed: int, workspace: str, scene: str, ab: dict) -> dict:
+    """Phase 15: the A/B teacher through the teacher CLI with --preload
+    --scan_steps 8 (the A/B floor, and within 1.0 dB of the single-step
+    A/B teacher), then one chunk against its single steps on the card."""
+    pre = scan_teacher_cli(seed, workspace, scene, AB_TEACHER,
+                           ("--preload",) + SCAN_FLAGS, "hash_scan", ab)
+    pt = pre["stats"]["psnr"]
+    if pt < ab["teacher"]["psnr"] - AB_MAX_DROP:
+        raise RuntimeError(f"the scan teacher {pt:.3f} dB is more than "
+                           f"{AB_MAX_DROP} dB under the single-step one")
+    st = pre["stats"]
+    return {"teacher": {
+        "psnr": pt, "test_reload_psnr": pre["test_psnr"],
+        "train_s": pre["train_s"], "host_batcher": st["host_batcher"],
+        "train_stats": {k: v for k, v in st.items() if k.startswith((
+            "train_", "padded", "compacted", "occ_", "chunk"))},
+        "launches": pre["launches"]}, "chunk": chunk_vs_singles(pre, "hash")}
+
+
+# ---- phase 16: data parallel over the ray axis ----------------------------
+
+def dp_small_inputs() -> dict:
+    """Fixed inputs of the small DP checks (numpy): a teacher step (the
+    padded path) and an rgb-only stage-3 distill step (padded), SMALL_*
+    sizes with f32 heads, the rays split over the ranks in order."""
+    rng = np.random.default_rng(13)
+    spec_tea, spec_stu = ModelSpec(**SMALL_TEA), ModelSpec(**SMALL_STU)
+    n = SMALL_CFG["num_rays"]
+    image = rng.uniform(size=(SMALL_HW ** 2, 4)).astype(np.float32)
+    image[:, 3] = rng.choice([0.0, 1.0, 0.3], size=SMALL_HW ** 2)
+    return {"tea": random_hash_params(spec_tea, rng),
+            "stu": random_vm_params(spec_stu, rng),
+            "bits": rng.uniform(size=32 ** 3) < 0.25, "image": image,
+            "pose": nerf_matrix_to_ngp(pose_spherical(30.0, -30.0, 4.0),
+                                       scale=0.8).astype(np.float32),
+            "inds": rng.integers(0, SMALL_HW ** 2, n),
+            "bg": rng.uniform(size=(n, 3)).astype(np.float32),
+            "u": rng.uniform(size=n).astype(np.float32)}
+
+
+def dp_small_steps(inp: dict, group=None, kinds=("teacher", "distill"),
+                   dev: str = "cuda") -> dict:
+    """The small steps on `inp`: single-process on every ray, or, with a
+    group, `make_dp_teacher_step` / `make_dp_distill_step` on this rank's
+    slice.  Returns {kind: (logs, grads, params)} (numpy)."""
+    out = {}
+    n = len(inp["inds"])
+    sl = slice(None) if group is None else group.ray_slice(n)
+    t = {k: torch.as_tensor(inp[k]).to(dev) for k in (
+        "image", "pose", "inds", "bg", "u")}
+    draws = (t["inds"][sl], t["bg"][sl], t["u"][sl])
+    for kind in kinds:
+        cfg = PVDConfig(**dict(SMALL_CFG, samples_per_ray=0.0),
+                        **(DP_RGB_ONLY if kind == "distill" else {}))
+        rspec = cfg.render_spec()
+        spec_tea = ModelSpec(**SMALL_TEA)
+        occ = set_bitfield(init_occupancy_state(rspec, dev),
+                           torch.as_tensor(inp["bits"]).to(dev))
+        if kind == "teacher":
+            field = hash_field_from_jax(inp["tea"], spec_tea, dev)
+            spec = spec_tea
+            sched = exp_decay_schedule
+        else:
+            teacher = hash_field_from_jax(inp["tea"], spec_tea, dev)
+            spec = ModelSpec(**SMALL_STU)
+            field = vm_field_from_jax(inp["stu"], spec, dev)
+            sched = cosine_schedule
+        params = dict(field.named_parameters())
+        opt = build_optimizer(params, param_group_label(spec),
+                              trainable_label(spec, ""), sched(1e-2, 100),
+                              sched(1e-3, 100))
+        state = TrainState(field=field, opt_state=opt.init(params), occ=occ)
+        if kind == "teacher":
+            args = (spec, rspec, opt, cfg)
+            step = (make_teacher_step(*args, SMALL_INTR, SMALL_HW, SMALL_HW,
+                                      4, device=dev) if group is None else
+                    make_dp_teacher_step(*args, group, SMALL_INTR, SMALL_HW,
+                                         SMALL_HW, 4, device=dev))
+            state, logs = step.with_rays(state, t["pose"], t["image"],
+                                         *draws)
+            tree = hash_tree_from_field
+        else:
+            args = (spec, spec_tea, rspec, opt, cfg)
+            step = (make_distill_step(*args, SMALL_INTR, SMALL_HW, SMALL_HW,
+                                      3, device=dev) if group is None else
+                    make_dp_distill_step(*args, group, SMALL_INTR, SMALL_HW,
+                                         SMALL_HW, 3, device=dev))
+            state, logs = step.with_rays(state, teacher, occ, t["pose"],
+                                         *draws)
+            tree = vm_tree_from_field
+        out[kind] = ({k: float(v) for k, v in logs.items()},
+                     tree(field, grad=True), tree(field))
+    return out
+
+
+def dp_field(best: str, dev):
+    """The A/B teacher of `best` with f32 heads, its grid, spec and
+    render spec (the DP sweep and eval image)."""
+    cfg = PVDConfig(**AB_TEACHER, precision="fp32")
+    spec, rspec = cfg.model_spec(), cfg.render_spec()
+    payload = ckpt.load_checkpoint(best, dev)
+    return field_from_tree(payload["params"], spec, dev), payload["occ"], \
+        spec, rspec
+
+
+def dp_sweep_and_image(best: str, group=None) -> dict:
+    """A full occupancy sweep (jitter from a generator seeded 0) and one
+    800x800 eval image of the A/B teacher, single-process or over the
+    group; grid, bitfield and image as numpy."""
+    dev = torch.device("cuda")
+    field, occ, spec, rspec = dp_field(best, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    H, C = rspec.grid_size, rspec.cascades
+    jitter = torch.rand((C, H ** 3, 3), generator=gen, device=dev)
+    if group is None:
+        upd = make_occ_update(spec, rspec)
+        render = make_eval_renderer(spec, rspec, chunk=CHUNK)
+    else:
+        upd = make_dp_occ_update(spec, rspec, group)
+        render = make_dp_eval_renderer(spec, rspec, group, chunk=CHUNK)
+    new = upd(occ, field, full=True, jitter=jitter)
+    focal = 0.5 * RES / math.tan(0.5 * 0.6911112070083618)
+    pose = nerf_matrix_to_ngp(pose_spherical(30.0, -30.0, 4.0), scale=0.8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render(field, occ, pose, (focal, focal, RES / 2.0, RES / 2.0), RES,
+                 RES)
+    torch.cuda.synchronize()
+    return {"grid": new.density_grid.cpu().numpy(),
+            "bits": new.bitfield.cpu().numpy(),
+            "image": out.image.cpu().numpy(), "rungs": out.rungs,
+            "samples": out.samples, "render_ms":
+            (time.perf_counter() - t0) * 1e3}
+
+
+def dp_recipe(job: dict, group=None) -> dict:
+    """DP_DISTILL (the A/B student, cut) through the Trainer from the A/B
+    teacher, over `group` (n_devices = its world) or on one process; test
+    PSNR, train_stats and the launches of the training run."""
+    n_dev = 1 if group is None else group.world
+    cfg = PVDConfig(**DP_DISTILL, path=job["scene"], seed=job["seed"],
+                    n_devices=n_dev, workspace=os.path.join(
+                        job["workspace"], f"dp{n_dev}"))
+    tr = Trainer(cfg, mode="distill", device="cuda:0")
+    tr.load_teacher(job["best"])
+    reset_counters()
+    tr.train(NeRFDataset(cfg, "train"))
+    torch.cuda.synchronize()
+    launches = counters()
+    stats = tr.evaluate(NeRFDataset(cfg, "test"))
+    return {"psnr": stats["psnr"], "launches": launches,
+            "num_rays": tr.cfg.num_rays, "train_stats": tr.train_stats}
+
+
+def allreduce_ms(group, n_floats: int, reps: int = 5) -> float:
+    """Host-clock ms of one mean over the group of n_floats floats on the
+    card (a data-parallel step's gradient collective)."""
+    buf = [torch.ones(n_floats, device="cuda")]
+    group.mean_(buf)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        group.mean_(buf)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _dp_rank(rank: int, world: int, backend: str, rendezvous: str,
+             job_file: str, out_file: str):
+    """One rank of phase 16 (a spawned process): join the group on card
+    0, run the job's checks, write the results."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = init_ray_group("cuda:0", backend=backend,
+                           init_method="file://" + rendezvous, rank=rank,
+                           world_size=world, timeout_s=DP_TIMEOUT_S)
+    job = torch.load(job_file, weights_only=False)
+    res = {"rank": group.rank, "world": group.world,
+           "backend": group.backend,
+           "small": dp_small_steps(job["small"], group,
+                                   kinds=job["kinds"])}
+    if job.get("best") and backend == "gloo":
+        res["field"] = dp_sweep_and_image(job["best"], group)
+        res["recipe"] = dp_recipe(job, group)
+    res["allreduce_ms"] = allreduce_ms(group, job["allreduce_floats"])
+    torch.save(res, out_file)
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(world: int, backend: str, job: dict, tmp: str) -> list:
+    """Start `world` ranks of `_dp_rank` (spawn) sharing the card, join
+    them within DP_TIMEOUT_S, and return their results in rank order;
+    a rank that fails or outlasts the limit fails the phase."""
+    job_file = os.path.join(tmp, f"{backend}_job.pt")
+    torch.save(job, job_file)
+    ctx = torch.multiprocessing.get_context("spawn")
+    outs = [os.path.join(tmp, f"{backend}_rank{r}.pt") for r in range(world)]
+    procs = [ctx.Process(target=_dp_rank, args=(
+        r, world, backend, os.path.join(tmp, f"{backend}_rendezvous"),
+        job_file, outs[r])) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(30)
+    codes = [p.exitcode for p in procs]
+    if alive or codes != [0] * world:
+        raise RuntimeError(f"{backend} ranks exited {codes}")
+    return [torch.load(f, weights_only=False) for f in outs]
+
+
+def dp_compare_small(got: dict, want: dict, label: str) -> dict:
+    """compare_steps of each small DP step against the single-process one;
+    the distill's point losses and PSNR (per-shard means, as in JAX) left
+    out of the log comparison."""
+    report = {}
+    for kind in want:
+        lg, gg, pg = got[kind]
+        lw, gw, pw = want[kind]
+        keep = [k for k in lw if k not in DP_SHARD_LOGS or kind == "teacher"]
+        c = compare_steps(({k: lg[k] for k in keep}, gg, pg),
+                          ({k: lw[k] for k in keep}, gw, pw))
+        log(f"{label} {kind} step vs single-process (test sizes, padded, "
+            f"f32 heads): max rel loss/log diff {c['loss_rel_err']:.3g}; "
+            f"max grad diff / leaf max {c['grad_err_rel_leaf_max']:.3g} "
+            f"({c['grad_err_leaf']}); max param diff under the gradient "
+            f"mask {c['param_err']:.3g}")
+        if not c.pop("ok"):
+            raise RuntimeError(f"the {label} {kind} step disagrees with the "
+                               "single-process step")
+        report[kind] = c
+    return report
+
+
+def drive_dp(seed: int, workspace: str, scene: str, best: str) -> dict:
+    """Phase 16: two ranks sharing the card over gloo (the DP teacher and
+    distill steps on fixed shards, the DP sweep and an 800x800 DP eval
+    image against the single-process ones, DP_DISTILL through the Trainer
+    with n_devices=2 against the single-process student), then one rank
+    over NCCL (`make_dp_distill_step` against the single-chip step)."""
+    small = dp_small_inputs()
+    want_small = dp_small_steps(small)
+    want_field = dp_sweep_and_image(best)
+    job = {"small": small, "kinds": ("teacher", "distill"), "best": best,
+           "scene": scene, "seed": seed, "workspace": workspace}
+    reset_counters()
+    single = dp_recipe(job)
+    n_floats = sum(p.numel() for p in Trainer(PVDConfig(
+        **AB_DISTILL), mode="distill").state.field.parameters())
+    job["allreduce_floats"] = n_floats
+    t0 = time.perf_counter()
+    ranks = run_ranks(DP_WORLD, "gloo", job, workspace)
+    gloo_s = time.perf_counter() - t0
+    info = {"gloo_s": gloo_s, "single": single, "ranks": []}
+    for r in ranks:
+        small_c = dp_compare_small(r["small"], want_small,
+                                   f"gloo rank {r['rank']}/{r['world']}")
+        f, w = r["field"], want_field
+        grid_err = float(np.abs(f["grid"] - w["grid"]).max()
+                         / max(float(np.abs(w["grid"]).max()), 1e-30))
+        bit_flips = int((f["bits"] != w["bits"]).sum())
+        img_err = float(np.abs(f["image"] - w["image"]).max())
+        rec = r["recipe"]
+        launched = {k: v for k, v in rec["launches"].items() if v}
+        missing = [k for k in EMAP_DISTILL_KERNELS if rec["launches"][k] <= 0]
+        log(f"gloo rank {r['rank']}: sweep grid max diff / max "
+            f"{grid_err:.3g} (tol {DP_GRID_RTOL:g}), bitfield flips "
+            f"{bit_flips} of {w['bits'].size} (tol {DP_BIT_FLIPS}); "
+            f"800x800 image max abs diff {img_err:.3g} (tol "
+            f"{DP_IMAGE_ATOL:g}), rungs {f['rungs']} / {w['rungs']}, "
+            f"samples {f['samples']} / {w['samples']}, render "
+            f"{f['render_ms']:.1f} ms (single {w['render_ms']:.1f}); "
+            f"recipe test PSNR {rec['psnr']:.3f} dB (single "
+            f"{single['psnr']:.3f}, tol {DP_MAX_DROP} dB), stage-3 ms per "
+            f"step {rec['train_stats']['stage3_ms_per_step']:.3f} (single "
+            f"{single['train_stats']['stage3_ms_per_step']:.3f}), "
+            f"{rec['num_rays'] // DP_WORLD} rays a rank; all-reduce of "
+            f"{n_floats * 4 / 1e6:.1f} MB {r['allreduce_ms']:.2f} ms; "
+            f"launches {json.dumps(launched)}")
+        if missing:
+            raise RuntimeError(f"kernels {missing} never launched on the DP "
+                               "recipe")
+        if not (grid_err <= DP_GRID_RTOL and bit_flips <= DP_BIT_FLIPS
+                and img_err <= DP_IMAGE_ATOL):
+            raise RuntimeError("the DP sweep or eval image disagrees with "
+                               "the single-process one")
+        if not (np.isfinite(rec["psnr"])
+                and abs(rec["psnr"] - single["psnr"]) <= DP_MAX_DROP):
+            raise RuntimeError(f"the DP student {rec['psnr']:.3f} dB against "
+                               f"the single-process {single['psnr']:.3f}")
+        info["ranks"].append({
+            "small": small_c, "grid_rel_err": grid_err,
+            "bit_flips": bit_flips, "image_abs_err": img_err,
+            "render_ms": f["render_ms"], "psnr": rec["psnr"],
+            "recipe_launches": rec["launches"],
+            "recipe_train_stats": rec["train_stats"],
+            "allreduce_ms": r["allreduce_ms"]})
+    if not np.array_equal(ranks[0]["field"]["image"],
+                          ranks[1]["field"]["image"]):
+        raise RuntimeError("the ranks' DP images differ")
+    info["single_render_ms"] = want_field["render_ms"]
+    # one rank over NCCL: make_dp_distill_step against the single-chip step
+    nccl_job = {"small": small, "kinds": ("distill",),
+                "allreduce_floats": n_floats}
+    (nc,) = run_ranks(1, "nccl", nccl_job, workspace)
+    info["nccl"] = {"small": dp_compare_small(
+        nc["small"], {"distill": want_small["distill"]}, "nccl rank 0/1"),
+        "allreduce_ms": nc["allreduce_ms"], "backend": nc["backend"]}
+    log(f"nccl one-rank all-reduce of {n_floats * 4 / 1e6:.1f} MB "
+        f"{nc['allreduce_ms']:.3f} ms; gloo phase {gloo_s:.1f} s")
+    return info
+
+
 HOST_AB_CHILD = r"""
 import cProfile, json, os, pstats, re, sys, tempfile
 import torch
@@ -5317,7 +5816,16 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         emap = drive_emap_ema(args.seed, ws, cli["scene"], gen)
         walls["emap_ema"] = time.perf_counter() - t0
-        log("resize and error-map phases: " + ", ".join(
+        # ---- main paths 11-12: scan steps through both CLIs; data
+        # parallel (two gloo ranks on the card, one NCCL rank); each
+        # run's counters set to 0 just before it and read just after
+        t0 = time.perf_counter()
+        scan = drive_scan(args.seed, ws, cli["scene"], ab)
+        walls["scan"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp = drive_dp(args.seed, ws, cli["scene"], best)
+        walls["dp"] = time.perf_counter() - t0
+        log("resize, error-map, scan and data-parallel phases: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in walls.items()))
     emap_check = small_emap_step_gpu_vs_cpu()
     for name, key in (("vm_sample_fwd", "k4"), ("vm_sample_bwd", "k5")):
@@ -5626,6 +6134,8 @@ def main(argv=None) -> int:
                            if k != "step_profile"}, "profile": brief(
                 emap["student"]["step_profile"]["profile"])},
             "gpu_vs_cpu_step": emap_check},
+        "scan": {"wall_s": walls["scan"], **scan},
+        "dp": {"wall_s": walls["dp"], **dp},
         "nan_rule": nan_rule,
         "card": card, "wall_s": time.perf_counter() - t_script}
     log(f"chip_smoke wall {line['wall_s']:.1f} s (kernel build included)")

@@ -6,8 +6,11 @@ main_distill_mutual.py:43-236); values land in one PVDConfig.  Flags the
 reference's GPU build needed (--ff, --tcnn, the --gui group) are accepted
 and ignored, as in the JAX package.  A flag whose option the port lacks
 still parses: `to_config` raises for it when it is set (`PVDConfig.
-from_dict`), and the Trainer for the options it does not run yet, each
-naming its ROADMAP item.
+from_dict`), and the Trainer for the options it does not run, each
+naming its ROADMAP item.  The help of --n_devices and --scan_steps is the
+JAX package's word for word; in the port --n_devices N means N processes
+under `torchrun --nproc_per_node N` and --scan_steps K runs K steps a
+call (`engine/trainer.py`).
 """
 
 from __future__ import annotations
@@ -207,7 +210,10 @@ def save_codes_env(workspace: str):
 def finalize_run(trainer, cfg: PVDConfig):
     """Write the final metrics to `<workspace>/metrics.json` and rename
     the workspace with its PSNR suffix, `<workspace>-psnrXX.XX`
-    (main_just_train_tea.py:347-354); returns the workspace's path."""
+    (main_just_train_tea.py:347-354); returns the workspace's path.  In a
+    data-parallel run only rank 0 writes and renames."""
+    if trainer.rank != 0:
+        return cfg.workspace
     stats = trainer.stats
     with open(os.path.join(cfg.workspace, "metrics.json"), "w") as f:
         json.dump(stats, f, indent=2)

@@ -20,7 +20,10 @@ distills, evaluates the test split into `<workspace>/results` and writes
 `--test` / `--test_teacher` / `--test_type_trainval` render the student
 (or the teacher) again.  `--upsample_model_steps`, `--error_map` and
 `--ema_decay` act as in the teacher CLI (the error map per pose slot,
-updated at stage 3).  Runs on the GPU; `main(argv, device="cpu")` runs
+updated at stage 3).  `--scan_steps K` runs K steps a call where no host
+work falls inside them; `torchrun --nproc_per_node N -m
+pvd_tpu_torch.cli.distill ... --n_devices N` distills data parallel on N
+cards (rank 0 writes).  Runs on the GPU; `main(argv, device="cpu")` runs
 the plain PyTorch path on the CPU.
 """
 
@@ -97,8 +100,9 @@ def main(argv=None, device="cuda") -> dict:
     if not cfg.ckpt_teacher:
         raise SystemExit("--ckpt_teacher is required for distillation")
     # the Trainer's config: it drops stage 1 when a side is 'tensors'
-    write_args_txt(trainer.cfg, cfg.workspace)
-    save_codes_env(cfg.workspace)
+    if trainer.rank == 0:
+        write_args_txt(trainer.cfg, cfg.workspace)
+        save_codes_env(cfg.workspace)
     trainer.load_teacher(cfg.ckpt_teacher)
     if cfg.enable_edit_plenoxel and cfg.teacher_type == "tensors":
         # scene editing: erase a region of the teacher's volume before

@@ -21,8 +21,11 @@ field after each listed step, to resolutions log-spaced from
 field first shrinks to its occupied box); `--error_map` draws the pixels
 by importance from a per-image error map; `--ema_decay` > 0 keeps an EMA
 of the weights, which the evaluations render and the best checkpoint
-holds.  Runs on the GPU; `main(argv, device="cpu")` runs the plain
-PyTorch path on the CPU.
+holds.  `--scan_steps K` runs K steps a call where no host work falls
+inside them (`Trainer`); `--n_devices N` under `torchrun --nproc_per_node
+N -m pvd_tpu_torch.cli.train_teacher ...` trains data parallel on N
+cards (preload forced on; rank 0 writes).  Runs on the GPU; `main(argv,
+device="cpu")` runs the plain PyTorch path on the CPU.
 """
 
 from __future__ import annotations
@@ -58,7 +61,9 @@ def main(argv=None, device="cuda") -> dict:
             NeRFDataset(cfg, "test", downscale=cfg.downscale),
             write_video=True, refresh_occ=cfg.update_stu_extra)
 
-    write_args_txt(cfg, cfg.workspace)
+    if trainer.rank == 0:
+        # the Trainer's config: data parallelism rounds num_rays up
+        write_args_txt(trainer.cfg, cfg.workspace)
     train_ds = NeRFDataset(cfg, "train", downscale=cfg.downscale)
     if cfg.ckpt == "latest":
         trainer.try_resume()

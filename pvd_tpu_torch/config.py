@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+from typing import Optional
 
 MODEL_TYPES = ("hash", "mlp", "vm", "tensors")
 
@@ -180,6 +181,9 @@ class PVDConfig:
     autotune_budget: bool = True
     n_devices: int = 1
     scan_steps: int = 0
+    # the JAX package's mesh layout: declared there (config.py:254) and
+    # never read; carried here unused
+    mesh_shape: Optional[tuple] = None
     hash_cell_levels: int = 0
     hash_bake_dense: bool = False  # bake the frozen teacher's dense levels
     eval_interval: int = 50  # epochs between evaluations on valid_ds
@@ -193,6 +197,8 @@ class PVDConfig:
             self.plenoxel_res = json.loads(self.plenoxel_res)
         self.plenoxel_res = tuple(self.plenoxel_res)
         self.upsample_model_steps = tuple(self.upsample_model_steps)
+        if self.mesh_shape is not None:
+            self.mesh_shape = tuple(self.mesh_shape)
 
     def model_spec(self, model_type: str | None = None) -> ModelSpec:
         return ModelSpec(
@@ -260,5 +266,4 @@ class PVDConfig:
 UNPORTED = {
     "num_steps": (512, "A14"),
     "upsample_steps": (0, "A14"),
-    "mesh_shape": (None, "A17"),
 }

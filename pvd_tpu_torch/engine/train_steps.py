@@ -18,10 +18,21 @@ draw their pixels by importance from the image's (or pose slot's) 128 x
 128 error map and return its updated row; the host step returns the
 per-ray losses for the caller's host-resident map (`error_map_update`).
 A state with `ema` (a frozen copy of the field) gets its shadow update
-after each AdamW update (train_steps.py:248-252).  The scan and
-data-parallel flavors are not ported yet (ROADMAP A16, A17).  The state
-is updated in place: the trained field's parameters, the optimizer
-moments and the EMA copy.
+after each AdamW update (train_steps.py:248-252).  The state is updated in
+place: the trained field's parameters, the optimizer moments and the EMA
+copy.
+
+`scan_steps=K` (train_steps.py:266-326, 431-455, 526-599) gives the K-step
+flavor of each step: one call runs K steps over stacked inputs and
+returns the logs stacked to [K].  It is a loop of K single steps, so K
+steps in one call equal K single calls draw for draw: the draws come from
+the caller's generator in step order, and with the error map each step's
+cell update lands before the next step's draw (the JAX scan's carry).
+
+`group` (a `parallel.mesh.RayGroup`) makes a step data parallel over the
+ray axis (`parallel/dp.py`): each rank draws its `num_rays / world` rays
+from its own generator, the gradients and the logs are averaged over the
+ranks, and the error map's update runs on the gathered batch.
 """
 
 from __future__ import annotations
@@ -141,15 +152,18 @@ def teacher_loss(field, spec: ModelSpec, rspec: RenderSpec, cfg: PVDConfig,
 
 
 def _adamw_step(state: TrainState, opt: GroupedAdamW, loss,
-                ema_decay: float):
-    """Backward of `loss`, one AdamW update of the state's field, the EMA
-    copy's shadow update when the state has one, step + 1; the gradients
-    stay in `.grad`."""
+                ema_decay: float, group=None):
+    """Backward of `loss`, the gradients' mean over `group`'s ranks when
+    there is one (JAX's pmean of the grads), one AdamW update of the
+    state's field, the EMA copy's shadow update when the state has one,
+    step + 1; the gradients stay in `.grad`."""
     params = dict(state.field.named_parameters())
     loss.backward()
     for p in params.values():  # leaves the loss does not reach
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if group is not None:
+        group.mean_([p.grad for p in params.values()])
     opt.update_(params, {n: p.grad for n, p in params.items()},
                 state.opt_state)
     if state.ema is not None:
@@ -161,12 +175,18 @@ def _adamw_step(state: TrainState, opt: GroupedAdamW, loss,
 def error_map_update(row, cells, per_ray):
     """The error-map row after a step (train_steps.py:338-346): each
     drawn cell becomes 0.1 x its old weight + 0.9 x the per-ray loss of
-    its ray.  Returns a new row.  A cell drawn more than once takes one of
-    its rays' values: which one is unspecified (index_put_ without
-    accumulate; on CUDA it varies from run to run), as the JAX package's
-    `.at[].set` leaves it."""
+    its ray.  Returns a new row.  A cell drawn more than once takes the
+    value of its last ray in ray order (in data parallel, rank order),
+    the same on every device and in every run, so replicas of the map
+    stay equal; the JAX package's `.at[].set` leaves the choice open, and
+    numpy's fancy assignment (the host map) keeps the last."""
+    pos = torch.arange(cells.shape[0], device=cells.device)
+    last = torch.full(row.shape, -1, dtype=pos.dtype, device=cells.device)
+    last.scatter_reduce_(0, cells, pos, reduce="amax")
+    keep = last[cells] == pos
+    c = cells[keep]
     new = row.clone()
-    new[cells] = 0.1 * row[cells] + 0.9 * per_ray.detach()
+    new[c] = 0.1 * row[c] + 0.9 * per_ray.detach()[keep]
     return new
 
 
@@ -178,19 +198,41 @@ def _draw_bg_u(generator: torch.Generator, n: int, device):
     return bg, u
 
 
+def _local_rays(cfg: PVDConfig, group) -> int:
+    """The rays one call of a step draws: all of them, or a rank's share."""
+    return cfg.num_rays if group is None else group.local_rays(cfg.num_rays)
+
+
+def _gathered(group, *tensors):
+    """The ranks' rows of each tensor in rank order (JAX's P("rays")
+    outputs), or the tensors themselves without a group."""
+    if group is None:
+        return tensors
+    return tuple(group.all_gather(t) for t in tensors)
+
+
+def _stack_logs(logs: list) -> dict:
+    """[K] per-step log dicts -> {name: [K] tensor}."""
+    return {k: torch.stack([torch.as_tensor(m[k]) for m in logs])
+            for k in logs[0]}
+
+
 def _zero_grads(field):
     for p in field.parameters():
         p.grad = None
 
 
 def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
-                  cfg: PVDConfig, image_channels: int, device: torch.device):
+                  cfg: PVDConfig, image_channels: int, device: torch.device,
+                  group=None):
     """teacher_step_core(state, o, d, pix, bg, u, per_ray=False) -> (state,
     metrics), and the per-ray losses [N] after them with per_ray: the
     color-space conversion, `compose_gt` (GT on white and the field's own
     background when it has one), the loss, its gradients (left in the
     field's `.grad`), one AdamW update, the EMA update and step + 1
-    (train_steps.py: 254-281, 382-409)."""
+    (train_steps.py: 254-281, 382-409).  With `group` the gradients and
+    the metrics are the ranks' means, and the PSNR is taken from the mean
+    MSE (dp.py:86-100, 108-110); the per-ray losses stay the rank's."""
 
     def teacher_step_core(state: TrainState, o, d, pix, bg, u,
                           per_ray: bool = False):
@@ -203,16 +245,19 @@ def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
         _zero_grads(state.field)
         loss, (out, ray_loss) = teacher_loss(state.field, spec, rspec, cfg,
                                              state.occ, o, d, gt, bg_r, u)
-        _adamw_step(state, opt, loss, cfg.ema_decay)
+        _adamw_step(state, opt, loss, cfg.ema_decay, group)
         with torch.no_grad():
             metrics = {
                 "loss": loss.detach(),
-                "psnr": -10.0 * torch.log10(
-                    ((out["image"] - gt) ** 2).mean() + 1e-12),
+                "mse": ((out["image"] - gt) ** 2).mean(),
                 "budget_hit": out["budget_hit_frac"],
                 "mask_frac": out["mask_frac"]}
             if "compact_frac" in out:
                 metrics["compact_frac"] = out["compact_frac"]
+            if group is not None:
+                metrics = group.mean_dict(metrics)
+            metrics["psnr"] = -10.0 * torch.log10(metrics.pop("mse")
+                                                  + 1e-12)
         if per_ray:
             return state, metrics, ray_loss.detach()
         return state, metrics
@@ -223,9 +268,9 @@ def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
 def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
                       cfg: PVDConfig, intrinsics, H: int, W: int,
                       image_channels: int, device="cuda",
-                      use_error_map: bool = False):
-    """One teacher training step, single-step preload flavor
-    (train_steps.py:193-347).
+                      use_error_map: bool = False, scan_steps: int = 0,
+                      group=None):
+    """One teacher training step, preload flavor (train_steps.py:193-347).
 
     Returns step(state, pose [4, 4], image_flat [H*W, C], generator) ->
     (state, metrics): it draws `cfg.num_rays` uniform pixels, then the
@@ -237,6 +282,8 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
     its gradients (left in the field's `.grad`), one AdamW update and
     step + 1.  Metrics: loss, psnr (of the batch against its gt),
     budget_hit, mask_frac and, on the compacted path, compact_frac.
+    `step.with_rays(state, pose, image_flat, inds, bg, u)` runs it on
+    given draws.
 
     With `use_error_map` it is step(state, pose, image_flat, emap_row
     [128 * 128], generator) -> (state, new_row, metrics): the pixels are
@@ -245,10 +292,22 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
     then the background and u, and `step.with_rays(state, pose,
     image_flat, emap_row, inds, cells, bg, u)` runs the rest: the core,
     then `error_map_update` of the row with the per-ray losses.
+
+    `scan_steps=K` returns the K-step flavor (`_scan_teacher`):
+    step(state, images_flat [B, H*W, C], idxs [K] image ids, poses
+    [K, 4, 4], generator) -> (state, logs [K]); with `use_error_map`
+    step(state, images_flat, idxs, poses, emap_all [B, 128 * 128],
+    generator) -> (state, emap_all, logs).
+
+    With `group` every rank draws its `num_rays / world` rays and the
+    error map's update runs on the ranks' gathered cells and losses
+    (dp.py:51-160).
     """
     device = resolve_device(device)
     intr = tuple(float(v) for v in intrinsics)
-    core = _teacher_core(spec, rspec, opt, cfg, image_channels, device)
+    n_rays = _local_rays(cfg, group)
+    core = _teacher_core(spec, rspec, opt, cfg, image_channels, device,
+                         group)
 
     def run(state, pose, image_flat, inds, bg, u, per_ray=False):
         pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
@@ -261,35 +320,85 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
         def with_rays(state, pose, image_flat, emap_row, inds, cells, bg, u):
             state, metrics, ray_loss = run(state, pose, image_flat, inds, bg,
                                            u, per_ray=True)
+            cells, ray_loss = _gathered(group, cells, ray_loss)
             return state, error_map_update(emap_row, cells, ray_loss), \
                 metrics
 
         def step(state: TrainState, pose, image_flat, emap_row,
                  generator: torch.Generator):
-            inds, cells = draw_error_map_pixels(generator, emap_row,
-                                                cfg.num_rays, H, W)
+            inds, cells = draw_error_map_pixels(generator, emap_row, n_rays,
+                                                H, W)
             bg, u = _draw_bg_u(generator, inds.shape[0], device)
             return with_rays(state, pose, image_flat, emap_row, inds, cells,
                              bg, u)
-
-        step.with_rays = with_rays
     else:
+        with_rays = run
+
         def step(state: TrainState, pose, image_flat,
                  generator: torch.Generator):
-            inds = random_pixels(generator, cfg.num_rays, H, W, device)
+            inds = random_pixels(generator, n_rays, H, W, device)
             bg, u = _draw_bg_u(generator, inds.shape[0], device)
             return run(state, pose, image_flat, inds, bg, u)
 
+    step.with_rays = with_rays
     step.core = core
+    if scan_steps > 0:
+        return _scan_teacher(step, scan_steps, use_error_map)
     return step
+
+
+def _scan_teacher(step, K: int, use_error_map: bool):
+    """K preload teacher steps in one call (train_steps.py:266-322): step
+    j trains on images_flat[idxs[j]] from poses[j]; with the error map,
+    emap_all's row of that image is drawn from and updated (a copy of
+    emap_all is returned).  `scan.with_rays(state, images_flat, idxs,
+    poses, [emap_all,] draws)` takes each step's (inds, [cells,] bg, u)."""
+
+    def run(state, images_flat, idxs, poses, emap_all, one):
+        idxs = [int(i) for i in idxs]
+        if len(idxs) != K:
+            raise ValueError(f"{len(idxs)} image ids for {K} steps")
+        em = None if emap_all is None else emap_all.clone()
+        logs = []
+        for j, i in enumerate(idxs):
+            if em is None:
+                state, m = one(j, state, poses[j], images_flat[i])
+            else:
+                state, em[i], m = one(j, state, poses[j], images_flat[i],
+                                      em[i])
+            logs.append(m)
+        return state, em, _stack_logs(logs)
+
+    if use_error_map:
+        def scan(state, images_flat, idxs, poses, emap_all, generator):
+            return run(state, images_flat, idxs, poses, emap_all,
+                       lambda j, *a: step(*a, generator))
+
+        def with_rays(state, images_flat, idxs, poses, emap_all, draws):
+            return run(state, images_flat, idxs, poses, emap_all,
+                       lambda j, *a: step.with_rays(*a, *draws[j]))
+    else:
+        def scan(state, images_flat, idxs, poses, generator):
+            st, _, logs = run(state, images_flat, idxs, poses, None,
+                              lambda j, *a: step(*a, generator))
+            return st, logs
+
+        def with_rays(state, images_flat, idxs, poses, draws):
+            st, _, logs = run(state, images_flat, idxs, poses, None,
+                              lambda j, *a: step.with_rays(*a, *draws[j]))
+            return st, logs
+
+    scan.with_rays = with_rays
+    return scan
 
 
 def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
                            opt: GroupedAdamW, cfg: PVDConfig, intrinsics,
                            H: int, W: int, image_channels: int,
-                           device="cuda", use_error_map: bool = False):
+                           device="cuda", use_error_map: bool = False,
+                           scan_steps: int = 0):
     """One teacher step fed by the host batcher (`data/raybatch.py`, the
-    preload=False path; train_steps.py:350-453, single step).
+    preload=False path; train_steps.py:350-453).
 
     Returns step(state, pose [4, 4], inds [N], pix [N, C], generator) ->
     (state, metrics): the batch's pixel ids and GT pixels come from the
@@ -298,10 +407,16 @@ def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
     rays from `step.rays(pose, inds)` (`pixel_dirs` rotated by the pose),
     then the per-pixel background [N, 3] and the march perturbation u [N]
     are drawn from `generator` and `step.core` (make_teacher_step's
-    core: the same loss and AdamW step) runs.  With `use_error_map` it
+    core: the same loss and AdamW step) runs; `step.with_rays(state,
+    pose, inds, pix, bg, u)` takes given draws.  With `use_error_map` it
     returns (state, per_ray [N], metrics): the caller drew the pixels from
     its host-resident map (`ops.rays.draw_error_map_inds_np`) and updates
     it with the per-ray losses (train_steps.py:440-445).
+
+    `scan_steps=K` returns step(state, poses [K, 4, 4], inds [K, N], pix
+    [K, N, C], generator) -> (state, logs [K]), or with `use_error_map`
+    (state, per_ray [K, N], logs): K steps on the host's K batches, which
+    it drew up front (train_steps.py:431-444).
     """
     device = resolve_device(device)
     intr = tuple(float(v) for v in intrinsics)
@@ -323,19 +438,57 @@ def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
         d = rotate(pixel_dirs(intr, inds, H, W), pose[:3, :3])
         return pose[:3, 3].expand_as(d).contiguous(), d.contiguous()
 
-    def step(state: TrainState, pose, inds, pix, generator: torch.Generator):
+    def with_rays(state: TrainState, pose, inds, pix, bg, u):
         o, d = rays(pose, inds)
         pix = upload(pix, torch.float32)
-        bg, u = _draw_bg_u(generator, o.shape[0], device)
         if not use_error_map:
             return core(state, o, d, pix, bg, u)
         state, metrics, ray_loss = core(state, o, d, pix, bg, u,
                                         per_ray=True)
         return state, ray_loss, metrics
 
+    def step(state: TrainState, pose, inds, pix, generator: torch.Generator):
+        bg, u = _draw_bg_u(generator, len(inds), device)
+        return with_rays(state, pose, inds, pix, bg, u)
+
     step.rays = rays
     step.core = core
+    step.with_rays = with_rays
+    if scan_steps > 0:
+        return _scan_host(step, scan_steps, use_error_map)
     return step
+
+
+def _scan_host(step, K: int, use_error_map: bool):
+    """K host-batcher teacher steps in one call (train_steps.py:431-444);
+    `scan.with_rays(state, poses, inds, pix, draws)` takes each step's
+    (bg, u)."""
+
+    def run(state, poses, inds, pix, one):
+        if len(inds) != K:
+            raise ValueError(f"{len(inds)} batches for {K} steps")
+        logs, per_rays = [], []
+        for j in range(K):
+            out = one(j, state, poses[j], inds[j], pix[j])
+            if use_error_map:
+                state, ray_loss, m = out
+                per_rays.append(ray_loss)
+            else:
+                state, m = out
+            logs.append(m)
+        if use_error_map:
+            return state, torch.stack(per_rays), _stack_logs(logs)
+        return state, _stack_logs(logs)
+
+    def scan(state, poses, inds, pix, generator):
+        return run(state, poses, inds, pix, lambda j, *a: step(*a, generator))
+
+    def with_rays(state, poses, inds, pix, draws):
+        return run(state, poses, inds, pix,
+                   lambda j, *a: step.with_rays(*a, *draws[j]))
+
+    scan.with_rays = with_rays
+    return scan
 
 
 def distill_loss(student, teacher, spec_stu: ModelSpec, spec_tea: ModelSpec,
@@ -405,10 +558,10 @@ def distill_loss(student, teacher, spec_stu: ModelSpec, spec_tea: ModelSpec,
 def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
                       rspec: RenderSpec, opt: GroupedAdamW, cfg: PVDConfig,
                       intrinsics, H: int, W: int, stage: int,
-                      device="cuda", use_error_map: bool = False):
+                      device="cuda", use_error_map: bool = False,
+                      scan_steps: int = 0, group=None):
     """One distillation step of `stage` (1: features, 2: + point sigma and
-    color, 3: + RGB and the VM L1), single-step flavor
-    (train_steps.py:456-524).
+    color, 3: + RGB and the VM L1) (train_steps.py:456-618).
 
     Returns step(state, teacher, occ_tea, pose [4, 4], generator) ->
     (state, logs): it draws `cfg.num_rays` uniform pixels, then a per-ray
@@ -416,7 +569,8 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
     `generator`, and calls `step.core`, i.e.
     distill_step_core(state, teacher, occ_tea, o, d, bg, u) -> (state,
     logs): the loss, its gradients (left in the student's `.grad`), one
-    AdamW update, the EMA update and step + 1.
+    AdamW update, the EMA update and step + 1.  `step.with_rays(state,
+    teacher, occ_tea, pose, inds, bg, u)` runs it on given draws.
 
     With `use_error_map` it is step(state, teacher, occ_tea, pose,
     emap_row [128 * 128], generator) -> (state, new_row, logs): the pixels
@@ -425,6 +579,17 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
     emap_row, inds, cells, bg, u)` runs the rest; at stage 3 with the L2
     loss the row takes the per-ray RGB losses (`error_map_update`), else
     it is returned unchanged (train_steps.py:597-618).
+
+    `scan_steps=K` returns the K-step flavor (`_scan_distill`):
+    step(state, teacher, occ_tea, poses [K, 4, 4], generator) -> (state,
+    logs [K]); with `use_error_map` step(state, teacher, occ_tea, poses,
+    idxs [K] pose slots, emap_all [B, 128 * 128], generator) -> (state,
+    emap_all, logs).
+
+    With `group` every rank draws its `num_rays / world` rays; the point
+    losses keep each rank's own normalisation and every log is the ranks'
+    mean (dp.py:218-315, the deviation at dp.py:15-23); the error map's
+    update runs on the gathered batch.
     """
     if stage not in (1, 2, 3):
         raise ValueError(f"stage must be 1, 2 or 3, got {stage}")
@@ -435,6 +600,7 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
                          "and the CLI skip it (stage1_iters = 0)")
     device = resolve_device(device)
     intr = tuple(float(v) for v in intrinsics)
+    n_rays = _local_rays(cfg, group)
 
     def distill_step_core(state: TrainState, teacher, occ_tea, o, d, bg, u,
                           per_ray: bool = False):
@@ -444,8 +610,10 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
         loss, (logs, ray_loss) = distill_loss(
             state.field, teacher, spec_stu, spec_tea, rspec, cfg, stage,
             state.occ, occ_tea, o, d, bg, u, state.step)
-        _adamw_step(state, opt, loss, cfg.ema_decay)
+        _adamw_step(state, opt, loss, cfg.ema_decay, group)
         logs = {k: v.detach() for k, v in logs.items()}
+        if group is not None:
+            logs = group.mean_dict(logs)
         if per_ray:  # None before stage 3
             return state, logs, (None if ray_loss is None
                                  else ray_loss.detach())
@@ -467,27 +635,77 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
             state, logs, ray_loss = run(state, teacher, occ_tea, pose, inds,
                                         bg, u, per_ray=True)
             if update_map:
+                cells, ray_loss = _gathered(group, cells, ray_loss)
                 emap_row = error_map_update(emap_row, cells, ray_loss)
             return state, emap_row, logs
 
         def step(state: TrainState, teacher, occ_tea, pose, emap_row,
                  generator: torch.Generator):
-            inds, cells = draw_error_map_pixels(generator, emap_row,
-                                                cfg.num_rays, H, W)
+            inds, cells = draw_error_map_pixels(generator, emap_row, n_rays,
+                                                H, W)
             bg, u = _draw_bg_u(generator, inds.shape[0], device)
             return with_rays(state, teacher, occ_tea, pose, emap_row, inds,
                              cells, bg, u)
-
-        step.with_rays = with_rays
     else:
+        with_rays = run
+
         def step(state: TrainState, teacher, occ_tea, pose,
                  generator: torch.Generator):
-            inds = random_pixels(generator, cfg.num_rays, H, W, device)
+            inds = random_pixels(generator, n_rays, H, W, device)
             bg, u = _draw_bg_u(generator, inds.shape[0], device)
             return run(state, teacher, occ_tea, pose, inds, bg, u)
 
+    step.with_rays = with_rays
     step.core = distill_step_core
+    if scan_steps > 0:
+        return _scan_distill(step, scan_steps, use_error_map)
     return step
+
+
+def _scan_distill(step, K: int, use_error_map: bool):
+    """K distillation steps in one call (train_steps.py:526-578): step j
+    renders from poses[j]; with the error map, emap_all's row idxs[j] is
+    drawn from and updated (a copy of emap_all is returned).
+    `scan.with_rays(state, teacher, occ_tea, poses, [idxs, emap_all,]
+    draws)` takes each step's (inds, [cells,] bg, u)."""
+
+    def run(state, teacher, occ_tea, poses, idxs, emap_all, one):
+        if len(poses) != K:
+            raise ValueError(f"{len(poses)} poses for {K} steps")
+        em = None if emap_all is None else emap_all.clone()
+        logs = []
+        for j in range(K):
+            if em is None:
+                state, m = one(j, state, teacher, occ_tea, poses[j])
+            else:
+                i = int(idxs[j])
+                state, em[i], m = one(j, state, teacher, occ_tea, poses[j],
+                                      em[i])
+            logs.append(m)
+        return state, em, _stack_logs(logs)
+
+    if use_error_map:
+        def scan(state, teacher, occ_tea, poses, idxs, emap_all, generator):
+            return run(state, teacher, occ_tea, poses, idxs, emap_all,
+                       lambda j, *a: step(*a, generator))
+
+        def with_rays(state, teacher, occ_tea, poses, idxs, emap_all,
+                      draws):
+            return run(state, teacher, occ_tea, poses, idxs, emap_all,
+                       lambda j, *a: step.with_rays(*a, *draws[j]))
+    else:
+        def scan(state, teacher, occ_tea, poses, generator):
+            st, _, logs = run(state, teacher, occ_tea, poses, None, None,
+                              lambda j, *a: step(*a, generator))
+            return st, logs
+
+        def with_rays(state, teacher, occ_tea, poses, draws):
+            st, _, logs = run(state, teacher, occ_tea, poses, None, None,
+                              lambda j, *a: step.with_rays(*a, *draws[j]))
+            return st, logs
+
+    scan.with_rays = with_rays
+    return scan
 
 
 def make_occ_update(spec: ModelSpec, rspec: RenderSpec, device="cuda"):

@@ -1,8 +1,8 @@
 """Host-side training orchestrator (port of pvd_tpu/engine/trainer.py).
 
-One device, single steps, any of the four fields (hash, mlp, vm,
-tensors) as teacher or student, in two modes (trainer.py:60-277, 417-470,
-569-1126):
+Any of the four fields (hash, mlp, vm, tensors) as teacher or student,
+on one device or data parallel over several, in single steps or chunks
+of K steps, in two modes (trainer.py:60-277, 417-470, 569-1126):
 
   mode="teacher": train a field against the images:
     mark_untrained_grid -> per step: autotune tick, occupancy refresh every
@@ -58,12 +58,31 @@ Options of both modes (trainer.py:104-117, 498-566, 592-616, 667-684):
     holds it as its params, and every checkpoint holds it as
     `ema_params`.
 
-Not ported yet, and raising NotImplementedError with their ROADMAP item:
-scan steps and data parallelism (ROADMAP A16, A17).  EMA together with
-resizing raises too: the JAX package's resize leaves the EMA weights at
-the old shapes, and its next EMA update fails (ROADMAP C10).  Real LPIPS
-needs pretrained weights that neither machine has; like the JAX package
-without them, `evaluate` reports the proxy.
+  * `scan_steps` = K > 1 (trainer.py:316-396, 748-925): K steps run in
+    one call of the step's K-step flavor wherever no host work falls
+    inside them (`_scan_chunk_len`: the same stage throughout, no
+    occupancy or autotune tick and no resize inside, within the epoch
+    and the run, starting at a multiple of K); elsewhere single steps.
+    A chunk draws what K single steps draw, in the same order, so it
+    trains as they would, but on the host batcher with the error map:
+    there all K draws come from the map as it stood at the chunk's
+    start, and the K steps' updates land when the next chunk or step
+    starts (a lag of up to K steps instead of 1).  No CUDA graph yet.
+  * `n_devices` > 1, or 0 for the world size: data parallel over the ray
+    axis (trainer.py:119-140, `parallel/`), one process per device as
+    `torchrun` starts them; `n_devices` must equal the world size.
+    `num_rays` rounds up to a multiple of it and `preload` is forced on
+    (the host batcher is one stream); each rank draws its rays from its
+    own generator (`cfg.seed + 1` folded with the rank) and the
+    occupancy updates' draws from the shared one, so the replicas stay
+    equal; only rank 0 logs and writes checkpoints, results and
+    metrics.
+
+EMA together with resizing raises NotImplementedError: the JAX package's
+resize leaves the EMA weights at the old shapes, and its next EMA update
+fails (ROADMAP C10).  Real LPIPS needs pretrained weights that neither
+machine has; like the JAX package without them, `evaluate` reports the
+proxy.
 """
 
 from __future__ import annotations
@@ -95,6 +114,9 @@ from pvd_tpu_torch.engine.train_steps import (TrainState, make_distill_step,
 from pvd_tpu_torch.models import tensors_field, vm_field
 from pvd_tpu_torch.models.api import param_group_label, trainable_label
 from pvd_tpu_torch.ops.rays import ERROR_MAP_CELLS, draw_error_map_inds_np
+from pvd_tpu_torch.parallel.dp import (make_dp_eval_renderer,
+                                       make_dp_occ_update)
+from pvd_tpu_torch.parallel.mesh import rank_device, rank_seed, ray_group_for
 from pvd_tpu_torch.params import (field_from_tree, new_field, spec_from_tree,
                                   tree_from_field)
 from pvd_tpu_torch.render.occupancy import (draw_occ_inputs,
@@ -105,19 +127,7 @@ from pvd_tpu_torch.utils.metrics import PSNRMeter, compute_ssim, lpips_proxy
 MODES = ("teacher", "distill")
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"Trainer: {what} is not ported yet "
-                              f"(ROADMAP {item})")
-
-
 def _check_cfg(cfg: PVDConfig):
-    checks = (
-        (cfg.scan_steps > 1, "scan steps", "A16"),
-        (cfg.n_devices != 1, "data parallelism (n_devices != 1)", "A17"),
-    )
-    for bad, what, item in checks:
-        if bad:
-            _unported(what, item)
     if (cfg.ema_decay > 0 and cfg.upsample_model_steps
             and cfg.model_type in ("vm", "tensors")):
         raise NotImplementedError(
@@ -137,9 +147,10 @@ def _frozen_copy(field):
 
 
 class _HostRow:
-    """The per-ray losses of a host-batcher step with the error map, on
-    their way to the host (trainer.py:812-816): on the GPU a copy into
-    pinned memory, queued behind the step, that `numpy()` waits for."""
+    """The per-ray losses of host-batcher steps with the error map ([N]
+    or [K, N]), on their way to the host (trainer.py:812-816): on the GPU
+    a copy into pinned memory, queued behind the steps, that `numpy()`
+    waits for."""
 
     def __init__(self, t: torch.Tensor):
         self.event = None
@@ -204,9 +215,16 @@ class Trainer:
             # a plenoxel side has no fea_sc: stage 1 has nothing to distill
             # (main_distill_mutual.py:243-246)
             cfg = dataclasses.replace(cfg, stage1_iters=0)
-        self.device = resolve_device(device)
-        self.cfg = cfg
+        # data parallel over the ray axis (trainer.py:119-140): params and
+        # occupancy replicate, each rank takes a share of every batch
+        self.group = ray_group_for(cfg.n_devices, device)
+        self.rank = 0 if self.group is None else self.group.rank
+        self.device = resolve_device(device if self.group is None
+                                     else rank_device(device))
         self.mode = mode
+        if self.group is not None:
+            cfg = self._dp_config(cfg)
+        self.cfg = cfg
         self.name = name or (cfg.model_type if mode == "teacher"
                              else f"{cfg.teacher_type}2{cfg.model_type}")
         self.workspace = cfg.workspace
@@ -247,6 +265,12 @@ class Trainer:
             ema=_frozen_copy(field) if cfg.ema_decay > 0 else None)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
+        # the steps' draws: with data parallelism a stream of the rank's
+        # own; the shared `generator` keeps the occupancy updates' draws
+        # equal on every rank
+        self.ray_generator = self.generator if self.group is None else \
+            torch.Generator(device=self.device).manual_seed(
+                rank_seed(cfg.seed + 1, self.rank))
         # the resize schedule: the steps, and the resolution of each (the
         # CLIs set it from cli.common.upsample_schedule)
         self.upsample_steps = list(cfg.upsample_model_steps)
@@ -270,7 +294,25 @@ class Trainer:
         return self.spec_stu
 
     def log(self, msg: str):
-        print(msg, flush=True)
+        if self.rank == 0:
+            print(msg, flush=True)
+
+    def _dp_config(self, cfg: PVDConfig) -> PVDConfig:
+        """The config of a data-parallel run (trainer.py:129-140):
+        num_rays a multiple of the world size, preload on."""
+        world = self.group.world
+        if cfg.num_rays % world:
+            new_rays = -(-cfg.num_rays // world) * world
+            self.log(f"[mesh] num_rays {cfg.num_rays} -> {new_rays} "
+                     f"(rounded up to n_devices={world})")
+            cfg = dataclasses.replace(cfg, num_rays=new_rays)
+        if not cfg.preload:
+            self.log("[mesh] preload forced on: the host batcher is "
+                     "single-stream; DP samples pixels in-shard")
+            cfg = dataclasses.replace(cfg, preload=True)
+        self.log(f"[mesh] data-parallel over {world} devices "
+                 f"({cfg.num_rays // world} rays/device)")
+        return cfg
 
     # ------------------------------------------------------------------
     def load_teacher(self, path: str):
@@ -338,9 +380,12 @@ class Trainer:
         return os.path.join(self.workspace, "checkpoints")
 
     def save(self, stats: Optional[dict] = None,
-             filename: Optional[str] = None, field=None) -> str:
+             filename: Optional[str] = None, field=None) -> Optional[str]:
         """A checkpoint of the trained field, or of `field` as its params
-        (trainer.py:248-258), with the EMA weights when EMA is on."""
+        (trainer.py:248-258), with the EMA weights when EMA is on.  Only
+        rank 0 writes (it returns None elsewhere)."""
+        if self.rank != 0:
+            return None
         ema = self.state.ema
         return ckpt.save_checkpoint(
             self._ckpt_dir(), self.name, self.state.step,
@@ -373,32 +418,84 @@ class Trainer:
         return "compacted" if self.rspec.samples_per_ray > 0 else "padded"
 
     def _rebuild_renderers(self):
-        self._occ_update = make_occ_update(self.spec_stu, self.rspec,
-                                           device=self.device)
-        self.eval_render = make_eval_renderer(
-            self.spec_stu, self.rspec, chunk=self.cfg.max_ray_batch,
-            device=self.device)
-        self.eval_render_tea = (make_eval_renderer(
-            self.spec_tea, self.rspec, chunk=self.cfg.max_ray_batch,
-            device=self.device) if self.mode == "distill" else None)
+        chunk, dev = self.cfg.max_ray_batch, self.device
+        if self.group is None:
+            self._occ_update = make_occ_update(self.spec_stu, self.rspec,
+                                               device=dev)
+
+            def render(spec):
+                return make_eval_renderer(spec, self.rspec, chunk=chunk,
+                                          device=dev)
+        else:
+            self._occ_update = make_dp_occ_update(
+                self.spec_stu, self.rspec, self.group, device=dev)
+
+            def render(spec):
+                return make_dp_eval_renderer(spec, self.rspec, self.group,
+                                             chunk=chunk, device=dev)
+        self.eval_render = render(self.spec_stu)
+        self.eval_render_tea = (render(self.spec_tea)
+                                if self.mode == "distill" else None)
 
     def _get_step_fn(self, stage: int, H: int, W: int, C: int, intr,
-                     host: bool = False):
-        key = (stage, H, W, C, host)
+                     host: bool = False, scan_steps: int = 0):
+        """The step of (stage, shape, host batcher), or its K-step flavor
+        for scan_steps = K (trainer.py:279-314, 351-395); data parallel
+        over the run's group when it has one."""
+        key = (stage, H, W, C, host, scan_steps)
         if key not in self._steps:
-            emap = self.cfg.error_map
-            if self.mode == "teacher":
-                make = make_teacher_step_host if host else make_teacher_step
-                self._steps[key] = make(
-                    self.spec_stu, self.rspec, self.opt, self.cfg, intr, H,
-                    W, image_channels=C, device=self.device,
-                    use_error_map=emap)
+            kw = dict(device=self.device, use_error_map=self.cfg.error_map,
+                      scan_steps=scan_steps)
+            args = (self.rspec, self.opt, self.cfg)
+            if self.mode == "teacher" and host:
+                self._steps[key] = make_teacher_step_host(
+                    self.spec_stu, *args, intr, H, W, image_channels=C,
+                    **kw)
+            elif self.mode == "teacher":
+                self._steps[key] = make_teacher_step(
+                    self.spec_stu, *args, intr, H, W, image_channels=C,
+                    group=self.group, **kw)
             else:
                 self._steps[key] = make_distill_step(
-                    self.spec_stu, self.spec_tea, self.rspec, self.opt,
-                    self.cfg, intr, H, W, stage, device=self.device,
-                    use_error_map=emap)
+                    self.spec_stu, self.spec_tea, *args, intr, H, W, stage,
+                    group=self.group, **kw)
         return self._steps[key]
+
+    def _scan_chunk_len(self, step: int, stage: int, total: int,
+                        left_in_epoch: int) -> int:
+        """Length of the K-step chunk starting at `step`, or 1
+        (trainer.py:316-349): K = scan_steps only where no host work falls
+        inside the chunk: one stage throughout, no occupancy or autotune
+        tick (multiples of update_extra_interval) strictly inside, no
+        scheduled resize after any of its steps, inside both the epoch and
+        the run, and starting at a multiple of K."""
+        K = self.cfg.scan_steps
+        if K <= 1:
+            return 1
+        if step % K != 0 or left_in_epoch < K or step + K > total:
+            return 1
+        if self._stage_of(step + K - 1) != stage:
+            return 1
+        iv = self.cfg.update_extra_interval
+        if ((step // iv) + 1) * iv < step + K:
+            return 1
+        if any(step < s <= step + K for s in self.upsample_steps):
+            return 1
+        return K
+
+    def _log_scan_chunk(self, logs_k: dict, step: int, K: int, total: int,
+                        stage: int, t_start: float):
+        """The per-100-step log line of each logging step inside a chunk,
+        from its stacked [K] logs (trainer.py:397-415)."""
+        rows = [j for j in range(K) if (step + j) % 100 == 0]
+        if not rows:
+            return
+        host = {k: v.cpu().numpy() for k, v in logs_k.items()}
+        for j in rows:
+            msg = " ".join(f"{k}={float(v[j]):.4f}"
+                           for k, v in sorted(host.items()))
+            self.log(f"[{self.name}] step {step + j}/{total} stage{stage} "
+                     f"{msg} ({time.perf_counter() - t_start:.1f}s)")
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -542,7 +639,8 @@ class Trainer:
         `train_stats` holds the step count, wall, occupancy, eval and
         checkpoint seconds, rays/s, and the host-clock ms per step of each
         phase (teacher: padded and compacted; distill: stage1-3) and per
-        full and partial occupancy update."""
+        full and partial occupancy update, and how many steps ran inside
+        K-step calls (`chunk_steps`)."""
         # the host batcher's threads stop when training ends, or raises
         with contextlib.ExitStack() as stack:
             return self._train(stack, train_ds, valid_ds, max_steps)
@@ -601,10 +699,13 @@ class Trainer:
                 # a row per pose slot of the epoch (trainer.py:681-684)
                 self.error_map = ones_map(len(poses))
         refresh_occ = teacher_mode or cfg.update_stu_extra
-        pending = None  # the host map's lagged update: ((view, cells), losses)
+        # the host map's lagged updates: ([(view, cells)], per-ray losses)
+        pending = None
+        gen = self.ray_generator
 
         occ_s = {"full": [0, 0.0], "partial": [0, 0.0]}
         side_s = {"eval": 0.0, "ckpt": 0.0, "resize": 0.0}
+        chunk_steps = 0  # steps run inside K-step calls
         self._sync()
         t_start = time.perf_counter()
         step = step0 = self.state.step
@@ -619,7 +720,9 @@ class Trainer:
                 if self.error_map is not None and len(poses) != epoch_len:
                     self.error_map = ones_map(len(poses))
                 epoch_len = len(poses)
-            for _ in range(min(epoch_len, total - step)):
+            steps_this_epoch = min(epoch_len, total - step)
+            done = 0
+            while done < steps_this_epoch:
                 if step % cfg.update_extra_interval == 0:
                     clock.mark(step)
                     self._maybe_autotune(step, self._last_metrics)
@@ -636,45 +739,84 @@ class Trainer:
                     clock.phase = phase
                 idx = int(rng_np.integers(0, len(poses)))
                 stage = self._stage_of(step)
-                step_fn = self._get_step_fn(stage, H, W, C, intr,
-                                            host=batcher is not None)
                 emap = self.error_map
-                if batcher is not None and emap is not None:
-                    # apply the previous step's per-ray losses to the host
-                    # map in step order, then draw this step's pixels from
-                    # it (trainer.py:736-747, 804-816)
-                    if pending is not None:
-                        (p_idx, p_cells), p_loss = pending
+                host = batcher is not None
+                if host and emap is not None and pending is not None:
+                    # apply the previous call's per-ray losses to the host
+                    # map in step order before drawing (trainer.py:736-747)
+                    draws, losses = pending
+                    vals = losses.numpy().reshape(len(draws), -1)
+                    for (p_idx, p_cells), v in zip(draws, vals):
                         row = emap[p_idx]
-                        row[p_cells] = 0.1 * row[p_cells] \
-                            + 0.9 * p_loss.numpy()
+                        row[p_cells] = 0.1 * row[p_cells] + 0.9 * v
+                    pending = None
+                K = self._scan_chunk_len(step, stage, total,
+                                         steps_this_epoch - done)
+                if K > 1:
+                    # K steps in one call (trainer.py:748-925)
+                    step_fn = self._get_step_fn(stage, H, W, C, intr,
+                                                host=host, scan_steps=K)
+                    if host:
+                        logs, pending = self._host_chunk(
+                            step_fn, K, batcher, poses, emap, rng_np, H, W,
+                            gen)
+                    else:
+                        idx_k = rng_np.integers(0, len(poses), size=K)
+                        pk = poses[torch.as_tensor(idx_k)]
+                        if teacher_mode and emap is not None:
+                            self.state, self.error_map, logs = step_fn(
+                                self.state, images, idx_k, pk, emap, gen)
+                        elif teacher_mode:
+                            self.state, logs = step_fn(self.state, images,
+                                                       idx_k, pk, gen)
+                        elif emap is not None:
+                            self.state, self.error_map, logs = step_fn(
+                                self.state, self.teacher, self.occ_tea, pk,
+                                idx_k, emap, gen)
+                        else:
+                            self.state, logs = step_fn(
+                                self.state, self.teacher, self.occ_tea, pk,
+                                gen)
+                    rows = [{k: v[j] for k, v in logs.items()}
+                            for j in range(K)]
+                    self.history.extend(rows)
+                    self._last_metrics = rows[-1]
+                    self._log_scan_chunk(logs, step, K, total, stage,
+                                         t_start)
+                    step += K
+                    done += K
+                    chunk_steps += K
+                    continue
+                step_fn = self._get_step_fn(stage, H, W, C, intr, host=host)
+                if host and emap is not None:
+                    # draw this step's pixels from the host map
+                    # (trainer.py:804-816)
                     inds, cells = draw_error_map_inds_np(
                         rng_np, emap[idx], H, W, cfg.num_rays)
                     pix = batcher.gather(idx, inds)
                     self.state, per_ray, metrics = step_fn(
-                        self.state, poses[idx], inds, pix, self.generator)
-                    pending = (idx, cells), _HostRow(per_ray)
-                elif batcher is not None:
+                        self.state, poses[idx], inds, pix, gen)
+                    pending = [(idx, cells)], _HostRow(per_ray)
+                elif host:
                     # the batch's image replaces the host draw above, as in
                     # the JAX package
                     idx, inds, pix = batcher.next()
                     self.state, metrics = step_fn(self.state, poses[idx],
-                                                  inds, pix, self.generator)
+                                                  inds, pix, gen)
                 elif teacher_mode and emap is not None:
                     self.state, emap[idx], metrics = step_fn(
-                        self.state, poses[idx], images[idx], emap[idx],
-                        self.generator)
+                        self.state, poses[idx], images[idx], emap[idx], gen)
                 elif teacher_mode:
                     self.state, metrics = step_fn(self.state, poses[idx],
-                                                  images[idx], self.generator)
+                                                  images[idx], gen)
                 elif emap is not None:
                     self.state, emap[idx], metrics = step_fn(
                         self.state, self.teacher, self.occ_tea, poses[idx],
-                        emap[idx], self.generator)
+                        emap[idx], gen)
                 else:
                     self.state, metrics = step_fn(self.state, self.teacher,
                                                   self.occ_tea, poses[idx],
-                                                  self.generator)
+                                                  gen)
                 if self._resize_due(step + 1):
                     clock.mark(step + 1)
                     t0 = time.perf_counter()
@@ -690,12 +832,18 @@ class Trainer:
                     self.log(f"[{self.name}] step {step}/{total} stage{stage}"
                              f" {msg} ({time.perf_counter() - t_start:.1f}s)")
                 step += 1
+                done += 1
 
             # a spent wall budget makes this epoch boundary the end of
             # training, with the final checkpoint and eval (trainer.py:
             # 962-973)
-            if (cfg.wall_budget > 0 and step < total
-                    and time.perf_counter() - t_start >= cfg.wall_budget):
+            spent = (cfg.wall_budget > 0 and step < total
+                     and time.perf_counter() - t_start >= cfg.wall_budget)
+            if self.group is not None and cfg.wall_budget > 0 \
+                    and step < total:
+                # the ranks end together: rank clocks differ
+                spent = self.group.agree(spent, self.device)
+            if spent:
                 self.log(f"[{self.name}] wall budget ({cfg.wall_budget:.0f}"
                          f"s) spent at step {step}/{total}; finishing early")
                 total = step
@@ -738,11 +886,39 @@ class Trainer:
                 self.train_stats[f"occ_{kind}_updates"] = n
                 self.train_stats[f"occ_{kind}_ms"] = \
                     secs / n * 1e3 if n else None
+            self.train_stats["chunk_steps"] = chunk_steps
             if teacher_mode:
                 self.train_stats["host_batcher"] = batcher is not None
             self.log(f"[{self.name}] e2e throughput: {self.train_stats}")
         self.save()
         return self.state
+
+    def _host_chunk(self, step_fn, K: int, batcher, poses, emap, rng_np,
+                    H: int, W: int, gen):
+        """One K-step chunk on the host batcher (trainer.py:748-795): K
+        batches drawn up front, with the error map each from the host map
+        as it stands at the chunk's start.  Returns (stacked logs, the
+        pending map update or None)."""
+        idxs, inds_l, pix_l, draws = [], [], [], []
+        for _ in range(K):
+            if emap is not None:
+                idx_j = int(rng_np.integers(0, len(poses)))
+                inds_j, cells_j = draw_error_map_inds_np(
+                    rng_np, emap[idx_j], H, W, self.cfg.num_rays)
+                pix_j = batcher.gather(idx_j, inds_j)
+                draws.append((idx_j, cells_j))
+            else:
+                idx_j, inds_j, pix_j = batcher.next()
+            idxs.append(idx_j)
+            inds_l.append(inds_j)
+            pix_l.append(pix_j)
+        out = step_fn(self.state, poses[torch.as_tensor(idxs)],
+                      np.stack(inds_l), np.stack(pix_l), gen)
+        if emap is None:
+            self.state, logs = out
+            return logs, None
+        self.state, per_rays, logs = out
+        return logs, (draws, _HostRow(per_rays))
 
     # ------------------------------------------------------------------
     def _write_video(self, path: str, frames, fps: int = 21):
@@ -772,7 +948,9 @@ class Trainer:
         `write_video`, `{name}_video.mp4` and `{name}_video_depth.mp4`.
         `refresh_occ` first runs one full occupancy update of the trained
         field from its current params (its jitter drawn from a generator
-        seeded 0, as the JAX package draws it from PRNGKey(0))."""
+        seeded 0, as the JAX package draws it from PRNGKey(0)).  With data
+        parallelism every rank renders its share and scores the whole
+        image; only rank 0 writes files."""
         if refresh_occ and not use_teacher:
             gen = torch.Generator(device=self.device).manual_seed(0)
             jitter, coords = draw_occ_inputs(gen, self.state.occ, self.rspec,
@@ -789,7 +967,9 @@ class Trainer:
                      else self.state.ema)
             occ, render = self.state.occ, self.eval_render
         save_dir = save_dir or os.path.join(self.workspace, "results")
-        os.makedirs(save_dir, exist_ok=True)
+        writes = self.rank == 0
+        if writes:
+            os.makedirs(save_dir, exist_ok=True)
         meter, ssims, lp, times = PSNRMeter(), [], [], []
         frames, depth_frames = [], []
         for i in range(len(ds)):
@@ -808,12 +988,14 @@ class Trainer:
                 lp.append(lpips_proxy(img, gt))
             u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
             d8 = (np.clip(dep, 0, 1) * 255).astype(np.uint8)
-            write_png(os.path.join(save_dir, f"{self.name}_{i:04d}.png"), u8)
-            write_png(os.path.join(save_dir,
-                                   f"{self.name}_{i:04d}_depth.png"), d8)
+            if writes:
+                write_png(os.path.join(save_dir, f"{self.name}_{i:04d}.png"),
+                          u8)
+                write_png(os.path.join(save_dir,
+                                       f"{self.name}_{i:04d}_depth.png"), d8)
             frames.append(u8)
             depth_frames.append(d8)
-        if write_video and frames:
+        if write_video and frames and writes:
             self._write_video(
                 os.path.join(save_dir, f"{self.name}_video.mp4"), frames)
             self._write_video(

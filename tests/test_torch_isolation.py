@@ -78,6 +78,9 @@ def test_new_modules_are_checked():
     assert {f"pvd_tpu_torch/{m}.py" for m in (
         "cli/train_teacher", "data/raybatch", "ops/freq", "ops/grid_sample",
         "models/mlp_field", "models/tensors_field")} <= names
+    # data parallelism's
+    assert {f"pvd_tpu_torch/parallel/{m}.py" for m in (
+        "__init__", "mesh", "dp")} <= names
 
 
 def test_native_batcher_source_is_the_ports_own():

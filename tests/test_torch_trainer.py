@@ -98,13 +98,21 @@ def test_warmup_ends_with_the_sample_budget(scene, tmp_path):
                  id="upsample_model_steps")],
     ids=lambda kw: next(iter(kw)))
 def test_unported_options_raise(kw):
-    """Scan steps (A16) and data parallelism (A17) are not ported; EMA
-    together with resizing is refused (C10: the JAX package resizes the
-    field but not its EMA weights).  EMA, the error map and resizing
-    alone are taken (tests/test_torch_error_map.py,
-    tests/test_torch_resize.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(PVDConfig(**kw), device="cpu")
+    """EMA together with resizing is refused (C10: the JAX package resizes
+    the field but not its EMA weights).  Scan steps (A16) are taken, with
+    the error map too (tests/test_torch_scan.py); data parallelism (A17)
+    needs a process group of n_devices ranks and raises without one
+    (tests/test_torch_dp.py).  EMA, the error map and resizing alone are
+    taken (tests/test_torch_error_map.py, tests/test_torch_resize.py)."""
+    if kw.get("n_devices"):
+        with pytest.raises(ValueError, match="world size is 1"):
+            Trainer(PVDConfig(**kw), device="cpu")
+    elif kw.get("scan_steps"):
+        tr = Trainer(PVDConfig(**kw), device="cpu")
+        assert tr.cfg.scan_steps == 4 and tr.group is None
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(PVDConfig(**kw), device="cpu")
 
 
 def test_wall_budget_ends_at_an_epoch_boundary(scene, tmp_path):
@@ -123,16 +131,20 @@ def test_wall_budget_ends_at_an_epoch_boundary(scene, tmp_path):
 
 
 def test_unported_modes_and_methods_raise(scene, tmp_path):
-    """Distillation raises for scan steps, data parallelism and EMA
-    together with resizing, whatever the pair; evaluate writes each view's
-    image and depth PNG, and a video only where imageio has a codec."""
-    for kw in (dict(model_type="vm", ema_decay=0.9,
-                    upsample_model_steps=(5,)),
-               dict(model_type="mlp", teacher_type="tensors",
-                    scan_steps=4),
-               dict(model_type="vm", n_devices=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(PVDConfig(**kw), mode="distill", device="cpu")
+    """Distillation raises for EMA together with resizing, whatever the
+    pair, and for data parallelism without a process group; it takes scan
+    steps; evaluate writes each view's image and depth PNG, and a video
+    only where imageio has a codec."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(PVDConfig(model_type="vm", ema_decay=0.9,
+                          upsample_model_steps=(5,)), mode="distill",
+                device="cpu")
+    with pytest.raises(ValueError, match="torchrun"):
+        Trainer(PVDConfig(model_type="vm", n_devices=2), mode="distill",
+                device="cpu")
+    tr = Trainer(PVDConfig(model_type="mlp", teacher_type="tensors",
+                           scan_steps=4), mode="distill", device="cpu")
+    assert tr.cfg.scan_steps == 4 and tr.cfg.stage1_iters == 0
     with pytest.raises(ValueError, match="mode"):
         Trainer(PVDConfig(), mode="serve", device="cpu")
     tr = Trainer(PVDConfig(**CFG, workspace=str(tmp_path)), device="cpu")
