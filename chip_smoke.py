@@ -199,19 +199,26 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    teacher, or with fewer than half its steps in 8-step calls.  Then one
    8-step chunk against its 8 single steps on the card from the same
    checkpoint and draws (per-step losses and metrics within 1e-4
-   relative), and a profile of each: ms per step and device busy share.
+   relative); then both, warmed up alike, timed in 9 alternating rounds
+   (median and range of the ms per step) and profiled once each (device
+   busy share).
 16. Data parallel over the ray axis: two ranks (spawned processes)
    sharing the card over gloo hold the DP teacher step and the rgb-only
    DP distill step on fixed shards (test sizes, f32 heads) against the
    single-process step on the concatenated batch (the GPU step
    tolerances), the DP occupancy sweep and one 800x800 DP eval image of
-   the A/B teacher (f32 heads) against the single-process ones, and
-   train the A/B student cut to 500 steps at resolution 128 through the
+   the A/B teacher (f32 heads) against the single-process ones, hold an
+   rgb-only stage-3 distill step at the A/B shapes (VM 300^3, 4096 rays)
+   on fixed shards, padded against the single-process step on the
+   concatenated batch and compacted (6 samples a ray) against the mean
+   of single-process steps on the ranks' slices, and
+   train the A/B student at its own widths, cut to 300 steps, through the
    Trainer with n_devices=2 (every rank's launch counters read around
    its run), within 1.0 dB of the single-process student; they time a
    mean all-reduce of the full A/B student's gradient size.  Then one
-   rank over NCCL: `make_dp_distill_step` against the single-chip step,
-   and the same all-reduce's time.
+   rank over NCCL: `make_distill_step` over it, at test sizes and at the
+   A/B shapes, against the single-chip step, and the same all-reduce's
+   time.
 17. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
@@ -294,10 +301,8 @@ from pvd_tpu_torch.ops.vm_sample import (MAT_IDS, VEC_IDS, grad_buffers,
                                          k4_variant, k5_variant,
                                          vm_sample_bwd, vm_sample_bwd_plain,
                                          vm_sample_fwd, vm_sample_plain)
-from pvd_tpu_torch.parallel.dp import (make_dp_distill_step,
-                                       make_dp_eval_renderer,
-                                       make_dp_occ_update,
-                                       make_dp_teacher_step)
+from pvd_tpu_torch.parallel.dp import (make_dp_eval_renderer,
+                                       make_dp_occ_update)
 from pvd_tpu_torch.parallel.mesh import init_ray_group
 from pvd_tpu_torch.params import (field_from_tree, hash_field_from_jax,
                                   hash_tree_from_field, tree_from_field,
@@ -548,6 +553,9 @@ TOL_EMAP_ROW = 2e-5
 SCAN_K = 8
 SCAN_FLAGS = ("--scan_steps", str(SCAN_K))
 CHUNK_RTOL = 1e-4
+# the chunk's time against its singles': warm-up calls a side, then rounds
+# of one call a side in turns
+CHUNK_WARMUP, CHUNK_ROUNDS = 2, 9
 # phase 16: data parallel with two ranks sharing the card over gloo
 # (NCCL refuses two ranks on one card), then one NCCL rank.  The small
 # steps at test sizes (f32 heads, padded) against the single-process step
@@ -556,16 +564,24 @@ CHUNK_RTOL = 1e-4
 # those logs and its PSNR are left out).  The sweep and the 800x800 image
 # of the A/B teacher with f32 heads: the grid within 1e-5 of its max, at
 # most 8 bitfield cells flipped, the image within 1e-4 (the GEMMs see
-# other batch shapes).  DP_DISTILL: the A/B student cut to 500 steps at
-# resolution 128 through the Trainer, within 1 dB of the single-process
-# student (the two draw other rays)
+# other batch shapes).  One rgb-only stage-3 distill step at the A/B
+# shapes (VM 300^3 from the A/B teacher, 4096 rays, f32 heads) on fixed
+# shards, at the same tolerances: padded, against the single-process step
+# on the concatenated batch; compacted at 6 samples a ray, against the
+# mean of single-process steps on the ranks' slices (each rank's budget is
+# 6 x its own rays, as in JAX, so a slice over it loses its own tail and
+# the concatenated batch's step is another objective).  DP_DISTILL: the A/B
+# student at its own widths, cut in steps (2000 -> 300: a two-rank step
+# takes ~180 ms, ~105 of it the gradient's all-reduce through host
+# memory), through the Trainer, within 1 dB of the single-process student
+# (the two draw other rays)
 DP_WORLD = 2
 DP_TIMEOUT_S = 600.0
 DP_RGB_ONLY = dict(loss_rate_fea_sc=0.0, loss_rate_sigma=0.0,
                    loss_rate_color=0.0)
 DP_SHARD_LOGS = ("loss_fea_sc", "loss_sigma", "loss_color", "psnr")
-DP_DISTILL = dict(AB_DISTILL, resolution0=128, iters=500, stage1_iters=75,
-                  stage2_iters=200)
+DP_DISTILL = dict(AB_DISTILL, iters=300, stage1_iters=50, stage2_iters=150)
+DP_AB_SEED = 17
 DP_GRID_RTOL, DP_BIT_FLIPS, DP_IMAGE_ATOL, DP_MAX_DROP = 1e-5, 8, 1e-4, 1.0
 # the small large-scene steps (tests/test_torch_large_scene.py's sizes)
 SMALL_LS = dict(bound=2.0, dt_gamma=1.0 / 256.0, bg_radius=32.0)
@@ -4979,8 +4995,12 @@ def chunk_vs_singles(run: dict, name: str) -> dict:
     teacher).  K7 and K11 add their table gradients with float atomics,
     so two runs of the same single steps differ in the last bits too:
     both spreads are logged and the chunk's per-step losses and metrics
-    must lie within CHUNK_RTOL of the singles'.  Then a profile of one
-    chunk and of K single calls: ms per step and device busy share."""
+    must lie within CHUNK_RTOL of the singles'.  Then the time: each side
+    on a Trainer of its own, both warmed up alike (CHUNK_WARMUP calls),
+    then CHUNK_ROUNDS rounds of one chunk and K single calls in turns (the
+    order swapped every round), host-clock ms per step as the median and
+    range of each side; the difference is resolved only where the ranges
+    do not overlap.  Last a profile of each for the device busy time."""
     cfg = run["cfg"]
     ds = NeRFDataset(cfg, "train")
     dev = torch.device("cuda")
@@ -5022,29 +5042,52 @@ def chunk_vs_singles(run: dict, name: str) -> dict:
 
     runs_err, chunk_err = spread(outs[1], outs[0]), spread(outs[2], outs[0])
     # where the time goes: one chunk against K single calls
-    tr, step1 = fresh(0)
-    _, stepk = fresh(SCAN_K)
+    sides = {"singles": (singles,) + fresh(0),
+             "chunk": (chunk,) + fresh(SCAN_K)}
     gen = torch.Generator(device=dev).manual_seed(6)
-    for _ in range(2):  # warm-up
-        singles(tr, step1, gen)
-    p1 = profile(lambda: singles(tr, step1, gen))
-    pk = profile(lambda: chunk(tr, stepk, gen))
+
+    def call(side):
+        fn, tr, step = sides[side]
+        fn(tr, step, gen)
+
+    for _ in range(CHUNK_WARMUP):
+        for side in sides:
+            call(side)
+    ms = {side: [] for side in sides}
+    for r in range(CHUNK_ROUNDS):
+        for side in (list(sides) if r % 2 == 0 else list(sides)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(side)
+            torch.cuda.synchronize()
+            ms[side].append((time.perf_counter() - t0) * 1e3 / SCAN_K)
+    prof = {side: profile(lambda side=side: call(side)) for side in sides}
+    rep = {side: {"ms_per_step": ms[side],
+                  "median_ms": float(np.median(ms[side])),
+                  "min_ms": min(ms[side]), "max_ms": max(ms[side]),
+                  **profile_brief(prof[side])} for side in sides}
+    a, b = rep["singles"], rep["chunk"]
+    resolved = a["max_ms"] < b["min_ms"] or b["max_ms"] < a["min_ms"]
+
+    def line(side):
+        x = rep[side]
+        return (f"{side} median {x['median_ms']:.3f} (range "
+                f"{x['min_ms']:.3f}-{x['max_ms']:.3f}; busy "
+                f"{x['device_busy_ms'] / SCAN_K:.3f}, share "
+                f"{x['device_busy_share']:.3f})")
+
     log(f"{SCAN_K}-step chunk vs {SCAN_K} single steps on the card (cell "
         f"teacher, compacted, {cfg.num_rays} rays): max rel diff of the "
         f"per-step losses and metrics {chunk_err:.3g} (two runs of the "
-        f"singles: {runs_err:.3g}; tol {CHUNK_RTOL:g}); ms per step "
-        f"singles {p1['wall_ms'] / SCAN_K:.3f} (busy "
-        f"{p1['device_busy_ms'] / SCAN_K:.3f}, share "
-        f"{p1['device_busy_share']:.3f}), chunk "
-        f"{pk['wall_ms'] / SCAN_K:.3f} (busy "
-        f"{pk['device_busy_ms'] / SCAN_K:.3f}, share "
-        f"{pk['device_busy_share']:.3f})")
+        f"singles: {runs_err:.3g}; tol {CHUNK_RTOL:g}); ms per step over "
+        f"{CHUNK_ROUNDS} rounds: {line('singles')}, {line('chunk')}; "
+        f"difference {'resolved' if resolved else 'unresolved'}")
     if not chunk_err <= CHUNK_RTOL:
         raise RuntimeError(f"the {SCAN_K}-step chunk differs from its "
                            f"single steps by {chunk_err:.3g}")
     return {"chunk_rel_err": chunk_err, "singles_rel_err": runs_err,
-            "singles": profile_brief(p1), "chunk": profile_brief(pk),
-            "k": SCAN_K}
+            "singles": rep["singles"], "chunk": rep["chunk"],
+            "resolved": resolved, "k": SCAN_K}
 
 
 def drive_scan(seed: int, workspace: str, scene: str, ab: dict) -> dict:
@@ -5090,8 +5133,8 @@ def dp_small_inputs() -> dict:
 def dp_small_steps(inp: dict, group=None, kinds=("teacher", "distill"),
                    dev: str = "cuda") -> dict:
     """The small steps on `inp`: single-process on every ray, or, with a
-    group, `make_dp_teacher_step` / `make_dp_distill_step` on this rank's
-    slice.  Returns {kind: (logs, grads, params)} (numpy)."""
+    group, `make_teacher_step` / `make_distill_step` over it on this
+    rank's slice.  Returns {kind: (logs, grads, params)} (numpy)."""
     out = {}
     n = len(inp["inds"])
     sl = slice(None) if group is None else group.ray_slice(n)
@@ -5121,25 +5164,86 @@ def dp_small_steps(inp: dict, group=None, kinds=("teacher", "distill"),
         state = TrainState(field=field, opt_state=opt.init(params), occ=occ)
         if kind == "teacher":
             args = (spec, rspec, opt, cfg)
-            step = (make_teacher_step(*args, SMALL_INTR, SMALL_HW, SMALL_HW,
-                                      4, device=dev) if group is None else
-                    make_dp_teacher_step(*args, group, SMALL_INTR, SMALL_HW,
-                                         SMALL_HW, 4, device=dev))
+            step = make_teacher_step(*args, SMALL_INTR, SMALL_HW, SMALL_HW,
+                                     4, device=dev, group=group)
             state, logs = step.with_rays(state, t["pose"], t["image"],
                                          *draws)
             tree = hash_tree_from_field
         else:
             args = (spec, spec_tea, rspec, opt, cfg)
-            step = (make_distill_step(*args, SMALL_INTR, SMALL_HW, SMALL_HW,
-                                      3, device=dev) if group is None else
-                    make_dp_distill_step(*args, group, SMALL_INTR, SMALL_HW,
-                                         SMALL_HW, 3, device=dev))
+            step = make_distill_step(*args, SMALL_INTR, SMALL_HW, SMALL_HW,
+                                     3, device=dev, group=group)
             state, logs = step.with_rays(state, teacher, occ, t["pose"],
                                          *draws)
             tree = vm_tree_from_field
         out[kind] = ({k: float(v) for k, v in logs.items()},
                      tree(field, grad=True), tree(field))
     return out
+
+
+def dp_ab_step(job: dict, group=None, padded: bool = False,
+               shard: int = 0, shards: int = 1) -> dict:
+    """One rgb-only stage-3 distill step at the A/B shapes: the A/B
+    student (VM 300^3, f32 heads, the Trainer's seeded init) warm-started
+    from the A/B teacher, 4096 fixed draws (numpy, DP_AB_SEED), either
+    `padded` (all 64 slots a ray: no ray is cut) or compacted at the A/B's
+    6 samples a ray (a budget of 6 x the call's rays, so a batch with
+    more valid samples loses its tail).  Over `group` on this rank's
+    slice; single-process on every ray, or on slice `shard` of `shards`
+    (a rank's rays and budget).  Returns {"distill": (logs, grads,
+    params)} (numpy)."""
+    dev = torch.device("cuda")
+    tag = "" if group is None else f"_{group.backend}{group.rank}"
+    cfg = PVDConfig(**dict(AB_DISTILL, **DP_RGB_ONLY, precision="fp32",
+                           **({"samples_per_ray": 0.0} if padded else {})),
+                    path=job["scene"], seed=job["seed"],
+                    workspace=os.path.join(job["workspace"], "dp_ab" + tag))
+    tr = Trainer(cfg, mode="distill", device="cuda:0")
+    tr.load_teacher(job["best"])
+    ds = NeRFDataset(cfg, "train")
+    n = cfg.num_rays
+    rng = np.random.default_rng(DP_AB_SEED)
+    draws = [torch.as_tensor(a, device=dev) for a in (
+        rng.integers(0, ds.H * ds.W, n),
+        rng.uniform(size=(n, 3)).astype(np.float32),
+        rng.uniform(size=n).astype(np.float32))]
+    k = n // shards
+    sl = (slice(shard * k, (shard + 1) * k) if group is None
+          else group.ray_slice(n))
+    step = make_distill_step(tr.spec_stu, tr.spec_tea, tr.rspec, tr.opt,
+                             tr.cfg, ds.intrinsics, ds.H, ds.W, 3,
+                             group=group)
+    tr.state, logs = step.with_rays(tr.state, tr.teacher, tr.occ_tea,
+                                    ds.poses[0], *(d[sl] for d in draws))
+    field = tr.state.field
+    return {"distill": ({k: float(v) for k, v in logs.items()},
+                        vm_tree_from_field(field, grad=True),
+                        vm_tree_from_field(field))}
+
+
+def dp_ab_shard_mean(job: dict, world: int) -> tuple:
+    """What the compacted A/B step over `world` ranks computes, from
+    single-process steps: each rank's slice at its own budget (as JAX's
+    shard_map runs it), logs and gradients averaged over the slices
+    (compare_steps' tree of params is the ranks' own: the slices' steps
+    update no common params).  Returns ((logs, grads), the slices'
+    compact_frac)."""
+    outs = [dp_ab_step(job, shard=r, shards=world)["distill"]
+            for r in range(world)]
+    logs = {k: float(np.mean([o[0][k] for o in outs])) for k in outs[0][0]}
+    grads = tree_mean([o[1] for o in outs])
+    return (logs, grads), [o[0]["compact_frac"] for o in outs]
+
+
+def tree_mean(trees: list):
+    """The leafwise mean of nested dicts / lists of numpy arrays."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_mean([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(tree_mean([t[i] for t in trees])
+                        for i in range(len(t0)))
+    return np.mean(np.stack(trees), axis=0)
 
 
 def dp_field(best: str, dev):
@@ -5183,8 +5287,8 @@ def dp_sweep_and_image(best: str, group=None) -> dict:
 
 
 def dp_recipe(job: dict, group=None) -> dict:
-    """DP_DISTILL (the A/B student, cut) through the Trainer from the A/B
-    teacher, over `group` (n_devices = its world) or on one process; test
+    """DP_DISTILL (the A/B student, cut in steps) through the Trainer from
+    the A/B teacher, over `group` (n_devices = its world) or on one process; test
     PSNR, train_stats and the launches of the training run."""
     n_dev = 1 if group is None else group.world
     cfg = PVDConfig(**DP_DISTILL, path=job["scene"], seed=job["seed"],
@@ -5229,7 +5333,9 @@ def _dp_rank(rank: int, world: int, backend: str, rendezvous: str,
            "backend": group.backend,
            "small": dp_small_steps(job["small"], group,
                                    kinds=job["kinds"])}
-    if job.get("best") and backend == "gloo":
+    res["ab"] = {"padded": dp_ab_step(job, group, padded=True),
+                 "compacted": dp_ab_step(job, group)}
+    if backend == "gloo":
         res["field"] = dp_sweep_and_image(job["best"], group)
         res["recipe"] = dp_recipe(job, group)
     res["allreduce_ms"] = allreduce_ms(group, job["allreduce_floats"])
@@ -5263,10 +5369,11 @@ def run_ranks(world: int, backend: str, job: dict, tmp: str) -> list:
     return [torch.load(f, weights_only=False) for f in outs]
 
 
-def dp_compare_small(got: dict, want: dict, label: str) -> dict:
-    """compare_steps of each small DP step against the single-process one;
-    the distill's point losses and PSNR (per-shard means, as in JAX) left
-    out of the log comparison."""
+def dp_compare_small(got: dict, want: dict, label: str,
+                     sizes: str = "test sizes, padded") -> dict:
+    """compare_steps of each DP step against the single-process one; the
+    distill's point losses and PSNR (per-shard means, as in JAX) left out
+    of the log comparison."""
     report = {}
     for kind in want:
         lg, gg, pg = got[kind]
@@ -5274,8 +5381,8 @@ def dp_compare_small(got: dict, want: dict, label: str) -> dict:
         keep = [k for k in lw if k not in DP_SHARD_LOGS or kind == "teacher"]
         c = compare_steps(({k: lg[k] for k in keep}, gg, pg),
                           ({k: lw[k] for k in keep}, gw, pw))
-        log(f"{label} {kind} step vs single-process (test sizes, padded, "
-            f"f32 heads): max rel loss/log diff {c['loss_rel_err']:.3g}; "
+        log(f"{label} {kind} step vs single-process ({sizes}, f32 heads): "
+            f"max rel loss/log diff {c['loss_rel_err']:.3g}; "
             f"max grad diff / leaf max {c['grad_err_rel_leaf_max']:.3g} "
             f"({c['grad_err_leaf']}); max param diff under the gradient "
             f"mask {c['param_err']:.3g}")
@@ -5286,29 +5393,54 @@ def dp_compare_small(got: dict, want: dict, label: str) -> dict:
     return report
 
 
+def dp_compare_ab(got: dict, padded: dict, shards: tuple,
+                  label: str) -> dict:
+    """The A/B-shaped DP steps of one rank: the padded one against the
+    single-process step on the concatenated batch; the compacted one
+    against the mean of single-process steps on the ranks' slices at
+    their own budgets (`dp_ab_shard_mean`), its params not held (those
+    steps update no common params)."""
+    (lw, gw), fracs = shards
+    pg = got["compacted"]["distill"][2]
+    out = {"padded": dp_compare_small(
+        got["padded"], padded, label, "A/B shapes, VM 300^3, 4096 rays, "
+        "padded"), "compacted": dp_compare_small(
+        got["compacted"], {"distill": (lw, gw, pg)}, label,
+        "A/B shapes, VM 300^3, 4096 rays, compacted, against the "
+        "slices' steps"), "slices_compact_frac": fracs}
+    log(f"{label}: compacted A/B step's slices fill {fracs} of their "
+        "budgets (over 1: the slice's tail is cut, so the concatenated "
+        "batch's step differs)")
+    return out
+
+
 def drive_dp(seed: int, workspace: str, scene: str, best: str) -> dict:
     """Phase 16: two ranks sharing the card over gloo (the DP teacher and
-    distill steps on fixed shards, the DP sweep and an 800x800 DP eval
-    image against the single-process ones, DP_DISTILL through the Trainer
-    with n_devices=2 against the single-process student), then one rank
-    over NCCL (`make_dp_distill_step` against the single-chip step)."""
+    distill steps on fixed shards at test sizes and a distill step at the
+    A/B shapes, the DP sweep and an 800x800 DP eval image against the
+    single-process ones, DP_DISTILL through the Trainer with n_devices=2
+    against the single-process student), then one rank over NCCL (the
+    distill steps over it against the single-chip ones)."""
     small = dp_small_inputs()
     want_small = dp_small_steps(small)
     want_field = dp_sweep_and_image(best)
     job = {"small": small, "kinds": ("teacher", "distill"), "best": best,
            "scene": scene, "seed": seed, "workspace": workspace}
+    want_ab = dp_ab_step(job, padded=True)
     reset_counters()
     single = dp_recipe(job)
     n_floats = sum(p.numel() for p in Trainer(PVDConfig(
         **AB_DISTILL), mode="distill").state.field.parameters())
     job["allreduce_floats"] = n_floats
+    want_shards = dp_ab_shard_mean(job, DP_WORLD)
     t0 = time.perf_counter()
     ranks = run_ranks(DP_WORLD, "gloo", job, workspace)
     gloo_s = time.perf_counter() - t0
     info = {"gloo_s": gloo_s, "single": single, "ranks": []}
     for r in ranks:
-        small_c = dp_compare_small(r["small"], want_small,
-                                   f"gloo rank {r['rank']}/{r['world']}")
+        label = f"gloo rank {r['rank']}/{r['world']}"
+        small_c = dp_compare_small(r["small"], want_small, label)
+        ab_c = dp_compare_ab(r["ab"], want_ab, want_shards, label)
         f, w = r["field"], want_field
         grid_err = float(np.abs(f["grid"] - w["grid"]).max()
                          / max(float(np.abs(w["grid"]).max()), 1e-30))
@@ -5343,7 +5475,7 @@ def drive_dp(seed: int, workspace: str, scene: str, best: str) -> dict:
             raise RuntimeError(f"the DP student {rec['psnr']:.3f} dB against "
                                f"the single-process {single['psnr']:.3f}")
         info["ranks"].append({
-            "small": small_c, "grid_rel_err": grid_err,
+            "small": small_c, "ab": ab_c, "grid_rel_err": grid_err,
             "bit_flips": bit_flips, "image_abs_err": img_err,
             "render_ms": f["render_ms"], "psnr": rec["psnr"],
             "recipe_launches": rec["launches"],
@@ -5353,12 +5485,14 @@ def drive_dp(seed: int, workspace: str, scene: str, best: str) -> dict:
                           ranks[1]["field"]["image"]):
         raise RuntimeError("the ranks' DP images differ")
     info["single_render_ms"] = want_field["render_ms"]
-    # one rank over NCCL: make_dp_distill_step against the single-chip step
-    nccl_job = {"small": small, "kinds": ("distill",),
-                "allreduce_floats": n_floats}
+    # one rank over NCCL: the distill steps over it against the single-chip
+    # ones
+    nccl_job = dict(job, kinds=("distill",))
     (nc,) = run_ranks(1, "nccl", nccl_job, workspace)
     info["nccl"] = {"small": dp_compare_small(
         nc["small"], {"distill": want_small["distill"]}, "nccl rank 0/1"),
+        "ab": dp_compare_ab(nc["ab"], want_ab, dp_ab_shard_mean(job, 1),
+                            "nccl rank 0/1"),
         "allreduce_ms": nc["allreduce_ms"], "backend": nc["backend"]}
     log(f"nccl one-rank all-reduce of {n_floats * 4 / 1e6:.1f} MB "
         f"{nc['allreduce_ms']:.3f} ms; gloo phase {gloo_s:.1f} s")

@@ -217,6 +217,58 @@ def _stack_logs(logs: list) -> dict:
             for k in logs[0]}
 
 
+def _scan(step, K: int, split, lead: int, emap: bool = False,
+          per_ray: bool = False):
+    """K calls of `step` in one call, in step order (the JAX package's
+    lax.scan over its step, train_steps.py:266-326, 431-455, 526-599).
+
+    The K-step call is scan(state, *inputs, generator): input `lead`
+    holds one entry a step, and split(j, *inputs) gives step j's
+    arguments after the state and, with `emap`, the row of the map (the
+    last input, [B, 128 * 128]) that it draws from.  That row goes to the
+    step after its arguments, and the step's new row is written into a
+    copy of the map before step j + 1 draws.  It returns (state, logs
+    [K]); with `emap` (state, the new map, logs); with `per_ray` (the
+    host step's per-ray losses) (state, per_ray [K, N], logs).
+    `scan.with_rays(state, *inputs, draws)` calls `step.with_rays` with
+    draws[j] after step j's arguments instead of drawing."""
+
+    def run(one, state, inputs):
+        n = len(inputs[lead])
+        if n != K:
+            raise ValueError(f"inputs of {n} steps for a {K}-step call")
+        em = inputs[-1].clone() if emap else None
+        logs, rays = [], []
+        for j in range(K):
+            args, i = split(j, *inputs)
+            if emap:
+                state, em[i], m = one(j, state, *args, em[i])
+            elif per_ray:
+                state, r, m = one(j, state, *args)
+                rays.append(r)
+            else:
+                state, m = one(j, state, *args)
+            logs.append(m)
+        logs = _stack_logs(logs)
+        if emap:
+            return state, em, logs
+        if per_ray:
+            return state, torch.stack(rays), logs
+        return state, logs
+
+    def scan(state, *inputs):
+        *inputs, generator = inputs
+        return run(lambda j, *a: step(*a, generator), state, inputs)
+
+    def with_rays(state, *inputs):
+        *inputs, draws = inputs
+        return run(lambda j, *a: step.with_rays(*a, *draws[j]), state,
+                   inputs)
+
+    scan.with_rays = with_rays
+    return scan
+
+
 def _zero_grads(field):
     for p in field.parameters():
         p.grad = None
@@ -293,7 +345,7 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
     image_flat, emap_row, inds, cells, bg, u)` runs the rest: the core,
     then `error_map_update` of the row with the per-ray losses.
 
-    `scan_steps=K` returns the K-step flavor (`_scan_teacher`):
+    `scan_steps=K` returns the K-step flavor (`_scan`):
     step(state, images_flat [B, H*W, C], idxs [K] image ids, poses
     [K, 4, 4], generator) -> (state, logs [K]); with `use_error_map`
     step(state, images_flat, idxs, poses, emap_all [B, 128 * 128],
@@ -343,53 +395,12 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
     step.with_rays = with_rays
     step.core = core
     if scan_steps > 0:
-        return _scan_teacher(step, scan_steps, use_error_map)
+        def split(j, images_flat, idxs, poses, emap_all=None):
+            i = int(idxs[j])
+            return (poses[j], images_flat[i]), i
+
+        return _scan(step, scan_steps, split, lead=1, emap=use_error_map)
     return step
-
-
-def _scan_teacher(step, K: int, use_error_map: bool):
-    """K preload teacher steps in one call (train_steps.py:266-322): step
-    j trains on images_flat[idxs[j]] from poses[j]; with the error map,
-    emap_all's row of that image is drawn from and updated (a copy of
-    emap_all is returned).  `scan.with_rays(state, images_flat, idxs,
-    poses, [emap_all,] draws)` takes each step's (inds, [cells,] bg, u)."""
-
-    def run(state, images_flat, idxs, poses, emap_all, one):
-        idxs = [int(i) for i in idxs]
-        if len(idxs) != K:
-            raise ValueError(f"{len(idxs)} image ids for {K} steps")
-        em = None if emap_all is None else emap_all.clone()
-        logs = []
-        for j, i in enumerate(idxs):
-            if em is None:
-                state, m = one(j, state, poses[j], images_flat[i])
-            else:
-                state, em[i], m = one(j, state, poses[j], images_flat[i],
-                                      em[i])
-            logs.append(m)
-        return state, em, _stack_logs(logs)
-
-    if use_error_map:
-        def scan(state, images_flat, idxs, poses, emap_all, generator):
-            return run(state, images_flat, idxs, poses, emap_all,
-                       lambda j, *a: step(*a, generator))
-
-        def with_rays(state, images_flat, idxs, poses, emap_all, draws):
-            return run(state, images_flat, idxs, poses, emap_all,
-                       lambda j, *a: step.with_rays(*a, *draws[j]))
-    else:
-        def scan(state, images_flat, idxs, poses, generator):
-            st, _, logs = run(state, images_flat, idxs, poses, None,
-                              lambda j, *a: step(*a, generator))
-            return st, logs
-
-        def with_rays(state, images_flat, idxs, poses, draws):
-            st, _, logs = run(state, images_flat, idxs, poses, None,
-                              lambda j, *a: step.with_rays(*a, *draws[j]))
-            return st, logs
-
-    scan.with_rays = with_rays
-    return scan
 
 
 def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
@@ -455,40 +466,12 @@ def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
     step.core = core
     step.with_rays = with_rays
     if scan_steps > 0:
-        return _scan_host(step, scan_steps, use_error_map)
+        def split(j, poses, inds, pix):
+            return (poses[j], inds[j], pix[j]), None
+
+        return _scan(step, scan_steps, split, lead=1,
+                     per_ray=use_error_map)
     return step
-
-
-def _scan_host(step, K: int, use_error_map: bool):
-    """K host-batcher teacher steps in one call (train_steps.py:431-444);
-    `scan.with_rays(state, poses, inds, pix, draws)` takes each step's
-    (bg, u)."""
-
-    def run(state, poses, inds, pix, one):
-        if len(inds) != K:
-            raise ValueError(f"{len(inds)} batches for {K} steps")
-        logs, per_rays = [], []
-        for j in range(K):
-            out = one(j, state, poses[j], inds[j], pix[j])
-            if use_error_map:
-                state, ray_loss, m = out
-                per_rays.append(ray_loss)
-            else:
-                state, m = out
-            logs.append(m)
-        if use_error_map:
-            return state, torch.stack(per_rays), _stack_logs(logs)
-        return state, _stack_logs(logs)
-
-    def scan(state, poses, inds, pix, generator):
-        return run(state, poses, inds, pix, lambda j, *a: step(*a, generator))
-
-    def with_rays(state, poses, inds, pix, draws):
-        return run(state, poses, inds, pix,
-                   lambda j, *a: step.with_rays(*a, *draws[j]))
-
-    scan.with_rays = with_rays
-    return scan
 
 
 def distill_loss(student, teacher, spec_stu: ModelSpec, spec_tea: ModelSpec,
@@ -580,7 +563,7 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
     loss the row takes the per-ray RGB losses (`error_map_update`), else
     it is returned unchanged (train_steps.py:597-618).
 
-    `scan_steps=K` returns the K-step flavor (`_scan_distill`):
+    `scan_steps=K` returns the K-step flavor (`_scan`):
     step(state, teacher, occ_tea, poses [K, 4, 4], generator) -> (state,
     logs [K]); with `use_error_map` step(state, teacher, occ_tea, poses,
     idxs [K] pose slots, emap_all [B, 128 * 128], generator) -> (state,
@@ -658,54 +641,12 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
     step.with_rays = with_rays
     step.core = distill_step_core
     if scan_steps > 0:
-        return _scan_distill(step, scan_steps, use_error_map)
+        def split(j, teacher, occ_tea, poses, idxs=None, emap_all=None):
+            return ((teacher, occ_tea, poses[j]),
+                    None if idxs is None else int(idxs[j]))
+
+        return _scan(step, scan_steps, split, lead=2, emap=use_error_map)
     return step
-
-
-def _scan_distill(step, K: int, use_error_map: bool):
-    """K distillation steps in one call (train_steps.py:526-578): step j
-    renders from poses[j]; with the error map, emap_all's row idxs[j] is
-    drawn from and updated (a copy of emap_all is returned).
-    `scan.with_rays(state, teacher, occ_tea, poses, [idxs, emap_all,]
-    draws)` takes each step's (inds, [cells,] bg, u)."""
-
-    def run(state, teacher, occ_tea, poses, idxs, emap_all, one):
-        if len(poses) != K:
-            raise ValueError(f"{len(poses)} poses for {K} steps")
-        em = None if emap_all is None else emap_all.clone()
-        logs = []
-        for j in range(K):
-            if em is None:
-                state, m = one(j, state, teacher, occ_tea, poses[j])
-            else:
-                i = int(idxs[j])
-                state, em[i], m = one(j, state, teacher, occ_tea, poses[j],
-                                      em[i])
-            logs.append(m)
-        return state, em, _stack_logs(logs)
-
-    if use_error_map:
-        def scan(state, teacher, occ_tea, poses, idxs, emap_all, generator):
-            return run(state, teacher, occ_tea, poses, idxs, emap_all,
-                       lambda j, *a: step(*a, generator))
-
-        def with_rays(state, teacher, occ_tea, poses, idxs, emap_all,
-                      draws):
-            return run(state, teacher, occ_tea, poses, idxs, emap_all,
-                       lambda j, *a: step.with_rays(*a, *draws[j]))
-    else:
-        def scan(state, teacher, occ_tea, poses, generator):
-            st, _, logs = run(state, teacher, occ_tea, poses, None, None,
-                              lambda j, *a: step(*a, generator))
-            return st, logs
-
-        def with_rays(state, teacher, occ_tea, poses, draws):
-            st, _, logs = run(state, teacher, occ_tea, poses, None, None,
-                              lambda j, *a: step.with_rays(*a, *draws[j]))
-            return st, logs
-
-    scan.with_rays = with_rays
-    return scan
 
 
 def make_occ_update(spec: ModelSpec, rspec: RenderSpec, device="cuda"):

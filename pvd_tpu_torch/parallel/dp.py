@@ -3,9 +3,10 @@
 One process per device (`parallel/mesh.py`); parameters, optimizer state
 and occupancy grids are replicas, and each ray batch is split over the
 ranks.  The steps are the single-process steps of `engine/train_steps.py`
-with a `RayGroup`: each rank draws its `num_rays / world` rays from its
-own generator (the JAX package folds the device index into the key), the
-gradients are averaged over the ranks before AdamW (its `_pmean_tree` of
+(`make_teacher_step`, `make_distill_step`; dp.py:51-375) called with
+`group=` a `RayGroup`: each rank draws its `num_rays / world` rays from
+its own generator (the JAX package folds the device index into the key),
+the gradients are averaged over the ranks before AdamW (its `_pmean_tree` of
 the grads, dp.py:47), so every replica takes the same update, and the
 logs are averaged too.  As in the JAX package, a step over the ranks
 equals a single-process step on the concatenation of their batches, up
@@ -30,46 +31,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
+from pvd_tpu_torch.config import ModelSpec, RenderSpec
 from pvd_tpu_torch.device import resolve_device
-from pvd_tpu_torch.engine.optim import GroupedAdamW
 from pvd_tpu_torch.engine.train_steps import (EvalImage, _check_device,
-                                              _param_device, chunk_rays,
-                                              make_distill_step,
-                                              make_teacher_step)
+                                              _param_device, chunk_rays)
 from pvd_tpu_torch.models.api import field_density
 from pvd_tpu_torch.parallel.mesh import RayGroup
 from pvd_tpu_torch.render.occupancy import (OccupancyState,
                                             update_density_grid)
 from pvd_tpu_torch.render.renderer import render_rays
-
-
-def make_dp_teacher_step(spec: ModelSpec, rspec: RenderSpec,
-                         opt: GroupedAdamW, cfg: PVDConfig, group: RayGroup,
-                         intrinsics, H: int, W: int, image_channels: int,
-                         device="cuda", use_error_map: bool = False,
-                         scan_steps: int = 0):
-    """The preload teacher step over `group` (dp.py:51-215): the
-    signatures of `train_steps.make_teacher_step`, each rank drawing its
-    share of the rays from the generator it is passed."""
-    return make_teacher_step(spec, rspec, opt, cfg, intrinsics, H, W,
-                             image_channels, device=device,
-                             use_error_map=use_error_map,
-                             scan_steps=scan_steps, group=group)
-
-
-def make_dp_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
-                         rspec: RenderSpec, opt: GroupedAdamW,
-                         cfg: PVDConfig, group: RayGroup, intrinsics,
-                         H: int, W: int, stage: int = 3, device="cuda",
-                         use_error_map: bool = False, scan_steps: int = 0):
-    """The distillation step over `group` (dp.py:218-375): the signatures
-    of `train_steps.make_distill_step`; the teacher replays each rank's
-    student samples on that rank."""
-    return make_distill_step(spec_stu, spec_tea, rspec, opt, cfg,
-                             intrinsics, H, W, stage, device=device,
-                             use_error_map=use_error_map,
-                             scan_steps=scan_steps, group=group)
 
 
 def make_dp_occ_update(spec: ModelSpec, rspec: RenderSpec, group: RayGroup,

@@ -189,10 +189,8 @@ def ray_group_for(n_devices: int, device) -> Optional[RayGroup]:
 
 
 def rank_seed(seed: int, rank: int) -> int:
-    """The seed of rank `rank`'s own stream of draws (JAX folds the device
-    index into the key): `seed` itself at rank 0, a seed mixed from both
-    elsewhere."""
-    if rank == 0:
-        return seed
+    """The seed of rank `rank`'s own stream of draws, mixed from both (JAX
+    folds every device index into the key), so that no rank's stream,
+    rank 0's included, replays the one seeded `seed`."""
     return int(np.random.SeedSequence([seed, rank]).generate_state(
         1, np.uint64)[0] >> np.uint64(1))

@@ -653,3 +653,15 @@ def test_trainer_dp_improves_psnr(setup, tmp_path_factory):
     ws = os.path.join(tmp, done[0])
     assert {"metrics.json", "args.json", "checkpoints", "results"} <= set(
         os.listdir(ws))
+
+
+def test_rank_seed_gives_every_rank_its_own_stream():
+    """Every rank's stream, rank 0's included, is seeded apart from the
+    shared one (`seed`) and from every other rank's, the same in every
+    process."""
+    from pvd_tpu_torch.parallel.mesh import rank_seed
+    for seed in (0, 1, 2 ** 31):
+        seeds = [rank_seed(seed, r) for r in range(8)]
+        assert len(set(seeds)) == 8 and seed not in seeds
+        assert seeds == [rank_seed(seed, r) for r in range(8)]
+        assert all(0 <= x < 2 ** 63 for x in seeds)

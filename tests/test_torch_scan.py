@@ -256,6 +256,34 @@ def test_distill_chunk_equals_single_steps(distill, stage, emap):
     _same_logs(logs, singles)
 
 
+@pytest.mark.parametrize("flavor", TEACHER_FLAVORS + ("distill",
+                                                      "distill-emap"))
+def test_chunk_of_other_length_raises(teacher, distill, flavor):
+    """A K-step call given the inputs of K - 1 steps raises before it
+    trains: the state keeps its step and the generator its state."""
+    poses = torch.from_numpy(_poses(teacher, K - 1, 1))
+    g = torch.Generator().manual_seed(5)
+    g0 = g.get_state()
+    emap = flavor.endswith("emap")
+    if flavor.startswith("distill"):
+        state, scan, tea, occ = _distill_state(distill, 3, emap, K)
+        args = (tea, occ, poses) + ((
+            np.array([0, 1]), torch.from_numpy(distill["emap"])) if emap
+            else ())
+    elif flavor.startswith("host"):
+        state, scan = _teacher_step(teacher, flavor, K)
+        args = (poses,) + _host_batches(teacher, K - 1)
+    else:
+        state, scan = _teacher_step(teacher, flavor, K)
+        args = (torch.from_numpy(teacher["images"]), np.array([1, 0]),
+                poses) + ((torch.from_numpy(teacher["emap"]),) if emap
+                          else ())
+    with pytest.raises(ValueError, match=f"2 steps for a {K}-step call"):
+        scan(state, *args, g)
+    assert state.step == 0
+    assert torch.equal(g.get_state(), g0)
+
+
 # ---- against JAX's scan steps --------------------------------------------
 
 def _jax_opt(tree, spec_j, sched):
