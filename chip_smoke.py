@@ -219,7 +219,27 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    rank over NCCL: `make_distill_step` over it, at test sizes and at the
    A/B shapes, against the single-chip step, and the same all-reduce's
    time.
-17. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
+17. The JAX package's last modules (inside phase 6, on its teacher and
+   student).  Phase 2's INGP field and object grid go through a
+   reference-format .pth (torch Linear layouts, the density grid in Morton
+   order, `to_morton_order`) and `load_torch_reference`: params, grid and
+   bitfield bit for bit, and an 800x800 `make_eval_renderer` image against
+   phase 2's (K1-K3); the A/B VM student the same way, its test PSNR
+   against its own eval's (K4).  The A/B teacher (cell mode, K1 + K10)
+   through `render_stratified` at 512 samples a ray and at 128 + 64
+   resampled (4096 rays a call, 2,097,152 points at 512), as it is and
+   with its density zeroed in the cells its grid marks empty
+   (`OccupancyMasked`), on the 10 test views (fails under
+   STRAT_PSNR_FLOOR) and one 800x800 view, beside its occupancy renderer; the plain composite's and resampler's times at the
+   call's shapes, a profile of the 800x800 render, and one perturbed,
+   resampled call with its backward (K7, K11) at test sizes on the GPU
+   against the CPU plain path.  Its mesh at 256^3, threshold 10
+   (`extract_geometry`): the sweep and the surface timed apart, fails if
+   empty or outside the box, writes an OBJ.  One stratified call under
+   `trace`, whose Chrome trace must name K1 and K10, and the JPEG fixtures
+   of tests/data/jpeg (the decoder built here with g++) bit for bit
+   against their committed cv2 decodes.
+18. Prints the GPU's name and power limit, a {"kernels": [...]} line, and
    ends with {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, if any phase fails, no GPU is present
@@ -232,6 +252,7 @@ import argparse
 import contextlib
 import dataclasses
 import glob
+import itertools
 import json
 import math
 import os
@@ -249,6 +270,8 @@ from pvd_tpu_torch import kernels
 from pvd_tpu_torch.cli import distill as distill_cli
 from pvd_tpu_torch.cli import train_teacher as teacher_cli
 from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
+from pvd_tpu_torch.data import hostlib, jpeg
+from pvd_tpu_torch.data.jpeg import read_jpeg
 from pvd_tpu_torch.data.png import read_png, write_png
 from pvd_tpu_torch.data.poses import get_rand_poses, pose_spherical
 from pvd_tpu_torch.data.provider import NeRFDataset
@@ -264,9 +287,10 @@ from pvd_tpu_torch.engine.train_steps import (TrainState, chunk_rays,
                                               make_occ_update,
                                               make_teacher_step,
                                               make_teacher_step_host)
+from pvd_tpu_torch.engine.import_torch import load_torch_reference
 from pvd_tpu_torch.engine.trainer import Trainer
-from pvd_tpu_torch.models.api import (bg_grid_spec, param_group_label,
-                                      trainable_label)
+from pvd_tpu_torch.models.api import (bg_grid_spec, field_forward,
+                                      param_group_label, trainable_label)
 from pvd_tpu_torch.models.hash_field import HashField, grid_spec
 from pvd_tpu_torch.models import vm_field
 from pvd_tpu_torch.models.vm_field import normalize
@@ -278,7 +302,9 @@ from pvd_tpu_torch.ops.composite import (composite_rays, composite_rays_bwd,
                                          composite_rays_compact_fwd,
                                          composite_rays_compact_plain,
                                          composite_rays_fwd,
-                                         composite_rays_plain, k3_lanes)
+                                         composite_rays_plain,
+                                         composite_stratified, k3_lanes,
+                                         stratified_weights)
 from pvd_tpu_torch.ops.fma import fma32
 from pvd_tpu_torch.ops import hashgrid
 from pvd_tpu_torch.ops.grid_sample import grid_sample_3d
@@ -297,6 +323,7 @@ from pvd_tpu_torch.ops.hashgrid import (HashGridSpec, build_baked_dense,
                                         level_corners)
 from pvd_tpu_torch.ops.rays import (draw_error_map_inds_np, get_rays,
                                     nerf_matrix_to_ngp)
+from pvd_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 from pvd_tpu_torch.ops.vm_sample import (MAT_IDS, VEC_IDS, grad_buffers,
                                          k4_variant, k5_variant,
                                          vm_sample_bwd, vm_sample_bwd_plain,
@@ -305,13 +332,21 @@ from pvd_tpu_torch.parallel.dp import (make_dp_eval_renderer,
                                        make_dp_occ_update)
 from pvd_tpu_torch.parallel.mesh import init_ray_group
 from pvd_tpu_torch.params import (field_from_tree, hash_field_from_jax,
-                                  hash_tree_from_field, tree_from_field,
-                                  vm_field_from_jax, vm_tree_from_field)
+                                  hash_tree_from_field, spec_from_tree,
+                                  tree_from_field, vm_field_from_jax,
+                                  vm_tree_from_field)
 from pvd_tpu_torch.render.occupancy import (grid_coords, init_occupancy_state,
-                                            query_points, set_bitfield)
-from pvd_tpu_torch.render.renderer import (_t_lattice_geom, compact_samples,
-                                           dt_min_of, march_rays,
-                                           march_rays_plain, render_rays)
+                                            query_points, set_bitfield,
+                                            to_morton_order)
+from pvd_tpu_torch.render.renderer import (_occupancy_lookup, _t_lattice_geom,
+                                           compact_samples, dt_min_of,
+                                           march_rays, march_rays_plain,
+                                           render_rays, render_stratified)
+from pvd_tpu_torch.utils.mesh import (density_query, extract_fields,
+                                      extract_geometry, marching_tetrahedra,
+                                      save_obj)
+from pvd_tpu_torch.utils.metrics import psnr
+from pvd_tpu_torch.utils.profiling import trace
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 outside the
 # tensor cores; the bounds below are the larger of bytes/BW and ops/F32
@@ -5499,6 +5534,539 @@ def drive_dp(seed: int, workspace: str, scene: str, best: str) -> dict:
     return info
 
 
+# ---- phase 17: the stratified renderer, reference import, mesh, tracing
+# and JPEG frames (the JAX package's last modules) -------------------------
+
+# the stratified renders of the A/B teacher: 512 samples a ray, and 128
+# plus 64 resampled (deterministic quantiles); rays in calls of 4096, the
+# sweep's K1 shape at 512 samples (2,097,152 points)
+STRAT_SETTINGS = {"s512": dict(num_steps=512, upsample_steps=0),
+                  "s128_u64": dict(num_steps=128, upsample_steps=64)}
+STRAT_CHUNK = 4096
+# test-PSNR floors (PERF.md §2).  The trained teacher as it is: its
+# unmarched space holds floaters the occupancy renderer never sees, and
+# a ray that misses the box is composited over points clipped onto it
+# (the JAX package's miss handling, ROADMAP C12), so the render sits near
+# 16 dB; the floor catches a path that breaks into NaN or black.  The
+# same teacher with its density zeroed in the cells its grid marks empty
+# (`OccupancyMasked`): the stratified path then sees what the occupancy
+# march sees, and a broken sampler, composite or z order lands far under
+# this floor (the occupancy renderer scores ~34.9 dB).
+STRAT_PSNR_FLOOR = {"field": 12.0, "masked": 30.0}
+# one stratified call at test sizes, kernels on the GPU against the plain
+# path on the CPU (f32 heads, the same draws): image, depth and
+# weights_sum; field gradients per leaf against its max |g| (K7 and K11
+# add in a varying order, as TOL_K11_REL)
+STRAT_SMALL = dict(n_rays=64, num_steps=64, upsample_steps=16)
+TOL_STRAT_IMG, TOL_STRAT_GRAD_REL = 1e-5, 1e-4
+# the imported INGP field renders with the same kernels on the same
+# weights and bits as phase 2's; the imported student's test PSNR is its
+# own eval's
+TOL_IMPORT_IMAGE, TOL_IMPORT_PSNR = 1e-6, 1e-3
+MESH_RES, MESH_THRESH = 256, 10.0
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "jpeg")
+SLICE11_KERNELS = {
+    "import_ingp": ("hash_encode", "march_rays", "composite_rays_compact"),
+    "import_vm": ("vm_sample_fwd", "march_rays", "composite_rays_compact"),
+    "stratified": ("hash_encode", "hash_encode_cell_fwd"),
+    "stratified_bwd": ("hash_encode_bwd", "hash_encode_cell_bwd"),
+    "mesh": ("hash_encode", "hash_encode_cell_fwd")}
+
+
+def reference_state_dict(tree: dict, spec, occ) -> dict:
+    """The reference Trainer's checkpoint of a field (its JAX-layout tree)
+    and occupancy state: the NeRFNetwork state_dict in torch layouts
+    (Linear weights [out, in], VM planes [1, R, H, W], lines [1, R, L, 1])
+    with the density grid in Morton order and the aabb buffers."""
+    sd = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def mlp(prefix, layers):
+        for i, layer in enumerate(layers):
+            sd[f"{prefix}.{i}.weight"] = t(np.asarray(layer["w"]).T)
+            if "b" in layer:
+                sd[f"{prefix}.{i}.bias"] = t(layer["b"])
+
+    if spec.model_type == "hash":
+        sd["encoder.embeddings"] = t(tree["encoder"])
+        mlp("sigma_net", tree["sigma_net"])
+    else:
+        for prefix in ("sigma", "color"):
+            for i in range(3):
+                sd[f"{prefix}_mat.{i}"] = t(np.asarray(
+                    tree[f"{prefix}_mat"][i]).transpose(2, 0, 1)[None])
+                sd[f"{prefix}_vec.{i}"] = t(np.asarray(
+                    tree[f"{prefix}_vec"][i]).T[None, :, :, None])
+        sd["basis_mat.weight"] = t(np.asarray(tree["basis_mat"]["w"]).T)
+    mlp("color_net", tree["color_net"])
+    sd["density_grid"] = to_morton_order(occ.density_grid).cpu()
+    sd["aabb_train"] = occ.aabb_train.cpu()
+    sd["aabb_infer"] = occ.aabb_infer.cpu()
+    return {"model": sd, "epoch": 1, "global_step": 1, "stats": {},
+            "mean_count": 0, "mean_density": float(occ.mean_density)}
+
+
+def import_case(label: str, tree: dict, spec, rspec, occ, tmp: str,
+                dev) -> tuple:
+    """torch.save a reference checkpoint of (tree, occ), load it on the
+    card with load_torch_reference and hold the params, the density grid
+    and the bitfield bit for bit against the source."""
+    path = os.path.join(tmp, f"{label}.pth")
+    torch.save(reference_state_dict(tree, spec, occ), path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    field, occ_i, meta = load_torch_reference(path, spec, rspec, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got, want = named_leaves(tree_from_field(field)), named_leaves(tree)
+    params_exact = [k for k, _ in got] == [k for k, _ in want] and all(
+        np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))
+    grid_exact = torch.equal(occ_i.density_grid, occ.density_grid)
+    bits_exact = torch.equal(occ_i.bitfield, occ.bitfield)
+    info = {"load_s": load_s, "params_exact": params_exact,
+            "grid_exact": grid_exact, "bitfield_exact": bits_exact,
+            "file_mb": os.path.getsize(path) / 2 ** 20,
+            "occupied": float(occ_i.bitfield.float().mean())}
+    log(f"reference import ({label}): {info['file_mb']:.1f} MB .pth loaded "
+        f"in {load_s:.2f} s; params exact {params_exact}, density grid "
+        f"exact {grid_exact}, bitfield exact {bits_exact} (occupied "
+        f"{info['occupied']:.4f})")
+    if not (params_exact and grid_exact and bits_exact):
+        raise RuntimeError(f"the imported {label} differs from its source")
+    return field, occ_i, info
+
+
+def drive_reference_import(field, spec, rspec, occ, image0, pose0, intr,
+                           stu, scene, tmp: str) -> dict:
+    """Phase 17 (1): phase 2's full-width INGP field and object grid, and
+    the A/B VM student, through a reference .pth and load_torch_reference;
+    each served by make_eval_renderer and held against its source's
+    render (K1-K3) or its own `evaluate` of the same moment (K4: the
+    step profiles after phase 6 trained it further)."""
+    dev = image0.device
+    # the object grid as densities whose threshold gives its bits back
+    grid = occ.bitfield.reshape(occ.density_grid.shape).float() * 20.0
+    src = occ.replace(density_grid=grid, mean_density=grid.mean())
+    report, launches = {}, {}
+    f_imp, occ_imp, report["ingp"] = import_case(
+        "ingp", hash_tree_from_field(field), spec, rspec, src, tmp, dev)
+    renderer = make_eval_renderer(spec, rspec, chunk=CHUNK)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = renderer(f_imp, occ_imp, pose0, intr, RES, RES)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches["import_ingp"] = counters()
+    err = max_abs(out.image, image0)
+    report["ingp"].update(render_ms=ms, image_max_abs_diff=err)
+    log(f"imported INGP field, {RES}x{RES} through make_eval_renderer: "
+        f"{ms:.1f} ms, max |image - phase 2's| {err:.3g} (tol "
+        f"{TOL_IMPORT_IMAGE:g})")
+    if not err <= TOL_IMPORT_IMAGE:
+        raise RuntimeError("the imported INGP field renders another image")
+    del f_imp, occ_imp, out
+
+    tree_s = tree_from_field(stu.state.field)
+    spec_imp = spec_from_tree(tree_s, stu.spec_stu)
+    v_imp, occ_v, report["vm"] = import_case(
+        "vm", tree_s, stu.spec_stu, stu.rspec, stu.state.occ, tmp, dev)
+    render_v = make_eval_renderer(spec_imp, stu.rspec,
+                                  chunk=stu.cfg.max_ray_batch)
+    test = scene["test"]
+    reset_counters()
+    meter = []
+    for i in range(len(test)):
+        o = render_v(v_imp, occ_v, test.poses[i], test.intrinsics, test.H,
+                     test.W)
+        gt = test.images[i]
+        if gt.shape[-1] == 4:
+            gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+        meter.append(psnr(o.image.cpu().numpy(), gt))
+    launches["import_vm"] = counters()
+    p_own = stu.evaluate(test, save_dir=os.path.join(tmp, "stu"))["psnr"]
+    p_imp = float(np.mean(meter))
+    report["vm"].update(test_psnr=p_imp, student_eval_psnr=p_own,
+                        resolution=list(spec_imp.vm_resolution))
+    log(f"imported A/B VM student {spec_imp.vm_resolution}: test PSNR "
+        f"{p_imp:.4f} dB over {len(test)} views, the student's own eval "
+        f"{p_own:.4f} dB (tol {TOL_IMPORT_PSNR:g})")
+    if not abs(p_imp - p_own) <= TOL_IMPORT_PSNR:
+        raise RuntimeError("the imported VM student scores another PSNR")
+    return {"report": report, "launches": launches}
+
+
+class OccupancyMasked(torch.nn.Module):
+    """A hash field whose density is zero in the cells of `bitfield` that
+    are empty (looked up at each sample as the march looks them up): what
+    the stratified renderer sees through it is what the occupancy march
+    sees of the field."""
+
+    def __init__(self, field, bitfield, rspec):
+        super().__init__()
+        self.field, self.bitfield, self.rspec = field, bitfield, rspec
+
+    def forward(self, x, d, want_color: bool = True):
+        out = self.field(x, d, want_color)
+        keep = _occupancy_lookup(self.bitfield, x, dt_min_of(self.rspec),
+                                 self.rspec)
+        return out._replace(sigma=out.sigma * keep)
+
+
+def stratified_image(field, spec, rspec, aabb, pose, intr, H: int, W: int,
+                     chunk: int = STRAT_CHUNK) -> tuple:
+    """image [H, W, 3], depth [H, W] and weights_sum [H, W] of
+    render_stratified, `chunk` rays a call (the caller chunks, as the JAX
+    package's callers do)."""
+    pose = torch.as_tensor(np.asarray(pose, np.float32), device=aabb.device)
+    parts = {"image": [], "depth": [], "weights_sum": []}
+    with torch.no_grad():
+        for head in range(0, H * W, chunk):
+            o, d = chunk_rays(pose, tuple(float(v) for v in intr), H, W,
+                              head, chunk)
+            out = render_stratified(field, spec, rspec, aabb, o, d)
+            for k in parts:
+                parts[k].append(out[k])
+    n = H * W
+    return tuple(torch.cat(parts[k])[:n].reshape((H, W, 3) if k == "image"
+                                                 else (H, W))
+                 for k in ("image", "depth", "weights_sum"))
+
+
+def stratified_parts_ms(field, spec, rspec, aabb, pose, intr) -> dict:
+    """Device ms of composite_stratified (at s512: 4096 rays x 512) and of
+    sample_pdf (at s128_u64: 127 bins -> 64 samples) on one chunk of the
+    800x800 view through the image centre."""
+    pose = torch.as_tensor(np.asarray(pose, np.float32), device=aabb.device)
+    head = (RES * RES // 2) // STRAT_CHUNK * STRAT_CHUNK
+    o, d = chunk_rays(pose, intr, RES, RES, head, STRAT_CHUNK)
+    nears, fars = near_far_from_aabb(o, d, aabb, rspec.min_near)
+    miss = nears >= 3.0e38
+    nears, fars = torch.where(miss, 0.0, nears), torch.where(miss, 1.0, fars)
+    out = {}
+    for name, kw in STRAT_SETTINGS.items():
+        rs = dataclasses.replace(rspec, **kw)
+        z, sd = stratified_z_vals(nears, fars, rs.num_steps, False)
+        xyz = torch.minimum(torch.maximum(
+            o[:, None] + z[..., None] * d[:, None], aabb[:3]), aabb[3:])
+        with torch.no_grad():
+            f = field_forward(field, spec, xyz.reshape(-1, 3),
+                              d[:, None].expand(xyz.shape).reshape(-1, 3),
+                              aabb)
+        sig = f.sigma.reshape(z.shape) * rs.density_scale
+        rgb = f.rgb.reshape(*z.shape, 3)
+        if rs.upsample_steps:
+            w = stratified_weights(sig, z, sd)
+            z_mid = z[..., :-1] + 0.5 * (z[..., 1:] - z[..., :-1])
+            out["sample_pdf_ms"] = cuda_ms(lambda: sample_pdf(
+                z_mid, w[:, 1:-1], rs.upsample_steps, det=True))
+            out["sample_pdf_shape"] = f"{STRAT_CHUNK} rays, " \
+                f"{z_mid.shape[1]} bins -> {rs.upsample_steps}"
+        else:
+            out["composite_stratified_ms"] = cuda_ms(
+                lambda: composite_stratified(sig, z, sd, rgb))
+            out["composite_shape"] = f"{STRAT_CHUNK} rays x {rs.num_steps}"
+    return out
+
+
+def drive_stratified(tea, scene, pose, intr, tmp: str) -> dict:
+    """Phase 17 (2): the A/B teacher (cell mode: K1 + K10) through
+    render_stratified on the 10 test views and one 800x800 view at each
+    STRAT_SETTINGS setting, beside its occupancy renderer (its own
+    `evaluate` now: the step profiles after phase 6 trained it further);
+    the time of the plain composite and resampler at the chunk's shapes;
+    a profile of the 800x800 render."""
+    field, spec = tea.state.field, tea.spec
+    aabb = tea.state.occ.aabb_infer
+    test = scene["test"]
+    out, launches = {}, {}
+    occ_render = make_eval_renderer(spec, tea.rspec, chunk=CHUNK)
+    occ_render(field, tea.state.occ, pose, intr, 64, 64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    occ_render(field, tea.state.occ, pose, intr, RES, RES)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out["occupancy"] = {"ms_800": ms, "psnr": tea.evaluate(
+        test, save_dir=os.path.join(tmp, "tea"))["psnr"]}
+    fields = {"field": field,
+              "masked": OccupancyMasked(field, tea.state.occ.bitfield,
+                                        tea.rspec)}
+    for (name, kw), (kind, f) in itertools.product(STRAT_SETTINGS.items(),
+                                                   fields.items()):
+        rs = dataclasses.replace(tea.rspec, **kw)
+        reset_counters()
+        psnrs = []
+        t0 = time.perf_counter()
+        for i in range(len(test)):
+            img, _, _ = stratified_image(f, spec, rs, aabb, test.poses[i],
+                                         test.intrinsics, test.H, test.W)
+            gt = test.images[i]
+            if gt.shape[-1] == 4:
+                gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+            psnrs.append(psnr(img.cpu().numpy(), gt))
+        views_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, dep, ws = stratified_image(f, spec, rs, aabb, pose, intr, RES,
+                                        RES)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[f"stratified_{name}_{kind}"] = counters()
+        finite = bool(torch.isfinite(img).all() and torch.isfinite(dep).all())
+        ws_ok = bool((ws >= 0).all() and (ws <= 1 + 1e-5).all())
+        hit = float((ws > 0.01).float().mean())
+        p = float(np.mean(psnrs))
+        pts = STRAT_CHUNK * (rs.num_steps + rs.upsample_steps)
+        out[f"{name}_{kind}"] = {
+            "psnr": p, "psnr_per_view": psnrs, "views_s": views_s,
+            "ms_800": ms, "hit_frac": hit, "points_per_call": pts}
+        log(f"stratified {name}, {kind} ({rs.num_steps} + "
+            f"{rs.upsample_steps} samples a ray, {pts} points a call): test "
+            f"PSNR {p:.3f} dB (occupancy renderer "
+            f"{out['occupancy']['psnr']:.3f}; floor "
+            f"{STRAT_PSNR_FLOOR[kind]}), {len(test)} views {views_s:.2f} s; "
+            f"{RES}x{RES} {ms:.1f} ms (occupancy renderer "
+            f"{out['occupancy']['ms_800']:.1f} ms), finite {finite}, "
+            f"weights_sum in [0,1] {ws_ok}, rays with weights_sum>0.01 "
+            f"{hit:.4f}")
+        if not (finite and ws_ok and p >= STRAT_PSNR_FLOOR[kind]):
+            raise RuntimeError(f"stratified render {name}, {kind}: PSNR "
+                               f"{p:.3f} under {STRAT_PSNR_FLOOR[kind]} or "
+                               "a bad image")
+    out["parts"] = stratified_parts_ms(field, spec, tea.rspec, aabb, pose,
+                                       intr)
+    n_calls = -(-RES * RES // STRAT_CHUNK)
+    log(f"stratified plain parts on one {STRAT_CHUNK}-ray call: "
+        f"composite_stratified {out['parts']['composite_stratified_ms']:.3f}"
+        f" ms ({out['parts']['composite_shape']}; x{n_calls} calls an "
+        f"800x800 image), sample_pdf {out['parts']['sample_pdf_ms']:.3f} ms "
+        f"({out['parts']['sample_pdf_shape']})")
+    rs = dataclasses.replace(tea.rspec, **STRAT_SETTINGS["s512"])
+    prof = profile(lambda: stratified_image(field, spec, rs, aabb, pose,
+                                            intr, RES, RES), top=15)
+    out["profile_s512"] = {**profile_brief(prof), "top": prof["top"]}
+    log(f"profile of the s512 {RES}x{RES} stratified render: wall "
+        f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f}"
+        f" ms (share {prof['device_busy_share']:.3f})")
+    for row in prof["top"]:
+        log(f"  {row['ms']:9.3f} ms {row['calls']:6d} x {row['kernel']}")
+    return {"report": out, "launches": launches}
+
+
+def small_stratified_gpu_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """One perturbed, resampled render_stratified call and its backward at
+    test sizes (the small cell-mode teacher, f32 heads): kernels on the
+    GPU (K1, K10 forward; K7, K11 backward) against the plain path on the
+    CPU, with the same draws."""
+    rng = np.random.default_rng(21)
+    spec = ModelSpec(**SMALL_CELL_TEA)
+    tree = random_hash_params(spec, rng)
+    n, T, U = (STRAT_SMALL[k] for k in ("n_rays", "num_steps",
+                                         "upsample_steps"))
+    pose = nerf_matrix_to_ngp(pose_spherical(30.0, -30.0, 4.0), scale=0.8)
+    inds = torch.from_numpy(rng.integers(0, SMALL_HW ** 2, n))
+    rays = get_rays(torch.from_numpy(pose)[None], SMALL_INTR, SMALL_HW,
+                    SMALL_HW, inds)
+    o, d = rays["rays_o"][0].contiguous(), rays["rays_d"][0].contiguous()
+    draws = [torch.from_numpy(rng.uniform(size=s).astype(np.float32))
+             for s in ((n, T), (n, U))]
+    gi = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    gd = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    rs = RenderSpec(num_steps=T, upsample_steps=U)
+    aabb = torch.tensor([-1.0] * 3 + [1.0] * 3)
+    res = []
+    for where in devices:
+        field = hash_field_from_jax(tree, spec, where)
+        reset_counters()
+        out = render_stratified(field, spec, rs, aabb.to(where), o.to(where),
+                                d.to(where), perturb=True,
+                                draws=tuple(u.to(where) for u in draws))
+        ((out["image"] * gi.to(where)).sum()
+         + (out["depth"] * gd.to(where)).sum()).backward()
+        res.append(({k: v.detach().cpu() for k, v in out.items()},
+                    named_leaves(hash_tree_from_field(field, grad=True)),
+                    counters()))
+    img_err = max(max_abs(res[0][0][k], res[1][0][k])
+                  for k in ("image", "depth", "weights_sum"))
+    grad_err, worst = 0.0, ""
+    for (name, a), (_, b) in zip(res[0][1], res[1][1]):
+        e = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if e > grad_err or not np.isfinite(e):
+            grad_err, worst = e if np.isfinite(e) else math.inf, name
+    launched = res[0][2]
+    log(f"stratified call GPU kernels vs CPU plain (test sizes: {n} rays, "
+        f"{T} + {U} samples, perturbed; cell-mode field, f32 heads): max "
+        f"|image, depth, weights_sum diff| {img_err:.3g} (tol "
+        f"{TOL_STRAT_IMG:g}); max grad diff / leaf max {grad_err:.3g} "
+        f"({worst}; tol {TOL_STRAT_GRAD_REL:g}); GPU launches "
+        + json.dumps({k: launched[k] for k in (
+            "hash_encode", "hash_encode_cell_fwd", "hash_encode_bwd",
+            "hash_encode_cell_bwd")}))
+    if not (img_err <= TOL_STRAT_IMG and grad_err <= TOL_STRAT_GRAD_REL):
+        raise RuntimeError("the GPU stratified call disagrees with the CPU "
+                           "plain path")
+    return {"img_err": img_err, "grad_err_rel_leaf_max": grad_err,
+            "grad_err_leaf": worst, "launches": launched}
+
+
+def drive_mesh(tea, tmp: str) -> dict:
+    """Phase 17 (3): the A/B teacher's mesh at MESH_RES, threshold
+    MESH_THRESH: the density sweep on the card (K1 + K10 through
+    field_density), the surface in torch on the card, then the same
+    through extract_geometry and an OBJ."""
+    field, spec = tea.state.field, tea.spec
+    b = tea.rspec.bound
+    bmin, bmax = (-b,) * 3, (b,) * 3
+    query = density_query(field, spec, tea.state.occ.aabb_infer)
+    extract_fields(bmin, bmax, 8, query, device=tea.device)  # warm-up
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = extract_fields(bmin, bmax, MESH_RES, query, device=tea.device)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launched = counters()
+    t0 = time.perf_counter()
+    v_grid, t_grid = marching_tetrahedra(u, MESH_THRESH)
+    torch.cuda.synchronize()
+    surface_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verts, tris = extract_geometry(bmin, bmax, MESH_RES, MESH_THRESH, query,
+                                   device=tea.device)
+    geometry_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "ab_teacher.obj")
+    t0 = time.perf_counter()
+    save_obj(path, verts, tris)
+    obj_s = time.perf_counter() - t0
+    inside = bool(len(verts) and (verts >= np.float32(-b)).all()
+                  and (verts <= np.float32(b)).all())
+    same = len(t_grid) == len(tris) and np.array_equal(
+        t_grid.cpu().numpy(), tris)
+    info = {"sweep_s": sweep_s, "surface_s": surface_s,
+            "extract_geometry_s": geometry_s, "save_obj_s": obj_s,
+            "vertices": len(verts), "triangles": len(tris),
+            "occupied_frac": float((u > MESH_THRESH).float().mean()),
+            "obj_mb": os.path.getsize(path) / 2 ** 20,
+            "inside_box": inside}
+    log(f"mesh of the A/B teacher at {MESH_RES}^3, threshold {MESH_THRESH}: "
+        f"sweep {sweep_s:.3f} s ({MESH_RES ** 3} density queries; launches "
+        f"K1 {launched['hash_encode']}, K10 "
+        f"{launched['hash_encode_cell_fwd']}), surface {surface_s:.3f} s, "
+        f"extract_geometry {geometry_s:.3f} s, {len(tris)} triangles, "
+        f"{len(verts)} vertices, all inside the box {inside}; OBJ "
+        f"{info['obj_mb']:.1f} MB in {obj_s:.2f} s")
+    if not (len(tris) and inside and same):
+        raise RuntimeError("mesh: empty, outside the box or not the "
+                           "surface of the sweep")
+    return {"report": info, "launches": launched}
+
+
+def drive_trace(tea, pose, intr, tmp: str) -> dict:
+    """Phase 17 (4a): one stratified call under `trace`; its Chrome trace
+    must name K1 and K10."""
+    field, spec = tea.state.field, tea.spec
+    aabb = tea.state.occ.aabb_infer
+    rs = dataclasses.replace(tea.rspec, **STRAT_SETTINGS["s512"])
+    pose = torch.as_tensor(np.asarray(pose, np.float32), device=aabb.device)
+    head = (RES * RES // 2) // STRAT_CHUNK * STRAT_CHUNK
+    o, d = chunk_rays(pose, intr, RES, RES, head, STRAT_CHUNK)
+    log_dir = os.path.join(tmp, "trace")
+    with torch.no_grad(), trace(log_dir):
+        render_stratified(field, spec, rs, aabb, o, d)
+    path = os.path.join(log_dir, "trace.json")
+    text = open(path).read()
+    k1 = any(k in text for k in ("hash_encode_fwd_kernel",
+                                 "hash_encode_fwd_per_level_kernel"))
+    k10 = "hash_cell_fwd_kernel" in text
+    info = {"trace_mb": os.path.getsize(path) / 2 ** 20, "names_k1": k1,
+            "names_k10": k10}
+    log(f"trace of one stratified call: {info['trace_mb']:.2f} MB Chrome "
+        f"trace, names K1 {k1}, K10 {k10}")
+    if not (k1 and k10):
+        raise RuntimeError("the trace does not name K1 and K10")
+    return info
+
+
+def check_jpeg_fixtures() -> dict:
+    """Phase 17 (4b): the committed JPEG fixtures through the port's
+    decoder (built here with g++) against their committed cv2 decodes,
+    bit for bit; the progressive one refused."""
+    lib = hostlib.library_path(jpeg.SOURCE, jpeg.BUILD_DIR, jpeg.GXX_FLAGS)
+    found = lib.exists()
+    t0 = time.perf_counter()
+    jpeg.load()
+    build_s = time.perf_counter() - t0
+    names = sorted(f[:-4] for f in os.listdir(JPEG_FIXTURES)
+                   if f.endswith(".jpg") and f != "progressive.jpg")
+    exact, ms = [], 0.0
+    for name in names:
+        t0 = time.perf_counter()
+        got = read_jpeg(os.path.join(JPEG_FIXTURES, name + ".jpg"))
+        ms += (time.perf_counter() - t0) * 1e3
+        want = read_png(os.path.join(JPEG_FIXTURES, name + ".png"))
+        exact.append(got.shape[:2] == want.shape[:2]
+                     and np.array_equal(got, want.reshape(got.shape)))
+    try:
+        read_jpeg(os.path.join(JPEG_FIXTURES, "progressive.jpg"))
+        refused = False
+    except ValueError:
+        refused = True
+    info = {"library_found": found, "build_s": build_s,
+            "fixtures": len(names), "exact": sum(exact),
+            "decode_ms_total": ms, "progressive_refused": refused}
+    log(f"JPEG: decoder library {'found' if found else 'built'} in "
+        f"{build_s:.2f} s; {sum(exact)} of {len(names)} fixtures bit for "
+        f"bit their cv2 decodes ({ms:.2f} ms in all), progressive refused "
+        f"{refused}")
+    if not (all(exact) and len(names) == 8 and refused):
+        raise RuntimeError("JPEG fixtures do not decode as cv2 decodes them")
+    return info
+
+
+def drive_slice11(field, spec, rspec, occ, image0, pose0, intr, tea, stu,
+                  scene) -> dict:
+    """Phase 17: reference import, the stratified renderer, the mesh, the
+    trace and the JPEG fixtures; each run's counters set to 0 just before
+    it and read just after."""
+    t_all = time.perf_counter()
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="pvd_slice11_") as tmp:
+        t0 = time.perf_counter()
+        imp = drive_reference_import(field, spec, rspec, occ, image0, pose0,
+                                     intr, stu, scene, tmp)
+        walls["import"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        strat = drive_stratified(tea, scene, pose0, intr, tmp)
+        strat["report"]["gpu_vs_cpu"] = small_stratified_gpu_vs_cpu()
+        walls["stratified"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_run = drive_mesh(tea, tmp)
+        walls["mesh"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tr = drive_trace(tea, pose0, intr, tmp)
+        jp = check_jpeg_fixtures()
+        walls["trace_jpeg"] = time.perf_counter() - t0
+    launches = {**imp["launches"], **strat["launches"],
+                "stratified_bwd": strat["report"]["gpu_vs_cpu"]["launches"],
+                "mesh": mesh_run["launches"]}
+    for path, names in SLICE11_KERNELS.items():
+        got = [v for k, v in launches.items() if k.startswith(path)]
+        for name in names:
+            if not all(c[name] > 0 for c in got):
+                raise RuntimeError(f"kernel {name} never launched on the "
+                                   f"{path} path")
+    walls["total"] = time.perf_counter() - t_all
+    log("phase 17 walls: " + ", ".join(f"{k} {v:.1f} s"
+                                       for k, v in walls.items()))
+    return {"import": imp["report"], "stratified": strat["report"],
+            "mesh": mesh_run["report"], "trace": tr, "jpeg": jp,
+            "launches": launches, "walls": walls}
+
+
 HOST_AB_CHILD = r"""
 import cProfile, json, os, pstats, re, sys, tempfile
 import torch
@@ -5685,6 +6253,8 @@ def main(argv=None) -> int:
         if not 0.0 < hit < 1.0:
             raise RuntimeError(f"render {i}: object not seen ({hit})")
         images.append({"ms": ms, "rungs": out.rungs, "samples_per_ray": spr})
+        if i == 0:
+            image0 = out.image  # phase 17 renders its import against it
     launches = {k: v for k, v in counters().items() if k in SERVE_KERNELS}
     log(f"launches on the serving path: {json.dumps(launches)}")
     n_chunks = -(-RES * RES // CHUNK)
@@ -5995,7 +6565,12 @@ def main(argv=None) -> int:
         tea_ab, gen, cli.pop("test_teacher_chunk_x01"))
     results += b_results
     bake_profiles = bake_step_profiles(stu_ab, scene_ab, gen)
-    del tea_ab, stu_ab
+    # ---- main path 13 (phase 17): phase 2's field and the A/B student
+    # through a reference checkpoint, the A/B teacher through the
+    # stratified renderer and the mesh, a trace, the JPEG fixtures --------
+    slice11 = drive_slice11(field, spec, rspec, occ, image0, poses[0], intr,
+                            tea_ab, stu_ab, scene_ab)
+    del tea_ab, stu_ab, image0
 
     # ---- main path 5: the large-scene configuration (two cascades, the
     # geometric march, the background model): teacher -> checkpoint ->
@@ -6161,6 +6736,8 @@ def main(argv=None) -> int:
                 per[f"{k}_stage3"] = v["step_profile"][
                     "launches_per_step"].get(name, 0)
         f["launches_per_new_path_step"] = per
+        f["launches_slice11"] = {k: v[name] for k, v in
+                                 slice11["launches"].items()}
         f["launches_resize_emap"] = {
             "vm_c2f_teacher": vm_c2f["launches"]["teacher"][name],
             "vm_c2f_student": vm_c2f["launches"]["student"][name],
@@ -6270,7 +6847,7 @@ def main(argv=None) -> int:
             "gpu_vs_cpu_step": emap_check},
         "scan": {"wall_s": walls["scan"], **scan},
         "dp": {"wall_s": walls["dp"], **dp},
-        "nan_rule": nan_rule,
+        "nan_rule": nan_rule, "slice11": slice11,
         "card": card, "wall_s": time.perf_counter() - t_script}
     log(f"chip_smoke wall {line['wall_s']:.1f} s (kernel build included)")
     print(json.dumps(line), flush=True)

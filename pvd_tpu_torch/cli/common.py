@@ -4,13 +4,14 @@
 the reference's flag names (main_just_train_tea.py:15-215,
 main_distill_mutual.py:43-236); values land in one PVDConfig.  Flags the
 reference's GPU build needed (--ff, --tcnn, the --gui group) are accepted
-and ignored, as in the JAX package.  A flag whose option the port lacks
-still parses: `to_config` raises for it when it is set (`PVDConfig.
-from_dict`), and the Trainer for the options it does not run, each
-naming its ROADMAP item.  The help of --n_devices and --scan_steps is the
-JAX package's word for word; in the port --n_devices N means N processes
-under `torchrun --nproc_per_node N` and --scan_steps K runs K steps a
-call (`engine/trainer.py`).
+and ignored, as in the JAX package.  --num_steps and --upsample_steps
+set the stratified renderer's counts (`render_stratified`), which no
+Trainer path reads, as in the JAX package.  The Trainer raises for the
+option combinations it does not run, naming their ROADMAP item.  The
+help of --n_devices and --scan_steps is the JAX package's word for word;
+in the port --n_devices N means N processes under `torchrun
+--nproc_per_node N` and --scan_steps K runs K steps a call
+(`engine/trainer.py`).
 """
 
 from __future__ import annotations

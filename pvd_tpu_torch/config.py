@@ -1,16 +1,14 @@
 """Typed configuration (port of pvd_tpu/config.py:20-328).
 
-Only the fields this port reads so far (the serving path, the distill
-step, the teacher and distill Trainer, its checkpoints, the background
-model, both CLIs and the four fields).  Defaults and derived properties
-(`RenderSpec.cascades`, `RenderSpec.sample_budget`) are the JAX package's.
-`PVDConfig.to_json` / `from_json` read and write the checkpoint's
-`config_json` and the CLI's `args.json`.  A JAX config that sets one of
-the JAX package's options the port lacks (`UNPORTED`) to anything but its
-default raises NotImplementedError with the option's ROADMAP item; other
-keys the port lacks are dropped, as the JAX package drops unknown keys:
-among them the JAX package's `tensorboard` switch (the port writes no
-event files).
+The fields the port reads (the serving path, the stratified renderer,
+the distill step, the teacher and distill Trainer, its checkpoints, the
+background model, both CLIs and the four fields).  Defaults and derived
+properties (`RenderSpec.cascades`, `RenderSpec.sample_budget`) are the
+JAX package's.  `PVDConfig.to_json` / `from_json` read and write the
+checkpoint's `config_json` and the CLI's `args.json`.  Keys the port
+lacks are dropped, as the JAX package drops unknown keys: among them the
+JAX package's `tensorboard` switch (the port writes no event files) and
+its TPU march layouts (`coarse_march`, `probe_stride`, ...).
 """
 
 from __future__ import annotations
@@ -102,6 +100,10 @@ class RenderSpec:
     max_steps: int = 1024
     max_samples: int = 96
     samples_per_ray: float = 0.0
+    # the occupancy-free stratified path (render_stratified): samples per
+    # ray, and importance-resampled samples added to them
+    num_steps: int = 512
+    upsample_steps: int = 0
 
     @property
     def cascades(self) -> int:
@@ -129,6 +131,8 @@ class PVDConfig:
     ckpt: str = "latest"
     num_rays: int = 8192
     max_steps: int = 1024
+    num_steps: int = 512
+    upsample_steps: int = 0
     update_extra_interval: int = 16
     max_ray_batch: int = 4096
     precision: str = "bf16"
@@ -235,6 +239,8 @@ class PVDConfig:
             max_steps=self.max_steps,
             max_samples=self.max_samples,
             samples_per_ray=self.samples_per_ray,
+            num_steps=self.num_steps,
+            upsample_steps=self.upsample_steps,
         )
 
     def to_json(self) -> str:
@@ -242,17 +248,8 @@ class PVDConfig:
 
     @classmethod
     def from_dict(cls, raw: dict) -> "PVDConfig":
-        """The config of `raw`'s fields; raises NotImplementedError for an
-        `UNPORTED` option set to anything but the JAX package's default,
-        and drops keys that neither package has."""
-        for name, value in raw.items():
-            if name in UNPORTED:
-                default, item = UNPORTED[name]
-                got = tuple(value) if isinstance(value, list) else value
-                if got != default:
-                    raise NotImplementedError(
-                        f"PVDConfig: {name}={value!r} is not ported yet "
-                        f"(ROADMAP {item}; the default is {default!r})")
+        """The config of `raw`'s fields; keys it has no field for are
+        dropped."""
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in fields})
 
@@ -260,10 +257,3 @@ class PVDConfig:
     def from_json(cls, text: str) -> "PVDConfig":
         return cls.from_dict(json.loads(text))
 
-
-# the JAX package's PVDConfig fields the port does not have yet: their
-# JAX defaults and ROADMAP items
-UNPORTED = {
-    "num_steps": (512, "A14"),
-    "upsample_steps": (0, "A14"),
-}

@@ -1,13 +1,13 @@
 """Blender-format dataset reader (port of pvd_tpu/data/provider.py).
 
-Reads `transforms_{split}.json` and its frames with the port's PNG codec
-(`data/png.py`, no cv2): RGB(A) in [0, 1] as float32, poses converted with
-`nerf_matrix_to_ngp(scale=cfg.scale)`, and pinhole intrinsics from
+Reads `transforms_{split}.json` and its frames with the port's own
+decoders, no cv2 (`data/png.py` for PNG, `data/jpeg.py` for JPEG, chosen
+by the file's first bytes): RGB(A) in [0, 1] as float32, poses converted
+with `nerf_matrix_to_ngp(scale=cfg.scale)`, and pinhole intrinsics from
 `fl_x`/`fl_y` or `camera_angle_x`/`camera_angle_y`.  Frames whose file is
 missing are skipped; a `file_path` without a .png/.jpg suffix gets .png.
 The splits "all" (every transforms JSON in the directory) and "trainval"
-(train, then val) are read as the JAX package reads them.  JPEG frames
-are not read (ROADMAP A15): the codec raises on them.
+(train, then val) are read as the JAX package reads them.
 
 A `NeRFDataset` has the attributes the Trainer reads from the port's
 in-memory scenes (`data/synth.SceneSplit`): poses, images, intrinsics, H,
@@ -24,16 +24,22 @@ from typing import Optional
 import numpy as np
 
 from pvd_tpu_torch.config import PVDConfig
+from pvd_tpu_torch.data.jpeg import MAGIC as JPEG_MAGIC
+from pvd_tpu_torch.data.jpeg import decode_jpeg
 from pvd_tpu_torch.data.png import read_png
 from pvd_tpu_torch.ops.rays import nerf_matrix_to_ngp
 
 
 def imread(path: str) -> np.ndarray:
     """[H, W, 3|4] uint8, RGB(A), as the JAX package's cv2 reader returns
-    it: grey becomes RGB, grey + alpha RGBA."""
+    it: grey becomes RGB, grey + alpha RGBA.  A file that starts with
+    JPEG's SOI marker is decoded as JPEG, any other as PNG."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
-    img = read_png(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    img = decode_jpeg(data, path) if data.startswith(JPEG_MAGIC) \
+        else read_png(path)
     if img.shape[-1] in (1, 2):
         img = np.concatenate([img[..., :1].repeat(3, -1), img[..., 1:]], -1)
     return img

@@ -7,55 +7,36 @@ ids, GT pixels) batches from a preloaded image cache into a bounded queue,
 each thread from its own PCG32 stream.  With `n_threads=1` the batches are
 a deterministic function of the seed (with more threads their order
 depends on timing).  The library is built with g++ at first use into
-`build/raybatch/` beside the package (git-ignored), named by a hash of the
-source and flags so an edited source rebuilds; nothing is built at import
-time.  The library is always this native producer: a failed build raises,
-since the batcher has no second random stream to fall back to.
+`build/raybatch/` beside the package (git-ignored; `data/hostlib.py`),
+named by a hash of the source and flags so an edited source rebuilds;
+nothing is built at import time.  The library is always this native
+producer: a failed build raises, since the batcher has no second random
+stream to fall back to.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "raybatch.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" \
-    / "raybatch"
+from pvd_tpu_torch.data import hostlib
+
+SOURCE = hostlib.CSRC / "raybatch.cpp"
+BUILD_DIR = hostlib.BUILD_ROOT / "raybatch"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libraybatch_{h.hexdigest()[:16]}.so"
+    return hostlib.library_path(SOURCE, BUILD_DIR, GXX_FLAGS)
 
 
 def build() -> Path:
-    """Compile the producer (once per source); raises when g++ fails.
-    Builds in a temporary directory and renames, so processes building at
-    once never load a half-written library."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        so_tmp = Path(tmp) / out.name
-        run = subprocess.run(["g++", *GXX_FLAGS, str(SOURCE), "-o",
-                              str(so_tmp)], stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-        if run.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {SOURCE.name}\n"
-                               + run.stdout)
-        os.replace(so_tmp, out)
-    return out
+    """Compile the producer (once per source); raises when g++ fails."""
+    return hostlib.build(SOURCE, BUILD_DIR, GXX_FLAGS)
 
 
 @functools.cache

@@ -20,6 +20,7 @@ from __future__ import annotations
 import glob
 import os
 import pickle
+import shutil
 from typing import Optional
 
 import numpy as np
@@ -74,6 +75,14 @@ def save_checkpoint(path_dir: str, name: str, step: int, params,
         for p in old[:-max_keep]:
             os.remove(p)
     return path
+
+
+def save_best(path_dir: str, name: str, payload_path: str) -> str:
+    """Copy a checkpoint to `{name}_best.ckpt` in path_dir, the
+    best-metric snapshot (checkpoint.py:82-88); returns its path."""
+    best = os.path.join(path_dir, f"{name}_best.ckpt")
+    shutil.copyfile(payload_path, best)
+    return best
 
 
 def latest_checkpoint(path_dir: str, name: str) -> Optional[str]:

@@ -122,7 +122,9 @@ from pvd_tpu_torch.params import (field_from_tree, new_field, spec_from_tree,
 from pvd_tpu_torch.render.occupancy import (draw_occ_inputs,
                                             init_occupancy_state,
                                             mark_untrained_grid)
-from pvd_tpu_torch.utils.metrics import PSNRMeter, compute_ssim, lpips_proxy
+from pvd_tpu_torch.utils.metrics import (PSNRMeter, compute_ssim,
+                                         lpips_available, lpips_proxy,
+                                         rgb_lpips)
 
 MODES = ("teacher", "distill")
 
@@ -971,6 +973,7 @@ class Trainer:
         if writes:
             os.makedirs(save_dir, exist_ok=True)
         meter, ssims, lp, times = PSNRMeter(), [], [], []
+        lp_a, lp_v = [], []
         frames, depth_frames = [], []
         for i in range(len(ds)):
             self._sync()
@@ -985,7 +988,11 @@ class Trainer:
                     gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
                 meter.update(img, gt)
                 ssims.append(compute_ssim(img, gt))
-                lp.append(lpips_proxy(img, gt))
+                if lpips_available():
+                    lp_a.append(rgb_lpips(img, gt, "alex"))
+                    lp_v.append(rgb_lpips(img, gt, "vgg"))
+                else:
+                    lp.append(lpips_proxy(img, gt))
             u8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
             d8 = (np.clip(dep, 0, 1) * 255).astype(np.uint8)
             if writes:
@@ -1007,7 +1014,10 @@ class Trainer:
             stats["eval_s_per_image"] = min(times)
             stats["eval_s_first_image"] = times[0]
         stats.update(self.train_stats)
-        if lp:
+        if lp_a:
+            stats["lpips_alex"] = float(np.mean(lp_a))
+            stats["lpips_vgg"] = float(np.mean(lp_v))
+        elif lp:
             # random-feature proxy, comparable only with itself
             stats["lpips_proxy"] = float(np.mean(lp))
         self.stats = stats

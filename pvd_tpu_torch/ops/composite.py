@@ -1,4 +1,4 @@
-"""Alpha compositing (port of pvd_tpu/ops/composite.py:28-123).
+"""Alpha compositing (port of pvd_tpu/ops/composite.py:28-145).
 
   alpha_i  = 1 - exp(-sigma_i * dt_i)            (zero on invalid slots)
   T_i      = prod_{j<i, same ray} (1 - alpha_j)  (exclusive)
@@ -12,7 +12,8 @@ forward and K6 backward (`csrc/composite.cu`) on CUDA tensors,
 tensors.  `composite_rays` works on padded [N, S] blocks: kernel K8
 forward and K9 backward on CUDA tensors, `composite_rays_plain` on CPU
 tensors.  Neither backward sends a gradient to dt, t_cum or delta_depth
-(they come from the march).
+(they come from the march).  `composite_stratified`, the occupancy-free
+path's dense [N, T] composite, is plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -195,14 +196,20 @@ def composite_rays_compact(sigmas, rgbs, delta_t, t_cum, ray_id, valid,
 composite_rays_compact.launches = 0
 
 
+def exclusive_cumprod_one_minus(alphas):
+    """T_i = prod_{j<i} (1 - alpha_j) along the last axis, a shifted
+    cumprod (composite.py:90-94)."""
+    cp = torch.cumprod(1.0 - alphas, dim=-1)
+    return torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+
+
 def composite_rays_plain(sigmas, rgbs, delta_t, delta_depth, mask,
                          early_stop: bool = False):
     """Composite padded per-ray samples [N, S] (composite.py:97-123).
     Returns weights_sum [N], depth [N], image [N, 3], weights [N, S]."""
     m = mask.to(sigmas.dtype)
     alphas = (1.0 - torch.exp(-sigmas * delta_t)) * m
-    cp = torch.cumprod(1.0 - alphas, dim=-1)
-    trans = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], dim=-1)
+    trans = exclusive_cumprod_one_minus(alphas)
     if early_stop:
         alphas = torch.where(trans < T_EPS, 0.0, alphas)
     weights = alphas * trans
@@ -341,3 +348,30 @@ def composite_rays(sigmas, rgbs, delta_t, delta_depth, mask,
 
 
 composite_rays.launches = 0
+
+
+def stratified_weights(sigmas, z_vals, sample_dist):
+    """The stratified path's weights [N, T] (composite.py:131-140): each
+    sample's delta is the gap to the next z, the last one `sample_dist`,
+    and the transmittance multiplies 1 - alpha + 1e-15, as the
+    reference does."""
+    deltas = z_vals[..., 1:] - z_vals[..., :-1]
+    deltas = torch.cat([deltas, sample_dist.expand_as(deltas[..., :1])],
+                       dim=-1)
+    alphas = 1.0 - torch.exp(-deltas * sigmas)
+    shifted = torch.cat([torch.ones_like(alphas[..., :1]),
+                         1.0 - alphas + 1e-15], dim=-1)
+    return alphas * torch.cumprod(shifted, dim=-1)[..., :-1]
+
+
+def composite_stratified(sigmas, z_vals, sample_dist, rgbs):
+    """Compositing of the fixed-count stratified path (composite.py:126;
+    the reference's renderer.py:257-295), plain PyTorch differentiated by
+    autograd: the JAX package has no custom VJP for it.
+
+    sigmas: [N, T]; z_vals: [N, T]; sample_dist: [N, 1]; rgbs: [N, T, 3].
+    Returns weights_sum [N], weights [N, T], image [N, 3]."""
+    weights = stratified_weights(sigmas, z_vals, sample_dist)
+    weights_sum = torch.sum(weights, dim=-1)
+    image = torch.sum(weights[..., None] * rgbs, dim=-2)
+    return weights_sum, weights, image

@@ -1,6 +1,9 @@
-"""Trilinear sampling of a channels-minor volume (port of
-pvd_tpu/ops/grid_sample.py:65 grid_sample_3d), align_corners=True, zero
-padding.
+"""Linear sampling of channels-minor lines, planes and volumes (port of
+pvd_tpu/ops/grid_sample.py: grid_sample_1d :26, grid_sample_2d :41,
+grid_sample_3d :65), align_corners=True, zero padding.  The 1-D and 2-D
+forms are the JAX package's public helpers (the VM field's queries run
+through `ops/vm_sample.py` instead); each sums its corners in JAX's
+order.
 
 The plenoxel field's query: coordinates in [-1, 1], channel 0 (x) on the
 fastest spatial axis (W), then y on H and z on D, as torch's grid_sample
@@ -29,6 +32,48 @@ import torch
 def _unnormalize(coord, size: int):
     """align_corners=True: -1 -> 0, +1 -> size - 1."""
     return (coord + 1.0) * 0.5 * (size - 1)
+
+
+def grid_sample_1d(line, coords):
+    """line: [L, C]; coords: [N] in [-1, 1].  Returns [N, C]."""
+    L = line.shape[0]
+    p = _unnormalize(coords.float(), L)
+    i0 = torch.floor(p).to(torch.int32)
+    frac = p - i0
+    out = None
+    for di, w in ((0, 1.0 - frac), (1, frac)):
+        idx = i0 + di
+        ok = ((idx >= 0) & (idx <= L - 1)).to(line.dtype)
+        rows = line[idx.clamp(0, L - 1).long()]
+        term = rows * (w * ok)[:, None]
+        out = term if out is None else out + term
+    return out
+
+
+def grid_sample_2d(plane, coords):
+    """plane: [H, W, C]; coords: [N, 2] = (x, y), x -> W, y -> H.
+    Returns [N, C]."""
+    H, W, C = plane.shape
+    flat = plane.reshape(H * W, C)
+    coords = coords.float()
+    px = _unnormalize(coords[..., 0], W)
+    py = _unnormalize(coords[..., 1], H)
+    x0 = torch.floor(px).to(torch.int32)
+    y0 = torch.floor(py).to(torch.int32)
+    fx, fy = px - x0, py - y0
+    out = None
+    for dy, wy in ((0, 1.0 - fy), (1, fy)):
+        iy = y0 + dy
+        oky = (iy >= 0) & (iy <= H - 1)
+        iy_c = iy.clamp(0, H - 1)
+        for dx, wx in ((0, 1.0 - fx), (1, fx)):
+            ix = x0 + dx
+            okx = (ix >= 0) & (ix <= W - 1)
+            w = wy * wx * (oky & okx).to(flat.dtype)
+            rows = flat[(iy_c * W + ix.clamp(0, W - 1)).long()]
+            term = rows * w[:, None]
+            out = term if out is None else out + term
+    return out
 
 
 def grid_sample_3d(volume, coords):

@@ -7,6 +7,9 @@ dilated bitfield are march-side layouts of the same bits: the CUDA march
 `dilate_bitfield` makes the dilated one for checkpoints, which carry it for
 the JAX package.
 
+`to_morton_order` / `from_morton_order` translate a grid to and from the
+reference's Morton-ordered [CAS, H^3] layout (checkpoint interop).
+
 Random draws are arguments: `update_density_grid` takes the jitter (and, in
 partial mode, the cells) as tensors, so a test can hand the JAX package's
 draws to both.  `draw_occ_inputs` makes them from a `torch.Generator` as
@@ -23,6 +26,7 @@ import torch
 from pvd_tpu_torch.config import RenderSpec
 from pvd_tpu_torch.device import resolve_device
 from pvd_tpu_torch.ops.fma import fma32
+from pvd_tpu_torch.ops.morton import morton3d, morton3d_invert
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +86,23 @@ def grid_coords(H: int, device) -> torch.Tensor:
     r = torch.arange(H, device=device)
     return torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
                        dim=-1).reshape(-1, 3)
+
+
+def to_morton_order(grid):
+    """Row-major [CAS, H, H, H] -> the reference's Morton-flat [CAS, H^3]
+    (occupancy.py:404-413)."""
+    C, H = grid.shape[0], grid.shape[1]
+    xyz = morton3d_invert(torch.arange(H ** 3, device=grid.device))
+    flat = (xyz[:, 0] * H + xyz[:, 1]) * H + xyz[:, 2]
+    return grid.reshape(C, -1)[:, flat]
+
+
+def from_morton_order(grid_m, H: int):
+    """The reference's Morton-flat [CAS, H^3] -> row-major [CAS, H, H, H]
+    (occupancy.py:416-427)."""
+    C = grid_m.shape[0]
+    codes = morton3d(grid_coords(H, grid_m.device))
+    return grid_m[:, codes].reshape(C, H, H, H)
 
 
 def query_points(coords, cas: int, jitter, rspec: RenderSpec):

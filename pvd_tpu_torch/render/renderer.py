@@ -20,6 +20,12 @@ for distill stages 1 and 2, and the teacher's replay of the student's
 samples (`render_rays`).  A field with a background model (bg_radius > 0)
 composites over its own background instead of `bg_color`.
 
+`render_stratified` is the occupancy-free path (renderer.py:987-1069, the
+reference's `run`): a fixed count of stratified samples per ray, with
+optional inverse-CDF resampling around the density peaks, through the
+same field queries (`models/api.field_forward`) and a dense composite in
+plain PyTorch (`ops/composite.composite_stratified`).
+
 The TPU's probe-mask marches, window-hierarchical first-S and lazy-t
 layouts produce the same samples and are not ported.
 """
@@ -34,10 +40,15 @@ import torch
 
 from pvd_tpu_torch import kernels
 from pvd_tpu_torch.config import ModelSpec, RenderSpec
-from pvd_tpu_torch.models.api import background_of_rays, field_forward
-from pvd_tpu_torch.ops.aabb import near_far_from_aabb
-from pvd_tpu_torch.ops.composite import composite_rays, composite_rays_compact
+from pvd_tpu_torch.models.api import (background_of_rays, background_rgb,
+                                      field_forward)
+from pvd_tpu_torch.ops.aabb import near_far_from_aabb, polar_from_ray
+from pvd_tpu_torch.ops.composite import (composite_rays,
+                                         composite_rays_compact,
+                                         composite_stratified,
+                                         stratified_weights)
 from pvd_tpu_torch.ops.fma import fma32
+from pvd_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 from pvd_tpu_torch.render.occupancy import OccupancyState
 
 SQRT3 = math.sqrt(3.0)
@@ -359,3 +370,83 @@ def render_rays(field, spec: ModelSpec, rspec: RenderSpec,
     depth = torch.clamp(depth_raw - nears, min=0.0) / (fars - nears + 1e-6)
     result.update(image=image, depth=depth, weights_sum=ws, weights=weights)
     return result
+
+
+def render_stratified(field, spec: ModelSpec, rspec: RenderSpec, aabb,
+                      rays_o, rays_d, *,
+                      generator: torch.Generator | None = None,
+                      perturb: bool = False, bg_color=1.0, draws=None):
+    """Fixed-count stratified render of rays [..., 3] (renderer.py:987;
+    the reference's `run`, renderer.py:139-317): `rspec.num_steps`
+    samples per ray between the ray's near and far on `aabb`, and with
+    `rspec.upsample_steps` > 0 that many more drawn from the coarse
+    weights' distribution (`sample_pdf`), merged in z order.
+
+    Randomness as in the JAX package's `rng`: with a `generator` (or
+    `draws`) the stratified samples are jittered when `perturb` and the
+    resampling draws its quantiles; without either, nothing is jittered
+    and the quantiles are evenly spaced.  `draws` = (u_strat [N,
+    num_steps] or None, u_pdf [N, upsample_steps] or None) passes the
+    uniform draws themselves, so a test can hand over the JAX package's.
+
+    Differentiable as the JAX function is: the resampled z and the
+    coarse weights carry no gradient.  The field runs on every sample of
+    every ray at once, so the caller chunks the rays.  Returns image
+    [N, 3], depth [N] (z normalised to [near, far], weighted) and
+    weights_sum [N].
+    """
+    rays_o = rays_o.reshape(-1, 3)
+    rays_d = rays_d.reshape(-1, 3)
+    N = rays_o.shape[0]
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, rspec.min_near)
+    # missed rays would put z at FLT_MAX: keep them finite, weights 0
+    miss = nears >= 3.0e38
+    nears_s = torch.where(miss, 0.0, nears)
+    fars_s = torch.where(miss, 1.0, fars)
+    random = generator is not None or draws is not None
+    u_strat, u_pdf = draws if draws is not None else (None, None)
+    z, sample_dist = stratified_z_vals(nears_s, fars_s, rspec.num_steps,
+                                       perturb and random, u=u_strat,
+                                       generator=generator)
+
+    def query(z_vals):
+        xyz = rays_o[:, None, :] + z_vals[..., None] * rays_d[:, None, :]
+        # jnp.clip to the box, its gradient as ops.activation.clip's
+        xyz = torch.minimum(torch.maximum(xyz, aabb[:3]), aabb[3:])
+        dirs = rays_d[:, None, :].expand(xyz.shape)
+        o = field_forward(field, spec, xyz.reshape(-1, 3),
+                          dirs.reshape(-1, 3), aabb, True)
+        T = z_vals.shape[1]
+        return o.sigma.reshape(N, T), o.rgb.reshape(N, T, 3)
+
+    sigmas, rgbs = query(z)
+    if rspec.upsample_steps > 0:
+        # importance-resample around the density peaks
+        # (the reference's renderer.py:200-255)
+        with torch.no_grad():
+            weights = stratified_weights(rspec.density_scale * sigmas, z,
+                                         sample_dist)
+            z_mid = z[..., :-1] + 0.5 * (z[..., 1:] - z[..., :-1])
+            new_z = sample_pdf(z_mid, weights[:, 1:-1],
+                               rspec.upsample_steps, det=not random,
+                               u=u_pdf, generator=generator)
+        new_sigmas, new_rgbs = query(new_z)
+        # jnp.argsort is stable
+        z, order = torch.sort(torch.cat([z, new_z], dim=1), dim=1,
+                              stable=True)
+        sigmas = torch.gather(torch.cat([sigmas, new_sigmas], dim=1), 1,
+                              order)
+        rgbs = torch.gather(torch.cat([rgbs, new_rgbs], dim=1), 1,
+                            order[..., None].expand(-1, -1, 3))
+
+    ws, weights, image = composite_stratified(
+        rspec.density_scale * sigmas, z, sample_dist, rgbs)
+    if spec.bg_radius > 0:
+        bg_color = background_rgb(
+            field, spec, polar_from_ray(rays_o, rays_d, spec.bg_radius),
+            rays_d)
+    image = image + (1.0 - ws)[:, None] * bg_color
+    z_norm = torch.clamp((z - nears_s[:, None])
+                         / (fars_s - nears_s + 1e-6)[:, None], 0.0, 1.0)
+    depth = torch.sum(weights * z_norm, dim=-1)
+    return {"image": image, "depth": depth, "weights_sum": ws}

@@ -3,15 +3,16 @@
 PSNR: one scalar per image over the whole [H, W, 3] array, mean over
 images, as the reference's PSNRMeter.  SSIM: the tf.image.ssim
 formulation (separable 11x11 Gaussian, sigma 1.5, k1 0.01, k2 0.03) in
-float64 numpy, as the JAX package computes it.  `lpips_proxy` is the JAX
-package's random-feature stand-in for LPIPS (metrics.py:125-180), which it
-reports when the lpips package's pretrained weights are missing, as they
-are on both machines; real LPIPS is not ported.
+float64 numpy, as the JAX package computes it.  LPIPS (`rgb_lpips`) needs
+the lpips package and its pretrained weights and gives None without them,
+as the JAX package's does; `lpips_proxy` is the JAX package's
+random-feature stand-in (metrics.py:125-180), which `Trainer.evaluate`
+reports instead when the package is missing, as it is on both machines.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -74,6 +75,36 @@ def compute_ssim(img0, img1, max_val: float = 1.0, filter_size: int = 11,
     ssim_map = ((2 * mu01 + c1) * (2 * s01 + c2)) / (
         (mu00 + mu11 + c1) * (s00 + s11 + c2))
     return float(np.mean(ssim_map))
+
+
+_LPIPS_NETS = {}
+
+
+def lpips_available() -> bool:
+    try:
+        import lpips  # noqa: F401
+        return True
+    except ImportError:
+        return False
+
+
+def rgb_lpips(pred, gt, net_name: str = "alex") -> Optional[float]:
+    """LPIPS distance of [H, W, 3] images in [0, 1] on the CPU; None when
+    the lpips package is unavailable (metrics.py:100-122).  The nets are
+    built at first use and kept."""
+    if not lpips_available():
+        return None
+    import lpips
+
+    if net_name not in _LPIPS_NETS:
+        _LPIPS_NETS[net_name] = lpips.LPIPS(net=net_name)
+
+    def to_t(x):
+        t = torch.from_numpy(np.asarray(x, np.float32)).permute(2, 0, 1)[None]
+        return t * 2.0 - 1.0
+
+    with torch.no_grad():
+        return float(_LPIPS_NETS[net_name](to_t(pred), to_t(gt)))
 
 
 _PROXY_FILTERS = None

@@ -1,5 +1,8 @@
-"""Small helpers (port of pvd_tpu/utils/misc.py:11-20): seeding and the
-teacher step's `color_space="linear"` conversion."""
+"""Small helpers (port of pvd_tpu/utils/misc.py:11-26): seeding and the
+sRGB <-> linear conversions (the teacher step's `color_space="linear"`).
+The JAX package's `cpu_cache_key` and `setup_jax_cache_and_platform`
+configure JAX itself (its compile cache and platform) and have no
+PyTorch counterpart."""
 
 from __future__ import annotations
 
@@ -21,3 +24,8 @@ def seed_everything(seed: int):
 
 def srgb_to_linear(x):
     return torch.where(x < 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(x):
+    return torch.where(x < 0.0031308, 12.92 * x,
+                       1.055 * x ** (1 / 2.4) - 0.055)

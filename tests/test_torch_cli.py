@@ -158,7 +158,8 @@ def test_parser_matches_jax(distill_mode):
 
 def test_to_config_matches_jax(scene):
     """The same argv gives the same values in every field the port has;
-    a flag of an option the port lacks raises with its ROADMAP item."""
+    --num_steps and --upsample_steps (once refused) load in both CLIs'
+    parsers and reach the RenderSpec as in the JAX package."""
     argv = [scene, "--iters", "77", "--hash_cell_levels", "9",
             "--hash_bake_dense", "--no_autotune_budget", "--ckpt", "scratch",
             "--downscale", "2", "--resolution1", "400", "--wall_budget",
@@ -170,9 +171,16 @@ def test_to_config_matches_jax(scene):
     got = common.to_config(common.base_parser(True).parse_args(argv))
     for k, v in json.loads(got.to_json()).items():
         assert json.loads(want.to_json())[k] == v, k
-    with pytest.raises(NotImplementedError, match="num_steps.*ROADMAP A14"):
-        common.to_config(common.base_parser(True).parse_args(
-            [scene, "--num_steps", "64"]))
+    for distill_mode in (True, False):
+        argv = [scene, "--num_steps", "64", "--upsample_steps", "16"]
+        want = j_common.to_config(
+            j_common.base_parser(distill_mode).parse_args(argv))
+        got = common.to_config(
+            common.base_parser(distill_mode).parse_args(argv))
+        assert (got.num_steps, got.upsample_steps) == (64, 16) == (
+            want.num_steps, want.upsample_steps)
+        rs = got.render_spec()
+        assert (rs.num_steps, rs.upsample_steps) == (64, 16)
 
 
 @pytest.mark.parametrize("text", ["", "stage1=10,stage2=20",

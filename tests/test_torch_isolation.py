@@ -13,6 +13,8 @@ from pvd_tpu_torch.cli import distill as distill_cli
 from pvd_tpu_torch.cli import train_teacher as teacher_cli
 from pvd_tpu_torch.config import ModelSpec, PVDConfig, RenderSpec
 from pvd_tpu_torch.engine.checkpoint import load_checkpoint
+from pvd_tpu_torch.engine.import_torch import (load_torch_reference,
+                                               occupancy_from_state_dict)
 from pvd_tpu_torch.engine.train_steps import (make_distill_step,
                                               make_eval_renderer,
                                               make_occ_update,
@@ -40,7 +42,8 @@ from pvd_tpu_torch.params import (mlp_field_from_jax, mlp_tree_from_field,
                                   tensors_tree_from_field, vm_field_from_jax,
                                   vm_tree_from_field)
 from pvd_tpu_torch.render.occupancy import init_occupancy_state
-from pvd_tpu_torch.render.renderer import march_rays
+from pvd_tpu_torch.render.renderer import march_rays, render_stratified
+from pvd_tpu_torch.utils.mesh import extract_fields, extract_geometry
 
 torch.set_num_threads(1)
 
@@ -81,6 +84,22 @@ def test_new_modules_are_checked():
     # data parallelism's
     assert {f"pvd_tpu_torch/parallel/{m}.py" for m in (
         "__init__", "mesh", "dp")} <= names
+    # the stratified renderer's, reference import's, mesh's, profiling's
+    # and JPEG frames'
+    assert {f"pvd_tpu_torch/{m}.py" for m in (
+        "ops/sampling", "ops/morton", "engine/import_torch", "utils/mesh",
+        "utils/profiling", "data/jpeg", "data/hostlib")} <= names
+
+
+def test_jpeg_decoder_source_is_the_ports_own():
+    """The JPEG reader builds its own C++ source (csrc/), with g++ into the
+    ignored build/ directory; nothing of cv2 or PIL."""
+    from pvd_tpu_torch.data import jpeg
+
+    assert jpeg.SOURCE == ROOT / "pvd_tpu_torch" / "csrc" / "jpeg.cpp"
+    assert jpeg.BUILD_DIR == ROOT / "build" / "jpeg"
+    text = jpeg.SOURCE.read_text()
+    assert "#include <jpeglib.h>" not in text and "turbojpeg" not in text
 
 
 def test_native_batcher_source_is_the_ports_own():
@@ -159,13 +178,21 @@ def _vm_tree():
                     mode="distill"),
     lambda: teacher_cli.main(["no_such_scene", "--model_type", "mlp",
                               "--test"]),
+    lambda: load_torch_reference("no_such_file.pth", SMALL, RSPEC),
+    lambda: occupancy_from_state_dict(
+        {"density_grid": np.zeros((1, 32 ** 3), np.float32)}, RSPEC),
+    lambda: extract_fields((-1,) * 3, (1,) * 3, 4, lambda p: p[:, 0]),
+    lambda: extract_geometry((-1,) * 3, (1,) * 3, 4, 0.0,
+                             lambda p: p[:, 0]),
 ], ids=["HashField", "make_occ_update", "make_eval_renderer",
         "init_occupancy_state", "VMField", "vm_field_from_jax",
         "make_distill_step", "make_teacher_step", "Trainer",
         "Trainer-distill", "HashField-cell", "load_checkpoint",
         "distill-cli", "MLPField", "TensorsField", "mlp_field_from_jax",
         "tensors_field_from_jax", "make_teacher_step_host",
-        "Trainer-host-batcher", "Trainer-tensors2mlp", "teacher-cli"])
+        "Trainer-host-batcher", "Trainer-tensors2mlp", "teacher-cli",
+        "load_torch_reference", "occupancy_from_state_dict",
+        "extract_fields", "extract_geometry"])
 def test_entry_points_need_a_gpu_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -219,6 +246,25 @@ def test_training_wrappers_take_the_plain_path_on_cpu_without_counting():
     assert (vm_sample_fwd.launches, vm_sample_bwd.launches,
             composite_rays_compact.launches,
             composite_rays_compact_bwd.launches) == before
+
+
+def test_stratified_render_takes_the_plain_path_on_cpu_without_counting():
+    """render_stratified reaches K1 (and K10 in cell mode) through the
+    field: the plain versions on CPU tensors, and no count."""
+    before = (hash_encode.launches, hash_encode_cell_fwd.launches)
+    spec = ModelSpec(hash_num_levels=6, hash_base_res=4,
+                     hash_desired_res=64, hash_log2_size=9,
+                     hash_cell_levels=2)
+    field = HashField(spec, "cpu")
+    o = torch.tensor([[0.0, 0.0, -2.0], [0.1, 0.2, -2.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 2)
+    out = render_stratified(field, spec, RenderSpec(num_steps=16,
+                                                    upsample_steps=4),
+                            torch.tensor([-1.0] * 3 + [1.0] * 3), o, d)
+    out["image"].sum().backward()
+    assert out["image"].shape == (2, 3)
+    assert field.encoder_cell.grad.abs().sum() > 0
+    assert (hash_encode.launches, hash_encode_cell_fwd.launches) == before
 
 
 def test_wrappers_refuse_mixed_devices():
