@@ -235,7 +235,7 @@ checkout and another one in turn, with a host profile of each (`host_ab`).
    resampled call with its backward (K7, K11) at test sizes on the GPU
    against the CPU plain path.  Its mesh at 256^3, threshold 10
    (`extract_geometry`): the sweep and the surface timed apart, fails if
-   empty or outside the box, writes an OBJ.  One stratified call under
+   empty or outside the box, writes an OBJ.  Four stratified calls under
    `trace`, whose Chrome trace must name K1 and K10, and the JPEG fixtures
    of tests/data/jpeg (the decoder built here with g++) bit for bit
    against their committed cv2 decodes.
@@ -5546,13 +5546,16 @@ STRAT_CHUNK = 4096
 # test-PSNR floors (PERF.md §2).  The trained teacher as it is: its
 # unmarched space holds floaters the occupancy renderer never sees, and
 # a ray that misses the box is composited over points clipped onto it
-# (the JAX package's miss handling, ROADMAP C12), so the render sits near
-# 16 dB; the floor catches a path that breaks into NaN or black.  The
+# (the JAX package's miss handling, ROADMAP C12), so the render sits at
+# 13.7-16.7 dB from run to run, about what an empty (white) render of the
+# test views scores (13.4, logged beside it); the floor sits between
+# that and a uniform grey image (6.3) and catches a path that breaks into
+# NaN, black or grey.  The
 # same teacher with its density zeroed in the cells its grid marks empty
 # (`OccupancyMasked`): the stratified path then sees what the occupancy
 # march sees, and a broken sampler, composite or z order lands far under
 # this floor (the occupancy renderer scores ~34.9 dB).
-STRAT_PSNR_FLOOR = {"field": 12.0, "masked": 30.0}
+STRAT_PSNR_FLOOR = {"field": 8.0, "masked": 30.0}
 # one stratified call at test sizes, kernels on the GPU against the plain
 # path on the CPU (f32 heads, the same draws): image, depth and
 # weights_sum; field gradients per leaf against its max |g| (K7 and K11
@@ -5564,6 +5567,9 @@ TOL_STRAT_IMG, TOL_STRAT_GRAD_REL = 1e-5, 1e-4
 # own eval's
 TOL_IMPORT_IMAGE, TOL_IMPORT_PSNR = 1e-6, 1e-3
 MESH_RES, MESH_THRESH = 256, 10.0
+# the traced block: stratified calls (each launches K1 and K10 once) and
+# the sessions tried before the trace is held not to name them
+TRACE_CHUNKS, TRACE_SESSIONS = 4, 3
 JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tests", "data", "jpeg")
 SLICE11_KERNELS = {
@@ -5792,6 +5798,14 @@ def drive_stratified(tea, scene, pose, intr, tmp: str) -> dict:
     ms = (time.perf_counter() - t0) * 1e3
     out["occupancy"] = {"ms_800": ms, "psnr": tea.evaluate(
         test, save_dir=os.path.join(tmp, "tea"))["psnr"]}
+    gts = [gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
+           if gt.shape[-1] == 4 else gt for gt in test.images]
+    out["constant_psnr"] = {
+        name: float(np.mean([psnr(np.full_like(gt, c), gt) for gt in gts]))
+        for name, c in (("white", 1.0), ("grey", 0.5), ("black", 0.0))}
+    log("test PSNR of a constant image (an empty render is white): "
+        + ", ".join(f"{k} {v:.3f} dB" for k, v in
+                    out["constant_psnr"].items()))
     fields = {"field": field,
               "masked": OccupancyMasked(field, tea.state.occ.bitfield,
                                         tea.rspec)}
@@ -5804,10 +5818,7 @@ def drive_stratified(tea, scene, pose, intr, tmp: str) -> dict:
         for i in range(len(test)):
             img, _, _ = stratified_image(f, spec, rs, aabb, test.poses[i],
                                          test.intrinsics, test.H, test.W)
-            gt = test.images[i]
-            if gt.shape[-1] == 4:
-                gt = gt[..., :3] * gt[..., 3:] + (1.0 - gt[..., 3:])
-            psnrs.append(psnr(img.cpu().numpy(), gt))
+            psnrs.append(psnr(img.cpu().numpy(), gts[i]))
         views_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5966,28 +5977,54 @@ def drive_mesh(tea, tmp: str) -> dict:
 
 
 def drive_trace(tea, pose, intr, tmp: str) -> dict:
-    """Phase 17 (4a): one stratified call under `trace`; its Chrome trace
-    must name K1 and K10."""
+    """Phase 17 (4a): TRACE_CHUNKS stratified calls under `trace`; the
+    Chrome trace must hold a kernel record of K1 and of K10.  After a long
+    profiled run the profiler loses the first device records of a session
+    (tools/torch_profiler_record_loss.py), so the traced block launches
+    each kernel TRACE_CHUNKS times, and a session that kept no record of
+    one of them is run again, up to TRACE_SESSIONS in all; every session's
+    records are logged beside its launches."""
     field, spec = tea.state.field, tea.spec
     aabb = tea.state.occ.aabb_infer
     rs = dataclasses.replace(tea.rspec, **STRAT_SETTINGS["s512"])
     pose = torch.as_tensor(np.asarray(pose, np.float32), device=aabb.device)
     head = (RES * RES // 2) // STRAT_CHUNK * STRAT_CHUNK
-    o, d = chunk_rays(pose, intr, RES, RES, head, STRAT_CHUNK)
-    log_dir = os.path.join(tmp, "trace")
-    with torch.no_grad(), trace(log_dir):
-        render_stratified(field, spec, rs, aabb, o, d)
-    path = os.path.join(log_dir, "trace.json")
-    text = open(path).read()
-    k1 = any(k in text for k in ("hash_encode_fwd_kernel",
-                                 "hash_encode_fwd_per_level_kernel"))
-    k10 = "hash_cell_fwd_kernel" in text
-    info = {"trace_mb": os.path.getsize(path) / 2 ** 20, "names_k1": k1,
-            "names_k10": k10}
-    log(f"trace of one stratified call: {info['trace_mb']:.2f} MB Chrome "
-        f"trace, names K1 {k1}, K10 {k10}")
-    if not (k1 and k10):
-        raise RuntimeError("the trace does not name K1 and K10")
+    rays = [chunk_rays(pose, intr, RES, RES, head + i * STRAT_CHUNK,
+                       STRAT_CHUNK) for i in range(TRACE_CHUNKS)]
+    sessions = []
+    for s in range(TRACE_SESSIONS):
+        log_dir = os.path.join(tmp, f"trace{s}")
+        n1, n10 = hash_encode.launches, hash_encode_cell_fwd.launches
+        with torch.no_grad(), trace(log_dir):
+            for o, d in rays:
+                render_stratified(field, spec, rs, aabb, o, d)
+        path = os.path.join(log_dir, "trace.json")
+        names = [e.get("name", "") for e in
+                 json.load(open(path))["traceEvents"]
+                 if e.get("cat") == "kernel"]
+        names = [n[len("void "):] if n.startswith("void ") else n
+                 for n in names]
+        sessions.append({
+            "trace_mb": os.path.getsize(path) / 2 ** 20,
+            "kernel_records": len(names),
+            "k1_launches": hash_encode.launches - n1,
+            "k1_records": sum(n.startswith(("hash_encode_fwd_kernel(",
+                                            "hash_encode_fwd_per_level_"
+                                            "kernel(")) for n in names),
+            "k10_launches": hash_encode_cell_fwd.launches - n10,
+            "k10_records": sum(n.startswith("hash_cell_fwd_kernel(")
+                               for n in names)})
+        r = sessions[-1]
+        log(f"trace {s} of {TRACE_CHUNKS} stratified calls: "
+            f"{r['trace_mb']:.2f} MB Chrome trace, {r['kernel_records']} "
+            f"kernel records; K1 {r['k1_records']} of {r['k1_launches']} "
+            f"launches, K10 {r['k10_records']} of {r['k10_launches']}")
+        if r["k1_records"] and r["k10_records"]:
+            break
+    info = {"sessions": sessions, "names_k1": bool(r["k1_records"]),
+            "names_k10": bool(r["k10_records"])}
+    if not (info["names_k1"] and info["names_k10"]):
+        raise RuntimeError(f"no trace of {TRACE_SESSIONS} names K1 and K10")
     return info
 
 
