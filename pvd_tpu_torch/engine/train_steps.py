@@ -38,6 +38,7 @@ ranks, and the error map's update runs on the gathered batch.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -53,6 +54,7 @@ from pvd_tpu_torch.render.occupancy import (OccupancyState,
                                             update_density_grid)
 from pvd_tpu_torch.render.renderer import render_rays
 from pvd_tpu_torch.utils.misc import srgb_to_linear
+from pvd_tpu_torch.utils.profiling import count, readback, span
 
 
 def _check_device(device: torch.device, **items):
@@ -158,16 +160,20 @@ def _adamw_step(state: TrainState, opt: GroupedAdamW, loss,
     state's field, the EMA copy's shadow update when the state has one,
     step + 1; the gradients stay in `.grad`."""
     params = dict(state.field.named_parameters())
-    loss.backward()
-    for p in params.values():  # leaves the loss does not reach
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if group is not None:
-        group.mean_([p.grad for p in params.values()])
-    opt.update_(params, {n: p.grad for n, p in params.items()},
-                state.opt_state)
+    with span("step.backward"):
+        loss.backward()
+        for p in params.values():  # leaves the loss does not reach
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if group is not None:
+            group.mean_([p.grad for p in params.values()])
+    with span("step.adamw"):
+        opt.update_(params, {n: p.grad for n, p in params.items()},
+                    state.opt_state)
     if state.ema is not None:
-        ema_update(dict(state.ema.named_parameters()), params, ema_decay)
+        with span("step.ema"):
+            ema_update(dict(state.ema.named_parameters()), params,
+                       ema_decay)
     state.step += 1
 
 
@@ -290,13 +296,14 @@ def _teacher_core(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
                           per_ray: bool = False):
         _check_device(device, field=_param_device(state.field), rays_o=o,
                       pix=pix)
-        if cfg.color_space == "linear":
-            pix = torch.cat([srgb_to_linear(pix[..., :3]), pix[..., 3:]],
-                            dim=-1)
-        gt, bg_r = compose_gt(pix, image_channels, cfg.bg_radius, bg)
-        _zero_grads(state.field)
-        loss, (out, ray_loss) = teacher_loss(state.field, spec, rspec, cfg,
-                                             state.occ, o, d, gt, bg_r, u)
+        with span("step.loss"):
+            if cfg.color_space == "linear":
+                pix = torch.cat([srgb_to_linear(pix[..., :3]),
+                                 pix[..., 3:]], dim=-1)
+            gt, bg_r = compose_gt(pix, image_channels, cfg.bg_radius, bg)
+            _zero_grads(state.field)
+            loss, (out, ray_loss) = teacher_loss(
+                state.field, spec, rspec, cfg, state.occ, o, d, gt, bg_r, u)
         _adamw_step(state, opt, loss, cfg.ema_decay, group)
         with torch.no_grad():
             metrics = {
@@ -362,11 +369,13 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
                          group)
 
     def run(state, pose, image_flat, inds, bg, u, per_ray=False):
-        pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
-        rays = get_rays(pose[None], intr, H, W, inds)
-        return core(state, rays["rays_o"][0].contiguous(),
-                    rays["rays_d"][0].contiguous(), image_flat[inds], bg, u,
-                    per_ray)
+        with span("step.rays"):
+            pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
+            rays = get_rays(pose[None], intr, H, W, inds)
+            o = rays["rays_o"][0].contiguous()
+            d = rays["rays_d"][0].contiguous()
+            pix = image_flat[inds]
+        return core(state, o, d, pix, bg, u, per_ray)
 
     if use_error_map:
         def with_rays(state, pose, image_flat, emap_row, inds, cells, bg, u):
@@ -378,9 +387,10 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
 
         def step(state: TrainState, pose, image_flat, emap_row,
                  generator: torch.Generator):
-            inds, cells = draw_error_map_pixels(generator, emap_row, n_rays,
-                                                H, W)
-            bg, u = _draw_bg_u(generator, inds.shape[0], device)
+            with span("step.rays"):
+                inds, cells = draw_error_map_pixels(generator, emap_row,
+                                                    n_rays, H, W)
+                bg, u = _draw_bg_u(generator, inds.shape[0], device)
             return with_rays(state, pose, image_flat, emap_row, inds, cells,
                              bg, u)
     else:
@@ -388,8 +398,9 @@ def make_teacher_step(spec: ModelSpec, rspec: RenderSpec, opt: GroupedAdamW,
 
         def step(state: TrainState, pose, image_flat,
                  generator: torch.Generator):
-            inds = random_pixels(generator, n_rays, H, W, device)
-            bg, u = _draw_bg_u(generator, inds.shape[0], device)
+            with span("step.rays"):
+                inds = random_pixels(generator, n_rays, H, W, device)
+                bg, u = _draw_bg_u(generator, inds.shape[0], device)
             return run(state, pose, image_flat, inds, bg, u)
 
     step.with_rays = with_rays
@@ -450,8 +461,9 @@ def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
         return pose[:3, 3].expand_as(d).contiguous(), d.contiguous()
 
     def with_rays(state: TrainState, pose, inds, pix, bg, u):
-        o, d = rays(pose, inds)
-        pix = upload(pix, torch.float32)
+        with span("step.rays"):
+            o, d = rays(pose, inds)
+            pix = upload(pix, torch.float32)
         if not use_error_map:
             return core(state, o, d, pix, bg, u)
         state, metrics, ray_loss = core(state, o, d, pix, bg, u,
@@ -459,7 +471,8 @@ def make_teacher_step_host(spec: ModelSpec, rspec: RenderSpec,
         return state, ray_loss, metrics
 
     def step(state: TrainState, pose, inds, pix, generator: torch.Generator):
-        bg, u = _draw_bg_u(generator, len(inds), device)
+        with span("step.rays"):
+            bg, u = _draw_bg_u(generator, len(inds), device)
         return with_rays(state, pose, inds, pix, bg, u)
 
     step.rays = rays
@@ -589,10 +602,11 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
                           per_ray: bool = False):
         _check_device(device, student=_param_device(state.field),
                       teacher=_param_device(teacher), rays_o=o)
-        _zero_grads(state.field)
-        loss, (logs, ray_loss) = distill_loss(
-            state.field, teacher, spec_stu, spec_tea, rspec, cfg, stage,
-            state.occ, occ_tea, o, d, bg, u, state.step)
+        with span("step.loss"):
+            _zero_grads(state.field)
+            loss, (logs, ray_loss) = distill_loss(
+                state.field, teacher, spec_stu, spec_tea, rspec, cfg, stage,
+                state.occ, occ_tea, o, d, bg, u, state.step)
         _adamw_step(state, opt, loss, cfg.ema_decay, group)
         logs = {k: v.detach() for k, v in logs.items()}
         if group is not None:
@@ -603,11 +617,12 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
         return state, logs
 
     def run(state, teacher, occ_tea, pose, inds, bg, u, per_ray=False):
-        pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
-        rays = get_rays(pose[None], intr, H, W, inds)
-        return distill_step_core(state, teacher, occ_tea,
-                                 rays["rays_o"][0].contiguous(),
-                                 rays["rays_d"][0].contiguous(), bg, u,
+        with span("step.rays"):
+            pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
+            rays = get_rays(pose[None], intr, H, W, inds)
+            o = rays["rays_o"][0].contiguous()
+            d = rays["rays_d"][0].contiguous()
+        return distill_step_core(state, teacher, occ_tea, o, d, bg, u,
                                  per_ray)
 
     if use_error_map:
@@ -624,9 +639,10 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
 
         def step(state: TrainState, teacher, occ_tea, pose, emap_row,
                  generator: torch.Generator):
-            inds, cells = draw_error_map_pixels(generator, emap_row, n_rays,
-                                                H, W)
-            bg, u = _draw_bg_u(generator, inds.shape[0], device)
+            with span("step.rays"):
+                inds, cells = draw_error_map_pixels(generator, emap_row,
+                                                    n_rays, H, W)
+                bg, u = _draw_bg_u(generator, inds.shape[0], device)
             return with_rays(state, teacher, occ_tea, pose, emap_row, inds,
                              cells, bg, u)
     else:
@@ -634,8 +650,9 @@ def make_distill_step(spec_stu: ModelSpec, spec_tea: ModelSpec,
 
         def step(state: TrainState, teacher, occ_tea, pose,
                  generator: torch.Generator):
-            inds = random_pixels(generator, n_rays, H, W, device)
-            bg, u = _draw_bg_u(generator, inds.shape[0], device)
+            with span("step.rays"):
+                inds = random_pixels(generator, n_rays, H, W, device)
+                bg, u = _draw_bg_u(generator, inds.shape[0], device)
             return run(state, teacher, occ_tea, pose, inds, bg, u)
 
     step.with_rays = with_rays
@@ -701,6 +718,12 @@ def make_eval_renderer(spec: ModelSpec, rspec: RenderSpec,
     ladder; all chunks of a rung are launched before their truncation
     flags are read back, once per rung.
 
+    While a profiler session is open an image records `eval.image` (its
+    ordinal the unit), an `eval.chunk` per chunk render, `eval.assemble`,
+    and the `eval.chunk_renders.r1`, `.r2`, `.r3` counters (chunk renders
+    per rung); the rung readbacks and the samples' read go through
+    `utils.profiling.readback`.
+
     Returns render_image(field, occ, pose [4, 4], intrinsics, H, W) ->
     EvalImage.
     """
@@ -708,25 +731,34 @@ def make_eval_renderer(spec: ModelSpec, rspec: RenderSpec,
     base_spr = rspec.samples_per_ray
     ladder = ([base_spr, base_spr * 4.0, base_spr * 16.0]
               if base_spr > 0 else [0.0])
+    rung_counters = [f"eval.chunk_renders.r{i + 1}"
+                     for i in range(len(ladder))]
+    ordinals = itertools.count()
 
     def render_chunk(field, occ, pose, intr, head, H, W, spr):
-        rs = dataclasses.replace(rspec, samples_per_ray=spr,
-                                 max_samples=rspec.max_steps)
-        o, d = chunk_rays(pose, intr, H, W, head, chunk)
-        out = render_rays(field, spec, rs, occ, o, d, training=False,
-                          bg_color=1.0, early_stop=True)
-        if out["compact"] is None:
-            total = out["samples"].mask.sum()
-            truncated = torch.zeros((), dtype=torch.bool, device=o.device)
-        else:
-            total = out["compact"].total
-            truncated = out["compact_frac"] > 1.0
+        with span("eval.chunk"):
+            rs = dataclasses.replace(rspec, samples_per_ray=spr,
+                                     max_samples=rspec.max_steps)
+            o, d = chunk_rays(pose, intr, H, W, head, chunk)
+            out = render_rays(field, spec, rs, occ, o, d, training=False,
+                              bg_color=1.0, early_stop=True)
+            if out["compact"] is None:
+                total = out["samples"].mask.sum()
+                truncated = torch.zeros((), dtype=torch.bool,
+                                        device=o.device)
+            else:
+                total = out["compact"].total
+                truncated = out["compact_frac"] > 1.0
         return out["image"], out["depth"], out["weights_sum"], total, \
             truncated
 
     @torch.no_grad()
     def render_image(field, occ: OccupancyState, pose, intrinsics, H: int,
                      W: int) -> EvalImage:
+        with span("eval.image", next(ordinals)):
+            return _render_image(field, occ, pose, intrinsics, H, W)
+
+    def _render_image(field, occ, pose, intrinsics, H, W):
         pose = torch.as_tensor(np.asarray(pose, np.float32), device=device)
         _check_device(device, bitfield=occ.bitfield,
                       field=_param_device(field))
@@ -737,11 +769,12 @@ def make_eval_renderer(spec: ModelSpec, rspec: RenderSpec,
         pending = heads
         rungs = 0
         for spr in ladder:
+            count(rung_counters[rungs], len(pending))
             rungs += 1
             batch = [render_chunk(field, occ, pose, intr, h, H, W, spr)
                      for h in pending]
             # one readback per rung
-            truncs = torch.stack([b[4] for b in batch]).cpu().numpy()
+            truncs = readback(torch.stack([b[4] for b in batch])).numpy()
             last = spr == ladder[-1]
             retry = []
             for h, b, trunc in zip(pending, batch, truncs):
@@ -757,11 +790,13 @@ def make_eval_renderer(spec: ModelSpec, rspec: RenderSpec,
             print(f"[eval] WARNING: {n_trunc} chunk(s) still sample-budget-"
                   f"truncated at the final ladder rung (spr={spr:g}); tail "
                   "rays may be zeroed", flush=True)
-        rows = [min(h + chunk, n) - h for h in heads]
-        img = torch.cat([outs[h][0][:r] for h, r in zip(heads, rows)])
-        dep = torch.cat([outs[h][1][:r] for h, r in zip(heads, rows)])
-        ws = torch.cat([outs[h][2][:r] for h, r in zip(heads, rows)])
-        samples = int(torch.stack([outs[h][3] for h in heads]).sum())
+        with span("eval.assemble"):
+            rows = [min(h + chunk, n) - h for h in heads]
+            img = torch.cat([outs[h][0][:r] for h, r in zip(heads, rows)])
+            dep = torch.cat([outs[h][1][:r] for h, r in zip(heads, rows)])
+            ws = torch.cat([outs[h][2][:r] for h, r in zip(heads, rows)])
+            samples = int(readback(torch.stack([outs[h][3]
+                                                for h in heads]).sum()))
         return EvalImage(img.reshape(H, W, 3), dep.reshape(H, W),
                          ws.reshape(H, W), rungs, samples, n_trunc)
 

@@ -78,6 +78,16 @@ Options of both modes (trainer.py:104-117, 498-566, 592-616, 667-684):
     equal; only rank 0 logs and writes checkpoints, results and
     metrics.
 
+While a profiler session is open the loop records its spans
+(`utils/profiling.py`): per step `trainer.tick` (the occupancy and
+autotune tick, a phase change, a resize), `trainer.draw` (the pose index,
+the host's pixel draws), `trainer.step` (the step function's call) and
+`trainer.log` (the history and the log line); per distillation epoch
+`trainer.poses` (its random poses, drawn and uploaded) and
+`trainer.epoch` (the boundary: the wall budget, checkpoints, evals);
+every wait on the device goes through `utils.profiling.sync` or
+`readback`.
+
 EMA together with resizing raises NotImplementedError: the JAX package's
 resize leaves the EMA weights at the old shapes, and its next EMA update
 fails (ROADMAP C10).  Real LPIPS needs pretrained weights that neither
@@ -122,6 +132,7 @@ from pvd_tpu_torch.params import (field_from_tree, new_field, spec_from_tree,
 from pvd_tpu_torch.render.occupancy import (draw_occ_inputs,
                                             init_occupancy_state,
                                             mark_untrained_grid)
+from pvd_tpu_torch.utils.profiling import readback, span, sync
 from pvd_tpu_torch.utils.metrics import (PSNRMeter, compute_ssim,
                                          lpips_available, lpips_proxy,
                                          rgb_lpips)
@@ -492,7 +503,7 @@ class Trainer:
         rows = [j for j in range(K) if (step + j) % 100 == 0]
         if not rows:
             return
-        host = {k: v.cpu().numpy() for k, v in logs_k.items()}
+        host = {k: readback(v).numpy() for k, v in logs_k.items()}
         for j in rows:
             msg = " ".join(f"{k}={float(v[j]):.4f}"
                            for k, v in sorted(host.items()))
@@ -500,8 +511,7 @@ class Trainer:
                      f"{msg} ({time.perf_counter() - t_start:.1f}s)")
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        sync(self.device)
 
     def _update_occ(self) -> bool:
         """One occupancy update: full sweeps while fewer than 16 updates
@@ -532,8 +542,8 @@ class Trainer:
             self.log(f"[autotune] warmup over: sample budget on ({spr}/ray "
                      "before bucketing)")
         rs = self.rspec
-        budget_hit = float(metrics["budget_hit"])
-        mask_frac = float(metrics["mask_frac"])
+        budget_hit = float(readback(metrics["budget_hit"]))
+        mask_frac = float(readback(metrics["mask_frac"]))
         cooldown = self._autotune_cooldown  # shrink freeze after escalation
         new_rs = retune(rs, budget_hit, mask_frac, allow_shrink=cooldown == 0)
         self._autotune_cooldown = max(0, cooldown - 1)
@@ -576,14 +586,16 @@ class Trainer:
             occ = self.state.occ
             H, bound = self.rspec.grid_size, self.rspec.bound
             half = bound / H
-            grid = occ.density_grid[-1].cpu().numpy()
-            thresh = min(self.cfg.density_thresh, float(occ.mean_density))
+            grid = readback(occ.density_grid[-1]).numpy()
+            thresh = min(self.cfg.density_thresh,
+                         float(readback(occ.mean_density)))
             idx = np.argwhere(grid > thresh)
             if len(idx) > 0:
                 pos = (2.0 * idx / (H - 1) - 1.0) * (bound - half)
                 new_aabb = np.concatenate([pos.min(0) - half,
                                            pos.max(0) + half])
-                vm_field.shrink_params(field, occ.aabb_train.cpu().numpy(),
+                vm_field.shrink_params(field,
+                                       readback(occ.aabb_train).numpy(),
                                        new_aabb, field.spec.vm_resolution)
                 self.state.occ = occ.replace(aabb_train=torch.as_tensor(
                     new_aabb, dtype=torch.float32, device=self.device))
@@ -592,7 +604,7 @@ class Trainer:
             if target is not None:
                 # equal-volume voxels at the scheduled count inside the
                 # (shrunk) aabb (trainer.py:551-562)
-                cur = self.state.occ.aabb_train.cpu().numpy()
+                cur = readback(self.state.occ.aabb_train).numpy()
                 size = cur[3:] - cur[:3]
                 vox = float(np.cbrt(np.prod(size) / float(target) ** 3))
                 reso = tuple(int(v) for v in (size / vox).astype(np.int64))
@@ -694,7 +706,8 @@ class Trainer:
                                                np.float32))
             phases = ("padded", "compacted")
         else:
-            poses = as_dev(self._distill_epoch_poses(rng_np, train_ds))
+            with span("trainer.poses", self.state.step):
+                poses = as_dev(self._distill_epoch_poses(rng_np, train_ds))
             C = 4
             phases = ("stage1", "stage2", "stage3")
             if cfg.error_map:
@@ -718,150 +731,158 @@ class Trainer:
             epoch += 1
             # fresh random poses per distillation epoch
             if not teacher_mode and step > 0:
-                poses = as_dev(self._distill_epoch_poses(rng_np, train_ds))
-                if self.error_map is not None and len(poses) != epoch_len:
-                    self.error_map = ones_map(len(poses))
+                with span("trainer.poses", step):
+                    poses = as_dev(self._distill_epoch_poses(rng_np,
+                                                             train_ds))
+                    if self.error_map is not None and \
+                            len(poses) != epoch_len:
+                        self.error_map = ones_map(len(poses))
                 epoch_len = len(poses)
             steps_this_epoch = min(epoch_len, total - step)
             done = 0
             while done < steps_this_epoch:
-                if step % cfg.update_extra_interval == 0:
-                    clock.mark(step)
-                    self._maybe_autotune(step, self._last_metrics)
-                    if refresh_occ:
-                        t0 = time.perf_counter()
-                        kind = "full" if self._update_occ() else "partial"
-                        self._sync()
-                        occ_s[kind][0] += 1
-                        occ_s[kind][1] += time.perf_counter() - t0
-                    clock.restart()
-                phase = self._phase(step)
-                if phase != clock.phase:
-                    clock.mark(step)
-                    clock.phase = phase
-                idx = int(rng_np.integers(0, len(poses)))
-                stage = self._stage_of(step)
-                emap = self.error_map
-                host = batcher is not None
-                if host and emap is not None and pending is not None:
-                    # apply the previous call's per-ray losses to the host
-                    # map in step order before drawing (trainer.py:736-747)
-                    draws, losses = pending
-                    vals = losses.numpy().reshape(len(draws), -1)
-                    for (p_idx, p_cells), v in zip(draws, vals):
-                        row = emap[p_idx]
-                        row[p_cells] = 0.1 * row[p_cells] + 0.9 * v
-                    pending = None
-                K = self._scan_chunk_len(step, stage, total,
-                                         steps_this_epoch - done)
-                if K > 1:
-                    # K steps in one call (trainer.py:748-925)
-                    step_fn = self._get_step_fn(stage, H, W, C, intr,
-                                                host=host, scan_steps=K)
-                    if host:
-                        logs, pending = self._host_chunk(
-                            step_fn, K, batcher, poses, emap, rng_np, H, W,
-                            gen)
-                    else:
+                with span("trainer.tick", step):
+                    if step % cfg.update_extra_interval == 0:
+                        clock.mark(step)
+                        self._maybe_autotune(step, self._last_metrics)
+                        if refresh_occ:
+                            t0 = time.perf_counter()
+                            kind = "full" if self._update_occ() \
+                                else "partial"
+                            self._sync()
+                            occ_s[kind][0] += 1
+                            occ_s[kind][1] += time.perf_counter() - t0
+                        clock.restart()
+                    phase = self._phase(step)
+                    if phase != clock.phase:
+                        clock.mark(step)
+                        clock.phase = phase
+                with span("trainer.draw", step):
+                    idx = int(rng_np.integers(0, len(poses)))
+                    stage = self._stage_of(step)
+                    emap = self.error_map
+                    host = batcher is not None
+                    if host and emap is not None and pending is not None:
+                        # apply the previous call's per-ray losses to the
+                        # host map in step order before drawing
+                        # (trainer.py:736-747)
+                        draws, losses = pending
+                        vals = losses.numpy().reshape(len(draws), -1)
+                        for (p_idx, p_cells), v in zip(draws, vals):
+                            row = emap[p_idx]
+                            row[p_cells] = 0.1 * row[p_cells] + 0.9 * v
+                        pending = None
+                    K = self._scan_chunk_len(step, stage, total,
+                                             steps_this_epoch - done)
+                    step_fn = self._get_step_fn(
+                        stage, H, W, C, intr, host=host,
+                        scan_steps=K if K > 1 else 0)
+                    draws = None
+                    if K > 1 and host:
+                        # K steps in one call (trainer.py:748-925)
+                        args, draws = self._host_chunk_args(
+                            K, batcher, poses, emap, rng_np, H, W, gen)
+                    elif K > 1:
                         idx_k = rng_np.integers(0, len(poses), size=K)
                         pk = poses[torch.as_tensor(idx_k)]
-                        if teacher_mode and emap is not None:
-                            self.state, self.error_map, logs = step_fn(
-                                self.state, images, idx_k, pk, emap, gen)
-                        elif teacher_mode:
-                            self.state, logs = step_fn(self.state, images,
-                                                       idx_k, pk, gen)
-                        elif emap is not None:
-                            self.state, self.error_map, logs = step_fn(
-                                self.state, self.teacher, self.occ_tea, pk,
-                                idx_k, emap, gen)
-                        else:
-                            self.state, logs = step_fn(
-                                self.state, self.teacher, self.occ_tea, pk,
-                                gen)
-                    rows = [{k: v[j] for k, v in logs.items()}
-                            for j in range(K)]
-                    self.history.extend(rows)
-                    self._last_metrics = rows[-1]
-                    self._log_scan_chunk(logs, step, K, total, stage,
-                                         t_start)
+                        data = ((images, idx_k, pk) if teacher_mode
+                                else (self.teacher, self.occ_tea, pk))
+                        if emap is not None:
+                            data += (emap,) if teacher_mode else (idx_k,
+                                                                  emap)
+                        args = (self.state, *data, gen)
+                    elif host and emap is not None:
+                        # draw this step's pixels from the host map
+                        # (trainer.py:804-816)
+                        inds, cells = draw_error_map_inds_np(
+                            rng_np, emap[idx], H, W, cfg.num_rays)
+                        pix = batcher.gather(idx, inds)
+                        draws = [(idx, cells)]
+                        args = (self.state, poses[idx], inds, pix, gen)
+                    elif host:
+                        # the batch's image replaces the host draw above,
+                        # as in the JAX package
+                        idx, inds, pix = batcher.next()
+                        args = (self.state, poses[idx], inds, pix, gen)
+                    else:
+                        data = ((poses[idx], images[idx]) if teacher_mode
+                                else (self.teacher, self.occ_tea,
+                                      poses[idx]))
+                        if emap is not None:
+                            data += (emap[idx],)
+                        args = (self.state, *data, gen)
+                with span("trainer.step", step):
+                    out = step_fn(*args)
+                    if host and emap is not None:
+                        self.state, per_ray, metrics = out
+                        pending = draws, _HostRow(per_ray)
+                    elif emap is not None and K > 1:
+                        self.state, self.error_map, metrics = out
+                    elif emap is not None:
+                        self.state, emap[idx], metrics = out
+                    else:
+                        self.state, metrics = out
+                if K > 1:
+                    with span("trainer.log", step):
+                        rows = [{k: v[j] for k, v in metrics.items()}
+                                for j in range(K)]
+                        self.history.extend(rows)
+                        self._last_metrics = rows[-1]
+                        self._log_scan_chunk(metrics, step, K, total, stage,
+                                             t_start)
                     step += K
                     done += K
                     chunk_steps += K
                     continue
-                step_fn = self._get_step_fn(stage, H, W, C, intr, host=host)
-                if host and emap is not None:
-                    # draw this step's pixels from the host map
-                    # (trainer.py:804-816)
-                    inds, cells = draw_error_map_inds_np(
-                        rng_np, emap[idx], H, W, cfg.num_rays)
-                    pix = batcher.gather(idx, inds)
-                    self.state, per_ray, metrics = step_fn(
-                        self.state, poses[idx], inds, pix, gen)
-                    pending = [(idx, cells)], _HostRow(per_ray)
-                elif host:
-                    # the batch's image replaces the host draw above, as in
-                    # the JAX package
-                    idx, inds, pix = batcher.next()
-                    self.state, metrics = step_fn(self.state, poses[idx],
-                                                  inds, pix, gen)
-                elif teacher_mode and emap is not None:
-                    self.state, emap[idx], metrics = step_fn(
-                        self.state, poses[idx], images[idx], emap[idx], gen)
-                elif teacher_mode:
-                    self.state, metrics = step_fn(self.state, poses[idx],
-                                                  images[idx], gen)
-                elif emap is not None:
-                    self.state, emap[idx], metrics = step_fn(
-                        self.state, self.teacher, self.occ_tea, poses[idx],
-                        emap[idx], gen)
-                else:
-                    self.state, metrics = step_fn(self.state, self.teacher,
-                                                  self.occ_tea, poses[idx],
-                                                  gen)
                 if self._resize_due(step + 1):
-                    clock.mark(step + 1)
-                    t0 = time.perf_counter()
-                    self._maybe_vm_resize(step + 1)
-                    self._sync()
-                    side_s["resize"] += time.perf_counter() - t0
-                    clock.restart()
-                self._last_metrics = metrics
-                self.history.append(metrics)
-                if step % 100 == 0:
-                    msg = " ".join(f"{k}={float(v):.4f}"
-                                   for k, v in sorted(metrics.items()))
-                    self.log(f"[{self.name}] step {step}/{total} stage{stage}"
-                             f" {msg} ({time.perf_counter() - t_start:.1f}s)")
+                    with span("trainer.tick", step):
+                        clock.mark(step + 1)
+                        t0 = time.perf_counter()
+                        self._maybe_vm_resize(step + 1)
+                        self._sync()
+                        side_s["resize"] += time.perf_counter() - t0
+                        clock.restart()
+                with span("trainer.log", step):
+                    self._last_metrics = metrics
+                    self.history.append(metrics)
+                    if step % 100 == 0:
+                        msg = " ".join(f"{k}={float(readback(v)):.4f}"
+                                       for k, v in sorted(metrics.items()))
+                        self.log(f"[{self.name}] step {step}/{total} "
+                                 f"stage{stage} {msg} "
+                                 f"({time.perf_counter() - t_start:.1f}s)")
                 step += 1
                 done += 1
 
-            # a spent wall budget makes this epoch boundary the end of
-            # training, with the final checkpoint and eval (trainer.py:
-            # 962-973)
-            spent = (cfg.wall_budget > 0 and step < total
-                     and time.perf_counter() - t_start >= cfg.wall_budget)
-            if self.group is not None and cfg.wall_budget > 0 \
-                    and step < total:
-                # the ranks end together: rank clocks differ
-                spent = self.group.agree(spent, self.device)
-            if spent:
-                self.log(f"[{self.name}] wall budget ({cfg.wall_budget:.0f}"
-                         f"s) spent at step {step}/{total}; finishing early")
-                total = step
-            # epoch boundary: step checkpoints over the last two epochs,
-            # then the periodic eval with best tracking (trainer.py:973-983)
-            clock.mark(step)
-            if step >= total - 2 * epoch_len:
-                t0 = time.perf_counter()
-                self.save()
-                side_s["ckpt"] += time.perf_counter() - t0
-            if valid_ds is not None and (epoch % cfg.eval_interval == 0
-                                         or step >= total):
-                t0 = time.perf_counter()
-                self._eval_and_track_best(valid_ds)
-                side_s["eval"] += time.perf_counter() - t0
-            clock.restart()
+            with span("trainer.epoch", step):
+                # a spent wall budget makes this epoch boundary the end of
+                # training, with the final checkpoint and eval (trainer.py:
+                # 962-973)
+                spent = (cfg.wall_budget > 0 and step < total
+                         and time.perf_counter() - t_start >= cfg.wall_budget)
+                if self.group is not None and cfg.wall_budget > 0 \
+                        and step < total:
+                    # the ranks end together: rank clocks differ
+                    spent = self.group.agree(spent, self.device)
+                if spent:
+                    self.log(f"[{self.name}] wall budget "
+                             f"({cfg.wall_budget:.0f}s) spent at step "
+                             f"{step}/{total}; finishing early")
+                    total = step
+                # epoch boundary: step checkpoints over the last two epochs,
+                # then the periodic eval with best tracking (trainer.py:
+                # 973-983)
+                clock.mark(step)
+                if step >= total - 2 * epoch_len:
+                    t0 = time.perf_counter()
+                    self.save()
+                    side_s["ckpt"] += time.perf_counter() - t0
+                if valid_ds is not None and (epoch % cfg.eval_interval == 0
+                                             or step >= total):
+                    t0 = time.perf_counter()
+                    self._eval_and_track_best(valid_ds)
+                    side_s["eval"] += time.perf_counter() - t0
+                clock.restart()
 
         self._sync()
         wall = time.perf_counter() - t_start
@@ -895,12 +916,12 @@ class Trainer:
         self.save()
         return self.state
 
-    def _host_chunk(self, step_fn, K: int, batcher, poses, emap, rng_np,
-                    H: int, W: int, gen):
-        """One K-step chunk on the host batcher (trainer.py:748-795): K
-        batches drawn up front, with the error map each from the host map
-        as it stands at the chunk's start.  Returns (stacked logs, the
-        pending map update or None)."""
+    def _host_chunk_args(self, K: int, batcher, poses, emap, rng_np,
+                         H: int, W: int, gen):
+        """The arguments of one K-step call on the host batcher
+        (trainer.py:748-795): K batches drawn up front, with the error map
+        each from the host map as it stands at the chunk's start.  Returns
+        (arguments, the draws [(image, cells)] or None)."""
         idxs, inds_l, pix_l, draws = [], [], [], []
         for _ in range(K):
             if emap is not None:
@@ -914,13 +935,9 @@ class Trainer:
             idxs.append(idx_j)
             inds_l.append(inds_j)
             pix_l.append(pix_j)
-        out = step_fn(self.state, poses[torch.as_tensor(idxs)],
-                      np.stack(inds_l), np.stack(pix_l), gen)
-        if emap is None:
-            self.state, logs = out
-            return logs, None
-        self.state, per_rays, logs = out
-        return logs, (draws, _HostRow(per_rays))
+        args = (self.state, poses[torch.as_tensor(idxs)], np.stack(inds_l),
+                np.stack(pix_l), gen)
+        return args, (draws if emap is not None else None)
 
     # ------------------------------------------------------------------
     def _write_video(self, path: str, frames, fps: int = 21):
@@ -979,8 +996,8 @@ class Trainer:
             self._sync()
             t0 = time.perf_counter()
             out = render(field, occ, ds.poses[i], ds.intrinsics, ds.H, ds.W)
-            img = out.image.cpu().numpy()
-            dep = out.depth.cpu().numpy()
+            img = readback(out.image).numpy()
+            dep = readback(out.depth).numpy()
             times.append(time.perf_counter() - t0)
             if ds.images is not None:
                 gt = ds.images[i]

@@ -15,6 +15,12 @@ march -> compact -> field -> composite, as in the JAX package:
   3. the field on the compacted samples, then `composite_rays_compact`
      (kernels K3 forward, K6 backward).
 
+While a profiler session is open `render_rays` records its stages as
+spans (`utils/profiling.py`): `render.march` (near/far and the march; a
+replay's holds its near/far alone), `render.compact`, `render.field`
+(the samples' positions and the field), `render.background` and
+`render.composite`.
+
 Training adds a perturbed march start, a per-ray background, early returns
 for distill stages 1 and 2, and the teacher's replay of the student's
 samples (`render_rays`).  A field with a background model (bg_radius > 0)
@@ -50,6 +56,7 @@ from pvd_tpu_torch.ops.composite import (composite_rays,
 from pvd_tpu_torch.ops.fma import fma32
 from pvd_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 from pvd_tpu_torch.render.occupancy import OccupancyState
+from pvd_tpu_torch.utils.profiling import span
 
 SQRT3 = math.sqrt(3.0)
 
@@ -304,71 +311,84 @@ def render_rays(field, spec: ModelSpec, rspec: RenderSpec,
     rays_o = rays_o.reshape(-1, 3).contiguous()
     rays_d = rays_d.reshape(-1, 3).contiguous()
     aabb = occ.aabb_train if training else occ.aabb_infer
-    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, rspec.min_near)
     N = rays_o.shape[0]
     budget = rspec.sample_budget(N)
-    if inherited is None:
-        samples = march_rays(occ.bitfield, rays_o, rays_d, nears, fars,
-                             rspec, u)
-    else:
-        samples = inherited
-    S = samples.mask.shape[1]
-    result = {"samples": samples, "compact": None, "nears": nears,
-              "fars": fars,
-              # rays that filled every slot, and the slot utilisation
-              "budget_hit_frac": samples.mask[:, -1].float().mean(),
-              "mask_frac": samples.mask.float().mean()}
+    with span("render.march"):
+        nears, fars = near_far_from_aabb(rays_o, rays_d, aabb,
+                                         rspec.min_near)
+        if inherited is None:
+            samples = march_rays(occ.bitfield, rays_o, rays_d, nears, fars,
+                                 rspec, u)
+        else:
+            samples = inherited
+        S = samples.mask.shape[1]
+        result = {"samples": samples, "compact": None, "nears": nears,
+                  "fars": fars,
+                  # rays that filled every slot, and the slot utilisation
+                  "budget_hit_frac": samples.mask[:, -1].float().mean(),
+                  "mask_frac": samples.mask.float().mean()}
     if budget:
-        # march masks are per-ray prefixes except in eval mode, where every
-        # lattice slot keeps its place
-        compact = inherited_compact if inherited_compact is not None else \
-            compact_samples(samples.mask, budget,
-                            prefix=rspec.max_samples < rspec.max_steps)
-        t_c = inherited_t_c if inherited_t_c is not None else \
-            samples.t.reshape(-1)[compact.idx]
-        rid = compact.ray_id
-        o_c, d_c, t0_c = rays_o[rid], rays_d[rid], samples.t0[rid]
-        xyz = fma32(t_c[:, None], d_c, o_c).clamp(-rspec.bound, rspec.bound)
-        out_f = field_forward(field, spec, xyz, d_c, aabb,
-                              want_color=want_color)
-        result.update(sigma_logit=out_f.sigma_logit, fea_sc=out_f.fea_sc,
-                      rgb_l=out_f.rgb, mask=compact.valid, compact=compact,
-                      compact_t=t_c,
-                      compact_frac=compact.total.float() / budget)
-        if not (want_color and composite):
-            return result
-        # dt is the closed form of t; the depth channel's running
-        # real-delta sum telescopes to (t + dt) - t0 (renderer.py:932-935)
-        dt_c = _dt_from_t(t_c, compact.valid, rspec)
-        t_cum_c = torch.where(compact.valid, t_c + dt_c - t0_c, 0.0)
-        ws, depth_raw, image, weights = composite_rays_compact(
-            out_f.sigma * rspec.density_scale, out_f.rgb, dt_c, t_cum_c,
-            rid, compact.valid, N, early_stop=early_stop)
+        with span("render.compact"):
+            # march masks are per-ray prefixes except in eval mode, where
+            # every lattice slot keeps its place
+            compact = inherited_compact if inherited_compact is not None \
+                else compact_samples(samples.mask, budget,
+                                     prefix=rspec.max_samples
+                                     < rspec.max_steps)
+            t_c = inherited_t_c if inherited_t_c is not None else \
+                samples.t.reshape(-1)[compact.idx]
+        with span("render.field"):
+            rid = compact.ray_id
+            o_c, d_c, t0_c = rays_o[rid], rays_d[rid], samples.t0[rid]
+            xyz = fma32(t_c[:, None], d_c, o_c).clamp(-rspec.bound,
+                                                      rspec.bound)
+            out_f = field_forward(field, spec, xyz, d_c, aabb,
+                                  want_color=want_color)
+            result.update(sigma_logit=out_f.sigma_logit, fea_sc=out_f.fea_sc,
+                          rgb_l=out_f.rgb, mask=compact.valid,
+                          compact=compact, compact_t=t_c,
+                          compact_frac=compact.total.float() / budget)
     else:
-        xyz = fma32(samples.t[..., None], rays_d[:, None, :],
-                    rays_o[:, None, :]).clamp(-rspec.bound, rspec.bound)
-        dirs = rays_d[:, None, :].expand(N, S, 3)
-        out_f = field_forward(field, spec, xyz.reshape(-1, 3),
-                              dirs.reshape(-1, 3), aabb,
-                              want_color=want_color)
-        result.update(
-            sigmas=out_f.sigma.reshape(N, S),
-            sigma_logit=out_f.sigma_logit.reshape(N, S),
-            fea_sc=(None if out_f.fea_sc is None
-                    else out_f.fea_sc.reshape(N, S, -1)),
-            rgb_l=None if out_f.rgb is None else out_f.rgb.reshape(N, S, 3),
-            mask=samples.mask)
-        if not (want_color and composite):
-            return result
-        ws, depth_raw, image, weights = composite_rays(
-            out_f.sigma.reshape(N, S) * rspec.density_scale,
-            out_f.rgb.reshape(N, S, 3), samples.dt, samples.delta_depth,
-            samples.mask, early_stop=early_stop)
+        with span("render.field"):
+            xyz = fma32(samples.t[..., None], rays_d[:, None, :],
+                        rays_o[:, None, :]).clamp(-rspec.bound, rspec.bound)
+            dirs = rays_d[:, None, :].expand(N, S, 3)
+            out_f = field_forward(field, spec, xyz.reshape(-1, 3),
+                                  dirs.reshape(-1, 3), aabb,
+                                  want_color=want_color)
+            result.update(
+                sigmas=out_f.sigma.reshape(N, S),
+                sigma_logit=out_f.sigma_logit.reshape(N, S),
+                fea_sc=(None if out_f.fea_sc is None
+                        else out_f.fea_sc.reshape(N, S, -1)),
+                rgb_l=(None if out_f.rgb is None
+                       else out_f.rgb.reshape(N, S, 3)),
+                mask=samples.mask)
+    if not (want_color and composite):
+        return result
     if spec.bg_radius > 0:  # the field's own background (renderer.py:926)
-        bg_color = background_of_rays(field, spec, rays_o, rays_d)
-    image = image + (1.0 - ws)[:, None] * bg_color
-    depth = torch.clamp(depth_raw - nears, min=0.0) / (fars - nears + 1e-6)
-    result.update(image=image, depth=depth, weights_sum=ws, weights=weights)
+        with span("render.background"):
+            bg_color = background_of_rays(field, spec, rays_o, rays_d)
+    with span("render.composite"):
+        if budget:
+            # dt is the closed form of t; the depth channel's running
+            # real-delta sum telescopes to (t + dt) - t0 (renderer.py:
+            # 932-935)
+            dt_c = _dt_from_t(t_c, compact.valid, rspec)
+            t_cum_c = torch.where(compact.valid, t_c + dt_c - t0_c, 0.0)
+            ws, depth_raw, image, weights = composite_rays_compact(
+                out_f.sigma * rspec.density_scale, out_f.rgb, dt_c, t_cum_c,
+                rid, compact.valid, N, early_stop=early_stop)
+        else:
+            ws, depth_raw, image, weights = composite_rays(
+                out_f.sigma.reshape(N, S) * rspec.density_scale,
+                out_f.rgb.reshape(N, S, 3), samples.dt, samples.delta_depth,
+                samples.mask, early_stop=early_stop)
+        image = image + (1.0 - ws)[:, None] * bg_color
+        depth = torch.clamp(depth_raw - nears, min=0.0) / (fars - nears
+                                                           + 1e-6)
+        result.update(image=image, depth=depth, weights_sum=ws,
+                      weights=weights)
     return result
 
 
